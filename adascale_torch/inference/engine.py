@@ -1,0 +1,470 @@
+"""Two-pass adaptive-scaling inference engine, PyTorch.
+
+Counterpart of ``adascale/inference/engine.py``. Each pass runs on the
+device: preprocessing (area resize + pad), the forward, sigmoid/threshold,
+pad invalidation and the height floor for the rough pass; sigmoid/softmax
+and the 5x5 max-filter peak pick for the precise pass. Only the final maps
+come back to the host, where regions are flattened, rescaled and stacked,
+and polygons are built, remapped and deduplicated
+(``adascale_torch.data.geometry``, ``adascale_torch.inference.flatten``).
+
+Every backbone block of both passes runs through
+``adascale_torch.kernels.convnext_block``: the hand-written CUDA kernel on
+the card, its plain twin on the CPU.
+
+Ported: f32 serving at ``matmul_precision="highest"``, the FPN neck, single
+(non-tiled) rough pass, core-mask peak gating, NMS and area-chunked precise
+stacks. Not ported yet: bf16, the fused neck/head kernels, tiled rough, and
+band recall (``precise_band_recall_center_dist_ratio``); the engine raises
+if a config asks for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..data.geometry import (
+    Box,
+    Polygon,
+    affine_polygons,
+    mask_to_disconnected_polygons,
+    rotate_trans_mat,
+)
+from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
+from ..utils.params import load_npz, state_dict_from_jax
+from .eval import polygon_iou
+from .flatten import (
+    FlattenedTextRegion,
+    TextRegionFlattener,
+    resize_nearest,
+    stack_flattened_text_regions,
+)
+from .preprocess import compute_padded_shape, compute_rough_shapes, preprocess_image
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveScalingInferenceConfig:
+    """The JAX engine's config fields and defaults, plus ``device``. See
+    ``adascale/inference/engine.py`` for what each field does."""
+
+    checkpoint: Optional[str] = None
+    model: AdaptiveScalingConfig = AdaptiveScalingConfig()
+    backbone_downsampling_factor: int = 32
+    rough_head_upsampling_factor: int = 2
+    rough_downsample_short_side_length: int = 720
+    rough_char_mask_positive_thr: float = 0.5
+    rough_valid_char_height_min: float = 3.0
+    precise_head_upsampling_factor: int = 2
+    precise_text_region_flattener_typical_long_side_ratio_min: float = 3.0
+    precise_text_region_flattener_text_region_polygon_dilate_ratio: float = 0.8
+    precise_flattened_text_region_resized_char_height_median: int = 35
+    precise_flattened_text_region_resized_ratio_min: float = 0.25
+    precise_stack_flattened_text_regions_page_pad: int = 10
+    precise_stack_flattened_text_regions_pad: int = 2
+    precise_build_polygons_positive_char_prob_thr: float = 0.6
+    precise_build_polygons_maximum_filter_size: int = 5
+    dedup_char_polygons_iou_thr: Optional[float] = 0.3
+    precise_peak_gate_core_dilate_ratio: Optional[float] = 0.4
+    precise_band_recall_center_dist_ratio: Optional[float] = None
+    precise_band_recall_max_core_dist_ratio: float = 0.75
+    precise_stacked_image_max_area: Optional[int] = 2048 * 2048
+    shape_bucket: int = 64
+    matmul_precision: str = "highest"
+    compute_dtype: str = "float32"
+    # The port always runs the backbone blocks through its kernel; this
+    # field is kept so that configs carry over and is not read.
+    use_pallas_backbone: bool = False
+    use_pallas_neck_heads: bool = False
+    tiled_rough_tile_size: int = 768
+    tiled_rough_tile_overlap: int = 128
+    tiled_rough_long_side_min: Optional[int] = None
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class RoughInferResult:
+    resized_shape: Tuple[int, int]  # valid region of the feature maps
+    resized_image_shape: Tuple[int, int]
+    padded_image_shape: Tuple[int, int]
+    rough_char_mask: np.ndarray  # (FH, FW) uint8
+    rough_char_height_score_map: np.ndarray  # (FH, FW) float32
+
+
+@dataclasses.dataclass
+class PreciseInferResult:
+    padded_image_shape: Tuple[int, int]
+    stacked_image_shape: Tuple[int, int]
+    precise_char_prob_score_map: np.ndarray  # (FH, FW) float32
+    precise_peak_mask: np.ndarray  # (FH, FW) uint8
+    precise_np_char_up_left_corner_offset: np.ndarray  # (FH, FW, 2)
+    precise_np_char_corner_angle_distribution: np.ndarray  # (FH, FW, 4)
+    precise_np_char_corner_distance: np.ndarray  # (FH, FW, 4)
+
+
+def _check_supported(cfg: AdaptiveScalingInferenceConfig) -> None:
+    unsupported = {
+        "compute_dtype": cfg.compute_dtype != "float32",
+        "matmul_precision": cfg.matmul_precision != "highest",
+        "use_pallas_neck_heads": cfg.use_pallas_neck_heads,
+        "tiled_rough_long_side_min": cfg.tiled_rough_long_side_min is not None,
+        "precise_band_recall_center_dist_ratio": (
+            cfg.precise_band_recall_center_dist_ratio is not None
+        ),
+    }
+    bad = [name for name, flag in unsupported.items() if flag]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+class AdaptiveScalingInference:
+    def __init__(
+        self,
+        config: AdaptiveScalingInferenceConfig,
+        params: Optional[Mapping[str, Any]] = None,
+    ):
+        """``params``: the JAX package's nested parameter tree (numpy
+        leaves); else ``config.checkpoint`` names a flat ``.npz``."""
+        _check_supported(config)
+        self.config = config
+        self.device = torch.device(config.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {config.device!r} requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain versions on the CPU"
+            )
+        # cuDNN runs f32 convolutions in TF32 by default; the reference runs
+        # at "highest", so the stem, downsample and FPN convolutions (library
+        # calls) need full f32. Matmuls are set likewise.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if params is None:
+            if config.checkpoint is None:
+                raise ValueError("need params or config.checkpoint")
+            params = load_npz(config.checkpoint)
+        model = AdaptiveScaling(config.model)
+        model.load_state_dict(state_dict_from_jax(params), strict=True)
+        self.model = model.to(self.device).eval()
+
+    # ------------------------------------------------------------------ rough
+
+    def rough_infer(self, image: np.ndarray) -> RoughInferResult:
+        """Rough pass on the device: preprocess, forward, threshold, pad
+        invalidation and the height floor; only the two maps come back."""
+        cfg = self.config
+        h, w = image.shape[:2]
+        resized_hw, padded_hw = compute_rough_shapes(
+            h,
+            w,
+            short_side=cfg.rough_downsample_short_side_length,
+            divisor=cfg.backbone_downsampling_factor,
+            bucket=cfg.shape_bucket,
+        )
+        fdf = 4 // cfg.rough_head_upsampling_factor
+        valid_h, valid_w = math.ceil(resized_hw[0] / fdf), math.ceil(resized_hw[1] / fdf)
+        with torch.inference_mode():
+            page = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+            x = preprocess_image(page, resized_hw, padded_hw)
+            mask_logits, height = self.model.forward_rough(x)
+            mask = (
+                torch.sigmoid(mask_logits[0, :, :, 0].float())
+                >= cfg.rough_char_mask_positive_thr
+            ).to(torch.uint8)
+            height = height[0, :, :, 0].clone()
+            mask[valid_h:] = 0
+            mask[:, valid_w:] = 0
+            height[valid_h:] = 0.0
+            height[:, valid_w:] = 0.0
+            height = torch.where(
+                height < cfg.rough_valid_char_height_min, torch.zeros_like(height), height
+            )
+        return RoughInferResult(
+            resized_shape=(valid_h, valid_w),
+            resized_image_shape=resized_hw,
+            padded_image_shape=padded_hw,
+            rough_char_mask=mask.cpu().numpy(),
+            rough_char_height_score_map=height.cpu().numpy(),
+        )
+
+    # ------------------------------------------------------- region flattening
+
+    def build_flattened_text_regions(
+        self, image: np.ndarray, rough: RoughInferResult
+    ) -> List[FlattenedTextRegion]:
+        """Flatten each rough region and rescale it so that its median char
+        height becomes the canonical one."""
+        cfg = self.config
+        resized_shape = rough.resized_shape
+        rough_polygons = mask_to_disconnected_polygons(rough.rough_char_mask)
+        page_shape = image.shape[:2]
+        text_region_polygons = [
+            p.to_conducted_resized_polygon(resized_shape, page_shape) for p in rough_polygons
+        ]
+        regions = TextRegionFlattener(
+            typical_long_side_ratio_min=(
+                cfg.precise_text_region_flattener_typical_long_side_ratio_min
+            ),
+            text_region_polygon_dilate_ratio=(
+                cfg.precise_text_region_flattener_text_region_polygon_dilate_ratio
+            ),
+            image=image,
+            text_region_polygons=text_region_polygons,
+            core_gate_dilate_ratio=cfg.precise_peak_gate_core_dilate_ratio,
+        ).flattened_text_regions
+
+        # Char-height medians in page pixels.
+        inverse_resized_ratio = page_shape[0] / (
+            resized_shape[0] * (4 // cfg.rough_head_upsampling_factor)
+        )
+        medians: List[float] = []
+        for p in rough_polygons:
+            values = p.extract_score_map_values(rough.rough_char_height_score_map)
+            values = values[values > 0]
+            medians.append(
+                float(np.median(values)) * inverse_resized_ratio if len(values) else 0.0
+            )
+
+        target = cfg.precise_flattened_text_region_resized_char_height_median
+        side_min = round(target * cfg.precise_flattened_text_region_resized_ratio_min)
+        resized_regions: List[FlattenedTextRegion] = []
+        for region, median in zip(regions, medians):
+            if median <= 0.0:
+                continue
+            scale = target / median
+            rh = round(region.height * scale)
+            rw = round(region.width * scale)
+            if rh < side_min and rw < side_min:
+                continue
+            if rh < 1 or rw < 1:
+                continue
+            resized_regions.append(region.to_resized_flattened_text_region(rh, rw))
+        return resized_regions
+
+    def stack_flattened_text_regions(
+        self, flattened_text_regions: Sequence[FlattenedTextRegion]
+    ) -> Tuple[np.ndarray, List[Box]]:
+        cfg = self.config
+        return stack_flattened_text_regions(
+            page_pad=cfg.precise_stack_flattened_text_regions_page_pad,
+            flattened_text_regions_pad=cfg.precise_stack_flattened_text_regions_pad,
+            flattened_text_regions=flattened_text_regions,
+        )
+
+    # ---------------------------------------------------------------- precise
+
+    def precise_infer(self, stacked_image: np.ndarray) -> PreciseInferResult:
+        """Precise pass on the device: pad, forward, sigmoid/softmax and the
+        max-filter peak pick; the maps come back to the host."""
+        cfg = self.config
+        h, w = stacked_image.shape[:2]
+        ph, pw = compute_padded_shape(
+            h, w, divisor=cfg.backbone_downsampling_factor, bucket=cfg.shape_bucket
+        )
+        fdf = 4 // cfg.precise_head_upsampling_factor
+        valid_h, valid_w = math.ceil(h / fdf), math.ceil(w / fdf)
+        size = cfg.precise_build_polygons_maximum_filter_size
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(stacked_image)).to(self.device)
+            x = F.pad(x.float()[None], (0, 0, 0, pw - w, 0, ph - h))
+            prob_logits, offset, angle_logits, distance = self.model.forward_precise(x)
+            prob = torch.sigmoid(prob_logits[0, :, :, 0].float())
+            prob[valid_h:] = 0.0
+            prob[:, valid_w:] = 0.0
+            angles = torch.softmax(angle_logits[0].float(), dim=-1)
+            # 5x5 max filter with -inf padding (max_pool2d pads with -inf).
+            local_max = F.max_pool2d(prob[None, None], size, stride=1, padding=size // 2)[0, 0]
+            peaks = (
+                (prob == local_max) & (prob >= cfg.precise_build_polygons_positive_char_prob_thr)
+            ).to(torch.uint8)
+        return PreciseInferResult(
+            padded_image_shape=(ph, pw),
+            stacked_image_shape=(h, w),
+            precise_char_prob_score_map=prob.cpu().numpy(),
+            precise_peak_mask=peaks.cpu().numpy(),
+            precise_np_char_up_left_corner_offset=offset[0].float().cpu().numpy(),
+            precise_np_char_corner_angle_distribution=angles.cpu().numpy(),
+            precise_np_char_corner_distance=distance[0].cpu().numpy(),
+        )
+
+    # ------------------------------------------------------- polygon building
+
+    def precise_build_polygon(
+        self, precise: PreciseInferResult, point_y: int, point_x: int
+    ) -> Polygon:
+        """Polar corner reconstruction at a feature-grid point; its image
+        position is ``point * fdf``."""
+        fdf = 4 // self.config.precise_head_upsampling_factor
+        py, px = float(point_y * fdf), float(point_x * fdf)
+        off_y, off_x = precise.precise_np_char_up_left_corner_offset[point_y, point_x]
+        up_left = np.asarray([px + off_x, py + off_y], dtype=np.float64)
+        angle_distrib = precise.precise_np_char_corner_angle_distribution[point_y, point_x]
+        distances = precise.precise_np_char_corner_distance[point_y, point_x]
+        _, up_right_dis, down_right_dis, down_left_dis = distances
+
+        two_pi = 2 * np.pi
+        theta = float(np.arctan2(off_y, off_x)) % two_pi
+        corners = [up_left]
+        for frac, dis in zip(angle_distrib[:3], (up_right_dis, down_right_dis, down_left_dis)):
+            theta = (theta + float(frac) * two_pi) % two_pi
+            corners.append(
+                np.asarray(
+                    [px + math.cos(theta) * dis, py + math.sin(theta) * dis], dtype=np.float64
+                )
+            )
+        score = float(precise.precise_char_prob_score_map[point_y, point_x])
+        return Polygon(np.stack(corners), score=score)
+
+    def precise_build_grouped_polygons(
+        self,
+        precise: PreciseInferResult,
+        flattened_text_regions: Sequence[FlattenedTextRegion],
+        boxes: Sequence[Box],
+    ) -> List[List[Polygon]]:
+        """Gate peaks to each region's box and core (else full) mask, then
+        build one polygon per peak."""
+        if len(flattened_text_regions) != len(boxes):
+            raise ValueError("one box per region expected")
+        peak_mask = precise.precise_peak_mask
+        fh, fw = peak_mask.shape
+        grouped: List[List[Polygon]] = []
+        for region, box in zip(flattened_text_regions, boxes):
+            dbox = box.to_resized_box(precise.padded_image_shape, (fh, fw)).clamp_to((fh, fw))
+            gate = (
+                region.flattened_core_mask
+                if region.flattened_core_mask is not None
+                else region.flattened_mask
+            )
+            region_mask = resize_nearest(gate, (dbox.height, dbox.width))
+            boxed = dbox.extract(peak_mask).copy()
+            boxed[region_mask == 0] = 0
+            ys, xs = np.nonzero(boxed)
+            grouped.append(
+                [
+                    self.precise_build_polygon(precise, int(y) + dbox.up, int(x) + dbox.left)
+                    for y, x in zip(ys, xs)
+                ]
+            )
+        return grouped
+
+    def precise_build_remapped_polygons(
+        self,
+        flattened_text_regions: Sequence[FlattenedTextRegion],
+        boxes: Sequence[Box],
+        grouped_polygons: Sequence[Sequence[Polygon]],
+    ) -> List[Polygon]:
+        """Undo stacking shift, resize, trim and rotation per region."""
+        remapped: List[Polygon] = []
+        for region, box, polygons in zip(flattened_text_regions, boxes, grouped_polygons):
+            if not polygons:
+                continue
+            stage1: List[Polygon] = []
+            for polygon in polygons:
+                p = polygon.to_relative_polygon(origin_y=box.up, origin_x=box.left)
+                p = p.to_conducted_resized_polygon(region.shape, region.shape_before_resize)
+                p = p.to_shifted_polygon(
+                    offset_y=region.rotated_trimmed_box.up,
+                    offset_x=region.rotated_trimmed_box.left,
+                )
+                stage1.append(p)
+            if region.flattening_rotate_angle != 0.0:
+                mat = rotate_trans_mat(
+                    region.flattening_rotate_angle, region.bounding_extended_box.shape
+                )
+                full = np.vstack([mat, [0.0, 0.0, 1.0]]).astype(np.float64)
+                stage1 = affine_polygons(np.linalg.inv(full), stage1)
+            for p in stage1:
+                remapped.append(
+                    p.to_shifted_polygon(
+                        offset_y=region.bounding_extended_box.up,
+                        offset_x=region.bounding_extended_box.left,
+                    )
+                )
+        return remapped
+
+    def dedup_char_polygons(self, polygons: Sequence[Polygon]) -> List[Polygon]:
+        """Greedy NMS over remapped char polygons (highest peak prob wins)."""
+        thr = self.config.dedup_char_polygons_iou_thr
+        if thr is None or len(polygons) <= 1:
+            return list(polygons)
+        order = sorted(
+            range(len(polygons)),
+            key=lambda i: -(polygons[i].score if polygons[i].score is not None else 0.0),
+        )
+        kept: List[Polygon] = []
+        for i in order:
+            p = polygons[i]
+            if all(polygon_iou(p, k) < thr for k in kept):
+                kept.append(p)
+        return kept
+
+    def build_char_polygons(
+        self,
+        precise: PreciseInferResult,
+        flattened_text_regions: Sequence[FlattenedTextRegion],
+        boxes: Sequence[Box],
+    ) -> Tuple[List[List[Polygon]], List[Polygon]]:
+        """Grouped peak -> polygon build, inverse remap and NMS. Returns
+        (grouped polygons, page-coordinate char polygons)."""
+        grouped = self.precise_build_grouped_polygons(precise, flattened_text_regions, boxes)
+        remapped = self.precise_build_remapped_polygons(flattened_text_regions, boxes, grouped)
+        return grouped, self.dedup_char_polygons(remapped)
+
+    # -------------------------------------------------------------- end-to-end
+
+    def detect(self, image: np.ndarray) -> Dict[str, Any]:
+        """Page image (H, W, 3) uint8 -> char polygons in page coordinates.
+        With several precise chunks, ``stacked_image``, ``boxes`` and
+        ``precise`` are those of the first chunk."""
+        rough = self.rough_infer(image)
+        regions = self.build_flattened_text_regions(image, rough)
+        grouped: List[List[Polygon]] = []
+        remapped: List[Polygon] = []
+        first_chunk = None
+        chunks = self._chunk_regions_by_area(regions)
+        for chunk in chunks:
+            stacked, boxes = self.stack_flattened_text_regions(chunk)
+            precise = self.precise_infer(stacked)
+            g, r = self.build_char_polygons(precise, chunk, boxes)
+            grouped.extend(g)
+            remapped.extend(r)
+            if first_chunk is None:
+                first_chunk = (stacked, boxes, precise)
+        if len(chunks) > 1:
+            # Duplicates from overlapping crops can land in different chunks.
+            remapped = self.dedup_char_polygons(remapped)
+        stacked, boxes, precise = first_chunk
+        return {
+            "rough": rough,
+            "regions": regions,
+            "stacked_image": stacked,
+            "boxes": boxes,
+            "precise": precise,
+            "num_precise_chunks": len(chunks),
+            "grouped_polygons": grouped,
+            "char_polygons": remapped,
+        }
+
+    def _chunk_regions_by_area(
+        self, regions: Sequence[FlattenedTextRegion]
+    ) -> List[List[FlattenedTextRegion]]:
+        """Consecutive groups whose estimated packed area (1.5x the summed
+        region areas) stays under ``precise_stacked_image_max_area``."""
+        cap = self.config.precise_stacked_image_max_area
+        if cap is None or not regions:
+            return [list(regions)]
+        chunks: List[List[FlattenedTextRegion]] = []
+        cur: List[FlattenedTextRegion] = []
+        area = 0.0
+        for region in regions:
+            a = 1.5 * float(region.height) * float(region.width)
+            if cur and area + a > cap:
+                chunks.append(cur)
+                cur, area = [], 0.0
+            cur.append(region)
+            area += a
+        chunks.append(cur)
+        return chunks

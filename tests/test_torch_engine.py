@@ -1,0 +1,127 @@
+"""The port's two-pass detect() against the JAX engine on the overfit micro
+fixture (page [42, 0] of the detection-quality spec), both on the CPU."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from test_detection_quality import MODEL_SPEC, PAGE_SPEC, _load_fixture_params  # noqa: E402
+
+from adascale.data.synth import generate_page  # noqa: E402
+from adascale.inference import AdaptiveScalingInference as JaxEngine  # noqa: E402
+from adascale.inference import AdaptiveScalingInferenceConfig as JaxEngineConfig  # noqa: E402
+from adascale_torch import (  # noqa: E402
+    AdaptiveScalingConfig,
+    AdaptiveScalingInference,
+    AdaptiveScalingInferenceConfig,
+)
+from adascale_torch.inference.eval import evaluate_char_detection, match_polygons  # noqa: E402
+
+# Height maps agree to f32 rounding of the same arithmetic (measured 1.5e-5
+# at heights ~30); 1e-3 leaves room for summation order only.
+HEIGHT_TOL = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def results():
+    torch.set_num_threads(2)
+    params = _load_fixture_params()
+    page = generate_page(PAGE_SPEC, np.random.default_rng([42, 0]))
+    jax_result = JaxEngine(JaxEngineConfig(model=MODEL_SPEC), params=params).detect(page.image)
+    config = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(
+            size="tiny",
+            neck_head_type="fpn",
+            custom_block_channels_and_num_layers=MODEL_SPEC.custom_block_channels_and_num_layers,
+        ),
+        use_pallas_backbone=True,
+        device="cpu",
+    )
+    port_result = AdaptiveScalingInference(config, params=params).detect(page.image)
+    return page, jax_result, port_result
+
+
+def test_rough_maps_match_jax(results):
+    _, want, got = results
+    assert got["rough"].resized_shape == want["rough"].resized_shape
+    np.testing.assert_array_equal(got["rough"].rough_char_mask, want["rough"].rough_char_mask)
+    np.testing.assert_allclose(
+        got["rough"].rough_char_height_score_map,
+        want["rough"].rough_char_height_score_map,
+        atol=HEIGHT_TOL,
+        rtol=HEIGHT_TOL,
+    )
+
+
+def test_regions_and_stack_match_jax(results):
+    _, want, got = results
+    assert [r.shape for r in got["regions"]] == [r.shape for r in want["regions"]]
+    assert got["num_precise_chunks"] == want["num_precise_chunks"]
+    assert got["stacked_image"].shape == want["stacked_image"].shape
+    diff = np.abs(got["stacked_image"].astype(np.int16) - want["stacked_image"])
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+def test_char_polygons_match_jax_both_ways(results):
+    _, want, got = results
+    ours, theirs = got["char_polygons"], want["char_polygons"]
+    matched = len(match_polygons(ours, theirs, 0.5))
+    assert matched >= 0.95 * len(theirs), (matched, len(theirs))
+    assert matched >= 0.95 * len(ours), (matched, len(ours))
+
+
+def test_port_detect_meets_quality_bars(results):
+    """The bars of test_detection_quality.py, on the port's output."""
+    page, _, got = results
+    m = evaluate_char_detection(got["char_polygons"], [c.corners for c in page.chars], iou_thr=0.5)
+    assert m.f1 >= 0.80, m.as_dict()
+    assert m.precision >= 0.78, m.as_dict()
+    assert m.recall >= 0.78, m.as_dict()
+    assert all(p.score is not None and p.score >= 0.6 for p in got["char_polygons"])
+
+
+def test_multi_chunk_detect_matches_jax():
+    """A small stack-area cap splits the regions into several precise
+    stacks; chunking, the per-chunk passes and the merged NMS follow the JAX
+    engine."""
+    params = _load_fixture_params()
+    page = generate_page(PAGE_SPEC, np.random.default_rng([42, 1]))
+    cap = 60_000
+    want = JaxEngine(
+        JaxEngineConfig(model=MODEL_SPEC, precise_stacked_image_max_area=cap), params=params
+    ).detect(page.image)
+    config = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(
+            custom_block_channels_and_num_layers=MODEL_SPEC.custom_block_channels_and_num_layers
+        ),
+        precise_stacked_image_max_area=cap,
+        device="cpu",
+    )
+    got = AdaptiveScalingInference(config, params=params).detect(page.image)
+    assert got["num_precise_chunks"] == want["num_precise_chunks"] > 1
+    ours, theirs = got["char_polygons"], want["char_polygons"]
+    matched = len(match_polygons(ours, theirs, 0.5))
+    assert matched >= 0.95 * len(theirs) and matched >= 0.95 * len(ours), (
+        matched, len(ours), len(theirs)
+    )
+
+
+def test_unported_options_raise():
+    for field, value in [
+        ("compute_dtype", "bfloat16"),
+        ("tiled_rough_long_side_min", 2048),
+        ("precise_band_recall_center_dist_ratio", 0.5),
+        ("use_pallas_neck_heads", True),
+    ]:
+        config = AdaptiveScalingInferenceConfig(device="cpu", **{field: value})
+        with pytest.raises(NotImplementedError, match=field):
+            AdaptiveScalingInference(config, params={})
