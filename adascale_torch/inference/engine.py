@@ -10,13 +10,15 @@ and polygons are built, remapped and deduplicated
 
 Every backbone block of both passes runs through
 ``adascale_torch.kernels.convnext_block``: the hand-written CUDA kernel on
-the card, its plain twin on the CPU.
+the card, its plain twin on the CPU. With ``use_pallas_neck_heads`` the FPN
+neck's level 0 and the heads of each pass run through their kernels too
+(``kernels.fpn_neck``, ``kernels.fpn_heads``, ``kernels.precise_heads``).
 
-Ported: f32 serving at ``matmul_precision="highest"``, the FPN neck, single
-(non-tiled) rough pass, core-mask peak gating, NMS and area-chunked precise
-stacks. Not ported yet: bf16, the fused neck/head kernels, tiled rough, and
-band recall (``precise_band_recall_center_dist_ratio``); the engine raises
-if a config asks for them.
+Ported: f32 serving at ``matmul_precision="highest"``, the FPN neck, the
+fused neck/head configuration, single (non-tiled) rough pass, core-mask peak
+gating, NMS and area-chunked precise stacks. Not ported yet: bf16, tiled
+rough, and band recall (``precise_band_recall_center_dist_ratio``); the
+engine raises if a config asks for them.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from ..data.geometry import (
     mask_to_disconnected_polygons,
     rotate_trans_mat,
 )
+from ..kernels.fpn_heads import forward_rough_from_features_fused
+from ..kernels.precise_heads import forward_precise_from_features_fused
 from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
 from ..utils.params import load_npz, state_dict_from_jax
 from .eval import polygon_iou
@@ -79,6 +83,10 @@ class AdaptiveScalingInferenceConfig:
     # The port always runs the backbone blocks through its kernel; this
     # field is kept so that configs carry over and is not read.
     use_pallas_backbone: bool = False
+    # Level 0 of each FPN neck and the heads of each pass through their
+    # kernels. The JAX engine reads this only together with
+    # use_pallas_backbone; the port reads it alone, since its backbone always
+    # runs its kernel. Either way the function computed is the same.
     use_pallas_neck_heads: bool = False
     tiled_rough_tile_size: int = 768
     tiled_rough_tile_overlap: int = 128
@@ -110,7 +118,6 @@ def _check_supported(cfg: AdaptiveScalingInferenceConfig) -> None:
     unsupported = {
         "compute_dtype": cfg.compute_dtype != "float32",
         "matmul_precision": cfg.matmul_precision != "highest",
-        "use_pallas_neck_heads": cfg.use_pallas_neck_heads,
         "tiled_rough_long_side_min": cfg.tiled_rough_long_side_min is not None,
         "precise_band_recall_center_dist_ratio": (
             cfg.precise_band_recall_center_dist_ratio is not None
@@ -150,6 +157,17 @@ class AdaptiveScalingInference:
         model.load_state_dict(state_dict_from_jax(params), strict=True)
         self.model = model.to(self.device).eval()
 
+    def _forward(self, x: torch.Tensor, which: str):
+        """Backbone, neck and heads of the rough or precise pass; with
+        ``use_pallas_neck_heads`` the neck's level 0 and the heads go through
+        their kernels."""
+        if not self.config.use_pallas_neck_heads:
+            return self.model.forward_rough(x) if which == "rough" else self.model.forward_precise(x)
+        features = self.model.backbone(x)
+        if which == "rough":
+            return forward_rough_from_features_fused(self.model, features)
+        return forward_precise_from_features_fused(self.model, features)
+
     # ------------------------------------------------------------------ rough
 
     def rough_infer(self, image: np.ndarray) -> RoughInferResult:
@@ -169,7 +187,7 @@ class AdaptiveScalingInference:
         with torch.inference_mode():
             page = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
             x = preprocess_image(page, resized_hw, padded_hw)
-            mask_logits, height = self.model.forward_rough(x)
+            mask_logits, height = self._forward(x, "rough")
             mask = (
                 torch.sigmoid(mask_logits[0, :, :, 0].float())
                 >= cfg.rough_char_mask_positive_thr
@@ -270,7 +288,7 @@ class AdaptiveScalingInference:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(stacked_image)).to(self.device)
             x = F.pad(x.float()[None], (0, 0, 0, pw - w, 0, ph - h))
-            prob_logits, offset, angle_logits, distance = self.model.forward_precise(x)
+            prob_logits, offset, angle_logits, distance = self._forward(x, "precise")
             prob = torch.sigmoid(prob_logits[0, :, :, 0].float())
             prob[valid_h:] = 0.0
             prob[:, valid_w:] = 0.0

@@ -14,9 +14,9 @@ partial sums.
 On a CPU tensor it runs ``convnext_block_plain``, the eager PyTorch version
 that the tests and ``chip_smoke.py`` hold the kernel against.
 
-The kernel is built on first use with ``nvcc`` into a shared library with a
-plain C interface and loaded with ``ctypes``: no PyTorch headers, so the build
-takes seconds. The library lands in ``_build/<hash of the source>/``.
+The kernel is built on first use by ``_nvcc.build`` (``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``): no PyTorch headers,
+so the build takes seconds.
 
 ``p`` holds the block's parameters in PyTorch layout, as the port's
 ``ConvNeXtBlock.state_dict()`` does: ``dwconv.weight`` (C, 1, 7, 7),
@@ -27,16 +27,12 @@ takes seconds. The library lands in ``_build/<hash of the source>/``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from . import _nvcc
 
 # Number of kernel launches, counted once per call (the call's two or three
 # CUDA launches together). Plain integer, reset by whoever counts a run.
@@ -45,64 +41,16 @@ LAUNCHES = 0
 MAX_CHANNELS = 768
 EPS = 1e-6
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "convnext_block.cu"
-_BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-_ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib: Optional[ctypes.CDLL] = None
-# Filled by build(): {"seconds": float, "cached": bool, "ptxas": str, "path": str}.
-BUILD_REPORT: Dict[str, object] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise FileNotFoundError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(_ARCH_FLAGS + _NVCC_FLAGS).encode()).hexdigest()
-    out_dir = _BUILD_ROOT / digest[:16]
-    lib_path = out_dir / "libconvnext_block.so"
-    log_path = out_dir / "ptxas.log"
-    start = time.perf_counter()
-    cached = lib_path.exists()
-    if not cached:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libconvnext_block.{os.getpid()}.so"
-        cmd = [_nvcc(), *_ARCH_FLAGS, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _nvcc.build("convnext_block", "convnext_block.cu")
     fn = lib.convnext_block_f32
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.convnext_block_f32_workspace
     ws.argtypes = [ctypes.c_int] * 5
     ws.restype = ctypes.c_longlong
-    BUILD_REPORT.update(
-        seconds=time.perf_counter() - start,
-        cached=cached,
-        ptxas=log_path.read_text() if log_path.exists() else "",
-        path=str(lib_path),
-    )
-    _lib = lib
     return lib
 
 
@@ -116,14 +64,6 @@ def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.T
     y = F.gelu(F.linear(y, p["mlp_up.weight"], p["mlp_up.bias"]), approximate="none")
     y = F.linear(y, p["mlp_down.weight"], p["mlp_down.bias"])
     return x + y * p["block_scale"]
-
-
-def _check_param(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: want float32 {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
 
 
 def convnext_block(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -154,7 +94,7 @@ def convnext_block(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
         "block_scale": (c,),
     }
     for name, shape in shapes.items():
-        _check_param(name, p[name], shape, x.device)
+        _nvcc.check_param(name, p[name], shape, x.device)
     lib = build()
     # Kernel layouts: every weight load coalesced over output channels.
     dw_w = p["dwconv.weight"].reshape(c, 49).t().contiguous()

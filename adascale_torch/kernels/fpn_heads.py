@@ -1,0 +1,206 @@
+"""The two rough FpnHeads in one pass: a hand-written CUDA kernel and its plain
+twin, and the head packing that the precise heads share.
+
+``fused_rough_heads(x, p_mask, p_height)`` computes both rough heads over the
+rough neck output ``x`` (B, H, W, C), each::
+
+    y = Linear(GELU(LN(conv3x3(nearest_x2(x)) + b)))    # -> (B, 2H, 2W, 1)
+
+and returns (mask logits, raw height), before the height head's softplus. It
+replaces the Pallas TPU kernel ``adascale/ops/pallas/fpn_heads.py::
+fused_rough_heads`` (``pl.pallas_call`` at :200). Both versions compute the
+upsample + 3x3 as four phase-collapsed 2x2 convolutions at the low resolution
+(``phase_tap_weights``, the JAX package's ``_phase_tap_weights``), so the CPU
+tests, which hold the plain version against the Flax ``FpnHead``, check the
+packing the kernel uses. On a CUDA tensor it launches ``csrc/fpn_heads.cu``
+(one block per head, phase and tile of 128 low-resolution pixels; see
+``csrc/fpn_head.cuh``). Bound by f32 operations: 217 GFLOP at the flagship's
+240x192x384, 3.25 ms on an H100 SXM (67 TFLOP/s f32, 700 W).
+
+Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
+``step1.conv.weight`` (F, C, 3, 3), ``step1.conv.bias``, ``step1.ln.weight``,
+``step1.ln.bias``, ``step2.weight`` (M, F), ``step2.bias`` (M,).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import _nvcc
+from .fpn_neck import fpn_neck_forward_fused
+
+# Calls that launched the kernel.
+LAUNCHES = 0
+
+EPS = 1e-6
+MAX_HEADS = 4
+MAX_OUT = 4
+
+Params = Dict[str, torch.Tensor]
+
+
+def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
+    """Declare the C signatures of a heads library (``<prefix>_f32`` and
+    ``<prefix>_max_width``)."""
+    fn = getattr(lib, f"{prefix}_f32")
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.POINTER(ctypes.c_int)] * 2
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    width = getattr(lib, f"{prefix}_max_width")
+    width.argtypes = []
+    width.restype = ctypes.c_int
+    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    return bind(_nvcc.build("fpn_heads", "fpn_heads.cu"), "fpn_heads")
+
+
+def phase_tap_weights(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW 3x3 (F, C, 3, 3) -> (4 phases, 4 taps, C, F). Phase 2a+b holds the
+    2x2 kernel of output pixels (2i+a, 2j+b); its tap 2dy+dx multiplies source
+    pixel (i+a-1+dy, j+b-1+dx). Along each axis parity 0 takes taps
+    [k0, k1+k2] and parity 1 takes [k0+k1, k2]."""
+    k = weight.permute(2, 3, 1, 0)  # (3, 3, C, F)
+
+    def collapse(k: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+        k0, k1, k2 = k.unbind(axis)
+        pair = [k0, k1 + k2] if parity == 0 else [k0 + k1, k2]
+        return torch.stack(pair, axis)
+
+    phases = [collapse(collapse(k, 0, a), 1, b) for a in (0, 1) for b in (0, 1)]
+    c, f = weight.shape[1], weight.shape[0]
+    return torch.stack(phases).reshape(4, 4, c, f)
+
+
+def heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
+    """Eager PyTorch twin of the heads kernels: per phase one product of the
+    four shifted inputs with all heads' collapsed taps, then each head's LN,
+    GELU and projection, interleaved into (B, 2H, 2W, M)."""
+    b, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    wk = torch.cat([phase_tap_weights(p["step1.conv.weight"]) for p in heads], dim=-1)
+    widths = [p["step1.conv.weight"].shape[0] for p in heads]
+    outs = [
+        x.new_empty(b, 2 * h, 2 * w, p["step2.weight"].shape[0]) for p in heads
+    ]
+    for a in (0, 1):
+        for bb in (0, 1):
+            cols = torch.cat(
+                [xp[:, a + dy : a + dy + h, bb + dx : bb + dx + w] for dy in (0, 1) for dx in (0, 1)],
+                dim=-1,
+            )
+            acc = cols.reshape(-1, 4 * c) @ wk[2 * a + bb].reshape(4 * c, -1)
+            for out, p, z in zip(outs, heads, acc.split(widths, dim=-1)):
+                z = z + p["step1.conv.bias"]
+                z = F.layer_norm(z, (z.shape[-1],), p["step1.ln.weight"], p["step1.ln.bias"], eps=EPS)
+                y = F.linear(F.gelu(z, approximate="none"), p["step2.weight"], p["step2.bias"])
+                out[:, a::2, bb::2] = y.reshape(b, h, w, -1)
+    return outs
+
+
+def run_heads_kernel(
+    build: Callable[[], ctypes.CDLL], prefix: str, x: torch.Tensor, heads: Sequence[Params]
+) -> List[torch.Tensor]:
+    """Check, pack and launch a heads library on a CUDA tensor. Returns each
+    head's (B, 2H, 2W, M) output, a view into one packed map."""
+    _nvcc.check_activation(f"{prefix} x", x, x.device)
+    if not 0 < len(heads) <= MAX_HEADS:
+        raise ValueError(f"{prefix}: {len(heads)} heads, the kernel takes 1..{MAX_HEADS}")
+    b, h, w, c = x.shape
+    lib = build()
+    bn = getattr(lib, f"{prefix}_max_width")()
+    widths, outs = [], []
+    for k, p in enumerate(heads):
+        f, m = p["step1.conv.weight"].shape[0], p["step2.weight"].shape[0]
+        if not (0 < f <= bn and 0 < m <= MAX_OUT):
+            raise ValueError(f"{prefix} head {k}: F={f}, M={m}; the kernel takes F <= {bn}, M <= {MAX_OUT}")
+        shapes = {
+            "step1.conv.weight": (f, c, 3, 3),
+            "step1.conv.bias": (f,),
+            "step1.ln.weight": (f,),
+            "step1.ln.bias": (f,),
+            "step2.weight": (m, f),
+            "step2.bias": (m,),
+        }
+        for name, shape in shapes.items():
+            _nvcc.check_param(f"head {k} {name}", p[name], shape, x.device)
+        widths.append(f)
+        outs.append(m)
+    # Kernel layouts, zero past each head's real F and M: collapsed taps
+    # (heads, 4, 4, C, bn); (heads, 3, bn) bias/LN scale/LN bias;
+    # projections (heads, MAX_OUT, bn) and (heads, MAX_OUT).
+    nh = len(heads)
+    wk = x.new_zeros(nh, 4, 4, c, bn)
+    vec = x.new_zeros(nh, 3, bn)
+    w2 = x.new_zeros(nh, MAX_OUT, bn)
+    b2 = x.new_zeros(nh, MAX_OUT)
+    for k, (p, f, m) in enumerate(zip(heads, widths, outs)):
+        wk[k, ..., :f] = phase_tap_weights(p["step1.conv.weight"])
+        vec[k, 0, :f] = p["step1.conv.bias"]
+        vec[k, 1, :f] = p["step1.ln.weight"]
+        vec[k, 2, :f] = p["step1.ln.bias"]
+        w2[k, :m, :f] = p["step2.weight"]
+        b2[k, :m] = p["step2.bias"]
+    out = x.new_empty(b, 2 * h, 2 * w, sum(outs))
+    f_arr = (ctypes.c_int * nh)(*widths)
+    m_arr = (ctypes.c_int * nh)(*outs)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"{prefix}_f32")(
+            x.data_ptr(), wk.data_ptr(), vec.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), f_arr, m_arr, nh, b, h, w, c,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{prefix}_f32 launch failed: CUDA error {rc}")
+    return list(out.split(outs, dim=-1))
+
+
+def fused_rough_heads_plain(
+    x: torch.Tensor, p_mask: Params, p_height: Params
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eager PyTorch twin of the kernel: (mask logits, raw height)."""
+    mask_logits, height_raw = heads_plain(x, [p_mask, p_height])
+    return mask_logits, height_raw
+
+
+def fused_rough_heads(
+    x: torch.Tensor, p_mask: Params, p_height: Params
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mask logits, raw height), each (B, 2H, 2W, 1): the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return fused_rough_heads_plain(x, p_mask, p_height)
+    mask_logits, height_raw = run_heads_kernel(build, "fpn_heads", x, [p_mask, p_height])
+    LAUNCHES += 1
+    return mask_logits, height_raw
+
+
+def head_params(head: nn.Module) -> Params:
+    """A port ``FpnHead``'s parameters under its ``state_dict()`` names."""
+    return dict(head.named_parameters())
+
+
+def forward_rough_from_features_fused(
+    model: nn.Module, features: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``AdaptiveScaling.forward_rough_from_features`` with the rough neck's
+    level 0 and both heads through their kernels; softplus on the height in
+    f32, as the model does."""
+    neck = fpn_neck_forward_fused(model.rough_neck, features)
+    mask_logits, height_raw = fused_rough_heads(
+        neck,
+        head_params(model.rough_char_mask_head),
+        head_params(model.rough_char_height_head),
+    )
+    return mask_logits, F.softplus(height_raw.float())

@@ -115,12 +115,32 @@ def test_multi_chunk_detect_matches_jax():
     )
 
 
+def test_fused_neck_heads_detect_matches_jax(results):
+    """``use_pallas_neck_heads=True``: the FPN neck's level 0 and the heads
+    run through their kernels' plain versions on the CPU; detect() still
+    matches the JAX engine (the same function as its module path)."""
+    page, want, _ = results
+    config = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(
+            custom_block_channels_and_num_layers=MODEL_SPEC.custom_block_channels_and_num_layers
+        ),
+        use_pallas_neck_heads=True,
+        device="cpu",
+    )
+    got = AdaptiveScalingInference(config, params=_load_fixture_params()).detect(page.image)
+    agreement = (got["rough"].rough_char_mask == want["rough"].rough_char_mask).mean()
+    assert agreement >= 0.995, agreement
+    ours, theirs = got["char_polygons"], want["char_polygons"]
+    matched = len(match_polygons(ours, theirs, 0.5))
+    assert matched >= 0.95 * len(theirs), (matched, len(theirs))
+    assert matched >= 0.95 * len(ours), (matched, len(ours))
+
+
 def test_unported_options_raise():
     for field, value in [
         ("compute_dtype", "bfloat16"),
         ("tiled_rough_long_side_min", 2048),
         ("precise_band_recall_center_dist_ratio", 0.5),
-        ("use_pallas_neck_heads", True),
     ]:
         config = AdaptiveScalingInferenceConfig(device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match=field):

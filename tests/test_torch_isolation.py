@@ -17,6 +17,8 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import sys\n"
         "import adascale_torch, adascale_torch.inference.engine, adascale_torch.inference.flatten\n"
         "import adascale_torch.inference.eval, adascale_torch.kernels.convnext_block\n"
+        "import adascale_torch.kernels._nvcc, adascale_torch.kernels.fpn_neck\n"
+        "import adascale_torch.kernels.fpn_heads, adascale_torch.kernels.precise_heads\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cv2', 'PIL', 'adascale'))\n"
         "assert not bad, bad\n"

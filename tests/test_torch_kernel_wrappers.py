@@ -1,0 +1,39 @@
+"""What the port's kernel wrappers share (``adascale_torch.kernels._nvcc``):
+the build key, and the rule that a wrapper runs its plain version only for a
+CPU tensor and raises, not falls back, on any other device."""
+import pytest
+import torch
+
+from adascale_torch.kernels import _nvcc, convnext_block, fpn_heads, fpn_neck, precise_heads
+
+
+def test_build_key_covers_source_headers_and_flags(tmp_path, monkeypatch):
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    source = tmp_path / "kernel.cu"
+    source.write_text("a")
+    keys = [_nvcc._digest(source)]
+    for text in ("x", "y"):
+        (tmp_path / "shared.cuh").write_text(text)
+        keys.append(_nvcc._digest(source))
+    source.write_text("b")
+    keys.append(_nvcc._digest(source))
+    monkeypatch.setattr(_nvcc, "NVCC_FLAGS", _nvcc.NVCC_FLAGS + ["-lineinfo"])
+    keys.append(_nvcc._digest(source))
+    assert len(set(keys)) == len(keys)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda x: convnext_block.convnext_block(x, {}),
+        lambda x: fpn_neck.fused_neck_l0(x, x, {}),
+        lambda x: fpn_heads.fused_rough_heads(x, {}, {}),
+        lambda x: precise_heads.fused_precise_heads(x, [{}] * 4),
+    ],
+    ids=["convnext_block", "fpn_neck", "fpn_heads", "precise_heads"],
+)
+def test_wrappers_raise_on_a_device_without_their_kernel(call):
+    x = torch.empty(1, 8, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="device|CUDA"):
+        call(x)
+
