@@ -10,7 +10,8 @@ and returns (mask logits, raw height), before the height head's softplus. It
 replaces the Pallas TPU kernel ``adascale/ops/pallas/fpn_heads.py::
 fused_rough_heads`` (``pl.pallas_call`` at :200). Both versions compute the
 upsample + 3x3 as four phase-collapsed 2x2 convolutions at the low resolution
-(``phase_tap_weights``, the JAX package's ``_phase_tap_weights``), so the CPU
+(``ops/fused_upsample.py``: ``phase_tap_weights``, the JAX package's
+``_phase_tap_weights``, and ``heads_phase_form``, the plain version), so the CPU
 tests, which hold the plain version against the Flax ``FpnHead``, check the
 packing the kernel uses. On a CUDA tensor it launches ``csrc/fpn_heads.cu``
 (one block per head, phase and tile of 128 low-resolution pixels; see
@@ -30,13 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_upsample import heads_phase_form, phase_tap_weights
 from . import _nvcc
 from .fpn_neck import fpn_neck_forward_fused
 
 # Calls that launched the kernel.
 LAUNCHES = 0
 
-EPS = 1e-6
 MAX_HEADS = 4
 MAX_OUT = 4
 
@@ -63,49 +64,6 @@ def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     return bind(_nvcc.build("fpn_heads", "fpn_heads.cu"), "fpn_heads")
-
-
-def phase_tap_weights(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW 3x3 (F, C, 3, 3) -> (4 phases, 4 taps, C, F). Phase 2a+b holds the
-    2x2 kernel of output pixels (2i+a, 2j+b); its tap 2dy+dx multiplies source
-    pixel (i+a-1+dy, j+b-1+dx). Along each axis parity 0 takes taps
-    [k0, k1+k2] and parity 1 takes [k0+k1, k2]."""
-    k = weight.permute(2, 3, 1, 0)  # (3, 3, C, F)
-
-    def collapse(k: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
-        k0, k1, k2 = k.unbind(axis)
-        pair = [k0, k1 + k2] if parity == 0 else [k0 + k1, k2]
-        return torch.stack(pair, axis)
-
-    phases = [collapse(collapse(k, 0, a), 1, b) for a in (0, 1) for b in (0, 1)]
-    c, f = weight.shape[1], weight.shape[0]
-    return torch.stack(phases).reshape(4, 4, c, f)
-
-
-def heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
-    """Eager PyTorch twin of the heads kernels: per phase one product of the
-    four shifted inputs with all heads' collapsed taps, then each head's LN,
-    GELU and projection, interleaved into (B, 2H, 2W, M)."""
-    b, h, w, c = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    wk = torch.cat([phase_tap_weights(p["step1.conv.weight"]) for p in heads], dim=-1)
-    widths = [p["step1.conv.weight"].shape[0] for p in heads]
-    outs = [
-        x.new_empty(b, 2 * h, 2 * w, p["step2.weight"].shape[0]) for p in heads
-    ]
-    for a in (0, 1):
-        for bb in (0, 1):
-            cols = torch.cat(
-                [xp[:, a + dy : a + dy + h, bb + dx : bb + dx + w] for dy in (0, 1) for dx in (0, 1)],
-                dim=-1,
-            )
-            acc = cols.reshape(-1, 4 * c) @ wk[2 * a + bb].reshape(4 * c, -1)
-            for out, p, z in zip(outs, heads, acc.split(widths, dim=-1)):
-                z = z + p["step1.conv.bias"]
-                z = F.layer_norm(z, (z.shape[-1],), p["step1.ln.weight"], p["step1.ln.bias"], eps=EPS)
-                y = F.linear(F.gelu(z, approximate="none"), p["step2.weight"], p["step2.bias"])
-                out[:, a::2, bb::2] = y.reshape(b, h, w, -1)
-    return outs
 
 
 def run_heads_kernel(
@@ -169,7 +127,7 @@ def fused_rough_heads_plain(
     x: torch.Tensor, p_mask: Params, p_height: Params
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eager PyTorch twin of the kernel: (mask logits, raw height)."""
-    mask_logits, height_raw = heads_plain(x, [p_mask, p_height])
+    mask_logits, height_raw = heads_phase_form(x, [p_mask, p_height])
     return mask_logits, height_raw
 
 

@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_upsample import heads_phase_form
 from . import _nvcc
-from .fpn_heads import Params, bind, head_params, heads_plain, run_heads_kernel
+from .fpn_heads import Params, bind, head_params, run_heads_kernel
 from .fpn_neck import fpn_neck_forward_fused
 
 # Calls that launched the kernel.
@@ -44,7 +45,7 @@ def build() -> ctypes.CDLL:
 
 def fused_precise_heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
     """Eager PyTorch twin of the kernel: each head's (B, 2H, 2W, M) output."""
-    return heads_plain(x, heads)
+    return heads_phase_form(x, heads)
 
 
 def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:

@@ -4,10 +4,11 @@ Counterpart of ``adascale/models/fpn.py``: per-level Linear-LN-GELU
 laterals, a top-down nearest upsample + add, per-level 3x3-LN-GELU blocks to
 out_channels / levels, nearest upsample of every level to level 0 and a
 channel concat. The head's x2 branch is nearest-x2 -> conv3x3 -> LN -> GELU
--> Linear; the JAX package computes it as four low-resolution phases
-(``_PhaseFusedSmooth``), which is the same function, so here it is written
-directly. The x2 is exact, so ``F.interpolate(mode="nearest")`` follows the
-floor convention.
+-> Linear, computed as Flax computes it by default (``_PhaseFusedSmooth``):
+four phase-collapsed 2x2 convolutions at the low resolution, then
+interleaved (``ops/fused_upsample.py``, which says why the form matters).
+Factor 1 is a 3x3 at the input resolution; factors 3 and 4 are a nearest
+upsample then a 5x5.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_upsample import heads_phase_form
 from ..ops.resize import resize_nearest
 from .convnext import EPS, conv2d_nhwc, layer_norm
 
@@ -70,16 +72,22 @@ class FpnNeck(nn.Module):
 
 
 class FpnHead(nn.Module):
-    """Nearest-x2 -> conv3x3 -> LN -> GELU -> Linear (upsampling factor 2)."""
+    """Nearest-upsample by ``upsampling_factor`` -> KxK conv -> LN -> GELU ->
+    Linear: K = 3 for factors 1 and 2, K = 5 for factors 3 and 4."""
 
     def __init__(self, in_channels: int, out_channels: int, upsampling_factor: int = 2):
         super().__init__()
-        if upsampling_factor != 2:
+        if not 1 <= upsampling_factor <= 4:
             raise NotImplementedError(f"FpnHead upsampling_factor {upsampling_factor}")
+        self.upsampling_factor = upsampling_factor
         inner = (in_channels + out_channels) // 2
-        self.step1 = ConvKxKBlock(in_channels, inner, 3)
+        self.step1 = ConvKxKBlock(in_channels, inner, 3 if upsampling_factor <= 2 else 5)
         self.step2 = nn.Linear(inner, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
-        return self.step2(self.step1(up.permute(0, 2, 3, 1)))
+        f = self.upsampling_factor
+        if f == 2:
+            return heads_phase_form(x, [dict(self.named_parameters())])[0]
+        if f > 1:
+            x = resize_nearest(x, (x.shape[1] * f, x.shape[2] * f))
+        return self.step2(self.step1(x))

@@ -9,9 +9,13 @@ Phases, each announced with its elapsed seconds:
      checkout, one nvcc each, all started together; prints each build's
      seconds and the ptxas register, shared-memory and spill report;
   3. kernels: the ConvNeXt-block kernel against its plain PyTorch version on
-     the card at the shapes the main path gives it (the four rough-pass stage
-     shapes of a 1024x768 page, plus a ragged one), f32, relative error
-     <= 1e-5; kernel and plain times from CUDA events (warm, median of 10);
+     the card at the shapes the main path gives it (the four stage shapes of
+     the rough pass of a 1024x768 page and of its precise stack, 1024x832),
+     a ragged one and the widths the main path does not reach (C = 8, 1024,
+     1536), f32, relative error <= 1e-5; kernel and plain times from CUDA
+     events (warm); each of the kernel's launches (depthwise + LN, GEMM 1,
+     GEMM 2) timed from a torch.profiler trace, with the GEMM kernels'
+     names, which name their inner product;
   3b. the same for the FPN neck level-0, rough-heads and precise-heads
      kernels, at the flagship's shapes (neck at 240x192 and 256x208, rough
      heads at 240x192x384, precise heads at 256x208x384) and a ragged micro
@@ -26,7 +30,13 @@ Phases, each announced with its elapsed seconds:
   5. fused detect: the same with ``use_pallas_neck_heads=True`` (neck level
      0 and the heads through their kernels), the same bars, exact launch
      counts of all four kernels, the fused forwards against the module
-     path's (relative error <= 1e-4) and their warm timings beside it.
+     path's (relative error <= 1e-4) and their warm timings beside it;
+  6. multi-chunk detect: the fused configuration with a small
+     ``precise_stacked_image_max_area``, so that the page's regions make
+     several precise stacks, against its JAX reference (the same bars; the
+     same number of chunks; launches exactly 18 x (1 + chunks) blocks);
+  7. blank page: the fused configuration on a page with no text against its
+     JAX reference (no char polygons; the same stacked shape and chunks).
 
 The second-to-last line is a JSON object describing each kernel, the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -39,6 +49,7 @@ import dataclasses
 import faulthandler
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -47,10 +58,15 @@ T0 = time.perf_counter()
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "examples/flagship_training/flagship_fpn_params.f16.npz")
-REFERENCE = os.path.join(ROOT, "tests/fixtures/torch_port/flagship_fpn_reference.npz")
+FIXTURES = os.path.join(ROOT, "tests/fixtures/torch_port")
+REFERENCE = os.path.join(FIXTURES, "flagship_fpn_reference.npz")
+MULTICHUNK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_multichunk_reference.npz")
+BLANK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_blank_reference.npz")
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 without tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 without tensor cores, dense
+# TF32 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 REL_TOL = 1e-5
 # Fused forwards against the module path: same function, other summation
@@ -59,7 +75,14 @@ FORWARD_REL_TOL = 1e-4
 # Rough pass of a 1024x768 page (resized 960x720, padded 960x768): the block
 # shapes of the four stages and the number of blocks run at each.
 STAGE_SHAPES = [((240, 192, 96), 3), ((120, 96, 192), 3), ((60, 48, 384), 9), ((30, 24, 768), 3)]
+# Precise pass of the same page: its one 1024x832 stack.
+PRECISE_STAGE_SHAPES = [
+    ((256, 208, 96), 3), ((128, 104, 192), 3), ((64, 52, 384), 9), ((32, 26, 768), 3),
+]
 RAGGED_SHAPE = (13, 19, 96)
+# Widths the main path does not reach: the micro fixture's C = 8 and the
+# base / large presets' last stages (C = 1024, 1536).
+EXTRA_BLOCK_SHAPES = [(16, 16, 8), (16, 12, 1024), (16, 12, 1536)]
 # Neck level 0 (H, W, C0, Cm, Co) and head inputs (H, W, C), with the number
 # of calls one one-chunk detect() makes at each: the flagship's rough and
 # precise (page_0's stack) shapes, then a ragged micro one.
@@ -81,29 +104,41 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn`` on the current stream (warm)."""
+    """Milliseconds of one call of ``fn`` on the current stream, warm: CUDA
+    events around ``reps`` calls in a row, divided by ``reps``; the median of
+    three such runs. Back-to-back calls let the host enqueue the next call
+    while the card runs the last, so a call's host overhead counts only
+    where it is longer than its device time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    runs = []
+    for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        runs.append(start.elapsed_time(end) / reps)
+    return statistics.median(runs)
 
 
 def block_bound_ms(npix: int, c: int):
-    """(ops_ms, bytes_ms) for one block: the depthwise and two projection
-    multiply-adds at the f32 peak; each input (activation and weights) read
-    once and the output written once at the memory rate."""
-    flops = npix * (2 * 49 * c + 16 * c * c)
+    """(ops_ms, bytes_ms, f32_simt_ms) for one block. Operations as the
+    kernel computes them: the two projections as three TF32 products each
+    on the tensor cores, the depthwise at the f32 peak. Bytes: each input
+    (activation and weights) read once and the output written once at the
+    memory rate. The last is the operations bound at the f32 SIMT peak
+    alone, for comparison."""
+    mlp, dw = npix * 16 * c * c, npix * 2 * 49 * c
     nbytes = 4 * (2 * npix * c + 49 * c + 8 * c * c + 4 * c + 6 * c)
-    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (
+        (3 * mlp / PEAK_TF32_FLOPS + dw / PEAK_F32_FLOPS) * 1e3,
+        nbytes / PEAK_BYTES * 1e3,
+        (mlp + dw) / PEAK_F32_FLOPS * 1e3,
+    )
 
 
 def random_block_params(c: int, gen, device):
@@ -214,6 +249,114 @@ def check_kernel(label: str, kernel, plain, args, work, reps: int = 10):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes}
 
 
+def block_launch_ms(x, p, reps: int = 10):
+    """Device ms per call of each of the block kernel's launches, read from a
+    torch.profiler trace of ``reps`` whole calls: the depthwise + LN, GEMM 1
+    and GEMM 2 (with its split-K reduction, where it has one). Also returns
+    the names of the GEMM kernels that ran, which name their inner product
+    (``gemm_3xtf32_kernel<columns, epilogue>``; epilogue 0 is GEMM 1's GELU,
+    1 GEMM 2's residual, 2 GEMM 2's split partials)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adascale_torch.kernels import convnext_block as K
+
+    K.convnext_block(x, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            K.convnext_block(x, p)
+        torch.cuda.synchronize()
+    part_ms, gemms = {"dw_ln": 0.0, "gemm1": 0.0, "gemm2": 0.0}, []
+    for event in prof.key_averages():
+        gemm = re.search(r"(gemm_\w+_kernel)<(\d+), (\d)>", event.key)
+        if "dw_ln_kernel" in event.key:
+            part = "dw_ln"
+        elif gemm:
+            part = "gemm1" if gemm.group(3) == "0" else "gemm2"
+            gemms.append(f"{gemm.group(1)}<{gemm.group(2)},{gemm.group(3)}>")
+        elif "reduce_kernel" in event.key:
+            part = "gemm2"
+            gemms.append("reduce_kernel")
+        else:
+            continue
+        part_ms[part] += event.device_time_total / 1e3 / reps
+    if not all(part_ms.values()):
+        raise AssertionError(f"block launches missing from the trace: {part_ms}")
+    return part_ms, sorted(gemms)
+
+
+def check_blocks(gen, device):
+    """Phase 3: the block kernel against its plain version at every stage
+    shape of both passes and at the extra widths; each shape's launches
+    (depthwise + LN, GEMM 1, GEMM 2 with its reduction) timed from a trace
+    too. Returns the entries of the kernels line: times and bounds summed
+    over the 18 blocks of each pass and over both passes."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    passes = {"rough": STAGE_SHAPES, "precise": PRECISE_STAGE_SHAPES}
+    cases = [(shape, which, n) for which, shapes in passes.items() for shape, n in shapes]
+    cases += [(RAGGED_SHAPE, None, 0)] + [(shape, None, 0) for shape in EXTRA_BLOCK_SHAPES]
+    keys = ("ms", "plain_ms", "t_ops", "t_bytes", "simt")
+    sums = {k: dict.fromkeys(keys, 0.0) for k in passes}
+    max_abs_err, gemm_kernels = 0.0, set()
+    for (h, w, c), which, blocks in cases:
+        p = random_block_params(c, gen, device)
+        x = torch.randn(1, h, w, c, generator=gen).to(device)
+        got = K.convnext_block(x, p)
+        torch.cuda.synchronize()
+        want = K.convnext_block_plain(x, p)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        # Both against the same function in f64: how far each is from exact.
+        exact = K.convnext_block_plain(x.double(), {k: v.double() for k, v in p.items()})
+        scale = float(exact.abs().max())
+        rel64 = {k: float((v.double() - exact).abs().max()) / scale for k, v in (("kernel", got), ("plain", want))}
+        ms = cuda_ms(lambda: K.convnext_block(x, p))
+        plain_ms = cuda_ms(lambda: K.convnext_block_plain(x, p))
+        part_ms, gemms = block_launch_ms(x, p)
+        gemm_kernels.update(gemms)
+        t_ops, t_bytes, simt = block_bound_ms(h * w, c)
+        bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        print(
+            f"convnext_block {h}x{w}x{c}: max_abs_err={err:.3e} rel={rel:.3e} "
+            f"rel_vs_f64 kernel={rel64['kernel']:.3e} plain={rel64['plain']:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}, 3xTF32) "
+            f"bound_f32_simt_ms={simt:.4f} "
+            + " ".join(f"{name}_ms={v:.4f}" for name, v in part_ms.items())
+            + f" kernels={'+'.join(gemms)} pass={which} blocks_per_pass={blocks}",
+            flush=True,
+        )
+        if not rel <= REL_TOL:
+            raise AssertionError(f"convnext_block {h}x{w}x{c}: relative error {rel} > {REL_TOL}")
+        max_abs_err = max(max_abs_err, err)
+        if which:
+            for key, v in zip(keys, (ms, plain_ms, t_ops, t_bytes, simt)):
+                sums[which][key] += blocks * v
+    for which, t in sums.items():
+        print(
+            f"convnext_block {which} pass (18 blocks): kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} bound_ms={max(t['t_ops'], t['t_bytes']):.4f} (3xTF32) "
+            f"bound_f32_simt_ms={t['simt']:.4f}",
+            flush=True,
+        )
+    t_ops, t_bytes, simt = (sum(t[key] for t in sums.values()) for key in ("t_ops", "t_bytes", "simt"))
+    return {
+        "max_abs_err": max_abs_err,
+        # Summed over the 36 blocks of a one-chunk detect(): both passes.
+        "ms": sum(t["ms"] for t in sums.values()),
+        "plain_ms": sum(t["plain_ms"] for t in sums.values()),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_rate": "projections as 3 TF32 products at 495 TFLOP/s, depthwise at 67 TFLOP/s f32",
+        "bound_f32_simt_ms": simt,
+        **{f"{which}_pass_{key}": t[key] for which, t in sums.items() for key in ("ms", "plain_ms")},
+        "gemm_kernels": sorted(gemm_kernels),
+    }
+
+
 def build_all():
     """Build the four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -307,8 +450,9 @@ def check_against_reference(result, ref, extra: str) -> None:
     ours = result["char_polygons"]
     theirs = [Polygon(p) for p in ref["char_polygons"]]
     matched = len(match_polygons(ours, theirs, 0.5))
-    ref_recall = matched / max(len(theirs), 1)
-    port_precision = matched / max(len(ours), 1)
+    # Two empty sets agree (a blank page).
+    ref_recall = matched / len(theirs) if theirs else float(not ours)
+    port_precision = matched / len(ours) if ours else float(not theirs)
     print(
         f"rough mask agreement={agreement:.6f} polygons port={len(ours)} jax={len(theirs)} "
         f"matched@0.5={matched} ({ref_recall:.4f} of jax, {port_precision:.4f} of port) "
@@ -321,6 +465,42 @@ def check_against_reference(result, ref, extra: str) -> None:
         raise AssertionError(f"rough mask agreement {agreement} < 0.995")
     if ref_recall < 0.95 or port_precision < 0.95:
         raise AssertionError(f"polygon match {ref_recall}/{port_precision} < 0.95")
+
+
+def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: int = 1):
+    """One counted detect() of a ``use_pallas_neck_heads=True`` engine, held
+    against a JAX reference; the launches of all four kernels must be exactly
+    what its precise chunks need, and the chunk count the reference's.
+    Returns the result and the launch counts."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
+
+    modules = {
+        "convnext_block": convnext_block,
+        "fpn_neck_l0": fpn_neck,
+        "fpn_heads": fpn_heads,
+        "precise_heads": precise_heads,
+    }
+    for m in modules.values():
+        m.LAUNCHES = 0
+    result = engine.detect(image)
+    torch.cuda.synchronize()
+    launches = {name: m.LAUNCHES for name, m in modules.items()}
+    chunks = result["num_precise_chunks"]
+    want = {
+        "convnext_block": blocks_per_pass * (1 + chunks),
+        "fpn_neck_l0": 1 + chunks,
+        "fpn_heads": 1,
+        "precise_heads": chunks,
+    }
+    stamp("fused detect() done; comparing with the JAX reference")
+    check_against_reference(result, ref, f"LAUNCHES={launches}")
+    if launches != want:
+        raise AssertionError(f"LAUNCHES {launches} != {want}")
+    if chunks != int(ref["num_precise_chunks"]) or chunks < min_chunks:
+        raise AssertionError(f"{chunks} precise chunks; reference {int(ref['num_precise_chunks'])}")
+    return result, launches
 
 
 def detect_wall_ms(engine, image) -> float:
@@ -381,33 +561,7 @@ def main() -> None:
 
     stamp("phase 3: kernels against plain")
     gen = torch.Generator().manual_seed(0)
-    max_abs_err = 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
-    for (h, w, c), blocks in STAGE_SHAPES + [(RAGGED_SHAPE, 0)]:
-        p = random_block_params(c, gen, device)
-        x = torch.randn(1, h, w, c, generator=gen).to(device)
-        got = K.convnext_block(x, p)
-        torch.cuda.synchronize()
-        want = K.convnext_block_plain(x, p)
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        ms = cuda_ms(lambda: K.convnext_block(x, p))
-        plain_ms = cuda_ms(lambda: K.convnext_block_plain(x, p))
-        t_ops, t_bytes = block_bound_ms(h * w, c)
-        bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-        print(
-            f"convnext_block {h}x{w}x{c}: max_abs_err={err:.3e} rel={rel:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
-            f"blocks_per_rough_pass={blocks}",
-            flush=True,
-        )
-        if not rel <= REL_TOL:
-            raise AssertionError(f"convnext_block {h}x{w}x{c}: relative error {rel} > {REL_TOL}")
-        max_abs_err = max(max_abs_err, err)
-        totals["ms"] += blocks * ms
-        totals["plain_ms"] += blocks * plain_ms
-        totals["t_ops"] += blocks * t_ops
-        totals["t_bytes"] += blocks * t_bytes
+    block_rows = check_blocks(gen, device)
 
     stamp("phase 3b: neck and head kernels against plain")
     neck_row, rough_row, precise_row = check_neck_and_heads(gen, device)
@@ -462,29 +616,9 @@ def main() -> None:
     print_detect_steps(engine, image)
 
     stamp("phase 5: detect() with use_pallas_neck_heads=True")
-    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
-
-    fused = AdaptiveScalingInference(dataclasses.replace(cfg, use_pallas_neck_heads=True), params=params)
-    K.LAUNCHES = fpn_neck.LAUNCHES = fpn_heads.LAUNCHES = precise_heads.LAUNCHES = 0
-    result = fused.detect(image)
-    torch.cuda.synchronize()
-    fused_launches = {
-        "convnext_block": K.LAUNCHES,
-        "fpn_neck_l0": fpn_neck.LAUNCHES,
-        "fpn_heads": fpn_heads.LAUNCHES,
-        "precise_heads": precise_heads.LAUNCHES,
-    }
-    chunks = result["num_precise_chunks"]
-    want_launches = {
-        "convnext_block": blocks_per_pass * (1 + chunks),
-        "fpn_neck_l0": 1 + chunks,
-        "fpn_heads": 1,
-        "precise_heads": chunks,
-    }
-    stamp("fused detect() done; comparing with the JAX reference")
-    check_against_reference(result, ref, f"LAUNCHES={fused_launches}")
-    if fused_launches != want_launches:
-        raise AssertionError(f"LAUNCHES {fused_launches} != {want_launches}")
+    fused_cfg = dataclasses.replace(cfg, use_pallas_neck_heads=True)
+    fused = AdaptiveScalingInference(fused_cfg, params=params)
+    _, fused_launches = fused_detect_checked(fused, image, ref, blocks_per_pass)
 
     stamp("fused forwards against the module path; warm timings")
     forward_ms = {}
@@ -512,6 +646,27 @@ def main() -> None:
     )
     print_detect_steps(fused, image)
 
+    stamp("phase 6: multi-chunk fused detect() (a small precise stack-area cap)")
+    ref = np.load(MULTICHUNK_REFERENCE)
+    chunked = AdaptiveScalingInference(
+        dataclasses.replace(
+            fused_cfg, precise_stacked_image_max_area=int(ref["precise_stacked_image_max_area"])
+        ),
+        params=params,
+    )
+    fused_detect_checked(chunked, np.load(os.path.join(ROOT, str(ref["page"])))["image"], ref,
+                         blocks_per_pass, min_chunks=2)
+
+    stamp("phase 7: fused detect() on a blank page")
+    ref = np.load(BLANK_REFERENCE)
+    result, _ = fused_detect_checked(
+        fused, np.zeros(tuple(ref["image_shape"]), np.uint8), ref, blocks_per_pass
+    )
+    if result["stacked_image"].shape != tuple(ref["stacked_image_shape"]):
+        raise AssertionError(
+            f"blank page stack {result['stacked_image'].shape} != {tuple(ref['stacked_image_shape'])}"
+        )
+
     stamp("done")
     print(smi_line(), flush=True)
     kernels = [
@@ -521,12 +676,7 @@ def main() -> None:
             "source": "adascale_torch/kernels/csrc/convnext_block.cu",
             "replaces": "adascale/ops/pallas/convnext_block.py:290",
             "launches": launches,
-            "max_abs_err": max_abs_err,
-            # Times and bound summed over the 18 blocks of one rough pass.
-            "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"],
-            "bound_ms": max(totals["t_ops"], totals["t_bytes"]),
-            "bound_by": "operations" if totals["t_ops"] >= totals["t_bytes"] else "bytes",
+            **block_rows,
             "library_ms": None,
         }
     ]

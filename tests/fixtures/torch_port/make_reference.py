@@ -1,19 +1,27 @@
-"""Regenerate ``flagship_fpn_reference.npz``: the JAX engine's detect() on a
-committed page with the tiny/FPN flagship weights, f32, for the PyTorch
-port to be held against on the card (``chip_smoke.py``).
+"""Regenerate the JAX references that ``chip_smoke.py`` holds the PyTorch port
+against on the card: the JAX engine's detect() with the tiny/FPN flagship
+weights, f32, one ``.npz`` per case:
 
-Settings are the engine's defaults (f32, matmul precision "highest", short
-side 720, shape bucket 64, core gating 0.4, NMS 0.3). The backbone runs as
-the Flax blocks: the Pallas block kernel compiles only for a TPU, and the
-repo's ``tests/test_pallas.py`` holds the two to 1e-5.
+  * ``flagship_fpn_reference.npz``: a committed text page, engine defaults;
+  * ``flagship_fpn_multichunk_reference.npz``: the same page with
+    ``precise_stacked_image_max_area`` small enough that the regions are
+    stacked into several precise chunks;
+  * ``flagship_fpn_blank_reference.npz``: a blank page (no text).
 
-The page is the first of ``tests/fixtures/shift_pages/page_{0,1,2}.npz`` on
-which the engine finds at least 100 char polygons.
+Settings are otherwise the engine's defaults (f32, matmul precision
+"highest", short side 720, shape bucket 64, core gating 0.4, NMS 0.3). The
+backbone runs as the Flax blocks: the Pallas block kernel compiles only for a
+TPU, and the repo's ``tests/test_pallas.py`` holds the two to 1e-5.
 
-Run from the repository root (takes a few minutes on a CPU):
+The text page is the first of ``tests/fixtures/shift_pages/page_{0,1,2}.npz``
+on which the engine finds at least 100 char polygons.
 
-    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py
+Run from the repository root (a few minutes a case on a CPU); with case
+names (``page``, ``multichunk``, ``blank``) it makes only those:
+
+    JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py [case ...]
 """
+import dataclasses
 import os
 import sys
 
@@ -35,37 +43,64 @@ from adascale.models import AdaptiveScalingConfig  # noqa: E402
 
 WEIGHTS = "examples/flagship_training/flagship_fpn_params.f16.npz"
 PAGES = [f"tests/fixtures/shift_pages/page_{i}.npz" for i in range(3)]
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "flagship_fpn_reference.npz")
+HERE = os.path.dirname(os.path.abspath(__file__))
 MIN_POLYGONS = 100
+# Stack-area cap of the multi-chunk case: page_0's one 1024x832 stack
+# becomes several.
+MULTICHUNK_MAX_AREA = 300_000
+BLANK_SHAPE = (100, 700, 3)
 
 
-def main() -> None:
+def save(name: str, result, page: str, **extra) -> None:
+    polys = result["char_polygons"]
+    out = os.path.join(HERE, name)
+    np.savez_compressed(
+        out,
+        page=np.asarray(page),
+        weights=np.asarray(WEIGHTS),
+        rough_char_mask=result["rough"].rough_char_mask,
+        rough_resized_shape=np.asarray(result["rough"].resized_shape),
+        char_polygons=np.asarray([p.points for p in polys], np.float32).reshape(-1, 4, 2),
+        char_scores=np.asarray([p.score for p in polys], dtype=np.float32),
+        num_regions=np.asarray(len(result["regions"])),
+        num_precise_chunks=np.asarray(result["num_precise_chunks"]),
+        **extra,
+    )
+    print("wrote", out, os.path.getsize(out), "bytes;", len(polys), "char polygons,",
+          result["num_precise_chunks"], "precise chunks", flush=True)
+
+
+def main(cases) -> None:
     model = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
     cfg = AdaptiveScalingInferenceConfig(model=model)
     params = load_params(os.path.join(ROOT, WEIGHTS), model)
     engine = AdaptiveScalingInference(cfg, params=params)
-    for page_path in PAGES:
-        image = np.load(os.path.join(ROOT, page_path))["image"]
-        result = engine.detect(image)
-        polys = result["char_polygons"]
-        print(page_path, "char polygons:", len(polys), flush=True)
-        if len(polys) >= MIN_POLYGONS:
-            break
-    else:
-        raise SystemExit("no shift page reaches the polygon count")
-    np.savez_compressed(
-        OUT,
-        page=np.asarray(page_path),
-        weights=np.asarray(WEIGHTS),
-        rough_char_mask=result["rough"].rough_char_mask,
-        rough_resized_shape=np.asarray(result["rough"].resized_shape),
-        char_polygons=np.stack([p.points for p in polys]).astype(np.float32),
-        char_scores=np.asarray([p.score for p in polys], dtype=np.float32),
-        num_regions=np.asarray(len(result["regions"])),
-        num_precise_chunks=np.asarray(result["num_precise_chunks"]),
-    )
-    print("wrote", OUT, os.path.getsize(OUT), "bytes")
+    if "page" in cases:
+        for page_path in PAGES:
+            image = np.load(os.path.join(ROOT, page_path))["image"]
+            result = engine.detect(image)
+            print(page_path, "char polygons:", len(result["char_polygons"]), flush=True)
+            if len(result["char_polygons"]) >= MIN_POLYGONS:
+                break
+        else:
+            raise SystemExit("no shift page reaches the polygon count")
+        save("flagship_fpn_reference.npz", result, page_path)
+    if "multichunk" in cases:
+        chunked = AdaptiveScalingInference(
+            dataclasses.replace(cfg, precise_stacked_image_max_area=MULTICHUNK_MAX_AREA),
+            params=params,
+        )
+        image = np.load(os.path.join(ROOT, PAGES[0]))["image"]
+        result = chunked.detect(image)
+        if result["num_precise_chunks"] < 2:
+            raise SystemExit("the cap does not split the stack")
+        save("flagship_fpn_multichunk_reference.npz", result, PAGES[0],
+             precise_stacked_image_max_area=np.asarray(MULTICHUNK_MAX_AREA))
+    if "blank" in cases:
+        result = engine.detect(np.zeros(BLANK_SHAPE, np.uint8))
+        save("flagship_fpn_blank_reference.npz", result, "", image_shape=np.asarray(BLANK_SHAPE),
+             stacked_image_shape=np.asarray(result["stacked_image"].shape))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ["page", "multichunk", "blank"])

@@ -41,8 +41,8 @@ def _jax_args(p):
     )
 
 
-@pytest.mark.parametrize("c", [8, 96])
-@pytest.mark.parametrize("hw", [(16, 16), (13, 19)])
+@pytest.mark.parametrize("c", [8, 96, 128])
+@pytest.mark.parametrize("hw", [(16, 16), (13, 19), (8, 8)])
 def test_plain_block_matches_block_xla_and_flax(c, hw):
     layer, params, x = _case(c, hw)
     got = K.convnext_block_plain(torch.from_numpy(x), state_dict_from_jax(params)).numpy()
@@ -72,7 +72,7 @@ def test_wrapper_on_cpu_runs_plain_without_counting():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hwc", [(16, 16, 8), (13, 19, 96), (30, 24, 768)])
+@pytest.mark.parametrize("hwc", [(16, 16, 8), (13, 19, 96), (30, 24, 768), (16, 12, 1024)])
 def test_cuda_kernel_matches_plain(hwc):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")

@@ -136,6 +136,37 @@ def test_fused_neck_heads_detect_matches_jax(results):
     assert matched >= 0.95 * len(ours), (matched, len(ours))
 
 
+@pytest.fixture(scope="module")
+def blank_jax():
+    """The JAX engine on a blank page: the overfit micro model still fires on
+    it, so its precise maps are near-flat and the 5x5 peak pick decides ties."""
+    torch.set_num_threads(2)
+    image = np.zeros((100, 700, 3), np.uint8)
+    return image, JaxEngine(JaxEngineConfig(model=MODEL_SPEC), params=_load_fixture_params()).detect(image)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_blank_page_matches_jax_both_ways(blank_jax, fused):
+    """A page with no text: the same bars as ``test_char_polygons_match_jax_
+    both_ways``. The module-path heads compute the phase form as Flax does,
+    so the peak pick breaks the near-ties of the flat maps as JAX does."""
+    image, want = blank_jax
+    config = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(
+            custom_block_channels_and_num_layers=MODEL_SPEC.custom_block_channels_and_num_layers
+        ),
+        use_pallas_neck_heads=fused,
+        device="cpu",
+    )
+    got = AdaptiveScalingInference(config, params=_load_fixture_params()).detect(image)
+    np.testing.assert_array_equal(got["rough"].rough_char_mask, want["rough"].rough_char_mask)
+    ours, theirs = got["char_polygons"], want["char_polygons"]
+    assert theirs, "the micro model finds polygons on the blank page"
+    matched = len(match_polygons(ours, theirs, 0.5))
+    assert matched >= 0.95 * len(theirs), (matched, len(theirs))
+    assert matched >= 0.95 * len(ours), (matched, len(ours))
+
+
 def test_unported_options_raise():
     for field, value in [
         ("compute_dtype", "bfloat16"),

@@ -98,3 +98,27 @@ def test_flagship_tiny_heads_match_flax_at_64px():
         got += list(tm.forward_precise(torch.from_numpy(x)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3, 4])
+def test_fpn_head_matches_flax(factor):
+    """``FpnHead`` against the Flax head at each upsampling factor Flax takes:
+    1 (3x3), 2 (nearest-x2 then 3x3 as four collapsed phases, Flax's
+    default), 3 and 4 (nearest upsample then 5x5)."""
+    from adascale.models.fpn import FpnHead as JaxFpnHead
+    from adascale_torch.models.fpn import FpnHead
+    from adascale_torch.utils.params import state_dict_from_jax
+
+    c, m = 16, 4
+    x = np.random.default_rng(4).standard_normal((2, 6, 7, c)).astype(np.float32)
+    head = JaxFpnHead(out_channels=m, upsampling_factor=factor)
+    params = head.init(jax.random.PRNGKey(factor), jnp.asarray(x))["params"]
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(head.apply({"params": params}, jnp.asarray(x)))
+    th = FpnHead(c, m, factor)
+    th.load_state_dict(state_dict_from_jax(params), strict=True)
+    with torch.no_grad():
+        got = th(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 6 * factor, 7 * factor, m)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
