@@ -14,9 +14,11 @@ upsample + 3x3 as four phase-collapsed 2x2 convolutions at the low resolution
 ``_phase_tap_weights``, and ``heads_phase_form``, the plain version), so the CPU
 tests, which hold the plain version against the Flax ``FpnHead``, check the
 packing the kernel uses. On a CUDA tensor it launches ``csrc/fpn_heads.cu``
-(one block per head, phase and tile of 128 low-resolution pixels; see
-``csrc/fpn_head.cuh``). Bound by f32 operations: 217 GFLOP at the flagship's
-240x192x384, 3.25 ms on an H100 SXM (67 TFLOP/s f32, 700 W).
+(one block per head, phase and tile of 128 low-resolution pixels, the
+products as 3xTF32 ``wgmma``; see ``csrc/fpn_head.cuh``) on weights that
+``packed_heads`` packs once per parameter set. Bound by operations: 217.6
+GFLOP at the flagship's 240x192x384, three TF32 products each, 1.32 ms on an
+H100 SXM (495 TFLOP/s dense TF32, 700 W).
 
 Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
 ``step1.conv.weight`` (F, C, 3, 3), ``step1.conv.bias``, ``step1.ln.weight``,
@@ -40,6 +42,22 @@ LAUNCHES = 0
 
 MAX_HEADS = 4
 MAX_OUT = 4
+# The kernel's limits (csrc/fpn_head.cuh): pixel tiles of one grid column,
+# and the map's sides.
+TILE_PIXELS = 128
+MAX_TILES = 65535
+MAX_SIDE = 32767
+# Input channels a kernel stage, and the channel each wgmma K slot of a group
+# of 8 holds (a thread loads its two channels with one 8-byte read).
+KC = 32
+KSLOT = (0, 2, 4, 6, 1, 3, 5, 7)
+PARAM_NAMES = (
+    "step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias",
+    "step2.weight", "step2.bias",
+)
+# Packed parameter sets, most recently used last.
+CACHE_SIZE = 8
+_PACKED: Dict[tuple, Tuple[list, Dict[str, torch.Tensor]]] = {}
 
 Params = Dict[str, torch.Tensor]
 
@@ -66,11 +84,73 @@ def build() -> ctypes.CDLL:
     return bind(_nvcc.build("fpn_heads", "fpn_heads.cu"), "fpn_heads")
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, by integer ops on its bits, as the kernel splits A."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
+    """The heads' parameters in the kernel's layouts (``csrc/fpn_head.cuh``),
+    zero past each head's F and M and past C:
+
+    - ``w`` (heads, 4 phases, 4 taps, ceil(C/32) chunks, 2, n/8, 8, 8, 4): the
+      collapsed taps of each 32-channel chunk as a TF32 ``hi`` and
+      ``lo = tf32(w - hi)`` (axis 4), each in wgmma's K-major core-matrix
+      order (row group, K group of 4, row, K in group), with K slot s of each
+      8 holding channel ``KSLOT[s]`` of those 8;
+    - ``vec`` (heads, 3, n): smoothing bias, LN scale, LN bias;
+    - ``w2`` (heads, MAX_OUT, n) and ``b2`` (heads, MAX_OUT)."""
+    ref = heads[0]["step1.conv.weight"]
+    c, nh = ref.shape[1], len(heads)
+    chunks = -(-c // KC)
+    if n % 8:
+        raise ValueError(f"pack_heads: width {n} is not a multiple of 8")
+    with torch.no_grad():
+        taps = ref.new_zeros(nh, 4, 4, chunks * KC, n)
+        vec = ref.new_zeros(nh, 3, n)
+        w2 = ref.new_zeros(nh, MAX_OUT, n)
+        b2 = ref.new_zeros(nh, MAX_OUT)
+        for k, p in enumerate(heads):
+            m, f = p["step2.weight"].shape
+            if f > n or m > MAX_OUT:
+                raise ValueError(f"pack_heads: head {k} F={f}, M={m}; the layout takes F <= {n}, M <= {MAX_OUT}")
+            taps[k, :, :, :c, :f] = phase_tap_weights(p["step1.conv.weight"])
+            vec[k, 0, :f] = p["step1.conv.bias"]
+            vec[k, 1, :f] = p["step1.ln.weight"]
+            vec[k, 2, :f] = p["step1.ln.bias"]
+            w2[k, :m, :f] = p["step2.weight"]
+            b2[k, :m] = p["step2.bias"]
+        taps = taps.reshape(nh, 4, 4, chunks, KC // 8, 8, n)[..., KSLOT, :]
+        taps = taps.reshape(nh, 4, 4, chunks, KC // 4, 4, n // 8, 8).permute(0, 1, 2, 3, 6, 4, 7, 5)
+        hi = tf32_round(taps)
+        w = torch.stack([hi, tf32_round(taps - hi)], dim=4)
+    return {"w": w, "vec": vec, "w2": w2, "b2": b2}
+
+
+def packed_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
+    """``pack_heads(heads, n)``, packed once per parameter set: cached on
+    each parameter tensor's identity, ``_version`` (so an in-place update
+    repacks), device and shape; the last ``CACHE_SIZE`` sets are kept.
+    Inference tensors carry no version counter and are packed every call."""
+    tensors = [p[name] for p in heads for name in PARAM_NAMES]
+    if any(t.is_inference() for t in tensors):
+        return pack_heads(heads, n)
+    key = (n, *((id(t), t._version, t.device, tuple(t.shape)) for t in tensors))
+    # The entry holds the tensors, so their ids are not reused while it lives.
+    entry = _PACKED.pop(key, None) or (tensors, pack_heads(heads, n))
+    _PACKED[key] = entry
+    while len(_PACKED) > CACHE_SIZE:
+        _PACKED.pop(next(iter(_PACKED)))
+    return entry[1]
+
+
 def run_heads_kernel(
     build: Callable[[], ctypes.CDLL], prefix: str, x: torch.Tensor, heads: Sequence[Params]
 ) -> List[torch.Tensor]:
-    """Check, pack and launch a heads library on a CUDA tensor. Returns each
-    head's (B, 2H, 2W, M) output, a view into one packed map."""
+    """Check, pack (once per parameter set) and launch a heads library on a
+    CUDA tensor. Returns each head's (B, 2H, 2W, M) output, a view into one
+    packed map."""
     _nvcc.check_activation(f"{prefix} x", x, x.device)
     if not 0 < len(heads) <= MAX_HEADS:
         raise ValueError(f"{prefix}: {len(heads)} heads, the kernel takes 1..{MAX_HEADS}")
@@ -94,28 +174,20 @@ def run_heads_kernel(
             _nvcc.check_param(f"head {k} {name}", p[name], shape, x.device)
         widths.append(f)
         outs.append(m)
-    # Kernel layouts, zero past each head's real F and M: collapsed taps
-    # (heads, 4, 4, C, bn); (heads, 3, bn) bias/LN scale/LN bias;
-    # projections (heads, MAX_OUT, bn) and (heads, MAX_OUT).
+    if -(-b * h * w // TILE_PIXELS) > MAX_TILES or max(h, w) > MAX_SIDE:
+        raise ValueError(
+            f"{prefix}: (B, H, W) = {(b, h, w)}; the kernel takes at most {MAX_TILES} tiles of "
+            f"{TILE_PIXELS} pixels and H, W <= {MAX_SIDE}"
+        )
+    packed = packed_heads(heads, bn)
     nh = len(heads)
-    wk = x.new_zeros(nh, 4, 4, c, bn)
-    vec = x.new_zeros(nh, 3, bn)
-    w2 = x.new_zeros(nh, MAX_OUT, bn)
-    b2 = x.new_zeros(nh, MAX_OUT)
-    for k, (p, f, m) in enumerate(zip(heads, widths, outs)):
-        wk[k, ..., :f] = phase_tap_weights(p["step1.conv.weight"])
-        vec[k, 0, :f] = p["step1.conv.bias"]
-        vec[k, 1, :f] = p["step1.ln.weight"]
-        vec[k, 2, :f] = p["step1.ln.bias"]
-        w2[k, :m, :f] = p["step2.weight"]
-        b2[k, :m] = p["step2.bias"]
     out = x.new_empty(b, 2 * h, 2 * w, sum(outs))
     f_arr = (ctypes.c_int * nh)(*widths)
     m_arr = (ctypes.c_int * nh)(*outs)
     with torch.cuda.device(x.device):
         rc = getattr(lib, f"{prefix}_f32")(
-            x.data_ptr(), wk.data_ptr(), vec.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), f_arr, m_arr, nh, b, h, w, c,
+            x.data_ptr(), packed["w"].data_ptr(), packed["vec"].data_ptr(), packed["w2"].data_ptr(),
+            packed["b2"].data_ptr(), out.data_ptr(), f_arr, m_arr, nh, b, h, w, c,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

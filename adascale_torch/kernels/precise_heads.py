@@ -9,9 +9,10 @@ softplus. It replaces the Pallas TPU kernel ``adascale/ops/pallas/
 precise_heads.py::_fused_heads_phases`` (``pl.pallas_call`` at :144). It
 shares the phase-collapsed packing and the plain version with the rough heads
 (``fpn_heads``); on a CUDA tensor it launches ``csrc/precise_heads.cu``, the
-heads kernel of ``csrc/fpn_head.cuh`` in 208-wide tiles for inner widths of
-192..194. Bound by f32 operations: 506 GFLOP at the flagship's 256x208x384,
-7.55 ms on an H100 SXM (67 TFLOP/s f32, 700 W).
+heads kernel of ``csrc/fpn_head.cuh`` in 200-wide tiles for inner widths of
+192..194. Bound by operations: 506.7 GFLOP at the flagship's 256x208x384,
+three TF32 products each, 3.07 ms on an H100 SXM (495 TFLOP/s dense TF32,
+700 W).
 """
 from __future__ import annotations
 

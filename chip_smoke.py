@@ -19,7 +19,11 @@ Phases, each announced with its elapsed seconds:
   3b. the same for the FPN neck level-0, rough-heads and precise-heads
      kernels, at the flagship's shapes (neck at 240x192 and 256x208, rough
      heads at 240x192x384, precise heads at 256x208x384) and a ragged micro
-     shape each (13x19, C=32, head widths 16..18);
+     shape each (13x19, C=32, head widths 16..18); the heads (3xTF32 wgmma)
+     also against an f64 evaluation of the plain version (rel_vs_f64, for
+     the kernel and the plain version), with bound_ms at the 3xTF32 rate
+     and bound_f32_simt_ms beside it, and the time to pack their weights
+     (once per parameter set; the kernel is timed with the packing cached);
   4. detect: the default path, ``AdaptiveScalingInference.detect()`` with
      the tiny/FPN flagship weights on a committed page, held against the JAX
      package's stored output (tests/fixtures/torch_port/
@@ -30,7 +34,8 @@ Phases, each announced with its elapsed seconds:
   5. fused detect: the same with ``use_pallas_neck_heads=True`` (neck level
      0 and the heads through their kernels), the same bars, exact launch
      counts of all four kernels, the fused forwards against the module
-     path's (relative error <= 1e-4) and their warm timings beside it;
+     path's (relative error <= 1e-4) and their warm timings beside it, and
+     each fused forward's device time by kernel from a torch.profiler trace;
   6. multi-chunk detect: the fused configuration with a small
      ``precise_stacked_image_max_area``, so that the page's regions make
      several precise stacks, against its JAX reference (the same bars; the
@@ -220,11 +225,17 @@ def heads_work(b: int, h: int, w: int, c: int, heads):
     return flops, nbytes
 
 
-def check_kernel(label: str, kernel, plain, args, work, reps: int = 10):
+def check_kernel(label: str, kernel, plain, args, work, reps: int = 10, rate: float = PEAK_F32_FLOPS,
+                 exact_args=None):
     """The kernel against its plain version on the same inputs; raises past
     REL_TOL. Prints and returns max_abs_err, kernel and plain ms, and the
-    operations at the f32 peak and the bytes (each input read once, each
-    output written once) at the memory rate, in ms."""
+    operations at ``rate`` (flop/s of the work as the kernel computes it)
+    and the bytes (each input read once, each output written once) at the
+    memory rate, in ms. Where ``rate`` is not the f32 SIMT peak, the bound
+    at that peak too (``t_simt``, printed as bound_f32_simt_ms). With
+    ``exact_args`` (the same inputs in f64), how far the kernel and the
+    plain version each are from the plain version in f64, relative to its
+    largest value (``rel64``)."""
     import torch
 
     got = kernel(*args)
@@ -237,16 +248,30 @@ def check_kernel(label: str, kernel, plain, args, work, reps: int = 10):
     ms = cuda_ms(lambda: kernel(*args), reps)
     plain_ms = cuda_ms(lambda: plain(*args), reps)
     flops, nbytes = work
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
     bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes}
+    extra = ""
+    if rate != PEAK_F32_FLOPS:
+        result["t_simt"] = flops / PEAK_F32_FLOPS * 1e3
+        extra += f" bound_f32_simt_ms={result['t_simt']:.4f}"
+    if exact_args is not None:
+        exact = plain(*exact_args)
+        exact = list(exact) if isinstance(exact, (list, tuple)) else [exact]
+        scale = max(float(e.abs().max()) for e in exact)
+        result["rel64"] = {
+            which: max(float((v.double() - e).abs().max()) for v, e in zip(vals, exact)) / scale
+            for which, vals in (("kernel", got), ("plain", want))
+        }
+        extra += f" rel_vs_f64 kernel={result['rel64']['kernel']:.3e} plain={result['rel64']['plain']:.3e}"
     print(
         f"{label}: max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by})",
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}){extra}",
         flush=True,
     )
     if not rel <= REL_TOL:
         raise AssertionError(f"{label}: relative error {rel} > {REL_TOL}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes}
+    return result
 
 
 def block_launch_ms(x, p, reps: int = 10):
@@ -380,10 +405,29 @@ def build_all():
                 print("ptxas:", line.strip(), flush=True)
 
 
+def pack_ms(heads, width: int) -> float:
+    """Host-clock ms of packing one heads parameter set for its kernel
+    (median of 3, synchronised): what a call pays once per parameter set."""
+    import torch
+
+    from adascale_torch.kernels import fpn_heads
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fpn_heads.pack_heads(heads, width)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
+
+
 def check_neck_and_heads(gen, device):
-    """Phase 3b: the neck and head kernels against their plain versions.
-    Returns per kernel the entries of the kernels line (times and bounds
-    summed over one one-chunk detect()'s calls)."""
+    """Phase 3b: the neck and head kernels against their plain versions; the
+    heads also against an f64 evaluation, with their bounds at the 3xTF32
+    rate they compute at and their packing time. Returns per kernel the
+    entries of the kernels line (times and bounds summed over one one-chunk
+    detect()'s calls)."""
     import torch
 
     from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
@@ -391,13 +435,20 @@ def check_neck_and_heads(gen, device):
     def total(rows):
         t_ops = sum(n * r["t_ops"] for r, n in rows)
         t_bytes = sum(n * r["t_bytes"] for r, n in rows)
-        return {
+        numbers = {
             "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
             "ms": sum(n * r["ms"] for r, n in rows),
             "plain_ms": sum(n * r["plain_ms"] for r, n in rows),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
+        if "t_simt" in rows[0][0]:
+            numbers["bound_rate"] = "3 TF32 products a product at 495 TFLOP/s"
+            numbers["bound_f32_simt_ms"] = sum(n * r["t_simt"] for r, n in rows)
+            numbers["rel_vs_f64"] = {
+                which: max(r["rel64"][which] for r, _ in rows) for which in ("kernel", "plain")
+            }
+        return numbers
 
     rows = []
     for (h, w, c0, cm, co), calls in NECK_SHAPES:
@@ -411,28 +462,36 @@ def check_neck_and_heads(gen, device):
         rows.append((r, calls))
     neck = total(rows)
 
-    rows = []
-    for (h, w, c), calls in ROUGH_HEAD_SHAPES:
-        heads = [random_head_params(c, 1, gen, device) for _ in range(2)]
-        x = torch.randn(1, h, w, c, generator=gen).to(device)
-        r = check_kernel(
-            f"fpn_heads {h}x{w}x{c}", fpn_heads.fused_rough_heads,
-            fpn_heads.fused_rough_heads_plain, (x, *heads), heads_work(1, h, w, c, heads),
-        )
-        rows.append((r, calls))
-    rough = total(rows)
+    def double(params):
+        return {k: v.double() for k, v in params.items()}
 
-    rows = []
-    for (h, w, c), calls in PRECISE_HEAD_SHAPES:
-        heads = [random_head_params(c, m, gen, device) for m in PRECISE_OUT]
-        x = torch.randn(1, h, w, c, generator=gen).to(device)
-        r = check_kernel(
-            f"precise_heads {h}x{w}x{c}", precise_heads.fused_precise_heads,
-            precise_heads.fused_precise_heads_plain, (x, heads), heads_work(1, h, w, c, heads),
-        )
-        rows.append((r, calls))
-    precise = total(rows)
-    return neck, rough, precise
+    heads_rows = {}
+    for name, module, shapes, outs in (
+        ("fpn_heads", fpn_heads, ROUGH_HEAD_SHAPES, (1, 1)),
+        ("precise_heads", precise_heads, PRECISE_HEAD_SHAPES, PRECISE_OUT),
+    ):
+        rows = []
+        for (h, w, c), calls in shapes:
+            heads = [random_head_params(c, m, gen, device) for m in outs]
+            x = torch.randn(1, h, w, c, generator=gen).to(device)
+            if module is fpn_heads:
+                kernel, plain = fpn_heads.fused_rough_heads, fpn_heads.fused_rough_heads_plain
+                args, exact_args = (x, *heads), (x.double(), *map(double, heads))
+            else:
+                kernel, plain = precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain
+                args, exact_args = (x, heads), (x.double(), [double(p) for p in heads])
+            r = check_kernel(
+                f"{name} {h}x{w}x{c}", kernel, plain, args, heads_work(1, h, w, c, heads),
+                rate=PEAK_TF32_FLOPS / 3, exact_args=exact_args,
+            )
+            rows.append((r, calls))
+            if calls:
+                width = getattr(module.build(), f"{name}_max_width")()
+                r["pack_ms"] = pack_ms(heads, width)
+                print(f"{name} {h}x{w}x{c} packing, once per parameter set: pack_ms={r['pack_ms']:.4f}",
+                      flush=True)
+        heads_rows[name] = {**total(rows), "pack_ms": sum(r.get("pack_ms", 0.0) for r, _ in rows)}
+    return neck, heads_rows["fpn_heads"], heads_rows["precise_heads"]
 
 
 def check_against_reference(result, ref, extra: str) -> None:
@@ -501,6 +560,39 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
     if chunks != int(ref["num_precise_chunks"]) or chunks < min_chunks:
         raise AssertionError(f"{chunks} precise chunks; reference {int(ref['num_precise_chunks'])}")
     return result, launches
+
+
+# Kernel-name patterns of the port's kernels in a profiler trace.
+KERNEL_GROUPS = {
+    "heads": ("heads_kernel",),
+    "neck_l0": ("step1_kernel", "step2_kernel"),
+    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel"),
+}
+
+
+def forward_device_ms(fn, reps: int = 3):
+    """Device ms per call of ``fn`` by kernel group, from a torch.profiler
+    trace of ``reps`` warm calls: the port's kernels (``KERNEL_GROUPS``),
+    everything else the card ran (``other``: library convolutions, norms,
+    copies) and their sum (``device``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys([*KERNEL_GROUPS, "other"], 0.0)
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:  # host-side entries carry their kernels' time too
+            continue
+        group = next((g for g, keys in KERNEL_GROUPS.items() if any(k in event.key for k in keys)), "other")
+        parts[group] += event.device_time_total / 1e3 / reps
+    parts["device"] = sum(parts.values())
+    return parts
 
 
 def detect_wall_ms(engine, image) -> float:
@@ -637,6 +729,12 @@ def main() -> None:
             forward_ms[which] = (
                 cuda_ms(lambda: engine._forward(x, which), reps=5),
                 cuda_ms(lambda: fused._forward(x, which), reps=5),
+            )
+            parts = forward_device_ms(lambda: fused._forward(x, which))
+            print(
+                f"fused {which} forward, device ms a call by kernel (torch.profiler, 3 calls): "
+                + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()),
+                flush=True,
             )
     print(
         "forward ms (module path / fused): "
