@@ -27,11 +27,13 @@ Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.fused_upsample import heads_phase_form, phase_tap_weights
 from . import _nvcc
@@ -42,22 +44,19 @@ LAUNCHES = 0
 
 MAX_HEADS = 4
 MAX_OUT = 4
-# The kernel's limits (csrc/fpn_head.cuh): pixel tiles of one grid column,
-# and the map's sides.
-TILE_PIXELS = 128
-MAX_TILES = 65535
-MAX_SIDE = 32767
-# Input channels a kernel stage, and the channel each wgmma K slot of a group
-# of 8 holds (a thread loads its two channels with one 8-byte read).
+# The packed layout's constants, as csrc/fpn_head.cuh reads them: input
+# channels a kernel stage (kKC), and the channel each wgmma K slot of a group
+# of 8 holds (thread t of a quad loads channels 2t and 2t + 1, its K slots t
+# and t + 4, with one 8-byte read). The CPU tests import both from here.
 KC = 32
 KSLOT = (0, 2, 4, 6, 1, 3, 5, 7)
 PARAM_NAMES = (
     "step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias",
     "step2.weight", "step2.bias",
 )
-# Packed parameter sets, most recently used last.
-CACHE_SIZE = 8
-_PACKED: Dict[tuple, Tuple[list, Dict[str, torch.Tensor]]] = {}
+# One packed set per first head's conv weight, held weakly: it goes with the
+# model. The entry's guards name every tensor it was packed from.
+_PACKED = WeakIdKeyDictionary()
 
 Params = Dict[str, torch.Tensor]
 
@@ -129,20 +128,29 @@ def pack_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
 
 
 def packed_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
-    """``pack_heads(heads, n)``, packed once per parameter set: cached on
-    each parameter tensor's identity, ``_version`` (so an in-place update
-    repacks), device and shape; the last ``CACHE_SIZE`` sets are kept.
-    Inference tensors carry no version counter and are packed every call."""
+    """``pack_heads(heads, n)``, packed once per parameter set. The pack is
+    kept while the first head's conv weight lives, and reused while every
+    parameter tensor is the same object with the same ``_version`` (an
+    in-place update repacks), storage (``param.data = new`` repacks), device
+    and shape. Inference tensors carry no version counter and are packed
+    every call."""
     tensors = [p[name] for p in heads for name in PARAM_NAMES]
     if any(t.is_inference() for t in tensors):
         return pack_heads(heads, n)
-    key = (n, *((id(t), t._version, t.device, tuple(t.shape)) for t in tensors))
-    # The entry holds the tensors, so their ids are not reused while it lives.
-    entry = _PACKED.pop(key, None) or (tensors, pack_heads(heads, n))
-    _PACKED[key] = entry
-    while len(_PACKED) > CACHE_SIZE:
-        _PACKED.pop(next(iter(_PACKED)))
-    return entry[1]
+
+    def state(t):
+        return t._version, t.data_ptr(), t.device, tuple(t.shape)
+
+    entry = _PACKED.get(tensors[0])
+    if entry is not None:
+        width, guards, packed = entry
+        if width == n and len(guards) == len(tensors) and all(
+            ref() is t and saved == state(t) for (ref, saved), t in zip(guards, tensors)
+        ):
+            return packed
+    packed = pack_heads(heads, n)
+    _PACKED[tensors[0]] = (n, [(weakref.ref(t), state(t)) for t in tensors], packed)
+    return packed
 
 
 def run_heads_kernel(
@@ -174,11 +182,6 @@ def run_heads_kernel(
             _nvcc.check_param(f"head {k} {name}", p[name], shape, x.device)
         widths.append(f)
         outs.append(m)
-    if -(-b * h * w // TILE_PIXELS) > MAX_TILES or max(h, w) > MAX_SIDE:
-        raise ValueError(
-            f"{prefix}: (B, H, W) = {(b, h, w)}; the kernel takes at most {MAX_TILES} tiles of "
-            f"{TILE_PIXELS} pixels and H, W <= {MAX_SIDE}"
-        )
     packed = packed_heads(heads, bn)
     nh = len(heads)
     out = x.new_empty(b, 2 * h, 2 * w, sum(outs))
@@ -191,6 +194,8 @@ def run_heads_kernel(
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
+        # 1 (invalid value): a shape the kernel does not take, such as more
+        # than 65535 tiles of 128 pixels or a side over 32767.
         raise RuntimeError(f"{prefix}_f32 launch failed: CUDA error {rc}")
     return list(out.split(outs, dim=-1))
 

@@ -367,7 +367,7 @@ def check_blocks(gen, device):
             f"bound_f32_simt_ms={t['simt']:.4f}",
             flush=True,
         )
-    t_ops, t_bytes, simt = (sum(t[key] for t in sums.values()) for key in ("t_ops", "t_bytes", "simt"))
+    t_ops, t_bytes = (sum(t[key] for t in sums.values()) for key in ("t_ops", "t_bytes"))
     return {
         "max_abs_err": max_abs_err,
         # Summed over the 36 blocks of a one-chunk detect(): both passes.
@@ -376,7 +376,6 @@ def check_blocks(gen, device):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_rate": "projections as 3 TF32 products at 495 TFLOP/s, depthwise at 67 TFLOP/s f32",
-        "bound_f32_simt_ms": simt,
         **{f"{which}_pass_{key}": t[key] for which, t in sums.items() for key in ("ms", "plain_ms")},
         "gemm_kernels": sorted(gemm_kernels),
     }
@@ -442,9 +441,8 @@ def check_neck_and_heads(gen, device):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
-        if "t_simt" in rows[0][0]:
+        if "rel64" in rows[0][0]:
             numbers["bound_rate"] = "3 TF32 products a product at 495 TFLOP/s"
-            numbers["bound_f32_simt_ms"] = sum(n * r["t_simt"] for r, n in rows)
             numbers["rel_vs_f64"] = {
                 which: max(r["rel64"][which] for r, _ in rows) for which in ("kernel", "plain")
             }

@@ -5,8 +5,11 @@ TF32 hi + lo taps unpack to the collapsed taps (which
 ``_phase_tap_weights``); a numpy emulation of the kernel's 3xTF32 products,
 read from the packed operands in the kernel's order with its split of A,
 matches the plain version within 1e-5 relative (the kernel's bar on the
-card); the packing cache repacks after an in-place update and not
-otherwise. Micro shape: 13x19 pixels, C = 32, head widths 16..18."""
+card); the packing cache repacks after an in-place update or a ``.data``
+swap and not otherwise, and lets a pack go with its model. Micro shape: 13x19 pixels, C = 32, head widths 16..18."""
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +22,6 @@ C = 32
 OUTS = (1, 2, 4, 4)  # head widths (C + M) // 2 = 16, 17, 18, 18
 WIDTH = 200  # the precise heads kernel's N (csrc/precise_heads.cu)
 REL_TOL = 1e-5
-# The kernel's A register slots (csrc/fpn_head.cuh): within each group of 8
-# channels, thread t of a quad holds channels 2t and 2t + 1 in K slots t and
-# t + 4.
-A_SLOT = tuple(2 * s if s < 4 else 2 * (s - 4) + 1 for s in range(8))
 
 
 def _heads(seed=0):
@@ -97,7 +96,7 @@ def _emulate(x, heads, n):
                 dy, dx = divmod(tap, 2)
                 rows = xp[:, pa + dy : pa + dy + h, pb + dx : pb + dx + wd].reshape(b * h * wd, -1)
                 for chunk in range(chunks):
-                    a = rows[:, chunk * K.KC : (chunk + 1) * K.KC].reshape(-1, 4, 8)[:, :, list(A_SLOT)]
+                    a = rows[:, chunk * K.KC : (chunk + 1) * K.KC].reshape(-1, 4, 8)[:, :, list(K.KSLOT)]
                     ah, al = (t.numpy().reshape(-1, K.KC) for t in _split_a(torch.from_numpy(a.copy())))
                     # (2, nb, kb, r, e) -> (2, n, 32): row 8 nb + r, K slot 4 kb + e.
                     bh, bl = w[k, phase, tap, chunk].transpose(0, 1, 3, 2, 4).reshape(2, n, K.KC)
@@ -142,3 +141,20 @@ def test_pack_cache_repacks_only_after_an_update():
         assert torch.equal(second[name], t), name
     assert not torch.equal(second["vec"], first["vec"]) and not torch.equal(second["w"], first["w"])
     assert K.packed_heads(heads, WIDTH) is second
+    # A swap by ``.data`` keeps the tensor's identity, version and shape.
+    with torch.no_grad():
+        heads[1]["step2.weight"].data = heads[1]["step2.weight"] * 3.0
+    third = K.packed_heads(heads, WIDTH)
+    assert third is not second
+    assert torch.equal(third["w2"], K.pack_heads(heads, WIDTH)["w2"])
+    assert not torch.equal(third["w2"], second["w2"])
+    assert K.packed_heads(heads, WIDTH) is third
+
+
+def test_pack_cache_lets_the_pack_go_with_the_model():
+    heads = _heads(4)
+    packed = weakref.ref(K.packed_heads(heads, WIDTH)["w"])
+    assert packed() is not None
+    del heads
+    gc.collect()
+    assert packed() is None
