@@ -19,7 +19,7 @@
 // H100 SXM's 495 TFLOP/s dense TF32 (700 W): 1.32 ms for the rough heads at
 // 240x192x384, 3.07 ms for the precise heads at 256x208x384.
 //
-// Design (one launch):
+// Design (one launch), on the implicit GEMM of conv_gemm.cuh:
 //   * A block owns one head at one phase for kBM = 128 low-resolution pixels
 //     (flattened over B, H, W) and all of the head's features, padded to N
 //     (a multiple of 8; the wrapper zero-pads the weights). 256 threads are
@@ -28,29 +28,9 @@
 //     of one pixel tile (all heads and phases) are adjacent in the grid, so
 //     the tile's input is read from L2: x passes through L2 once per
 //     (head, phase), 8 times (rough) or 16 times (precise).
-//   * K is walked 32 input channels of one tap at a time through a
-//     three-stage ring in shared memory. The A chunk (128 shifted rows x 32
-//     channels) comes by cp.async, whose zero-fill gives the taps outside
-//     the map, the channels past C and the pixels past the end. The B chunk
-//     (the collapsed taps, N x 32, as a TF32 hi part and a lo part, 256 N
-//     bytes) comes by one bulk copy (cp.async.bulk) that completes on an
-//     mbarrier; the wrapper packed it once in wgmma's no-swizzle K-major
-//     core-matrix order, so the copy is one contiguous run.
-//   * The products are wgmma.m64nNk8.f32.tf32.tf32 with A from registers
-//     and B from shared memory, N split as N0 + N1 (96 + 96 or 104 + 96).
-//     Each A value is split in registers into a TF32 hi and lo with integer
-//     rounding (cvt.rna.tf32 runs on the quarter-rate conversion pipe); B's
-//     split was done by the wrapper. Per 8-deep K step: a_lo.b_hi,
-//     a_hi.b_lo, a_hi.b_hi (a_lo.b_lo, ~2^-22 relative, is dropped).
-//     Within each group of 8 channels, A's register slot s holds channel
-//     2s (s < 4) or 2(s-4)+1, so a thread reads its two channels with one
-//     8-byte load; the wrapper packs B's K order to match.
-//   * The tensor core truncates its f32 accumulator after each product, a
-//     bias that grows with K (1536 per phase at the flagship). So each
-//     32-deep chunk's products go into a fresh register tile (scale-d 0 on
-//     the first) that is added to the running sum with an ordinary f32 add:
-//     one N half at a time, so a thread holds N/2 running sums, N0/2 fresh
-//     and two 8-deep steps' A (hi and lo, 16 registers) at once.
+//   * The main loop is conv_gemm::mainloop over the phase's 4 taps, a
+//     three-stage ring, N split as N0 + N1 (96 + 96 or 104 + 96) wgmma
+//     widths sharing one fresh tile.
 //   * The epilogue stays in the block: the tile plus the bias goes to shared
 //     memory over the ring and each thread reads back its two rows (so the
 //     GELUs do not need the accumulators' registers); LayerNorm over the
@@ -59,8 +39,6 @@
 //     GELU, the projection to the head's M <= 4 channels, and the
 //     interleaved (B, 2H, 2W, Mtot) write, each head at its own channel
 //     offset.
-//
-// A wait on a copy that never lands traps instead of hanging the card.
 
 #pragma once
 
@@ -71,20 +49,12 @@
 
 namespace fpn_head {
 
-using conv_gemm::allow_smem;
-using conv_gemm::cp_async16;
-using conv_gemm::cp_async_commit;
-using conv_gemm::cp_async_wait;
-using conv_gemm::gelu_exact;
-using conv_gemm::kEps;
+using namespace conv_gemm;
 
 constexpr int kMaxHeads = 4;
 constexpr int kMaxOut = 4;
-constexpr int kThreads = 256;  // two warpgroups
-constexpr int kBM = 128;       // low-resolution pixels a block
-constexpr int kKC = 32;        // input channels a stage
+constexpr int kBM = 128;  // low-resolution pixels a block
 constexpr int kStages = 3;
-constexpr int kLdA = kKC + 8;  // padded A row in floats: conflict-free 8-byte reads
 
 struct HeadSizes {
   int F[kMaxHeads];
@@ -96,205 +66,13 @@ template <int N>
 struct Layout {
   static constexpr int N0 = (N / 2 + 7) / 8 * 8;  // the two wgmma widths
   static constexpr int N1 = N - N0;
-  static constexpr int B_BYTES = N * kKC * 4;  // one of hi, lo
-  static constexpr int A_BYTES = kBM * kLdA * 4;
-  static constexpr int STAGE_BYTES = 2 * B_BYTES + A_BYTES;
+  using R = Ring<kBM, N, kStages>;
   static constexpr int VEC_BYTES = (3 + kMaxOut) * N * 4;  // the head's epilogue vectors
-  // Row stride of the epilogue's tile: 8 words mod 32 keeps the quad
-  // layout's 8-byte stores conflict-free.
-  static constexpr int LDZ = N + (40 - N % 32) % 32;
-  static constexpr size_t SMEM_BYTES = (size_t)kStages * STAGE_BYTES + VEC_BYTES + 8 * kStages;
+  static constexpr int LDZ = ldz(N);
+  static constexpr size_t SMEM_BYTES = (size_t)R::BYTES + VEC_BYTES + 8 * kStages;
   static_assert(N % 8 == 0 && (N0 == 96 || N0 == 104) && N1 == 96, "head width");
-  static_assert(kBM * LDZ * 4 <= kStages * STAGE_BYTES, "epilogue tile");
+  static_assert(kBM * LDZ * 4 <= R::BYTES, "epilogue tile");
 };
-
-// v = hi + lo, both TF32: round to nearest (ties away) on the 13 bits TF32
-// drops. The tensor core reads only the top 19 bits of an operand, so lo is
-// passed rounded the same way without its mask.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
-}
-
-// The low word of a shared-memory matrix descriptor of a K-major operand
-// without swizzle: core matrices of 8 rows x 16 bytes (128 contiguous
-// bytes), the next along K 128 bytes on (leading byte offset, bits 16-29);
-// the high word, which the wgmma wrappers add, holds the stride byte offset,
-// 1024 bytes to the next 8 rows (a row group holds all 32 K of a chunk).
-// Addresses and offsets are in 16-byte units, so adding one to the word
-// moves the operand 16 bytes on.
-__device__ __forceinline__ uint32_t smem_desc(uint32_t saddr) {
-  return ((saddr & 0x3ffffu) >> 4) | ((128u >> 4) << 16);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most `pending` committed groups are still running.
-template <int pending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(pending) : "memory");
-}
-// Keeps the compiler from touching the registers across an async wgmma.
-template <int K>
-__device__ __forceinline__ void fence_regs(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-// One arrival that also expects `bytes` from the bulk copy it announces.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (int tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1 << 24)) __trap();
-  }
-}
-
-// wgmma.m64nNk8.f32.tf32.tf32 on one warpgroup, A (64 x 8) from registers
-// in the m16n8k8 fragment order of each warp's 16 rows, B (N x 8) from
-// shared memory: d (64 x N, f32) += A . B, or d = A . B when scale_d is 0.
-// Thread (g, t) of warp w holds d[4 j + e] = row 16 w + g + 8 (e / 2),
-// column 8 j + 2 t + e % 2.
-template <int K>
-__device__ __forceinline__ void wgmma_n96(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
-                                          int scale_d) {
-  static_assert(K >= 48, "accumulator");
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 desc;\n"
-      "setp.ne.b32 p, %53, 0;\n"
-      "mov.b32 h, 64;\n"
-      "mov.b64 desc, {%52, h};\n"
-      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
-      "}, {%48,%49,%50,%51}, desc, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc_b), "r"(scale_d));
-}
-
-template <int K>
-__device__ __forceinline__ void wgmma_n104(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
-                                          int scale_d) {
-  static_assert(K >= 52, "accumulator");
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 desc;\n"
-      "setp.ne.b32 p, %57, 0;\n"
-      "mov.b32 h, 64;\n"
-      "mov.b64 desc, {%56, h};\n"
-      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51"
-      "}, {%52,%53,%54,%55}, desc, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc_b), "r"(scale_d));
-}
-
-// d (64 x NW) of one warpgroup += A (64 x 8) . B (NW x 8), for the two
-// widths the heads use.
-template <int NW, int K>
-__device__ __forceinline__ void wgmma(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
-                                      int scale_d) {
-  if constexpr (NW == 96) {
-    wgmma_n96(d, a, desc_b, scale_d);
-  } else {
-    static_assert(NW == 104, "wgmma width");
-    wgmma_n104(d, a, desc_b, scale_d);
-  }
-}
-
-// part (replaced) = the 3xTF32 products of one 32-deep chunk for NW
-// features, whose hi and lo B tiles start at descriptors hi and lo; As is
-// this thread's first A element (row g, channel 2 t4). Each 8-deep step's A
-// is read and split just before its products, into one of two register
-// buffers: the step two back must be done with it, while the last step's
-// products still run. Returns when all are done.
-template <int NW, int K>
-__device__ __forceinline__ void chunk_products(float (&part)[K], const float* As, uint32_t hi,
-                                               uint32_t lo) {
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int k8 = 0; k8 < kKC / 8; ++k8) {
-    uint32_t(&h)[4] = ah[k8 % 2];
-    uint32_t(&l)[4] = al[k8 % 2];
-    if (k8 >= 2) wgmma_wait<1>();
-    const float2 v0 = *reinterpret_cast<const float2*>(As + 8 * k8);
-    const float2 v1 = *reinterpret_cast<const float2*>(As + 8 * kLdA + 8 * k8);
-    split_tf32(v0.x, h[0], l[0]);
-    split_tf32(v1.x, h[1], l[1]);
-    split_tf32(v0.y, h[2], l[2]);
-    split_tf32(v1.y, h[3], l[3]);
-    const uint32_t step = 16 * k8;  // 256 bytes a K step
-    wgmma_fence();
-    wgmma<NW>(part, l, hi + step, k8 > 0);
-    wgmma<NW>(part, h, lo + step, 1);
-    wgmma<NW>(part, h, hi + step, 1);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs(part);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Stores a warpgroup accumulator plus the bias, for features from n0: the
-// thread's rows g and g + 8 go to zrow and zrow + 8 ld. Register i of thread
-// t4 holds feature n0 + 8 (i / 4) + 2 t4 + i % 2 of row (i / 2) % 2.
-template <int K>
-__device__ __forceinline__ void store_pairs(const float (&a)[K], float* zrow, int ld, int n0,
-                                            int t4, const float* bias) {
-#pragma unroll
-  for (int i = 0; i < K; i += 2) {
-    const int n = n0 + 8 * (i / 4) + 2 * t4;
-    *reinterpret_cast<float2*>(zrow + ((i >> 1) & 1) * 8 * ld + n) =
-        make_float2(a[i] + bias[n], a[i + 1] + bias[n + 1]);
-  }
-}
 
 // x (B, H, W, C); w (heads, 4 phases, 4 taps, ceil(C/32) chunks, [hi, lo],
 // N/8, 8, 8, 4): each chunk's B in core-matrix order (row group, K group of
@@ -315,85 +93,21 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int head = blockIdx.x / 4, phase = blockIdx.x % 4;
   const int pa = phase / 2, pb = phase % 2;
   const int m0 = blockIdx.y * kBM;
-  const int chunks = (C + kKC - 1) / kKC;
-  const int nk = 4 * chunks;
+  const int nk = 4 * ((C + kKC - 1) / kKC);
   const float* wb = w + (long long)(head * 4 + phase) * nk * 2 * N * kKC;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   // The head's bias, LN scale, LN bias (N each) and projection (kMaxOut x N)
   // for the epilogue, after the ring; then the ring's mbarriers.
-  float* sv = reinterpret_cast<float*>(smem + kStages * L::STAGE_BYTES);
+  float* sv = reinterpret_cast<float*>(smem + L::R::BYTES);
   for (int i = tid; i < 3 * N; i += kThreads) sv[i] = vec[head * 3 * N + i];
   for (int i = tid; i < kMaxOut * N; i += kThreads) sv[3 * N + i] = w2[head * kMaxOut * N + i];
-  const uint32_t bars = sbase + kStages * L::STAGE_BYTES + L::VEC_BYTES;
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const uint32_t bars = sbase + L::R::BYTES + L::VEC_BYTES;
 
-  // The A pieces this thread copies: rows tid / 8 + 32 r, channels
-  // 4 (tid % 8) .. + 3 of every chunk.
-  constexpr int A_ITERS = kBM * (kKC / 4) / kThreads;
-  const int q = tid % 8;
-  int a_ij[A_ITERS];  // (i << 16) | j of each row's pixel
-#pragma unroll
-  for (int r = 0; r < A_ITERS; ++r) {
-    const int rem = (m0 + tid / 8 + 32 * r) % (H * W);
-    a_ij[r] = ((rem / W) << 16) | (rem % W);
-  }
-  auto load = [&](int kt, int s) {
-    const int t = kt / chunks, c = (kt - t * chunks) * kKC + 4 * q;
-    const int oy = pa - 1 + t / 2, ox = pb - 1 + t % 2;
-    const uint32_t stage = sbase + s * L::STAGE_BYTES;
-    if (tid == 0) bulk_load(stage, wb + (long long)kt * 2 * N * kKC, 2 * L::B_BYTES, bars + 8 * s);
-    float* As = reinterpret_cast<float*>(smem + s * L::STAGE_BYTES + 2 * L::B_BYTES);
-#pragma unroll
-    for (int r = 0; r < A_ITERS; ++r) {
-      const int m = m0 + tid / 8 + 32 * r;
-      const int iy = (a_ij[r] >> 16) + oy, ix = (a_ij[r] & 0xffff) + ox;
-      const bool ok = m < npix && iy >= 0 && iy < H && ix >= 0 && ix < W && c < C;
-      const float* src = ok ? x + ((long long)(m + oy * W + ox) * C + c) : x;
-      cp_async16(As + (tid / 8 + 32 * r) * kLdA + 4 * q, src, ok);
-    }
-  };
-
-  const int lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int row0 = 64 * (tid / 128) + 16 * ((tid % 128) / 32) + g;  // and row0 + 8
-  float acc0[N0 / 2], acc1[N1 / 2], part[N0 / 2];
-#pragma unroll
-  for (int i = 0; i < N0 / 2; ++i) acc0[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N1 / 2; ++i) acc1[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N0 / 2; ++i) part[i] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % kStages;
-    cp_async_wait<kStages - 2>();
-    mbar_wait(bars + 8 * s, (kt / kStages) & 1);
-    __syncthreads();  // chunk kt landed for all; chunk kt-1's stage is free
-    const int next = kt + kStages - 1;
-    if (next < nk) load(next, next % kStages);
-    cp_async_commit();
-
-    const float* As = reinterpret_cast<const float*>(smem + s * L::STAGE_BYTES + 2 * L::B_BYTES) +
-                      row0 * kLdA + 2 * t4;
-    const uint32_t hi = smem_desc(sbase + s * L::STAGE_BYTES), lo = hi + (L::B_BYTES >> 4);
-    chunk_products<N0>(part, As, hi, lo);
-#pragma unroll
-    for (int i = 0; i < N0 / 2; ++i) acc0[i] += part[i];
-    const uint32_t half = (N0 / 8) * (1024 >> 4);  // the second width's first row group
-    chunk_products<N1>(part, As, hi + half, lo + half);
-#pragma unroll
-    for (int i = 0; i < N1 / 2; ++i) acc1[i] += part[i];
-  }
-  cp_async_wait<0>();
+  // Tap t of phase (pa, pb) reads source pixel (i + pa - 1 + t / 2, j + pb - 1 + t % 2).
+  const int arow = 64 * (tid / 128);
+  float acc0[N0 / 2], acc1[N1 / 2];
+  mainloop<kBM, N, kStages, N0, N1>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0, smem,
+                                    bars, arow, 0, acc0, acc1);
 
   // Select this block's sizes without indexing the parameter struct by a
   // run-time value (which would copy it to local memory).
@@ -412,28 +126,16 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // both warpgroups have finished with.
   __syncthreads();
   float* z = reinterpret_cast<float*>(smem);
+  const int t4 = tid % 4, row0 = arow + quad_row();
   store_pairs(acc0, z + row0 * L::LDZ, L::LDZ, 0, t4, sv);
   store_pairs(acc1, z + row0 * L::LDZ, L::LDZ, N0, t4, sv);
   __syncwarp();  // a row's features come from the four threads of its quad
-  const float inv_f = 1.0f / F;
   const int hw = H * W;
 #pragma unroll 1
   for (int r = 0; r < 2; ++r) {
     const float* zr = z + (row0 + 8 * r) * L::LDZ + 2 * t4;
-    // z is zero past F.
-    float sum = 0.0f;
-#pragma unroll 5
-    for (int j = 0; j < N / 8; ++j) sum += zr[8 * j] + zr[8 * j + 1];
-    const float mean = quad_sum(sum) * inv_f;
-    float sq = 0.0f;
-#pragma unroll 5
-    for (int j = 0; j < N / 8; ++j) {
-      const int n = 8 * j + 2 * t4;
-      const float d0 = zr[8 * j] - mean, d1 = zr[8 * j + 1] - mean;
-      if (n < F) sq = fmaf(d0, d0, sq);
-      if (n + 1 < F) sq = fmaf(d1, d1, sq);
-    }
-    const float rstd = rsqrtf(quad_sum(sq) * inv_f + kEps);
+    float rstd;
+    const float mean = ln_stats<N>(zr, F, t4, rstd);
     // GELU and the projection in one pass; the LN scale and bias and the
     // projection are zero past F, the projection and b2 past M.
     float dot[kMaxOut] = {};

@@ -27,36 +27,26 @@ Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.fused_upsample import heads_phase_form, phase_tap_weights
-from . import _nvcc
+from . import _nvcc, packing
 from .fpn_neck import fpn_neck_forward_fused
+from .packing import KC
 
 # Calls that launched the kernel.
 LAUNCHES = 0
 
 MAX_HEADS = 4
 MAX_OUT = 4
-# The packed layout's constants, as csrc/fpn_head.cuh reads them: input
-# channels a kernel stage (kKC), and the channel each wgmma K slot of a group
-# of 8 holds (thread t of a quad loads channels 2t and 2t + 1, its K slots t
-# and t + 4, with one 8-byte read). The CPU tests import both from here.
-KC = 32
-KSLOT = (0, 2, 4, 6, 1, 3, 5, 7)
 PARAM_NAMES = (
     "step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias",
     "step2.weight", "step2.bias",
 )
-# One packed set per first head's conv weight, held weakly: it goes with the
-# model. The entry's guards name every tensor it was packed from.
-_PACKED = WeakIdKeyDictionary()
 
 Params = Dict[str, torch.Tensor]
 
@@ -83,21 +73,13 @@ def build() -> ctypes.CDLL:
     return bind(_nvcc.build("fpn_heads", "fpn_heads.cu"), "fpn_heads")
 
 
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties
-    away from zero, by integer ops on its bits, as the kernel splits A."""
-    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-
 def pack_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
     """The heads' parameters in the kernel's layouts (``csrc/fpn_head.cuh``),
     zero past each head's F and M and past C:
 
     - ``w`` (heads, 4 phases, 4 taps, ceil(C/32) chunks, 2, n/8, 8, 8, 4): the
-      collapsed taps of each 32-channel chunk as a TF32 ``hi`` and
-      ``lo = tf32(w - hi)`` (axis 4), each in wgmma's K-major core-matrix
-      order (row group, K group of 4, row, K in group), with K slot s of each
-      8 holding channel ``KSLOT[s]`` of those 8;
+      collapsed taps, ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo``
+      (axis 4) of each 32-channel chunk in wgmma's K-major core-matrix order;
     - ``vec`` (heads, 3, n): smoothing bias, LN scale, LN bias;
     - ``w2`` (heads, MAX_OUT, n) and ``b2`` (heads, MAX_OUT)."""
     ref = heads[0]["step1.conv.weight"]
@@ -120,37 +102,16 @@ def pack_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
             vec[k, 2, :f] = p["step1.ln.bias"]
             w2[k, :m, :f] = p["step2.weight"]
             b2[k, :m] = p["step2.bias"]
-        taps = taps.reshape(nh, 4, 4, chunks, KC // 8, 8, n)[..., KSLOT, :]
-        taps = taps.reshape(nh, 4, 4, chunks, KC // 4, 4, n // 8, 8).permute(0, 1, 2, 3, 6, 4, 7, 5)
-        hi = tf32_round(taps)
-        w = torch.stack([hi, tf32_round(taps - hi)], dim=4)
+        w = packing.pack_kmajor(taps)
     return {"w": w, "vec": vec, "w2": w2, "b2": b2}
 
 
 def packed_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
-    """``pack_heads(heads, n)``, packed once per parameter set. The pack is
-    kept while the first head's conv weight lives, and reused while every
-    parameter tensor is the same object with the same ``_version`` (an
-    in-place update repacks), storage (``param.data = new`` repacks), device
-    and shape. Inference tensors carry no version counter and are packed
-    every call."""
+    """``pack_heads(heads, n)``, packed once per parameter set
+    (``packing.cached``: kept while the first head's conv weight lives,
+    repacked when any parameter's version or storage changes)."""
     tensors = [p[name] for p in heads for name in PARAM_NAMES]
-    if any(t.is_inference() for t in tensors):
-        return pack_heads(heads, n)
-
-    def state(t):
-        return t._version, t.data_ptr(), t.device, tuple(t.shape)
-
-    entry = _PACKED.get(tensors[0])
-    if entry is not None:
-        width, guards, packed = entry
-        if width == n and len(guards) == len(tensors) and all(
-            ref() is t and saved == state(t) for (ref, saved), t in zip(guards, tensors)
-        ):
-            return packed
-    packed = pack_heads(heads, n)
-    _PACKED[tensors[0]] = (n, [(weakref.ref(t), state(t)) for t in tensors], packed)
-    return packed
+    return packing.cached(tensors, ("heads", n), lambda: pack_heads(heads, n))
 
 
 def run_heads_kernel(

@@ -17,13 +17,15 @@ Phases, each announced with its elapsed seconds:
      GEMM 2) timed from a torch.profiler trace, with the GEMM kernels'
      names, which name their inner product;
   3b. the same for the FPN neck level-0, rough-heads and precise-heads
-     kernels, at the flagship's shapes (neck at 240x192 and 256x208, rough
-     heads at 240x192x384, precise heads at 256x208x384) and a ragged micro
-     shape each (13x19, C=32, head widths 16..18); the heads (3xTF32 wgmma)
-     also against an f64 evaluation of the plain version (rel_vs_f64, for
-     the kernel and the plain version), with bound_ms at the 3xTF32 rate
-     and bound_f32_simt_ms beside it, and the time to pack their weights
-     (once per parameter set; the kernel is timed with the packing cached);
+     kernels (all three 3xTF32 wgmma), at the flagship's shapes (neck at
+     240x192 and 256x208, rough heads at 240x192x384, precise heads at
+     256x208x384) and a ragged micro shape each (13x19, neck widths
+     8/32/8, head widths 16..18); each also against an f64 evaluation of
+     the plain version (rel_vs_f64, for the kernel and the plain version),
+     with bound_ms at the 3xTF32 rate and bound_f32_simt_ms beside it, and
+     the time to pack its weights (once per parameter set; the kernel is
+     timed with the packing cached); the neck's two launches (step1, step2)
+     timed apart from a torch.profiler trace;
   4. detect: the default path, ``AdaptiveScalingInference.detect()`` with
      the tiny/FPN flagship weights on a committed page, held against the JAX
      package's stored output (tests/fixtures/torch_port/
@@ -35,7 +37,8 @@ Phases, each announced with its elapsed seconds:
      0 and the heads through their kernels), the same bars, exact launch
      counts of all four kernels, the fused forwards against the module
      path's (relative error <= 1e-4) and their warm timings beside it, and
-     each fused forward's device time by kernel from a torch.profiler trace;
+     each fused forward's device time by kernel from a torch.profiler
+     trace; three warm fused detect() calls build no weight pack;
   6. multi-chunk detect: the fused configuration with a small
      ``precise_stacked_image_max_area``, so that the page's regions make
      several precise stacks, against its JAX reference (the same bars; the
@@ -225,53 +228,66 @@ def heads_work(b: int, h: int, w: int, c: int, heads):
     return flops, nbytes
 
 
-def check_kernel(label: str, kernel, plain, args, work, reps: int = 10, rate: float = PEAK_F32_FLOPS,
-                 exact_args=None):
+def check_kernel(label: str, kernel, plain, args, exact_args, work, reps: int = 10):
     """The kernel against its plain version on the same inputs; raises past
-    REL_TOL. Prints and returns max_abs_err, kernel and plain ms, and the
-    operations at ``rate`` (flop/s of the work as the kernel computes it)
-    and the bytes (each input read once, each output written once) at the
-    memory rate, in ms. Where ``rate`` is not the f32 SIMT peak, the bound
-    at that peak too (``t_simt``, printed as bound_f32_simt_ms). With
-    ``exact_args`` (the same inputs in f64), how far the kernel and the
-    plain version each are from the plain version in f64, relative to its
-    largest value (``rel64``)."""
+    REL_TOL. Prints and returns max_abs_err, kernel and plain ms, the
+    operations at the 3xTF32 rate (three TF32 products a product at the
+    dense TF32 peak) and the bytes (each input read once, each output
+    written once) at the memory rate, in ms, the operations at the f32 SIMT
+    peak too (``t_simt``, printed as bound_f32_simt_ms), and how far the
+    kernel and the plain version each are from the plain version run on
+    ``exact_args`` (the same inputs in f64), relative to its largest value
+    (``rel64``)."""
     import torch
 
     got = kernel(*args)
     torch.cuda.synchronize()
     want = plain(*args)
-    got = list(got) if isinstance(got, (list, tuple)) else [got]
-    want = list(want) if isinstance(want, (list, tuple)) else [want]
+    exact = plain(*exact_args)
+    got, want, exact = ([v] if torch.is_tensor(v) else list(v) for v in (got, want, exact))
     err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
     rel = err / max(float(w_.abs().max()) for w_ in want)
+    scale = max(float(e.abs().max()) for e in exact)
+    rel64 = {
+        which: max(float((v.double() - e).abs().max()) for v, e in zip(vals, exact)) / scale
+        for which, vals in (("kernel", got), ("plain", want))
+    }
     ms = cuda_ms(lambda: kernel(*args), reps)
     plain_ms = cuda_ms(lambda: plain(*args), reps)
     flops, nbytes = work
-    t_ops, t_bytes = flops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_simt = flops / PEAK_F32_FLOPS * 1e3
     bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes}
-    extra = ""
-    if rate != PEAK_F32_FLOPS:
-        result["t_simt"] = flops / PEAK_F32_FLOPS * 1e3
-        extra += f" bound_f32_simt_ms={result['t_simt']:.4f}"
-    if exact_args is not None:
-        exact = plain(*exact_args)
-        exact = list(exact) if isinstance(exact, (list, tuple)) else [exact]
-        scale = max(float(e.abs().max()) for e in exact)
-        result["rel64"] = {
-            which: max(float((v.double() - e).abs().max()) for v, e in zip(vals, exact)) / scale
-            for which, vals in (("kernel", got), ("plain", want))
-        }
-        extra += f" rel_vs_f64 kernel={result['rel64']['kernel']:.3e} plain={result['rel64']['plain']:.3e}"
     print(
         f"{label}: max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}){extra}",
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}, 3xTF32) bound_f32_simt_ms={t_simt:.4f} "
+        f"rel_vs_f64 kernel={rel64['kernel']:.3e} plain={rel64['plain']:.3e}",
         flush=True,
     )
     if not rel <= REL_TOL:
         raise AssertionError(f"{label}: relative error {rel} > {REL_TOL}")
-    return result
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes,
+            "rel64": rel64}
+
+
+def kernel_device_ms(fn, reps: int = 10):
+    """Device ms per call of each kernel that ``fn`` runs on the card, by its
+    name in a torch.profiler trace of ``reps`` warm calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA:  # host-side entries carry their kernels' time too
+            ms[event.key] = ms.get(event.key, 0.0) + event.device_time_total / 1e3 / reps
+    return ms
 
 
 def block_launch_ms(x, p, reps: int = 10):
@@ -281,31 +297,22 @@ def block_launch_ms(x, p, reps: int = 10):
     the names of the GEMM kernels that ran, which name their inner product
     (``gemm_3xtf32_kernel<columns, epilogue>``; epilogue 0 is GEMM 1's GELU,
     1 GEMM 2's residual, 2 GEMM 2's split partials)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from adascale_torch.kernels import convnext_block as K
 
-    K.convnext_block(x, p)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            K.convnext_block(x, p)
-        torch.cuda.synchronize()
     part_ms, gemms = {"dw_ln": 0.0, "gemm1": 0.0, "gemm2": 0.0}, []
-    for event in prof.key_averages():
-        gemm = re.search(r"(gemm_\w+_kernel)<(\d+), (\d)>", event.key)
-        if "dw_ln_kernel" in event.key:
+    for key, ms in kernel_device_ms(lambda: K.convnext_block(x, p), reps).items():
+        gemm = re.search(r"(gemm_\w+_kernel)<(\d+), (\d)>", key)
+        if "dw_ln_kernel" in key:
             part = "dw_ln"
         elif gemm:
             part = "gemm1" if gemm.group(3) == "0" else "gemm2"
             gemms.append(f"{gemm.group(1)}<{gemm.group(2)},{gemm.group(3)}>")
-        elif "reduce_kernel" in event.key:
+        elif "reduce_kernel" in key:
             part = "gemm2"
             gemms.append("reduce_kernel")
         else:
             continue
-        part_ms[part] += event.device_time_total / 1e3 / reps
+        part_ms[part] += ms
     if not all(part_ms.values()):
         raise AssertionError(f"block launches missing from the trace: {part_ms}")
     return part_ms, sorted(gemms)
@@ -404,29 +411,42 @@ def build_all():
                 print("ptxas:", line.strip(), flush=True)
 
 
-def pack_ms(heads, width: int) -> float:
-    """Host-clock ms of packing one heads parameter set for its kernel
+def pack_ms(pack) -> float:
+    """Host-clock ms of ``pack()``, packing one parameter set for its kernel
     (median of 3, synchronised): what a call pays once per parameter set."""
     import torch
-
-    from adascale_torch.kernels import fpn_heads
 
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fpn_heads.pack_heads(heads, width)
+        pack()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
     return statistics.median(walls)
 
 
+def neck_launch_ms(f0, u, p):
+    """Device ms per call of the neck kernel's two launches (step1: the 1x1
+    + LN + GELU + u; step2: the 3x3 + LN + GELU), from a trace of 10 calls."""
+    from adascale_torch.kernels import fpn_neck
+
+    parts = {"step1": 0.0, "step2": 0.0}
+    for key, ms in kernel_device_ms(lambda: fpn_neck.fused_neck_l0(f0, u, p)).items():
+        for part in parts:
+            if f"neck_{part}_kernel" in key:
+                parts[part] += ms
+    if not all(parts.values()):
+        raise AssertionError(f"neck launches missing from the trace: {parts}")
+    return parts
+
+
 def check_neck_and_heads(gen, device):
-    """Phase 3b: the neck and head kernels against their plain versions; the
-    heads also against an f64 evaluation, with their bounds at the 3xTF32
-    rate they compute at and their packing time. Returns per kernel the
-    entries of the kernels line (times and bounds summed over one one-chunk
-    detect()'s calls)."""
+    """Phase 3b: the neck and head kernels against their plain versions and
+    an f64 evaluation, with their bounds at the 3xTF32 rate they compute at
+    and their packing time; the neck's two launches apart. Returns per
+    kernel the entries of the kernels line (times and bounds summed over one
+    one-chunk detect()'s calls)."""
     import torch
 
     from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
@@ -434,34 +454,43 @@ def check_neck_and_heads(gen, device):
     def total(rows):
         t_ops = sum(n * r["t_ops"] for r, n in rows)
         t_bytes = sum(n * r["t_bytes"] for r, n in rows)
-        numbers = {
+        return {
             "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
             "ms": sum(n * r["ms"] for r, n in rows),
             "plain_ms": sum(n * r["plain_ms"] for r, n in rows),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        }
-        if "rel64" in rows[0][0]:
-            numbers["bound_rate"] = "3 TF32 products a product at 495 TFLOP/s"
-            numbers["rel_vs_f64"] = {
+            "bound_rate": "3 TF32 products a product at 495 TFLOP/s",
+            "rel_vs_f64": {
                 which: max(r["rel64"][which] for r, _ in rows) for which in ("kernel", "plain")
-            }
-        return numbers
+            },
+            "pack_ms": sum(r.get("pack_ms", 0.0) for r, _ in rows),
+        }
+
+    def double(params):
+        return {k: v.double() for k, v in params.items()}
 
     rows = []
     for (h, w, c0, cm, co), calls in NECK_SHAPES:
         p = random_neck_params(c0, cm, co, gen, device)
         f0 = torch.randn(1, h, w, c0, generator=gen).to(device)
         u = torch.randn(1, h, w, cm, generator=gen).to(device)
+        label = f"fpn_neck_l0 {h}x{w} {c0}->{cm}->{co}"
         r = check_kernel(
-            f"fpn_neck_l0 {h}x{w} {c0}->{cm}->{co}", fpn_neck.fused_neck_l0,
-            fpn_neck.fused_neck_l0_plain, (f0, u, p), neck_work(1, h, w, c0, cm, co),
+            label, fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain, (f0, u, p),
+            (f0.double(), u.double(), double(p)), neck_work(1, h, w, c0, cm, co),
         )
         rows.append((r, calls))
+        if calls:
+            parts = neck_launch_ms(f0, u, p)
+            r["pack_ms"] = pack_ms(lambda: fpn_neck.pack_neck(p))
+            print(
+                f"{label} launches, device ms a call (torch.profiler, 10 calls): "
+                + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+                + f"; packing, once per parameter set: pack_ms={r['pack_ms']:.4f}",
+                flush=True,
+            )
     neck = total(rows)
-
-    def double(params):
-        return {k: v.double() for k, v in params.items()}
 
     heads_rows = {}
     for name, module, shapes, outs in (
@@ -479,16 +508,15 @@ def check_neck_and_heads(gen, device):
                 kernel, plain = precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain
                 args, exact_args = (x, heads), (x.double(), [double(p) for p in heads])
             r = check_kernel(
-                f"{name} {h}x{w}x{c}", kernel, plain, args, heads_work(1, h, w, c, heads),
-                rate=PEAK_TF32_FLOPS / 3, exact_args=exact_args,
+                f"{name} {h}x{w}x{c}", kernel, plain, args, exact_args, heads_work(1, h, w, c, heads),
             )
             rows.append((r, calls))
             if calls:
                 width = getattr(module.build(), f"{name}_max_width")()
-                r["pack_ms"] = pack_ms(heads, width)
+                r["pack_ms"] = pack_ms(lambda: fpn_heads.pack_heads(heads, width))
                 print(f"{name} {h}x{w}x{c} packing, once per parameter set: pack_ms={r['pack_ms']:.4f}",
                       flush=True)
-        heads_rows[name] = {**total(rows), "pack_ms": sum(r.get("pack_ms", 0.0) for r, _ in rows)}
+        heads_rows[name] = total(rows)
     return neck, heads_rows["fpn_heads"], heads_rows["precise_heads"]
 
 
@@ -563,7 +591,7 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
 # Kernel-name patterns of the port's kernels in a profiler trace.
 KERNEL_GROUPS = {
     "heads": ("heads_kernel",),
-    "neck_l0": ("step1_kernel", "step2_kernel"),
+    "neck_l0": ("neck_step1_kernel", "neck_step2_kernel"),
     "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel"),
 }
 
@@ -573,22 +601,10 @@ def forward_device_ms(fn, reps: int = 3):
     trace of ``reps`` warm calls: the port's kernels (``KERNEL_GROUPS``),
     everything else the card ran (``other``: library convolutions, norms,
     copies) and their sum (``device``)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     parts = dict.fromkeys([*KERNEL_GROUPS, "other"], 0.0)
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:  # host-side entries carry their kernels' time too
-            continue
-        group = next((g for g, keys in KERNEL_GROUPS.items() if any(k in event.key for k in keys)), "other")
-        parts[group] += event.device_time_total / 1e3 / reps
+    for key, ms in kernel_device_ms(fn, reps).items():
+        group = next((g for g, keys in KERNEL_GROUPS.items() if any(k in key for k in keys)), "other")
+        parts[group] += ms
     parts["device"] = sum(parts.values())
     return parts
 
@@ -706,6 +722,8 @@ def main() -> None:
     print_detect_steps(engine, image)
 
     stamp("phase 5: detect() with use_pallas_neck_heads=True")
+    from adascale_torch.kernels import packing
+
     fused_cfg = dataclasses.replace(cfg, use_pallas_neck_heads=True)
     fused = AdaptiveScalingInference(fused_cfg, params=params)
     _, fused_launches = fused_detect_checked(fused, image, ref, blocks_per_pass)
@@ -734,12 +752,17 @@ def main() -> None:
                 + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()),
                 flush=True,
             )
+    packs = packing.PACKS
+    wall = detect_wall_ms(fused, image)
     print(
         "forward ms (module path / fused): "
         + "; ".join(f"{k} {m:.3f} / {f:.3f}" for k, (m, f) in forward_ms.items())
-        + f"; fused detect() wall: {detect_wall_ms(fused, image):.1f} ms per page (median of 3)",
+        + f"; fused detect() wall: {wall:.1f} ms per page (median of 3); weight packs built "
+        f"during those 3 warm detect(): {packing.PACKS - packs}",
         flush=True,
     )
+    if packing.PACKS != packs:
+        raise AssertionError(f"warm fused detect() built {packing.PACKS - packs} weight packs")
     print_detect_steps(fused, image)
 
     stamp("phase 6: multi-chunk fused detect() (a small precise stack-area cap)")

@@ -6,16 +6,21 @@ TF32 hi + lo taps unpack to the collapsed taps (which
 read from the packed operands in the kernel's order with its split of A,
 matches the plain version within 1e-5 relative (the kernel's bar on the
 card); the packing cache repacks after an in-place update or a ``.data``
-swap and not otherwise, and lets a pack go with its model. Micro shape: 13x19 pixels, C = 32, head widths 16..18."""
+swap and not otherwise, and lets a pack go with its model, for the heads
+and for the neck level 0 (``fpn_neck.packed_neck``), which share the cache.
+Micro shape: 13x19 pixels, C = 32, head widths 16..18."""
 import gc
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from adascale_torch.kernels import fpn_heads as K
-from adascale_torch.models.fpn import FpnHead
+from adascale_torch.kernels import fpn_neck
+from adascale_torch.kernels.packing import KC, KSLOT, tf32_round
+from adascale_torch.models.fpn import FpnHead, FpnNeck
 from adascale_torch.ops.fused_upsample import heads_phase_form, phase_tap_weights
 
 C = 32
@@ -44,8 +49,8 @@ def _unpack(w):
     t = w.permute(4, 0, 1, 2, 3, 6, 8, 5, 7)  # (2, heads, 4, 4, chunk, kb, e, nb, r)
     t = t.reshape(2, nh, 4, 4, chunks, 4, 8, nb * 8)  # (.., k8 step, slot, n)
     slots = torch.empty_like(t)
-    slots[..., list(K.KSLOT), :] = t
-    return slots.reshape(2, nh, 4, 4, chunks * K.KC, nb * 8).unbind(0)
+    slots[..., list(KSLOT), :] = t
+    return slots.reshape(2, nh, 4, 4, chunks * KC, nb * 8).unbind(0)
 
 
 def test_packed_taps_unpack_to_phase_taps_and_hi_is_tf32():
@@ -58,7 +63,7 @@ def test_packed_taps_unpack_to_phase_taps_and_hi_is_tf32():
         got = (hi[k, :, :, :C, :f].double() + lo[k, :, :, :C, :f].double())
         # hi + lo keeps 22 of the 24 mantissa bits: 2^-21 relative at most.
         torch.testing.assert_close(got, want.double(), rtol=2.0 ** -21, atol=0)
-        assert torch.equal(hi[k, :, :, :C, :f], K.tf32_round(want))
+        assert torch.equal(hi[k, :, :, :C, :f], tf32_round(want))
         assert not hi[k, :, :, :, f:].any() and not lo[k, :, :, :, f:].any()
     for part in (hi, lo):
         assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()
@@ -68,7 +73,7 @@ def _split_a(a):
     """The kernel's split of A (fpn_head.cuh ``split_tf32``): hi rounded to
     TF32; lo = a - hi passed with 0x1000 added and read by the tensor core
     as its top 19 bits."""
-    hi = K.tf32_round(a)
+    hi = tf32_round(a)
     lo_bits = (a - hi).view(torch.int32) + 0x1000
     return hi, (lo_bits & -0x2000).view(torch.float32)
 
@@ -83,7 +88,7 @@ def _emulate(x, heads, n):
     w = packed["w"].numpy()
     b, h, wd, c = x.shape
     chunks = w.shape[3]
-    xp = np.zeros((b, h + 2, wd + 2, chunks * K.KC), np.float32)
+    xp = np.zeros((b, h + 2, wd + 2, chunks * KC), np.float32)
     xp[:, 1:-1, 1:-1, :c] = x
     outs = []
     for k, p in enumerate(heads):
@@ -96,12 +101,12 @@ def _emulate(x, heads, n):
                 dy, dx = divmod(tap, 2)
                 rows = xp[:, pa + dy : pa + dy + h, pb + dx : pb + dx + wd].reshape(b * h * wd, -1)
                 for chunk in range(chunks):
-                    a = rows[:, chunk * K.KC : (chunk + 1) * K.KC].reshape(-1, 4, 8)[:, :, list(K.KSLOT)]
-                    ah, al = (t.numpy().reshape(-1, K.KC) for t in _split_a(torch.from_numpy(a.copy())))
+                    a = rows[:, chunk * KC : (chunk + 1) * KC].reshape(-1, 4, 8)[:, :, list(KSLOT)]
+                    ah, al = (t.numpy().reshape(-1, KC) for t in _split_a(torch.from_numpy(a.copy())))
                     # (2, nb, kb, r, e) -> (2, n, 32): row 8 nb + r, K slot 4 kb + e.
-                    bh, bl = w[k, phase, tap, chunk].transpose(0, 1, 3, 2, 4).reshape(2, n, K.KC)
+                    bh, bl = w[k, phase, tap, chunk].transpose(0, 1, 3, 2, 4).reshape(2, n, KC)
                     part = np.zeros_like(acc)
-                    for s in range(0, K.KC, 8):
+                    for s in range(0, KC, 8):
                         for lhs, rhs in ((al, bh), (ah, bl), (ah, bh)):
                             part += lhs[:, s : s + 8] @ rhs[:, s : s + 8].T
                     acc += part
@@ -126,35 +131,79 @@ def test_emulated_3xtf32_matches_plain(n):
         assert rel <= REL_TOL, rel
 
 
-def test_pack_cache_repacks_only_after_an_update():
-    heads = _heads(3)
-    first = K.packed_heads(heads, WIDTH)
-    assert K.packed_heads(heads, WIDTH) is first
-    assert K.packed_heads([dict(p) for p in heads], WIDTH) is first  # same tensors
+def _neck(seed=0):
+    """A micro FpnNeck's level-0 parameters, every one moved off its init."""
+    torch.manual_seed(seed)
+    p = fpn_neck.level0_params(FpnNeck((8, 16, 32, 64), 32))
     with torch.no_grad():
-        heads[2]["step1.ln.weight"].mul_(2.0)
-        heads[3]["step1.conv.weight"].add_(1.0)
-    second = K.packed_heads(heads, WIDTH)
+        for t in p.values():
+            t.add_(0.1 * torch.randn_like(t))
+    return p
+
+
+# Each pack cache case: a parameter set, another container of the same
+# tensors, the cached and the fresh pack, two tensors updated in place with
+# the packed entry each changes, and a tensor swapped by ``.data`` with its
+# entry.
+def _heads_case(seed):
+    heads = _heads(seed)
+    return SimpleNamespace(
+        params=heads,
+        same=[dict(p) for p in heads],
+        cached=lambda ps: K.packed_heads(ps, WIDTH),
+        fresh=lambda ps: K.pack_heads(ps, WIDTH),
+        updated=[(heads[2]["step1.ln.weight"], "vec"), (heads[3]["step1.conv.weight"], "w")],
+        swapped=(heads[1]["step2.weight"], "w2"),
+    )
+
+
+def _neck_case(seed):
+    p = _neck(seed)
+    return SimpleNamespace(
+        params=p,
+        same=dict(p),
+        cached=fpn_neck.packed_neck,
+        fresh=fpn_neck.pack_neck,
+        updated=[(p["step1_0.ln.weight"], "vec1"), (p["step2_0.conv.weight"], "w2")],
+        swapped=(p["step1_0.conv.weight"], "w1"),
+    )
+
+
+PACK_CASES = {"heads": _heads_case, "neck": _neck_case}
+
+
+@pytest.mark.parametrize("which", list(PACK_CASES))
+def test_pack_cache_repacks_only_after_an_update(which):
+    case = PACK_CASES[which](3)
+    first = case.cached(case.params)
+    assert case.cached(case.params) is first
+    assert case.cached(case.same) is first  # same tensors
+    (t1, k1), (t2, k2) = case.updated
+    with torch.no_grad():
+        t1.mul_(2.0)
+        t2.add_(1.0)
+    second = case.cached(case.params)
     assert second is not first
-    fresh = K.pack_heads(heads, WIDTH)
-    for name, t in fresh.items():
+    for name, t in case.fresh(case.params).items():
         assert torch.equal(second[name], t), name
-    assert not torch.equal(second["vec"], first["vec"]) and not torch.equal(second["w"], first["w"])
-    assert K.packed_heads(heads, WIDTH) is second
+    assert not torch.equal(second[k1], first[k1]) and not torch.equal(second[k2], first[k2])
+    assert case.cached(case.params) is second
     # A swap by ``.data`` keeps the tensor's identity, version and shape.
+    t, k = case.swapped
     with torch.no_grad():
-        heads[1]["step2.weight"].data = heads[1]["step2.weight"] * 3.0
-    third = K.packed_heads(heads, WIDTH)
+        t.data = t * 3.0
+    third = case.cached(case.params)
     assert third is not second
-    assert torch.equal(third["w2"], K.pack_heads(heads, WIDTH)["w2"])
-    assert not torch.equal(third["w2"], second["w2"])
-    assert K.packed_heads(heads, WIDTH) is third
+    assert torch.equal(third[k], case.fresh(case.params)[k])
+    assert not torch.equal(third[k], second[k])
+    assert case.cached(case.params) is third
 
 
-def test_pack_cache_lets_the_pack_go_with_the_model():
-    heads = _heads(4)
-    packed = weakref.ref(K.packed_heads(heads, WIDTH)["w"])
-    assert packed() is not None
-    del heads
+@pytest.mark.parametrize("which", list(PACK_CASES))
+def test_pack_cache_lets_the_pack_go_with_the_model(which):
+    case = PACK_CASES[which](4)
+    refs = [weakref.ref(t) for t in case.cached(case.params).values()]
+    assert all(r() is not None for r in refs)
+    del case
     gc.collect()
-    assert packed() is None
+    assert all(r() is None for r in refs)
