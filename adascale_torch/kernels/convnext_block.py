@@ -15,6 +15,15 @@ fixed-order reduction, for the small late stages).
 On a CPU tensor it runs ``convnext_block_plain``, the eager PyTorch version
 that the tests and ``chip_smoke.py`` hold the kernel against.
 
+Training goes through ``TrainableBlock``, the counterpart of
+``adascale/ops/pallas/convnext_block.py::make_trainable_block``: an
+``autograd.Function`` whose forward is the kernel (the plain version on the
+CPU) and which saves only its inputs; its backward re-runs the plain version
+and differentiates it, so no activation inside a block is kept. The JAX
+package has no backward kernel, and neither has the port. ``convnext_block``
+routes a call through it whenever grad is enabled and an input requires
+grad, so a launch never drops the graph.
+
 The kernel is built on first use by ``_nvcc.build`` (``nvcc`` into a shared
 library with a plain C interface, loaded with ``ctypes``): no PyTorch headers,
 so the build takes seconds.
@@ -67,14 +76,55 @@ def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.T
     return x + y * p["block_scale"]
 
 
+PARAM_NAMES = (
+    "dwconv.weight", "dwconv.bias", "ln.weight", "ln.bias", "mlp_up.weight",
+    "mlp_up.bias", "mlp_down.weight", "mlp_down.bias", "block_scale",
+)
+
+
 def convnext_block(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One ConvNeXt block on an NHWC f32 tensor: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    global LAUNCHES
+    tensor, the plain version on a CPU tensor. Where grad is enabled and
+    ``x`` or a parameter requires grad, the call goes through
+    ``TrainableBlock``, so that the result carries its gradient."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"convnext_block: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(p[name].requires_grad for name in PARAM_NAMES)
+    ):
+        return TrainableBlock.apply(x, *(p[name] for name in PARAM_NAMES))
     if x.device.type == "cpu":
         return convnext_block_plain(x, p)
-    if x.device.type != "cuda":
-        raise ValueError(f"convnext_block: unsupported device {x.device}")
+    return _launch(x, p)
+
+
+class TrainableBlock(torch.autograd.Function):
+    """The block with a gradient: the kernel forward (the plain version on
+    the CPU), saving only the inputs; the backward recomputes
+    ``convnext_block_plain`` and differentiates it, as ``make_trainable_block``
+    does with ``jax.vjp(block_xla)``. Arguments: ``x`` and the nine
+    parameters in ``PARAM_NAMES`` order; the gradients come back in the
+    parameters' own layouts."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, *params)
+        p = dict(zip(PARAM_NAMES, params))
+        if x.device.type == "cpu":
+            return convnext_block_plain(x, p)
+        return _launch(x, p)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        with torch.profiler.record_function("convnext_block.backward"), torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = convnext_block_plain(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])))
+            return torch.autograd.grad(out, inputs, grad)
+
+
+def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Launch the kernel on a CUDA tensor; raises on what it does not take."""
+    global LAUNCHES
     _nvcc.check_activation("convnext_block x", x, x.device)
     b, h, w, c = x.shape
     if c > MAX_CHANNELS or h > 65535 or b > 65535:

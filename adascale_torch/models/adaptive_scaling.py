@@ -7,6 +7,11 @@ Counterpart of ``adascale/models/adaptive_scaling.py`` for the FPN neck:
   ``forward_precise(x)`` -> (prob logits (B,h,w,1), up-left offset (B,h,w,2),
                              corner-angle logits (B,h,w,4), corner distance
                              (B,h,w,4))
+  ``forward_precise_with_mask(x)`` -> the precise char-mask logits, then
+                             the four above (``precise_enable_char_mask_head``)
+
+Each forward takes ``deterministic`` (False: stochastic depth in the
+backbone, with the ``drop_masks`` of ``ConvNeXt.draw_drop_masks``).
 
 Softplus on the height and distance heads runs in f32. Submodule names
 follow the Flax tree, so ``utils.params.state_dict_from_jax`` loads the
@@ -15,7 +20,7 @@ committed weights directly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,12 +94,42 @@ class AdaptiveScaling(nn.Module):
         distance = F.softplus(self.precise_char_corner_distance_head(neck).float())
         return prob_logits, offset, angle_logits, distance
 
-    def forward_rough(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward_rough(
+        self,
+        x: torch.Tensor,
+        deterministic: bool = True,
+        drop_masks: Optional[List[Optional[torch.Tensor]]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) -> mask logits, char height."""
-        return self.forward_rough_from_features(self.backbone(x))
+        return self.forward_rough_from_features(
+            self.backbone(x, deterministic, drop_masks)
+        )
 
     def forward_precise(
-        self, x: torch.Tensor
+        self,
+        x: torch.Tensor,
+        deterministic: bool = True,
+        drop_masks: Optional[List[Optional[torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) -> prob logits, offset, angle logits, distance."""
-        return self.forward_precise_from_features(self.backbone(x))
+        return self.forward_precise_from_features(
+            self.backbone(x, deterministic, drop_masks)
+        )
+
+    def forward_precise_with_mask(
+        self,
+        x: torch.Tensor,
+        deterministic: bool = True,
+        drop_masks: Optional[List[Optional[torch.Tensor]]] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """(B, H, W, 3) -> char-mask logits, prob logits, offset, angle
+        logits, distance; needs ``precise_enable_char_mask_head``."""
+        if not self.config.precise_enable_char_mask_head:
+            raise ValueError("forward_precise_with_mask needs precise_enable_char_mask_head=True")
+        neck = self.precise_neck(self.backbone(x, deterministic, drop_masks))
+        mask_logits = self.precise_char_mask_head(neck)
+        prob_logits = self.precise_char_prob_head(neck)
+        offset = self.precise_char_up_left_corner_offset_head(neck)
+        angle_logits = self.precise_char_corner_angle_head(neck)
+        distance = F.softplus(self.precise_char_corner_distance_head(neck).float())
+        return mask_logits, prob_logits, offset, angle_logits, distance

@@ -1,14 +1,21 @@
 """ConvNeXt multi-scale backbone, NHWC, PyTorch.
 
-Counterpart of ``adascale/models/convnext.py`` (inference: stochastic depth
-is the identity). The patchify stem, the stage LayerNorms and the 2x2
-downsamples are library ops; every residual block goes through
-``adascale_torch.kernels.convnext_block`` (the CUDA kernel on the card, its
-plain twin on the CPU). The residual stream is f32.
+Counterpart of ``adascale/models/convnext.py``. The patchify stem, the
+stage LayerNorms and the 2x2 downsamples are library ops; every residual
+block goes through ``adascale_torch.kernels.convnext_block`` (the CUDA kernel
+on the card, its plain twin on the CPU; with a gradient, through
+``TrainableBlock``). The residual stream is f32.
+
+Stochastic depth (``deterministic=False``) is applied outside the block, as
+``convnext_forward_pallas_train`` does: ``x + mask * ((block(x) - x) /
+keep)``, with one keep/drop draw per sample and the per-layer rate
+``0.1 * l / (L - 1)`` over the L blocks. The masks are drawn from an
+explicit ``torch.Generator`` by ``draw_drop_masks`` and passed in. Serving
+is deterministic, the default.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,19 +44,32 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, eps=EPS)
 
 
-class ConvNeXtBlock(nn.Module):
-    """dwconv7x7 -> LN -> Linear(4C) -> GELU -> Linear(C) -> * scale -> + x."""
+def drop_path(x: torch.Tensor, out: torch.Tensor, mask: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    """Stochastic depth around a residual block with input ``x`` and output
+    ``out``: ``x + mask * ((out - x) / keep_prob)``, ``mask`` (B,) of 0/1.
+    The branch's value is Flax ``DropPath``'s ``where(mask, branch / keep, 0)``
+    exactly."""
+    mask = mask.to(device=x.device, dtype=torch.float32).reshape(-1, *(1,) * (x.dim() - 1))
+    return x + mask * ((out - x) / keep_prob)
 
-    def __init__(self, channels: int):
+
+class ConvNeXtBlock(nn.Module):
+    """dwconv7x7 -> LN -> Linear(4C) -> GELU -> Linear(C) -> * scale -> + x;
+    ``prob_bypass`` is its stochastic-depth rate."""
+
+    def __init__(self, channels: int, prob_bypass: float):
         super().__init__()
         c = channels
+        self.prob_bypass = prob_bypass
         self.dwconv = nn.Conv2d(c, c, 7, padding=3, groups=c)
         self.ln = nn.LayerNorm(c, eps=EPS)
         self.mlp_up = nn.Linear(c, 4 * c)
         self.mlp_down = nn.Linear(4 * c, c)
         self.block_scale = nn.Parameter(torch.full((c,), 1e-6))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``drop_mask`` (B,) of 0/1 applies stochastic depth at this block's
+        rate; None runs the block deterministically."""
         p = {
             "dwconv.weight": self.dwconv.weight,
             "dwconv.bias": self.dwconv.bias,
@@ -61,25 +81,33 @@ class ConvNeXtBlock(nn.Module):
             "mlp_down.bias": self.mlp_down.bias,
             "block_scale": self.block_scale,
         }
-        return convnext_block(x.float().contiguous(), p)
+        x = x.float().contiguous()
+        out = convnext_block(x, p)
+        if drop_mask is None or self.prob_bypass == 0.0:
+            return out
+        return drop_path(x, out, drop_mask, 1.0 - self.prob_bypass)
 
 
 class ConvNeXtStage(nn.Module):
     """N blocks + LN; returns (feature, downsampled input of the next stage)."""
 
-    def __init__(self, channels: int, num_layers: int, out_channels: int | None):
+    def __init__(
+        self, channels: int, num_layers: int, out_channels: int | None, prob_bypass: Sequence[float]
+    ):
         super().__init__()
         for i in range(num_layers):
-            self.add_module(f"layer{i}", ConvNeXtBlock(channels))
+            self.add_module(f"layer{i}", ConvNeXtBlock(channels, prob_bypass[i]))
         self.num_layers = num_layers
         self.ln = nn.LayerNorm(channels, eps=EPS)
         self.downsample = (
             nn.Conv2d(channels, out_channels, 2, stride=2) if out_channels else None
         )
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, x: torch.Tensor, drop_masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x)
+            x = getattr(self, f"layer{i}")(x, None if drop_masks is None else drop_masks[i])
         feature = layer_norm(x, self.ln)
         if self.downsample is None:
             return feature, feature
@@ -95,18 +123,63 @@ class ConvNeXt(nn.Module):
         self.specs = specs
         self.stem_conv = nn.Conv2d(3, specs[0][0], 4, stride=4)
         self.stem_ln = nn.LayerNorm(specs[0][0], eps=EPS)
+        rates = drop_path_rates(specs)
+        begin = 0
         for i, (c, n) in enumerate(specs):
             out_c = specs[i + 1][0] if i + 1 < len(specs) else None
-            self.add_module(f"stage{i}", ConvNeXtStage(c, n, out_c))
+            self.add_module(f"stage{i}", ConvNeXtStage(c, n, out_c, rates[begin : begin + n]))
+            begin += n
 
     @property
     def in_channels_group(self) -> Tuple[int, ...]:
         return tuple(c for c, _ in self.specs)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def blocks(self) -> List[ConvNeXtBlock]:
+        """The residual blocks in order (global layer index l)."""
+        return [
+            getattr(getattr(self, f"stage{i}"), f"layer{j}")
+            for i, (_, n) in enumerate(self.specs) for j in range(n)
+        ]
+
+    def draw_drop_masks(
+        self, batch_size: int, generator: torch.Generator
+    ) -> List[Optional[torch.Tensor]]:
+        """One (B,) 0/1 keep mask per block (None where its rate is 0),
+        drawn on the generator's device: keep with probability 1 - rate."""
+        masks: List[Optional[torch.Tensor]] = []
+        for block in self.blocks():
+            if block.prob_bypass == 0.0:
+                masks.append(None)
+                continue
+            u = torch.rand((batch_size,), generator=generator, device=generator.device)
+            masks.append((u < 1.0 - block.prob_bypass).float())
+        return masks
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        deterministic: bool = True,
+        drop_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    ) -> List[torch.Tensor]:
+        """``deterministic=False`` applies stochastic depth with ``drop_masks``
+        (one per block, drawn by ``draw_drop_masks`` before the forward, so a
+        recompute under remat sees the same masks)."""
+        if deterministic:
+            drop_masks = None
+        elif drop_masks is None:
+            raise ValueError("deterministic=False needs drop_masks (draw_drop_masks)")
         x = layer_norm(conv2d_nhwc(x, self.stem_conv), self.stem_ln)
         features: List[torch.Tensor] = []
-        for i in range(len(self.specs)):
-            feature, x = getattr(self, f"stage{i}")(x)
+        begin = 0
+        for i, (_, n) in enumerate(self.specs):
+            masks = None if drop_masks is None else drop_masks[begin : begin + n]
+            feature, x = getattr(self, f"stage{i}")(x, masks)
             features.append(feature)
+            begin += n
         return features
+
+
+def drop_path_rates(specs: Sequence[Tuple[int, int]]) -> List[float]:
+    """Stochastic-depth rate of each block: ``0.1 * l / (L - 1)``."""
+    total = sum(n for _, n in specs)
+    return [0.1 * l / max(total - 1, 1) for l in range(total)]

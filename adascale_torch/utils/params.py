@@ -15,10 +15,16 @@ leaf layouts change as follows:
   Dense kernel (in, out)              -> Linear weight (out, in)
   LayerNorm scale                     -> weight
   bias, block_scale (C,)              -> unchanged
+
+A gradient tree and AdamW's moment trees (optax's ``mu`` and ``nu``) have
+the parameters' structure and layouts, so the same two functions carry them
+across, leaf for leaf under the port's names. ``leaf_fingerprints`` reduces
+such a tree to two numbers a leaf and ``leaf_sample`` to a few of its
+elements, small enough to store as a reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -89,3 +95,32 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 name = "scale"
         node[name] = np.ascontiguousarray(arr)
     return params
+
+
+def leaf_fingerprints(leaves: Mapping[str, Any], seed: int = 0) -> Dict[str, Tuple[float, float]]:
+    """Per leaf (the port's names and layouts, numpy or tensors): its L2
+    norm and its dot product with a random unit vector of its shape, drawn
+    from numpy's ``[seed, i]`` where i is the leaf's place in sorted name
+    order; both in f64."""
+    out = {}
+    for i, name in enumerate(sorted(leaves)):
+        leaf = leaves[name]
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        a = np.asarray(leaf, dtype=np.float64).reshape(-1)
+        v = np.random.default_rng([seed, i]).standard_normal(a.size)
+        out[name] = (float(np.linalg.norm(a)), float(a @ v) / float(np.linalg.norm(v)))
+    return out
+
+
+SAMPLE_SIZE = 64
+
+
+def leaf_sample(leaf: Any) -> np.ndarray:
+    """``SAMPLE_SIZE`` elements of a leaf (numpy or a tensor, the port's
+    layout), evenly strided over its flattened form, the first and the last
+    among them; all of a smaller leaf. f32."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu().numpy()
+    a = np.asarray(leaf, dtype=np.float32).reshape(-1)
+    return a[np.linspace(0, a.size - 1, min(SAMPLE_SIZE, a.size)).round().astype(np.int64)]

@@ -44,7 +44,34 @@ Phases, each announced with its elapsed seconds:
      several precise stacks, against its JAX reference (the same bars; the
      same number of chunks; launches exactly 18 x (1 + chunks) blocks);
   7. blank page: the fused configuration on a page with no text against its
-     JAX reference (no char polygons; the same stacked shape and chunks).
+     JAX reference (no char polygons; the same stacked shape and chunks);
+  8. training, the two-task train step with the flagship (f32, B = 6 at the
+     training shapes: 512x512 rough crops, 320x320 precise crops, 200 label
+     points):
+     8a. the trainable block (``TrainableBlock``: kernel forward, backward
+         by recompute and autograd of the plain version) against autograd
+         through the plain version at the 8 training stage shapes: forward
+         and the gradients of x and the 9 parameters within 1e-5 relative;
+         forward, plain forward and backward ms from CUDA events; a raw
+         ``convnext_block`` call that needs a gradient goes through it;
+     8b. the flagship's two-task loss, gradients and one optimizer step at
+         B = 2, deterministic, against the JAX package's stored step
+         (tests/fixtures/torch_port/flagship_fpn_train_reference.npz, the
+         batch regenerated and checked by checksum): losses and the global
+         gradient norm within 1e-4 relative, each leaf's gradient norm and
+         projection within 1e-3 of its norm and 64 strided elements of it
+         within 1e-3 of its largest magnitude; the update's norm and
+         projection within 1e-3 of its norm (its elements printed);
+     8c. 3 warm-up and 5 timed ``train_step`` calls with drop path on from a
+         seeded generator: finite losses, every parameter moved, exactly 36
+         block-kernel launches a step; ms per step, samples/s, peak memory;
+         one step's device time by part from a torch.profiler trace, which
+         also shows that every depthwise convolution of the plain version
+         ran inside the blocks' backward, and the plain version's block
+         forwards traced in the same place (the kernels line's times); the fused forwards of the trained
+         model against its module path (1e-4; the weight packs rebuilt);
+         one step with remat against one without (losses within 1e-6,
+         72 launches).
 
 The second-to-last line is a JSON object describing each kernel, the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -70,6 +97,7 @@ FIXTURES = os.path.join(ROOT, "tests/fixtures/torch_port")
 REFERENCE = os.path.join(FIXTURES, "flagship_fpn_reference.npz")
 MULTICHUNK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_multichunk_reference.npz")
 BLANK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_blank_reference.npz")
+TRAIN_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_train_reference.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 without tensor cores, dense
 # TF32 on the tensor cores, HBM3.
@@ -98,6 +126,20 @@ NECK_SHAPES = [((240, 192, 96, 384, 96), 1), ((256, 208, 96, 384, 96), 1), ((13,
 ROUGH_HEAD_SHAPES = [((240, 192, 384), 1), ((13, 19, 32), 0)]
 PRECISE_HEAD_SHAPES = [((256, 208, 384), 1), ((13, 19, 32), 0)]
 PRECISE_OUT = (1, 2, 4, 4)  # prob, offset, angle, distance
+# Training (examples/flagship_training/steps.json, epoch.json): B = 6, rough
+# crops 512x512 and precise crops 320x320, so the stage shapes of the two
+# passes and the blocks run at each.
+TRAIN_BATCH = 6
+TRAIN_STAGE_SHAPES = [
+    ((128, 128, 96), 3), ((64, 64, 192), 3), ((32, 32, 384), 9), ((16, 16, 768), 3),
+    ((80, 80, 96), 3), ((40, 40, 192), 3), ((20, 20, 384), 9), ((10, 10, 768), 3),
+]
+# The flagship step against the JAX reference: f32 on both sides, other
+# summation orders through 35.6 M parameters.
+TRAIN_LOSS_TOL = 1e-4
+LEAF_TOL = 1e-3
+REMAT_TOL = 1e-6
+WARMUP_STEPS, TIMED_STEPS = 3, 5
 
 
 def stamp(phase: str) -> None:
@@ -596,6 +638,15 @@ KERNEL_GROUPS = {
 }
 
 
+def kernel_group(name: str):
+    """The ``KERNEL_GROUPS`` entry a traced kernel's name belongs to, or
+    None. PyTorch's own kernels (``at::native::reduce_kernel`` among them)
+    belong to none."""
+    if "at::native" in name:
+        return None
+    return next((g for g, keys in KERNEL_GROUPS.items() if any(k in name for k in keys)), None)
+
+
 def forward_device_ms(fn, reps: int = 3):
     """Device ms per call of ``fn`` by kernel group, from a torch.profiler
     trace of ``reps`` warm calls: the port's kernels (``KERNEL_GROUPS``),
@@ -603,8 +654,7 @@ def forward_device_ms(fn, reps: int = 3):
     copies) and their sum (``device``)."""
     parts = dict.fromkeys([*KERNEL_GROUPS, "other"], 0.0)
     for key, ms in kernel_device_ms(fn, reps).items():
-        group = next((g for g, keys in KERNEL_GROUPS.items() if any(k in key for k in keys)), "other")
-        parts[group] += ms
+        parts[kernel_group(key) or "other"] += ms
     parts["device"] = sum(parts.values())
     return parts
 
@@ -641,6 +691,428 @@ def print_detect_steps(engine, image) -> None:
     engine.dedup_char_polygons(remapped)
     steps["nms"] = time.perf_counter() - t
     print("detect() steps (ms): " + ", ".join(f"{k}={v * 1e3:.1f}" for k, v in steps.items()), flush=True)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_trainable_block(gen, device):
+    """Phase 8a: ``TrainableBlock`` against autograd through the plain
+    version at the training stage shapes, each shape timed alone; returns
+    the kernels line's errors and bound (the bound summed over one train
+    step's 36 block forwards; the times come from phase 8c's traced step)."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    names = ("x",) + K.PARAM_NAMES
+    totals = dict.fromkeys(("t_ops", "t_bytes"), 0.0)
+    worst, max_abs = (0.0, ""), 0.0
+    for (h, w, c), blocks in TRAIN_STAGE_SHAPES:
+        p = {k: v.requires_grad_() for k, v in random_block_params(c, gen, device).items()}
+        x = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to(device).requires_grad_()
+        g = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to(device)
+        inputs = [x] + [p[k] for k in K.PARAM_NAMES]
+        out = K.TrainableBlock.apply(*inputs)
+        want = K.convnext_block_plain(x, p)
+        errs = {"forward": rel_err(out.detach(), want.detach())}
+        max_abs = max(max_abs, float((out - want).detach().abs().max()))
+        got_grads = torch.autograd.grad(out, inputs, g, retain_graph=True)
+        want_grads = torch.autograd.grad(want, inputs, g, retain_graph=True)
+        errs.update({f"d{n}": rel_err(a, b) for n, a, b in zip(names, got_grads, want_grads)})
+        bad = {k: v for k, v in errs.items() if not v <= REL_TOL}
+        if bad:
+            raise AssertionError(f"trainable block {h}x{w}x{c}: relative errors {bad} > {REL_TOL}")
+        xd, pd = x.detach(), {k: v.detach() for k, v in p.items()}
+        ms = cuda_ms(lambda: K.convnext_block(xd, pd))
+        plain_ms = cuda_ms(lambda: K.convnext_block_plain(xd, pd))
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True))
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(want, inputs, g, retain_graph=True))
+        t_ops, t_bytes, _ = block_bound_ms(TRAIN_BATCH * h * w, c)
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        worst = max(worst, (err, f"{h}x{w}x{c} {name}"))
+        print(
+            f"trainable block B={TRAIN_BATCH} {h}x{w}x{c}: rel err forward={errs['forward']:.3e} "
+            f"worst grad {max((k for k in errs if k != 'forward'), key=errs.get)}="
+            f"{max(v for k, v in errs.items() if k != 'forward'):.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"backward_ms={bwd_ms:.4f} (recompute + autograd of the plain version) "
+            f"plain_backward_ms={plain_bwd_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} (3xTF32) "
+            f"blocks_per_step={blocks}",
+            flush=True,
+        )
+        totals["t_ops"] += blocks * t_ops
+        totals["t_bytes"] += blocks * t_bytes
+        del out, want, got_grads, want_grads
+
+    # The repair: a raw call that needs a gradient keeps it.
+    (h, w, c), _ = TRAIN_STAGE_SHAPES[-1]
+    p = random_block_params(c, gen, device)
+    p["block_scale"].requires_grad_()
+    before = K.LAUNCHES
+    out = K.convnext_block(torch.randn(2, h, w, c, generator=gen).to(device), p)
+    if out.grad_fn is None or "TrainableBlock" not in type(out.grad_fn).__name__ or K.LAUNCHES != before + 1:
+        raise AssertionError(f"raw convnext_block with a gradient: grad_fn={out.grad_fn}")
+    print(f"raw convnext_block call needing a gradient: grad_fn={type(out.grad_fn).__name__}, "
+          f"one kernel launch", flush=True)
+    print(
+        f"trainable block, one train step's 36 blocks: forward bound_ms="
+        f"{max(totals['t_ops'], totals['t_bytes']):.4f}; worst rel err {worst[0]:.3e} ({worst[1]})",
+        flush=True,
+    )
+    return {
+        "max_abs_err": max_abs,
+        "max_rel_err": worst[0],
+        "bound_ms": max(totals["t_ops"], totals["t_bytes"]),
+        "bound_by": "operations" if totals["t_ops"] >= totals["t_bytes"] else "bytes",
+        "bound_rate": "forward only: projections as 3 TF32 products at 495 TFLOP/s, depthwise at 67 TFLOP/s f32",
+    }
+
+
+def flagship_model(params, device):
+    import torch
+
+    from adascale_torch import AdaptiveScaling, AdaptiveScalingConfig
+    from adascale_torch.utils.params import state_dict_from_jax
+
+    model = AdaptiveScaling(AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"))
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.to(device)
+
+
+def check_train_reference(params, device) -> dict:
+    """Phase 8b: the flagship's two-task loss, gradients and one optimizer
+    step against the JAX package's stored step."""
+    import numpy as np
+    import torch
+
+    from adascale_torch.training import (
+        OptimizerConfig, TrainStepConfig, batch_checksum, build_optimizer, seeded_batches,
+        two_task_loss, upcast_batch,
+    )
+    from adascale_torch.training.optimizer import global_norm
+    from adascale_torch.utils.params import leaf_fingerprints, leaf_sample
+
+    ref = np.load(TRAIN_REFERENCE)
+    rough, precise, rough_box, precise_box = seeded_batches(int(ref["seed"]), int(ref["batch_size"]))
+    checksum = batch_checksum(rough, precise)
+    if checksum != str(ref["checksum"]):
+        raise AssertionError(f"the regenerated batch differs from the reference's ({checksum})")
+    model = flagship_model(params, device)
+    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box)
+    total, (r_loss, p_loss) = two_task_loss(
+        model, upcast_batch(rough, device), upcast_batch(precise, device), cfg, True
+    )
+    total.backward()
+    named = dict(model.named_parameters())
+    grads = {k: v.grad for k, v in named.items()}
+    norm = float(global_norm(grads.values()))
+    old = {k: v.detach().clone() for k, v in named.items()}
+    opt, _ = build_optimizer(named, OptimizerConfig(), steps_per_epoch=1000)
+    opt.step()
+    updates = {k: named[k].detach() - old[k] for k in named}
+    names = [str(n) for n in ref["names"]]
+    if sorted(grads) != names:
+        raise AssertionError("parameter names differ from the reference's")
+
+    def leaf_errors(leaves, which):
+        """Per leaf: the norm's and the projection's error over the leaf's
+        norm, and the worst sampled element's error over the leaf's largest
+        magnitude (a projection on one unit vector is only ~norm/sqrt(n), so
+        on a large leaf the elements are what tell a wrong gradient)."""
+        fingerprints, elements = {}, {}
+        prints = leaf_fingerprints(leaves, int(ref["fingerprint_seed"]))
+        norms, projections = ref[f"{which}_norms"], ref[f"{which}_projections"]
+        samples, maxes = ref[f"{which}_samples"], ref[f"{which}_maxes"]
+        begin = 0
+        for k, n, pr, m in zip(names, norms, projections, maxes):
+            got = leaf_sample(leaves[k])
+            want = samples[begin : begin + got.size]
+            begin += got.size
+            fingerprints[k] = max(abs(prints[k][0] - n), abs(prints[k][1] - pr)) / max(n, 1e-30)
+            elements[k] = float(np.abs(got.astype(np.float64) - want).max()) / max(float(m), 1e-30)
+        if begin != samples.size:
+            raise AssertionError(f"{which} samples: {begin} taken, {samples.size} stored")
+        return fingerprints, elements
+
+    grad_prints, grad_elements = leaf_errors(grads, "grad")
+    grad_errs = {k: max(grad_prints[k], grad_elements[k]) for k in names}
+    worst_grad_element = max(grad_elements, key=grad_elements.get)
+    # The update is held by norm and projection. Its elements are printed
+    # with no bar: AdamW's first step is ~g / (|g| + 1e-8) an element, so
+    # where |g| is near 1e-8 f32 rounding in g moves it by up to its size;
+    # the gradient's elements, of which it is a function, have the bar.
+    update_errs, update_elements = leaf_errors(updates, "update")
+    worst_update_element = max(update_elements, key=update_elements.get)
+    loss_errs = {
+        "rough_loss": abs(r_loss.item() - float(ref["rough_loss"])) / abs(float(ref["rough_loss"])),
+        "precise_loss": abs(p_loss.item() - float(ref["precise_loss"])) / abs(float(ref["precise_loss"])),
+        "grad_norm": abs(norm - float(ref["grad_norm"])) / float(ref["grad_norm"]),
+    }
+    worst_grad = max(grad_errs, key=grad_errs.get)
+    worst_update = max(update_errs, key=update_errs.get)
+    print(
+        f"flagship two-task step vs JAX (B={int(ref['batch_size'])}, deterministic): "
+        f"rough_loss={r_loss.item():.7f} (jax {float(ref['rough_loss']):.7f}) "
+        f"precise_loss={p_loss.item():.7f} (jax {float(ref['precise_loss']):.7f}) "
+        f"grad_norm={norm:.6f} (jax {float(ref['grad_norm']):.6f}); rel errs "
+        + " ".join(f"{k}={v:.3e}" for k, v in loss_errs.items())
+        + f"; worst leaf gradient {worst_grad} {grad_errs[worst_grad]:.3e} (norm and projection over "
+        f"its norm, 64 sampled elements over its largest magnitude; worst element alone "
+        f"{worst_grad_element} {grad_elements[worst_grad_element]:.3e}); worst leaf update {worst_update} "
+        f"{update_errs[worst_update]:.3e} (norm and projection); update elements, no bar: worst "
+        f"{worst_update_element} {update_elements[worst_update_element]:.3e}; {len(names)} leaves",
+        flush=True,
+    )
+    if not max(loss_errs.values()) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"losses / grad norm vs JAX: {loss_errs} > {TRAIN_LOSS_TOL}")
+    if not grad_errs[worst_grad] <= LEAF_TOL:
+        raise AssertionError(f"leaf gradient {worst_grad}: {grad_errs[worst_grad]} > {LEAF_TOL}")
+    if not update_errs[worst_update] <= LEAF_TOL:
+        raise AssertionError(f"leaf update {worst_update}: {update_errs[worst_update]} > {LEAF_TOL}")
+    return {"losses": loss_errs, "worst_leaf_grad": grad_errs[worst_grad], "worst_leaf_update": update_errs[worst_update],
+            "worst_update_element": update_elements[worst_update_element]}
+
+
+def range_device_ms(events, name: str) -> float:
+    """Device ms of the kernels launched under the ``record_function``
+    ranges called ``name`` in a torch.profiler trace's events."""
+    from torch.autograd import DeviceType
+
+    return sum(
+        e.device_time_total for e in events if e.device_type == DeviceType.CPU and e.name == name
+    ) / 1e3
+
+
+def plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step: int) -> float:
+    """Device ms of the plain version's block forwards in one traced two-task
+    forward and backward at the step's shapes: ``TrainableBlock`` runs
+    ``convnext_block_plain`` in place of the kernel, under a range, for this
+    one measurement (no kernel launch, nothing counted, no update)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.training import two_task_loss, upcast_batch
+
+    def plain(x, p):
+        with torch.profiler.record_function("convnext_block.plain_forward"):
+            return K.convnext_block_plain(x, p)
+
+    launch, K._launch = K._launch, plain
+    try:
+        model.zero_grad()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            total, _ = two_task_loss(
+                model, upcast_batch(rough, device), upcast_batch(precise, device), cfg, False,
+                torch.Generator(device=device).manual_seed(3),
+            )
+            total.backward()
+            torch.cuda.synchronize()
+    finally:
+        K._launch = launch
+    model.zero_grad()
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = sum(
+        1 for e in events if e.device_type == DeviceType.CPU and e.name == "convnext_block.plain_forward"
+    )
+    if ranges != blocks_per_step:
+        raise AssertionError(f"plain forward ranges {ranges} != {blocks_per_step}")
+    return range_device_ms(events, "convnext_block.plain_forward")
+
+
+def step_device_split(prof) -> dict:
+    """One train step's device ms by part, from a torch.profiler trace: the
+    block kernel's forwards (by kernel name), the blocks' backward (the
+    kernels under ``convnext_block.backward``: recompute and autograd of the
+    plain version), the optimizer (under ``optimizer.step``), the rest
+    (stem, stage LNs, downsamples, neck and heads forward and backward
+    through cuDNN and cuBLAS, losses) and the whole. Also checks that every
+    depthwise 7x7 convolution (the plain version's) ran inside the blocks'
+    backward, and returns how many ran."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    kernels = [
+        e for e in events
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+    total = sum(e.device_time_total for e in kernels) / 1e3
+    blocks_fwd = sum(
+        e.device_time_total for e in kernels if kernel_group(e.name) == "blocks"
+    ) / 1e3
+
+    def inside(e, name):
+        while e is not None:
+            if e.name == name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    depthwise = [
+        e for e in events
+        if e.device_type == DeviceType.CPU and e.name == "aten::convolution"
+        and len(e.input_shapes) > 1 and len(e.input_shapes[1]) == 4 and list(e.input_shapes[1][1:]) == [1, 7, 7]
+    ]
+    outside = [e for e in depthwise if not inside(e, "convnext_block.backward")]
+    if outside:
+        raise AssertionError(f"{len(outside)} depthwise convolutions ran outside the blocks' backward")
+    backward = range_device_ms(events, "convnext_block.backward")
+    optimizer = range_device_ms(events, "optimizer.step")
+    by_kernel, by_op = {}, {}
+    for e in kernels:
+        n, ms = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and e.self_device_time_total > 0:
+            by_op[e.key] = (e.count, e.self_device_time_total / 1e3)
+    for label, table in (("kernels", by_kernel), ("operators, by the device time of the kernels they launch", by_op)):
+        top = sorted(table.items(), key=lambda kv: -kv[1][1])[:10]
+        print(f"train step, top {label} (device ms, calls): "
+              + "; ".join(f"{name[:90]}={ms:.3f} ({n})" for name, (n, ms) in top), flush=True)
+    return {
+        "blocks_forward_kernel": blocks_fwd,
+        "blocks_backward_recompute": backward,
+        "optimizer": optimizer,
+        "rest": total - blocks_fwd - backward - optimizer,
+        "device": total,
+        "depthwise_in_backward": len(depthwise),
+        "dw_ln_launches": sum(1 for e in kernels if "dw_ln_kernel" in e.name),
+    }
+
+
+def train_steps(params, device) -> dict:
+    """Phase 8c: warm-up and timed train steps with drop path; the launch
+    count, a traced step, the fused forwards after training and remat."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.kernels import packing
+    from adascale_torch.kernels.fpn_heads import forward_rough_from_features_fused
+    from adascale_torch.kernels.precise_heads import forward_precise_from_features_fused
+    from adascale_torch.training import (
+        OptimizerConfig, TrainStepConfig, build_optimizer, make_train_step, seeded_batches,
+        two_task_loss, upcast_batch,
+    )
+
+    model = flagship_model(params, device)
+    rough, precise, rough_box, precise_box = seeded_batches(1, TRAIN_BATCH)
+    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box)
+    blocks_per_step = 2 * len(model.backbone.blocks())
+    x_rough = upcast_batch(rough, device)["image"]
+    x_precise = upcast_batch(precise, device)["image"]
+
+    def fused_forwards():
+        with torch.inference_mode():
+            return (
+                forward_rough_from_features_fused(model, model.backbone(x_rough)),
+                forward_precise_from_features_fused(model, model.backbone(x_precise)),
+            )
+
+    fused_forwards()  # weight packs for the weights before training
+    opt, _ = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), steps_per_epoch=1000)
+    step = make_train_step(model, opt, cfg, device=str(device))
+    gen = torch.Generator(device=device).manual_seed(0)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches = [], []
+
+    def counted_step():
+        K.LAUNCHES = 0
+        metrics.append(step(rough, precise, gen))
+        launches.append(K.LAUNCHES)
+
+    for _ in range(WARMUP_STEPS):
+        counted_step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wall = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        counted_step()
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - wall) * 1e3 / TIMED_STEPS
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [(float(m["rough_loss"]), float(m["precise_loss"]), float(m["grad_norm"])) for m in metrics]
+    print(
+        f"train steps (B={TRAIN_BATCH}, drop path on): losses (rough, precise, grad norm) "
+        + "; ".join(f"{r:.5f}, {p:.5f}, {n:.3f}" for r, p, n in losses)
+        + f"; block launches per step {launches}",
+        flush=True,
+    )
+    if not all(all(map(lambda v: v == v and abs(v) != float("inf"), t)) for t in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if launches != [blocks_per_step] * len(launches):
+        raise AssertionError(f"block launches per step {launches} != {blocks_per_step}")
+    unmoved = [k for k, v in model.named_parameters() if torch.equal(v.detach(), before[k])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} parameters did not move, e.g. {unmoved[:5]}")
+    print(
+        f"train step: {step_ms:.3f} ms a step (CUDA events over {TIMED_STEPS} steps, warm; host wall "
+        f"{wall_ms:.3f} ms), {TRAIN_BATCH / step_ms * 1e3:.2f} samples/s (a sample: one rough and one "
+        f"precise crop), peak memory {peak / 2**30:.3f} GiB (max_memory_allocated); every one of "
+        f"{len(before)} parameters moved",
+        flush=True,
+    )
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        wall = time.perf_counter()
+        counted_step()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - wall) * 1e3
+    split = step_device_split(prof)
+    split["traced_step_wall"] = traced_ms
+    if not launches[-1] == split["dw_ln_launches"] == split["depthwise_in_backward"] == blocks_per_step:
+        raise AssertionError(f"traced step: {launches[-1]} launches, {split['dw_ln_launches']} traced "
+                             f"dw_ln_kernel launches, {split['depthwise_in_backward']} depthwise "
+                             f"convolutions in the backward; want {blocks_per_step}")
+    print("train step, device ms by part (torch.profiler, one step): "
+          + ", ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in split.items()),
+          flush=True)
+    plain_ms = plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step)
+    print(f"train step, the blocks' forwards by the plain version instead (torch.profiler, one "
+          f"forward and backward): {plain_ms:.3f} device ms against the kernel's "
+          f"{split['blocks_forward_kernel']:.3f}", flush=True)
+
+    # AdamW updated the parameters in place: the fused forwards must build
+    # new weight packs and agree with the module path.
+    packs = packing.PACKS
+    fused = fused_forwards()
+    rebuilt = packing.PACKS - packs
+    with torch.inference_mode():
+        module = (model.forward_rough(x_rough), model.forward_precise(x_precise))
+    errs = [rel_err(g, w_) for got, want in zip(fused, module) for g, w_ in zip(got, want)]
+    print(f"fused forwards after training vs module path: rel errs {[f'{e:.3e}' for e in errs]}; "
+          f"weight packs rebuilt {rebuilt}", flush=True)
+    if not max(errs) <= FORWARD_REL_TOL or rebuilt < 1:
+        raise AssertionError(f"fused after training: errs {errs}, packs rebuilt {rebuilt}")
+
+    # remat: the same losses, twice the block forwards.
+    remat_losses = []
+    for remat in (False, True):
+        model.zero_grad()
+        K.LAUNCHES = 0
+        total, (r_loss, p_loss) = two_task_loss(
+            model, upcast_batch(rough, device), upcast_batch(precise, device),
+            dataclasses.replace(cfg, remat=remat), False, torch.Generator(device=device).manual_seed(5),
+        )
+        total.backward()
+        remat_losses.append((float(r_loss.detach()), float(p_loss.detach()), K.LAUNCHES))
+    (r0, p0, n0), (r1, p1, n1) = remat_losses
+    remat_err = max(abs(r1 - r0) / abs(r0), abs(p1 - p0) / abs(p0))
+    print(f"remat: losses {r1:.7f}, {p1:.7f} vs {r0:.7f}, {p0:.7f} (rel err {remat_err:.3e}); "
+          f"block launches {n1} vs {n0}", flush=True)
+    if not remat_err <= REMAT_TOL or n1 != 2 * blocks_per_step or n0 != blocks_per_step:
+        raise AssertionError(f"remat: rel err {remat_err}, launches {n1} / {n0}")
+    return {"step_ms": step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_bytes": peak,
+            "launches": launches[-1], "split": split, "plain_forward_ms": plain_ms}
 
 
 def main() -> None:
@@ -786,6 +1258,15 @@ def main() -> None:
             f"blank page stack {result['stacked_image'].shape} != {tuple(ref['stacked_image_shape'])}"
         )
 
+    stamp("phase 8a: the trainable block against autograd of the plain version")
+    trainable_row = check_trainable_block(gen, device)
+
+    stamp("phase 8b: the flagship's two-task step against the JAX reference")
+    check_train_reference(params, device)
+
+    stamp("phase 8c: train steps with the flagship")
+    trained = train_steps(params, device)
+
     stamp("done")
     print(smi_line(), flush=True)
     kernels = [
@@ -817,6 +1298,22 @@ def main() -> None:
                 "library_ms": None,
             }
         )
+    kernels.append(
+        {
+            "name": "convnext_block_trainable",
+            "route": "cuda",
+            "source": "adascale_torch/kernels/csrc/convnext_block.cu",
+            "replaces": "adascale/ops/pallas/convnext_block.py:340",
+            "launches": trained["launches"],
+            # Device ms of one traced B = 6 step's 36 block forwards (kernel;
+            # plain version in the same place) and of their backward.
+            "ms": trained["split"]["blocks_forward_kernel"],
+            "plain_ms": trained["plain_forward_ms"],
+            "backward_ms": trained["split"]["blocks_backward_recompute"],
+            **trainable_row,
+            "library_ms": None,
+        }
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -6,7 +6,20 @@ weights, f32, one ``.npz`` per case:
   * ``flagship_fpn_multichunk_reference.npz``: the same page with
     ``precise_stacked_image_max_area`` small enough that the regions are
     stacked into several precise chunks;
-  * ``flagship_fpn_blank_reference.npz``: a blank page (no text).
+  * ``flagship_fpn_blank_reference.npz``: a blank page (no text);
+  * ``flagship_fpn_train_reference.npz`` (case ``train``): one two-task
+    training step of the flagship, deterministic (no drop path, which the
+    two frameworks cannot draw alike), on a seeded batch of B = 2 at the
+    flagship's training shapes (``adascale_torch.training.seeded_batches``:
+    512x512 rough crops, core margin 16; 320x320 precise crops, core margin
+    8; 200 label points; uint8 images and masks): ``jax.value_and_grad`` of
+    ``_two_task_loss`` and one step of ``build_optimizer(OptimizerConfig(),
+    steps_per_epoch=1000)``. It keeps the two losses, the global gradient
+    norm, the batch's checksum and, for every leaf under the port's names,
+    the gradient's and the update's L2 norm and projection on a seeded unit
+    vector (``adascale_torch.utils.params.leaf_fingerprints``), their largest
+    magnitude and a strided sample of 64 of their elements
+    (``leaf_sample``), not the arrays themselves.
 
 Settings are otherwise the engine's defaults (f32, matmul precision
 "highest", short side 720, shape bucket 64, core gating 0.4, NMS 0.3). The
@@ -17,7 +30,7 @@ The text page is the first of ``tests/fixtures/shift_pages/page_{0,1,2}.npz``
 on which the engine finds at least 100 char polygons.
 
 Run from the repository root (a few minutes a case on a CPU); with case
-names (``page``, ``multichunk``, ``blank``) it makes only those:
+names (``page``, ``multichunk``, ``blank``, ``train``) it makes only those:
 
     JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py [case ...]
 """
@@ -40,6 +53,10 @@ from adascale.inference import (  # noqa: E402
 )
 from adascale.inference.engine import load_params  # noqa: E402
 from adascale.models import AdaptiveScalingConfig  # noqa: E402
+from adascale_torch.training import batch_checksum, seeded_batches  # noqa: E402
+from adascale_torch.utils.params import (  # noqa: E402
+    leaf_fingerprints, leaf_sample, state_dict_from_jax,
+)
 
 WEIGHTS = "examples/flagship_training/flagship_fpn_params.f16.npz"
 PAGES = [f"tests/fixtures/shift_pages/page_{i}.npz" for i in range(3)]
@@ -49,6 +66,7 @@ MIN_POLYGONS = 100
 # becomes several.
 MULTICHUNK_MAX_AREA = 300_000
 BLANK_SHAPE = (100, 700, 3)
+TRAIN_SEED, TRAIN_BATCH, FINGERPRINT_SEED = 0, 2, 0
 
 
 def save(name: str, result, page: str, **extra) -> None:
@@ -70,7 +88,64 @@ def save(name: str, result, page: str, **extra) -> None:
           result["num_precise_chunks"], "precise chunks", flush=True)
 
 
+def train_reference() -> None:
+    import jax.numpy as jnp
+    import optax
+
+    from adascale.losses import CoreBox
+    from adascale.models import AdaptiveScaling
+    from adascale.training import OptimizerConfig, TrainStepConfig, build_optimizer
+    from adascale.training.train_step import _two_task_loss
+
+    config = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
+    model = AdaptiveScaling(config=config)
+    params = jax.tree_util.tree_map(jnp.asarray, load_params(os.path.join(ROOT, WEIGHTS), config))
+    rough, precise, rough_box, precise_box = seeded_batches(TRAIN_SEED, TRAIN_BATCH)
+    cfg = TrainStepConfig(rough_core_box=CoreBox(*rough_box), precise_core_box=CoreBox(*precise_box))
+    fn = jax.jit(jax.value_and_grad(
+        lambda p, r, q: _two_task_loss(model, p, r, q, jax.random.PRNGKey(0), cfg, True), has_aux=True
+    ))
+    with jax.default_matmul_precision("highest"):
+        (_, (r_loss, p_loss)), grads = fn(params, rough, precise)
+        tx, _ = build_optimizer(OptimizerConfig(), steps_per_epoch=1000)
+        updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+        new = optax.apply_updates(params, updates)
+    to_np = lambda tree: state_dict_from_jax(jax.tree_util.tree_map(np.asarray, tree))  # noqa: E731
+    old, grads_sd, new = to_np(params), to_np(grads), to_np(new)
+    names = sorted(grads_sd)
+    updates = {k: new[k] - old[k] for k in names}
+    grad_prints = leaf_fingerprints(grads_sd, FINGERPRINT_SEED)
+    update_prints = leaf_fingerprints(updates, FINGERPRINT_SEED)
+    out = os.path.join(HERE, "flagship_fpn_train_reference.npz")
+    np.savez_compressed(
+        out,
+        weights=np.asarray(WEIGHTS),
+        seed=np.asarray(TRAIN_SEED),
+        batch_size=np.asarray(TRAIN_BATCH),
+        fingerprint_seed=np.asarray(FINGERPRINT_SEED),
+        checksum=np.asarray(batch_checksum(rough, precise)),
+        rough_loss=np.asarray(float(r_loss)),
+        precise_loss=np.asarray(float(p_loss)),
+        grad_norm=np.asarray(float(optax.global_norm(grads))),
+        names=np.asarray(names),
+        grad_norms=np.asarray([grad_prints[k][0] for k in names]),
+        grad_projections=np.asarray([grad_prints[k][1] for k in names]),
+        update_norms=np.asarray([update_prints[k][0] for k in names]),
+        update_projections=np.asarray([update_prints[k][1] for k in names]),
+        grad_maxes=np.asarray([np.abs(np.asarray(grads_sd[k])).max() for k in names]),
+        grad_samples=np.concatenate([leaf_sample(grads_sd[k]) for k in names]),
+        update_maxes=np.asarray([np.abs(np.asarray(updates[k])).max() for k in names]),
+        update_samples=np.concatenate([leaf_sample(updates[k]) for k in names]),
+    )
+    print("wrote", out, os.path.getsize(out), "bytes; rough", float(r_loss), "precise", float(p_loss),
+          "grad norm", float(optax.global_norm(grads)), len(names), "leaves", flush=True)
+
+
 def main(cases) -> None:
+    if "train" in cases:
+        train_reference()
+    if not {"page", "multichunk", "blank"} & set(cases):
+        return
     model = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
     cfg = AdaptiveScalingInferenceConfig(model=model)
     params = load_params(os.path.join(ROOT, WEIGHTS), model)
@@ -103,4 +178,4 @@ def main(cases) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["page", "multichunk", "blank"])
+    main(sys.argv[1:] or ["page", "multichunk", "blank", "train"])

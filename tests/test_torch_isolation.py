@@ -1,5 +1,5 @@
-"""The port stands alone: it imports no JAX, no OpenCV and nothing of the JAX
-package, and its entry points refuse to fall back to the CPU by themselves."""
+"""The port stands alone: it imports no JAX, Flax, optax, orbax, OpenCV or PIL
+and nothing of the JAX package, and its entry points refuse to fall back to the CPU by themselves."""
 import os
 import re
 import subprocess
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = re.compile(r"^\s*(import|from) (jax|flax|cv2|PIL|adascale)\b")
+FORBIDDEN = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax|cv2|PIL|adascale)\b")
 
 
 def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
@@ -19,8 +19,10 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import adascale_torch.inference.eval, adascale_torch.kernels.convnext_block\n"
         "import adascale_torch.kernels._nvcc, adascale_torch.kernels.fpn_neck\n"
         "import adascale_torch.kernels.fpn_heads, adascale_torch.kernels.precise_heads\n"
+        "import adascale_torch.losses, adascale_torch.training\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cv2', 'PIL', 'adascale'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'optax', 'orbax', 'cv2', 'PIL', 'adascale'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
