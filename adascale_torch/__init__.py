@@ -13,4 +13,5 @@ from .inference.engine import (  # noqa: F401
     PreciseInferResult,
     RoughInferResult,
 )
+from .inference.batch import BatchedAdaptiveScalingInference  # noqa: F401
 from .models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig  # noqa: F401

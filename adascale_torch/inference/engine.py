@@ -10,15 +10,21 @@ and polygons are built, remapped and deduplicated
 
 Every backbone block of both passes runs through
 ``adascale_torch.kernels.convnext_block``: the hand-written CUDA kernel on
-the card, its plain twin on the CPU. With ``use_pallas_neck_heads`` the FPN
-neck's level 0 and the heads of each pass run through their kernels too
-(``kernels.fpn_neck``, ``kernels.fpn_heads``, ``kernels.precise_heads``).
+the card, its plain twin on the CPU. With ``use_pallas_neck_heads`` an FPN
+model's neck level 0 and the heads of each pass run through their kernels
+too (``kernels.fpn_neck``, ``kernels.fpn_heads``, ``kernels.precise_heads``);
+a UPerNeXt model keeps its module neck and heads there, as the JAX engine
+routes it. ``detect(image, tiled=True)`` (or ``tiled_rough_long_side_min``)
+runs the rough pass at full resolution over overlapping tiles
+(``inference/tiled.py``); ``precise_band_recall_center_dist_ratio`` adds
+the boundary-band recall pass. ``inference/batch.py`` serves many pages at
+once.
 
-Ported: f32 serving at ``matmul_precision="highest"``, the FPN neck, the
-fused neck/head configuration, single (non-tiled) rough pass, core-mask peak
-gating, NMS and area-chunked precise stacks. Not ported yet: bf16, tiled
-rough, and band recall (``precise_band_recall_center_dist_ratio``); the
-engine raises if a config asks for them.
+Ported: f32 serving at ``matmul_precision="highest"``, both neck types, the
+fused neck/head configuration, the single and tiled rough passes, core-mask
+peak gating, band recall, NMS and area-chunked precise stacks. Not ported:
+bf16 (``compute_dtype``) and other matmul precisions; the engine raises if a
+config asks for them.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from ..data.geometry import (
     Box,
     Polygon,
     affine_polygons,
+    distance_transform_l2_3x3,
     mask_to_disconnected_polygons,
     rotate_trans_mat,
 )
@@ -49,6 +56,7 @@ from .flatten import (
     stack_flattened_text_regions,
 )
 from .preprocess import compute_padded_shape, compute_rough_shapes, preprocess_image
+from .tiled import tiled_rough_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,14 +126,39 @@ def _check_supported(cfg: AdaptiveScalingInferenceConfig) -> None:
     unsupported = {
         "compute_dtype": cfg.compute_dtype != "float32",
         "matmul_precision": cfg.matmul_precision != "highest",
-        "tiled_rough_long_side_min": cfg.tiled_rough_long_side_min is not None,
-        "precise_band_recall_center_dist_ratio": (
-            cfg.precise_band_recall_center_dist_ratio is not None
-        ),
     }
     bad = [name for name, flag in unsupported.items() if flag]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def valid_mask(
+    shape: Sequence[int], valid: Sequence[Tuple[int, int]], device: torch.device
+) -> torch.Tensor:
+    """(B, FH, FW) bool: True where row < valid[b][0] and column <
+    valid[b][1], so each page's padding is invalidated."""
+    b, fh, fw = shape
+    lim = torch.tensor(valid, dtype=torch.int64).reshape(b, 2).to(device)
+    rows = torch.arange(fh, device=device)[None, :, None] < lim[:, 0, None, None]
+    cols = torch.arange(fw, device=device)[None, None, :] < lim[:, 1, None, None]
+    return rows & cols
+
+
+def precise_result(
+    maps: Sequence[np.ndarray], i: int, padded_hw: Tuple[int, int], stacked_hw: Tuple[int, int]
+) -> PreciseInferResult:
+    """Page ``i`` of ``AdaptiveScalingInference.precise_maps``'s output, on
+    the host."""
+    prob, peaks, offset, angles, distance = (m[i] for m in maps)
+    return PreciseInferResult(
+        padded_image_shape=tuple(padded_hw),
+        stacked_image_shape=tuple(stacked_hw),
+        precise_char_prob_score_map=prob,
+        precise_peak_mask=peaks,
+        precise_np_char_up_left_corner_offset=offset,
+        precise_np_char_corner_angle_distribution=angles,
+        precise_np_char_corner_distance=distance,
+    )
 
 
 class AdaptiveScalingInference:
@@ -158,10 +191,13 @@ class AdaptiveScalingInference:
         self.model = model.to(self.device).eval()
 
     def _forward(self, x: torch.Tensor, which: str):
-        """Backbone, neck and heads of the rough or precise pass; with
-        ``use_pallas_neck_heads`` the neck's level 0 and the heads go through
-        their kernels."""
-        if not self.config.use_pallas_neck_heads:
+        """Backbone, neck and heads of the rough or precise pass. With
+        ``use_pallas_neck_heads`` an FPN model's neck level 0 and heads go
+        through their kernels; their kernels take the FPN's structure only,
+        so a UPerNeXt model runs its module neck and heads, as the JAX
+        engine routes it (the backbone runs the block kernel either way)."""
+        fused = self.config.use_pallas_neck_heads and self.config.model.neck_head_type == "fpn"
+        if not fused:
             return self.model.forward_rough(x) if which == "rough" else self.model.forward_precise(x)
         features = self.model.backbone(x)
         if which == "rough":
@@ -183,29 +219,64 @@ class AdaptiveScalingInference:
             bucket=cfg.shape_bucket,
         )
         fdf = 4 // cfg.rough_head_upsampling_factor
-        valid_h, valid_w = math.ceil(resized_hw[0] / fdf), math.ceil(resized_hw[1] / fdf)
+        valid = (math.ceil(resized_hw[0] / fdf), math.ceil(resized_hw[1] / fdf))
         with torch.inference_mode():
             page = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
             x = preprocess_image(page, resized_hw, padded_hw)
             mask_logits, height = self._forward(x, "rough")
-            mask = (
-                torch.sigmoid(mask_logits[0, :, :, 0].float())
-                >= cfg.rough_char_mask_positive_thr
-            ).to(torch.uint8)
-            height = height[0, :, :, 0].clone()
-            mask[valid_h:] = 0
-            mask[:, valid_w:] = 0
-            height[valid_h:] = 0.0
-            height[:, valid_w:] = 0.0
-            height = torch.where(
-                height < cfg.rough_valid_char_height_min, torch.zeros_like(height), height
-            )
+            mask, height = self.rough_maps(mask_logits[..., 0], height[..., 0], [valid])
         return RoughInferResult(
-            resized_shape=(valid_h, valid_w),
+            resized_shape=valid,
             resized_image_shape=resized_hw,
             padded_image_shape=padded_hw,
-            rough_char_mask=mask.cpu().numpy(),
-            rough_char_height_score_map=height.cpu().numpy(),
+            rough_char_mask=mask[0].cpu().numpy(),
+            rough_char_height_score_map=height[0].cpu().numpy(),
+        )
+
+    def rough_maps(
+        self, mask_logits: torch.Tensor, height: torch.Tensor, valid: Sequence[Tuple[int, int]]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, FH, FW) logits and heights -> the thresholded uint8 mask and
+        the height map, each page's rows and columns past its ``valid``
+        (h, w) zeroed, heights under ``rough_valid_char_height_min`` zeroed."""
+        cfg = self.config
+        ok = valid_mask(mask_logits.shape, valid, mask_logits.device)
+        mask = (torch.sigmoid(mask_logits.float()) >= cfg.rough_char_mask_positive_thr) & ok
+        height = height.float().masked_fill(~ok, 0.0)
+        height = torch.where(
+            height < cfg.rough_valid_char_height_min, torch.zeros_like(height), height
+        )
+        return mask.to(torch.uint8), height
+
+    def rough_infer_tiled(self, image: np.ndarray) -> RoughInferResult:
+        """Full-resolution rough pass: no short-side resize; the page is
+        zero-padded to a multiple of the feature stride and to at least one
+        tile, cut into overlapping tiles that go through one batched forward
+        (chunked at the kernels' launch limits), and stitched on the device."""
+        cfg = self.config
+        h, w = image.shape[:2]
+        fdf = 4 // cfg.rough_head_upsampling_factor
+        tile = cfg.tiled_rough_tile_size
+        ph = max(tile, math.ceil(h / fdf) * fdf)
+        pw = max(tile, math.ceil(w / fdf) * fdf)
+        valid = (math.ceil(h / fdf), math.ceil(w / fdf))
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device).float()
+            x = F.pad(x, (0, 0, 0, pw - w, 0, ph - h))
+            mask_logits, height = tiled_rough_forward(
+                lambda t: self._forward(t, "rough"),
+                x,
+                tile=tile,
+                overlap=cfg.tiled_rough_tile_overlap,
+                fdf=fdf,
+            )
+            mask, height = self.rough_maps(mask_logits[None], height[None], [valid])
+        return RoughInferResult(
+            resized_shape=valid,
+            resized_image_shape=(h, w),
+            padded_image_shape=(ph, pw),
+            rough_char_mask=mask[0].cpu().numpy(),
+            rough_char_height_score_map=height[0].cpu().numpy(),
         )
 
     # ------------------------------------------------------- region flattening
@@ -283,30 +354,32 @@ class AdaptiveScalingInference:
             h, w, divisor=cfg.backbone_downsampling_factor, bucket=cfg.shape_bucket
         )
         fdf = 4 // cfg.precise_head_upsampling_factor
-        valid_h, valid_w = math.ceil(h / fdf), math.ceil(w / fdf)
-        size = cfg.precise_build_polygons_maximum_filter_size
+        valid = (math.ceil(h / fdf), math.ceil(w / fdf))
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(stacked_image)).to(self.device)
             x = F.pad(x.float()[None], (0, 0, 0, pw - w, 0, ph - h))
-            prob_logits, offset, angle_logits, distance = self._forward(x, "precise")
-            prob = torch.sigmoid(prob_logits[0, :, :, 0].float())
-            prob[valid_h:] = 0.0
-            prob[:, valid_w:] = 0.0
-            angles = torch.softmax(angle_logits[0].float(), dim=-1)
-            # 5x5 max filter with -inf padding (max_pool2d pads with -inf).
-            local_max = F.max_pool2d(prob[None, None], size, stride=1, padding=size // 2)[0, 0]
-            peaks = (
-                (prob == local_max) & (prob >= cfg.precise_build_polygons_positive_char_prob_thr)
-            ).to(torch.uint8)
-        return PreciseInferResult(
-            padded_image_shape=(ph, pw),
-            stacked_image_shape=(h, w),
-            precise_char_prob_score_map=prob.cpu().numpy(),
-            precise_peak_mask=peaks.cpu().numpy(),
-            precise_np_char_up_left_corner_offset=offset[0].float().cpu().numpy(),
-            precise_np_char_corner_angle_distribution=angles.cpu().numpy(),
-            precise_np_char_corner_distance=distance[0].cpu().numpy(),
-        )
+            maps = self.precise_maps(self._forward(x, "precise"), [valid])
+            maps = [m.cpu().numpy() for m in maps]
+        return precise_result(maps, 0, (ph, pw), (h, w))
+
+    def precise_maps(
+        self, outputs: Sequence[torch.Tensor], valid: Sequence[Tuple[int, int]]
+    ) -> Tuple[torch.Tensor, ...]:
+        """The precise forward's (B, FH, FW, *) outputs -> (prob, peaks,
+        offset, angles, distance): the char prob with each page's rows and
+        columns past its ``valid`` (h, w) zeroed, its thresholded 5x5 local
+        maxima (uint8), the offsets, the corner-angle softmax and the
+        distances."""
+        cfg = self.config
+        prob_logits, offset, angle_logits, distance = outputs
+        prob = torch.sigmoid(prob_logits[..., 0].float())
+        prob = prob.masked_fill(~valid_mask(prob.shape, valid, prob.device), 0.0)
+        angles = torch.softmax(angle_logits.float(), dim=-1)
+        # 5x5 max filter with -inf padding (max_pool2d pads with -inf).
+        size = cfg.precise_build_polygons_maximum_filter_size
+        local_max = F.max_pool2d(prob[:, None], size, stride=1, padding=size // 2)[:, 0]
+        peaks = (prob == local_max) & (prob >= cfg.precise_build_polygons_positive_char_prob_thr)
+        return prob, peaks.to(torch.uint8), offset.float(), angles, distance.float()
 
     # ------------------------------------------------------- polygon building
 
@@ -341,14 +414,31 @@ class AdaptiveScalingInference:
         precise: PreciseInferResult,
         flattened_text_regions: Sequence[FlattenedTextRegion],
         boxes: Sequence[Box],
-    ) -> List[List[Polygon]]:
+        collect_band: bool = False,
+    ) -> Any:
         """Gate peaks to each region's box and core (else full) mask, then
-        build one polygon per peak."""
+        build one polygon per peak.
+
+        With ``collect_band`` (and core gating on) returns ``(grouped,
+        band_grouped, band_dists)``: per region also the polygons of the
+        peaks inside its full dilated mask but outside its core, with each
+        peak's distance (feature pixels) to the core, those farther than
+        ``precise_band_recall_max_core_dist_ratio`` of the canonical char
+        height dropped."""
+        cfg = self.config
         if len(flattened_text_regions) != len(boxes):
             raise ValueError("one box per region expected")
         peak_mask = precise.precise_peak_mask
         fh, fw = peak_mask.shape
+        fdf = 4 // cfg.precise_head_upsampling_factor
+        cap = (
+            cfg.precise_band_recall_max_core_dist_ratio
+            * cfg.precise_flattened_text_region_resized_char_height_median
+            / fdf
+        )
         grouped: List[List[Polygon]] = []
+        band_grouped: List[List[Polygon]] = []
+        band_dists: List[List[float]] = []
         for region, box in zip(flattened_text_regions, boxes):
             dbox = box.to_resized_box(precise.padded_image_shape, (fh, fw)).clamp_to((fh, fw))
             gate = (
@@ -358,6 +448,28 @@ class AdaptiveScalingInference:
             )
             region_mask = resize_nearest(gate, (dbox.height, dbox.width))
             boxed = dbox.extract(peak_mask).copy()
+            polygons: List[Polygon] = []
+            dists: List[float] = []
+            if collect_band and region.flattened_core_mask is not None:
+                full_mask = resize_nearest(region.flattened_mask, (dbox.height, dbox.width))
+                band = boxed.copy()
+                band[(full_mask == 0) | (region_mask != 0)] = 0
+                ys, xs = np.nonzero(band)
+                if len(ys):
+                    # Distance to this region's own core: small for a char
+                    # of this region its coarse core narrowly missed, large
+                    # for a neighbour's char cut by this crop's boundary.
+                    core_dist = distance_transform_l2_3x3((region_mask == 0).astype(np.uint8))
+                    for y, x in zip(ys, xs):
+                        d = float(core_dist[y, x])
+                        if d > cap:
+                            continue
+                        polygons.append(
+                            self.precise_build_polygon(precise, int(y) + dbox.up, int(x) + dbox.left)
+                        )
+                        dists.append(d)
+            band_grouped.append(polygons)
+            band_dists.append(dists)
             boxed[region_mask == 0] = 0
             ys, xs = np.nonzero(boxed)
             grouped.append(
@@ -366,6 +478,8 @@ class AdaptiveScalingInference:
                     for y, x in zip(ys, xs)
                 ]
             )
+        if collect_band:
+            return grouped, band_grouped, band_dists
         return grouped
 
     def precise_build_remapped_polygons(
@@ -419,25 +533,85 @@ class AdaptiveScalingInference:
                 kept.append(p)
         return kept
 
+    @staticmethod
+    def _polygon_center_size(p: Polygon) -> Tuple[np.ndarray, float]:
+        """The polygon's vertex mean and the square root of its area (at
+        least 1)."""
+        pts = np.asarray(p.points, dtype=np.float64)
+        x, y = pts[:, 0], pts[:, 1]
+        area = 0.5 * abs(np.dot(x, np.roll(y, 1)) - np.dot(y, np.roll(x, 1)))
+        return pts.mean(axis=0), math.sqrt(max(area, 1.0))
+
+    def merge_band_polygons(self, kept: Sequence[Polygon], band: Sequence[Polygon]) -> List[Polygon]:
+        """Add each band polygon, best owner first, unless its centre lies
+        within ``precise_band_recall_center_dist_ratio`` of the smaller
+        size of a polygon already kept or added."""
+        ratio = self.config.precise_band_recall_center_dist_ratio
+        if ratio is None or not band:
+            return list(kept)
+        out = list(kept)
+        infos = [self._polygon_center_size(k) for k in out]
+        centers = np.stack([c for c, _ in infos]) if infos else np.zeros((0, 2), np.float64)
+        sizes = np.asarray([s for _, s in infos], dtype=np.float64)
+        for p in band:
+            c, size = self._polygon_center_size(p)
+            if centers.shape[0]:
+                dist = np.linalg.norm(centers - c[None, :], axis=1)
+                if bool(np.any(dist < ratio * np.minimum(sizes, size))):
+                    continue
+            out.append(p)
+            centers = np.concatenate([centers, c[None, :]], axis=0)
+            sizes = np.concatenate([sizes, [size]])
+        return out
+
     def build_char_polygons(
         self,
         precise: PreciseInferResult,
         flattened_text_regions: Sequence[FlattenedTextRegion],
         boxes: Sequence[Box],
     ) -> Tuple[List[List[Polygon]], List[Polygon]]:
-        """Grouped peak -> polygon build, inverse remap and NMS. Returns
-        (grouped polygons, page-coordinate char polygons)."""
-        grouped = self.precise_build_grouped_polygons(precise, flattened_text_regions, boxes)
+        """Grouped peak -> polygon build, inverse remap and NMS, then (with
+        ``precise_band_recall_center_dist_ratio``) the band recall pass: band
+        polygons remapped region by region, ordered by core distance, then
+        score, and merged. Returns (grouped core polygons, page-coordinate
+        char polygons)."""
+        if self.config.precise_band_recall_center_dist_ratio is None:
+            grouped = self.precise_build_grouped_polygons(precise, flattened_text_regions, boxes)
+            band_grouped, band_dists = [], []
+        else:
+            grouped, band_grouped, band_dists = self.precise_build_grouped_polygons(
+                precise, flattened_text_regions, boxes, collect_band=True
+            )
         remapped = self.precise_build_remapped_polygons(flattened_text_regions, boxes, grouped)
-        return grouped, self.dedup_char_polygons(remapped)
+        remapped = self.dedup_char_polygons(remapped)
+        if any(band_grouped):
+            candidates: List[Tuple[float, float, Polygon]] = []
+            for region, box, polys, dists in zip(
+                flattened_text_regions, boxes, band_grouped, band_dists
+            ):
+                if not polys:
+                    continue
+                region_remapped = self.precise_build_remapped_polygons([region], [box], [polys])
+                for p, d in zip(region_remapped, dists):
+                    candidates.append((d, -(p.score if p.score is not None else 0.0), p))
+            candidates.sort(key=lambda t: (t[0], t[1]))
+            remapped = self.merge_band_polygons(remapped, [p for _, _, p in candidates])
+        return grouped, remapped
 
     # -------------------------------------------------------------- end-to-end
 
-    def detect(self, image: np.ndarray) -> Dict[str, Any]:
+    def detect(self, image: np.ndarray, tiled: Optional[bool] = None) -> Dict[str, Any]:
         """Page image (H, W, 3) uint8 -> char polygons in page coordinates.
-        With several precise chunks, ``stacked_image``, ``boxes`` and
-        ``precise`` are those of the first chunk."""
-        rough = self.rough_infer(image)
+        ``tiled=True``, or ``None`` with the page's long side at least
+        ``tiled_rough_long_side_min``, runs the rough pass at full resolution
+        over tiles. With several precise chunks, ``stacked_image``, ``boxes``
+        and ``precise`` are those of the first chunk."""
+        if tiled is None:
+            tiled = (
+                self.config.tiled_rough_long_side_min is not None
+                and max(image.shape[:2]) >= self.config.tiled_rough_long_side_min
+            )
+        rough = self.rough_infer_tiled(image) if tiled else self.rough_infer(image)
         regions = self.build_flattened_text_regions(image, rough)
         grouped: List[List[Polygon]] = []
         remapped: List[Polygon] = []

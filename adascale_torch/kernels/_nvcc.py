@@ -9,6 +9,10 @@ included, so a build takes seconds. One library per ``.cu`` file, so a change
 to one kernel rebuilds only that one (a change to a shared header rebuilds
 all). ``BUILD_REPORT[name]`` records each build: ``seconds``, ``cached``, the
 ``ptxas`` register/spill report and ``path``.
+
+``refuse_grad`` is what the fused neck and heads wrappers call before a
+launch: their kernels have no backward (nor have the JAX package's), and a
+``ctypes`` launch writes into a fresh tensor that autograd does not see.
 """
 from __future__ import annotations
 
@@ -112,4 +116,17 @@ def check_activation(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(
             f"{name}: want C % 4 == 0 and 16-byte alignment, got C={t.shape[-1]} "
             f"at address {t.data_ptr():#x}"
+        )
+
+
+def refuse_grad(wrapper: str, *tensors: torch.Tensor) -> None:
+    """Raise where grad is enabled and any of ``tensors`` requires grad: a
+    kernel launched through ``ctypes`` returns a tensor without a gradient,
+    which would drop it without an error. The wrappers call this on the
+    card only; on the CPU their plain twins keep the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{wrapper}: the kernel has no backward, and its input or a parameter "
+            "requires grad; training runs the module neck and heads (as the JAX "
+            "train step does), or call it under torch.no_grad() / torch.inference_mode()"
         )

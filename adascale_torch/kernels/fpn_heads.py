@@ -115,11 +115,16 @@ def packed_heads(heads: Sequence[Params], n: int) -> Dict[str, torch.Tensor]:
 
 
 def run_heads_kernel(
-    build: Callable[[], ctypes.CDLL], prefix: str, x: torch.Tensor, heads: Sequence[Params]
+    build: Callable[[], ctypes.CDLL],
+    prefix: str,
+    x: torch.Tensor,
+    heads: Sequence[Params],
+    wrapper: str,
 ) -> List[torch.Tensor]:
     """Check, pack (once per parameter set) and launch a heads library on a
     CUDA tensor. Returns each head's (B, 2H, 2W, M) output, a view into one
-    packed map."""
+    packed map. Raises where a gradient is wanted (``_nvcc.refuse_grad``,
+    naming ``wrapper``)."""
     _nvcc.check_activation(f"{prefix} x", x, x.device)
     if not 0 < len(heads) <= MAX_HEADS:
         raise ValueError(f"{prefix}: {len(heads)} heads, the kernel takes 1..{MAX_HEADS}")
@@ -143,6 +148,7 @@ def run_heads_kernel(
             _nvcc.check_param(f"head {k} {name}", p[name], shape, x.device)
         widths.append(f)
         outs.append(m)
+    _nvcc.refuse_grad(wrapper, x, *(p[name] for p in heads for name in PARAM_NAMES))
     packed = packed_heads(heads, bn)
     nh = len(heads)
     out = x.new_empty(b, 2 * h, 2 * w, sum(outs))
@@ -173,11 +179,14 @@ def fused_rough_heads(
     x: torch.Tensor, p_mask: Params, p_height: Params
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mask logits, raw height), each (B, 2H, 2W, 1): the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor, the plain version on a CPU tensor. On the card it raises
+    where a gradient is wanted."""
     global LAUNCHES
     if x.device.type == "cpu":
         return fused_rough_heads_plain(x, p_mask, p_height)
-    mask_logits, height_raw = run_heads_kernel(build, "fpn_heads", x, [p_mask, p_height])
+    mask_logits, height_raw = run_heads_kernel(
+        build, "fpn_heads", x, [p_mask, p_height], "fused_rough_heads"
+    )
     LAUNCHES += 1
     return mask_logits, height_raw
 

@@ -129,7 +129,8 @@ def packed_neck(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The level-0 chain: the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    on a CPU tensor. On the card it raises where a gradient is wanted
+    (``_nvcc.refuse_grad``)."""
     global LAUNCHES
     if f0.device.type == "cpu":
         return fused_neck_l0_plain(f0, u, p)
@@ -142,6 +143,7 @@ def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor])
     shapes = [(cm, c0), (cm,), (cm,), (cm,), (co, cm, 3, 3), (co,), (co,), (co,)]
     for name, shape in zip(PARAM_NAMES, shapes):
         _nvcc.check_param(name, p[name], shape, f0.device)
+    _nvcc.refuse_grad("fused_neck_l0", f0, u, *(p[name] for name in PARAM_NAMES))
     lib = build()
     packed = packed_neck(p)
     t = torch.empty_like(u)

@@ -51,11 +51,12 @@ def fused_precise_heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[
 
 def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
     """Each head's (B, 2H, 2W, M) output: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor. On the card it raises where a
+    gradient is wanted."""
     global LAUNCHES
     if x.device.type == "cpu":
         return fused_precise_heads_plain(x, heads)
-    outs = run_heads_kernel(build, "precise_heads", x, heads)
+    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads")
     LAUNCHES += 1
     return outs
 

@@ -1,7 +1,7 @@
-"""AdaptiveScaling detector: shared ConvNeXt backbone, two FPN necks and six
-heads, NHWC, PyTorch.
+"""AdaptiveScaling detector: shared ConvNeXt backbone, two necks (FPN or
+UPerNeXt) and six heads, NHWC, PyTorch.
 
-Counterpart of ``adascale/models/adaptive_scaling.py`` for the FPN neck:
+Counterpart of ``adascale/models/adaptive_scaling.py``:
 
   ``forward_rough(x)``   -> (mask logits, char height), each (B, H/2, W/2, 1)
   ``forward_precise(x)`` -> (prob logits (B,h,w,1), up-left offset (B,h,w,2),
@@ -28,12 +28,15 @@ from torch import nn
 
 from .convnext import CONVNEXT_PRESETS, ConvNeXt
 from .fpn import FpnHead, FpnNeck
+from .upernext import UperNextHead, UperNextNeck
+
+NECK_HEADS = {"fpn": (FpnNeck, FpnHead), "upernext": (UperNextNeck, UperNextHead)}
 
 
 @dataclasses.dataclass(frozen=True)
 class AdaptiveScalingConfig:
-    """Same fields as the JAX package's config; sizes and neck types are
-    plain strings. Only the FPN neck is ported."""
+    """Same fields as the JAX package's config; sizes and neck types
+    (``"fpn"``, ``"upernext"``) are plain strings."""
 
     size: str = "small"
     neck_head_type: str = "fpn"
@@ -52,25 +55,24 @@ class AdaptiveScalingConfig:
 class AdaptiveScaling(nn.Module):
     def __init__(self, config: AdaptiveScalingConfig = AdaptiveScalingConfig()):
         super().__init__()
-        if config.neck_head_type != "fpn":
-            raise NotImplementedError(
-                f"neck_head_type {config.neck_head_type!r}: only 'fpn' is ported"
-            )
+        if config.neck_head_type not in NECK_HEADS:
+            raise ValueError(f"neck_head_type {config.neck_head_type!r}: one of {sorted(NECK_HEADS)}")
+        neck_cls, head_cls = NECK_HEADS[config.neck_head_type]
         self.config = config
         self.backbone = ConvNeXt(config.backbone_spec())
         group = self.backbone.in_channels_group
         neck_c = group[-2]
         ru, pu = config.rough_upsampling_factor, config.precise_upsampling_factor
-        self.rough_neck = FpnNeck(group, neck_c)
-        self.rough_char_mask_head = FpnHead(neck_c, 1, ru)
-        self.rough_char_height_head = FpnHead(neck_c, 1, ru)
-        self.precise_neck = FpnNeck(group, neck_c)
+        self.rough_neck = neck_cls(group, neck_c)
+        self.rough_char_mask_head = head_cls(neck_c, 1, ru)
+        self.rough_char_height_head = head_cls(neck_c, 1, ru)
+        self.precise_neck = neck_cls(group, neck_c)
         if config.precise_enable_char_mask_head:
-            self.precise_char_mask_head = FpnHead(neck_c, 1, pu)
-        self.precise_char_prob_head = FpnHead(neck_c, 1, pu)
-        self.precise_char_up_left_corner_offset_head = FpnHead(neck_c, 2, pu)
-        self.precise_char_corner_angle_head = FpnHead(neck_c, 4, pu)
-        self.precise_char_corner_distance_head = FpnHead(neck_c, 4, pu)
+            self.precise_char_mask_head = head_cls(neck_c, 1, pu)
+        self.precise_char_prob_head = head_cls(neck_c, 1, pu)
+        self.precise_char_up_left_corner_offset_head = head_cls(neck_c, 2, pu)
+        self.precise_char_corner_angle_head = head_cls(neck_c, 4, pu)
+        self.precise_char_corner_distance_head = head_cls(neck_c, 4, pu)
         with torch.no_grad():
             self.rough_char_height_head.step2.bias.fill_(
                 config.rough_init_char_height_output_bias

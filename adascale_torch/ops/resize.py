@@ -4,6 +4,13 @@ Counterparts of ``adascale/ops/resize.py``:
 
   * ``resize_nearest``: PyTorch's asymmetric nearest convention,
     ``src = floor(dst * in / out)`` per axis (the FPN's top-down ladder);
+  * ``resize_bilinear``: ``F.interpolate(mode="bilinear",
+    align_corners=False)``'s half-pixel convention, the source clamped to
+    [0, in - 1] (UPerNeXt's top-down ladder, its upsample to level 0 and its
+    heads' pre-upsample);
+  * ``adaptive_avg_pool``: ``nn.AdaptiveAvgPool2d``'s regions
+    [floor(i * in / out), ceil((i + 1) * in / out)) (UPerNeXt's pyramid
+    pooling);
   * ``area_downsample``: cv2 ``INTER_AREA`` box averaging for shrinking (the
     rough pass's preprocessing), as two separable products with the area
     weight matrices;
@@ -30,6 +37,22 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     cols = torch.from_numpy(np.floor(np.arange(ow) * (w / ow)).astype(np.int64))
     x = x.index_select(1, rows.to(x.device))
     return x.index_select(2, cols.to(x.device))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NHWC, half-pixel centres (align_corners=False).
+    The JAX package computes the same weights as two dense products; here
+    PyTorch's own kernel runs on a channels-last NCHW view."""
+    if (out_hw[0], out_hw[1]) == (x.shape[1], x.shape[2]):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Adaptive average pooling of NHWC to (out_size, out_size), as
+    ``nn.AdaptiveAvgPool2d``."""
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_size).permute(0, 2, 3, 1)
 
 
 def area_resize_weights(in_size: int, out_size: int) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12]
 
-Phases, each announced with its elapsed seconds:
+With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
+those listed. A missing weight file or reference is an error in any phase
+that reads it. Phases, each announced with its elapsed seconds:
 
   1. device: the card's name, count and power limit (nvidia-smi);
   2. build: nvcc builds the four kernel libraries from the sources in this
@@ -72,6 +74,40 @@ Phases, each announced with its elapsed seconds:
          model against its module path (1e-4; the weight packs rebuilt);
          one step with remat against one without (losses within 1e-6,
          72 launches).
+  9. UPerNeXt: the tiny/UPerNeXt flagship's detect() on the same page with
+     ``use_pallas_neck_heads=True`` (the JAX engine's routing: the block
+     kernel in the backbone, the module neck and heads) against its JAX
+     reference (tests/fixtures/torch_port/flagship_upernext_reference.npz,
+     the same bars): exactly 36 block launches and none of the neck and
+     heads kernels; the rough and precise forwards' ms (CUDA events), device
+     ms by kernel and costliest convolutions, FFT ones marked, from a trace;
+ 10. tiled band recall: the FPN flagship, fused, ``detect(tiled=True)`` with
+     ``precise_band_recall_center_dist_ratio=0.5`` on ``page_0`` and
+     ``page_1`` side by side (1024x1536: 2 x 3 tiles of 768, overlap 128)
+     against its JAX reference (flagship_fpn_tiled_band_reference.npz, the
+     same bars); the rough pass one forward of the 6 tiles, neck and heads
+     1 + 1 a chunk; the B = 6 rough forward timed and traced;
+ 11. detect_many: the three shift pages (one rough bucket, a batch of 4)
+     and a 100x700 blank page through ``BatchedAdaptiveScalingInference``,
+     fused: forwards at the batches and launches this input must give
+     (MANY_BATCHES, MANY_LAUNCHES), each page's polygons equal single-page
+     detect()'s (the same count, points within 1e-3), page_0 also against
+     the JAX reference; then the fused forwards at B = 1 and B = 16, ms per
+     page (CUDA events), the B = 16 ones traced;
+     in phases 9-11 each forward of the path runs again on the input the
+     path gave it (and the B = 16 forwards): every launch of the four
+     kernels against its plain twin on the same inputs (relative error
+     <= 1e-5, as in phases 3 and 3b), the fused forwards against the module
+     path's (<= 1e-4, as in phase 5);
+ 12. the three fused wrappers (neck level 0, rough heads, precise heads)
+     raise on the card, launching nothing, where a gradient is wanted.
+
+Each run counts every kernel's launches from 0 just before a path and reads
+them just after; a kernel that a path runs and that was not launched fails
+the run. The kernels line gives each kernel's count on its main path
+(``launches``: the default detect() for the block kernel, the fused one for
+the neck and heads, the train step for the trainable block) and on every
+path (``launches_by_path``).
 
 The second-to-last line is a JSON object describing each kernel, the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -80,6 +116,7 @@ at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -98,6 +135,10 @@ REFERENCE = os.path.join(FIXTURES, "flagship_fpn_reference.npz")
 MULTICHUNK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_multichunk_reference.npz")
 BLANK_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_blank_reference.npz")
 TRAIN_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_train_reference.npz")
+UPERNEXT_WEIGHTS = os.path.join(ROOT, "examples/flagship_upernext/flagship_upernext_params.f16.npz")
+UPERNEXT_REFERENCE = os.path.join(FIXTURES, "flagship_upernext_reference.npz")
+TILED_BAND_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_tiled_band_reference.npz")
+SHIFT_PAGES = [os.path.join(ROOT, f"tests/fixtures/shift_pages/page_{i}.npz") for i in range(3)]
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 without tensor cores, dense
 # TF32 on the tensor cores, HBM3.
@@ -140,6 +181,20 @@ TRAIN_LOSS_TOL = 1e-4
 LEAF_TOL = 1e-3
 REMAT_TOL = 1e-6
 WARMUP_STEPS, TIMED_STEPS = 3, 5
+# detect_many (phase 11): the three shift pages and a blank page; the
+# forwards timed per page at B = 1 and at this batch.
+BLANK_SHAPE = (100, 700, 3)
+MANY_BATCH = 16
+# Its forwards, in order: the shift pages share one rough bucket (3 pages
+# padded to a batch of 4), the blank page is a group of its own, and each
+# page's precise stack has a bucket of its own; 18 blocks a forward.
+MANY_BATCHES = [("rough", 4), ("rough", 1)] + [("precise", 1)] * 4
+MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "precise_heads": 4}
+# Batched against single-page detect(): the same polygons, points within
+# this (tests/test_batch_inference.py's bar).
+MANY_POINT_TOL = 1e-3
+PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12")
+KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 
 
 def stamp(phase: str) -> None:
@@ -434,14 +489,9 @@ def build_all():
     """Build the four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from adascale_torch.kernels import _nvcc, convnext_block, fpn_heads, fpn_neck, precise_heads
+    from adascale_torch.kernels import _nvcc
 
-    modules = {
-        "convnext_block": convnext_block,
-        "fpn_neck_l0": fpn_neck,
-        "fpn_heads": fpn_heads,
-        "precise_heads": precise_heads,
-    }
+    modules = kernel_modules()
     with ThreadPoolExecutor(len(modules)) as pool:
         for future in [pool.submit(m.build) for m in modules.values()]:
             future.result()
@@ -599,21 +649,7 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
     against a JAX reference; the launches of all four kernels must be exactly
     what its precise chunks need, and the chunk count the reference's.
     Returns the result and the launch counts."""
-    import torch
-
-    from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
-
-    modules = {
-        "convnext_block": convnext_block,
-        "fpn_neck_l0": fpn_neck,
-        "fpn_heads": fpn_heads,
-        "precise_heads": precise_heads,
-    }
-    for m in modules.values():
-        m.LAUNCHES = 0
-    result = engine.detect(image)
-    torch.cuda.synchronize()
-    launches = {name: m.LAUNCHES for name, m in modules.items()}
+    result, launches = counted(lambda: engine.detect(image))
     chunks = result["num_precise_chunks"]
     want = {
         "convnext_block": blocks_per_pass * (1 + chunks),
@@ -1115,9 +1151,434 @@ def train_steps(params, device) -> dict:
             "launches": launches[-1], "split": split, "plain_forward_ms": plain_ms}
 
 
+def kernel_modules():
+    """The four kernel wrappers' modules by the kernels line's names."""
+    from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
+
+    return {
+        "convnext_block": convnext_block,
+        "fpn_neck_l0": fpn_neck,
+        "fpn_heads": fpn_heads,
+        "precise_heads": precise_heads,
+    }
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before and
+    read just after; returns its result and the counts."""
+    import torch
+
+    modules = kernel_modules()
+    for m in modules.values():
+        m.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: m.LAUNCHES for name, m in modules.items()}
+
+
+@contextlib.contextmanager
+def recorded_forwards(engine):
+    """Within: each ``engine._forward`` call appends its pass and a copy of
+    its input to the yielded list, so that a path's forwards can be run
+    again on the inputs the path gave them."""
+    calls = []
+    forward = engine._forward
+
+    def recording(x, which):
+        calls.append((which, x.clone()))
+        return forward(x, which)
+
+    engine._forward = recording
+    try:
+        yield calls
+    finally:
+        del engine._forward
+
+
+@contextlib.contextmanager
+def held_against_plain(worst: dict):
+    """Within: every launch of the four kernels is held against its plain
+    twin on the same inputs, with phase 3's and 3b's bar (the largest
+    difference over the outputs <= REL_TOL of the largest plain value).
+    ``worst[name]`` gathers each kernel's launches, input shapes and largest
+    relative error. The plain twins launch nothing, so the counts move as
+    they would without the check."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
+
+    hooks = [
+        ("convnext_block", convnext_block, "_launch", convnext_block.convnext_block_plain),
+        ("fpn_neck_l0", fpn_neck, "fused_neck_l0", fpn_neck.fused_neck_l0_plain),
+        ("fpn_heads", fpn_heads, "fused_rough_heads", fpn_heads.fused_rough_heads_plain),
+        ("precise_heads", precise_heads, "fused_precise_heads", precise_heads.fused_precise_heads_plain),
+    ]
+
+    def checked(name, kernel, plain):
+        def call(x, *args):
+            got = kernel(x, *args)
+            want = plain(x, *args)
+            gs, ws = ([v] if torch.is_tensor(v) else list(v) for v in (got, want))
+            err = max(float((g - w).abs().max()) for g, w in zip(gs, ws))
+            rel = err / (max(float(w.abs().max()) for w in ws) or 1.0)
+            row = worst.setdefault(name, {"launches": 0, "shapes": set(), "rel": 0.0})
+            row["launches"] += 1
+            row["shapes"].add(tuple(x.shape))
+            row["rel"] = max(row["rel"], rel)
+            if not rel <= REL_TOL:
+                raise AssertionError(f"{name} at {tuple(x.shape)}: relative error {rel} > {REL_TOL}")
+            return got
+
+        return call
+
+    saved = [(module, attr, getattr(module, attr)) for _, module, attr, _ in hooks]
+    for name, module, attr, plain in hooks:
+        setattr(module, attr, checked(name, getattr(module, attr), plain))
+    try:
+        yield worst
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def check_path_forwards(label: str, engine, calls) -> dict:
+    """A path's forwards run again on the inputs it gave them (``calls``, as
+    ``recorded_forwards`` keeps them): every kernel launch held against its
+    plain twin (``held_against_plain``), and where the engine runs an FPN
+    model's neck level 0 and heads through their kernels, each output
+    against the module path's (block kernel, module neck and heads) within
+    FORWARD_REL_TOL, as in phase 5. Returns the kernels' worst errors."""
+    import torch
+
+    cfg = engine.config
+    fused = cfg.use_pallas_neck_heads and cfg.model.neck_head_type == "fpn"
+    worst = {}
+    with torch.inference_mode():
+        for which, x in calls:
+            with held_against_plain(worst):
+                got = engine._forward(x, which)
+            if not fused:
+                continue
+            model = engine.model
+            want = model.forward_rough(x) if which == "rough" else model.forward_precise(x)
+            rels = [float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+            print(
+                f"{label}: fused {which} forward {tuple(x.shape)}, outputs' rel err vs module path "
+                + " ".join(f"{r:.3e}" for r in rels),
+                flush=True,
+            )
+            if not max(rels) <= FORWARD_REL_TOL:
+                raise AssertionError(f"{label} fused {which} {tuple(x.shape)}: rel err {rels} > {FORWARD_REL_TOL}")
+    print(
+        f"{label}: kernel launches against their plain twins: "
+        + "; ".join(
+            f"{k} {v['launches']} at {sorted(v['shapes'])} worst rel {v['rel']:.3e}" for k, v in worst.items()
+        ),
+        flush=True,
+    )
+    return worst
+
+
+def conv_kernel_ms(fn, reps: int = 3):
+    """Device ms per call of the library convolutions ``fn`` runs, by input
+    and weight shape and by the kernel cuDNN chose, from a torch.profiler
+    trace (``record_shapes``) of ``reps`` warm calls; FFT kernels are the
+    ones whose name says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not getattr(e, "kernels", None):
+            continue
+        conv = e
+        while conv is not None and conv.name != "aten::convolution":
+            conv = conv.cpu_parent
+        if conv is None:
+            continue
+        shapes = "x".join(str(tuple(s)) for s in conv.input_shapes[:2])
+        for k in e.kernels:
+            key = (shapes, k.name[:60])
+            rows[key] = rows.get(key, 0.0) + k.duration / 1e3 / reps
+    return sorted(((ms, shapes, name) for (shapes, name), ms in rows.items()), reverse=True)
+
+
+def print_forward_profile(label: str, fn, top: int = 6) -> dict:
+    """A forward's device ms by kernel group and its costliest library
+    convolutions (shapes NCHW input x weight, with the kernel that took most
+    of each); a convolution is on an FFT path when one of its kernels says
+    so, and then all its kernels (transforms, complex products) count."""
+    parts = forward_device_ms(fn)
+    print(
+        f"{label}, device ms a call by kernel (torch.profiler, 3 calls): "
+        + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()),
+        flush=True,
+    )
+    convs = {}
+    for ms, shapes, name in conv_kernel_ms(fn):
+        convs.setdefault(shapes, []).append((ms, name))
+    rows = sorted(
+        ((sum(ms for ms, _ in ks), shapes, max(ks)[1], any("fft" in n.lower() for _, n in ks))
+         for shapes, ks in convs.items()),
+        reverse=True,
+    )
+    fft = [(ms, shapes) for ms, shapes, _, is_fft in rows if is_fft]
+    print(
+        f"{label}, costliest convolutions (device ms a call, input x weight, main kernel): "
+        + "; ".join(f"{ms:.3f} {shapes}{' FFT' if is_fft else ''} {name}" for ms, shapes, name, is_fft in rows[:top])
+        + f"; on an FFT path: {len(fft)} ({sum(ms for ms, _ in fft):.3f} ms"
+        + "".join(f", {ms:.3f} {shapes}" for ms, shapes in fft) + ")",
+        flush=True,
+    )
+    return {**parts, "fft_ms": sum(ms for ms, _ in fft)}
+
+
+def forward_inputs(image, result, device):
+    """The rough pass's input for ``image`` and the precise pass's input for
+    ``result``'s (first) stack, as detect() builds them."""
+    import torch
+
+    from adascale_torch.inference.preprocess import compute_rough_shapes, preprocess_image
+
+    resized_hw, padded_hw = compute_rough_shapes(*image.shape[:2])
+    with torch.inference_mode():
+        x_rough = preprocess_image(torch.from_numpy(image).to(device), resized_hw, padded_hw)
+        stacked = result["stacked_image"]
+        ph, pw = result["precise"].padded_image_shape
+        x_precise = torch.nn.functional.pad(
+            torch.from_numpy(stacked).to(device).float()[None],
+            (0, 0, 0, pw - stacked.shape[1], 0, ph - stacked.shape[0]),
+        )
+    return x_rough, x_precise
+
+
+def engine_for(params, **overrides):
+    """An engine with the tiny flagship's config (``model`` and the engine
+    fields in ``overrides``) on the card."""
+    from adascale_torch import AdaptiveScalingConfig, AdaptiveScalingInference, AdaptiveScalingInferenceConfig
+
+    model = AdaptiveScalingConfig(size="tiny", neck_head_type=overrides.pop("neck_head_type", "fpn"))
+    cfg = AdaptiveScalingInferenceConfig(model=model, use_pallas_backbone=True, device="cuda", **overrides)
+    return AdaptiveScalingInference(cfg, params=params)
+
+
+def check_upernext(image) -> dict:
+    """Phase 9: the UPerNeXt flagship's detect() in the fused configuration
+    (module neck and heads, as the JAX engine routes UPerNeXt; the block
+    kernel in the backbone) against its JAX reference; its launches; its
+    forwards' ms and device ms by kernel."""
+    import numpy as np
+
+    from adascale_torch.utils.params import load_npz
+
+    ref = np.load(UPERNEXT_REFERENCE)
+    engine = engine_for(load_npz(UPERNEXT_WEIGHTS), neck_head_type="upernext", use_pallas_neck_heads=True)
+    stamp("UPerNeXt engine built; detect() (counted)")
+    with recorded_forwards(engine) as calls:
+        result, launches = counted(lambda: engine.detect(image))
+    chunks = result["num_precise_chunks"]
+    check_against_reference(result, ref, f"LAUNCHES={launches}")
+    blocks = sum(n for _, n in engine.config.model.backbone_spec())
+    want = {"convnext_block": blocks * (1 + chunks), "fpn_neck_l0": 0, "fpn_heads": 0, "precise_heads": 0}
+    if launches != want:
+        raise AssertionError(f"UPerNeXt LAUNCHES {launches} != {want}")
+    check_path_forwards("UPerNeXt", engine, calls)
+    x_rough, x_precise = forward_inputs(image, result, engine.device)
+    return {"launches": launches, **timed_forwards("UPerNeXt", engine, x_rough, x_precise)}
+
+
+def timed_forwards(label: str, engine, x_rough, x_precise) -> dict:
+    """Warm ms of an engine's rough and precise forwards (CUDA events), and
+    their device ms by kernel."""
+    import torch
+
+    out = {}
+    with torch.inference_mode():
+        for which, x in (("rough", x_rough), ("precise", x_precise)):
+            ms = cuda_ms(lambda: engine._forward(x, which), reps=3)
+            print(f"{label} {which} forward {tuple(x.shape)}: {ms:.3f} ms (CUDA events, warm)", flush=True)
+            out[which] = {"ms": ms, **print_forward_profile(f"{label} {which} forward", lambda: engine._forward(x, which))}
+    return out
+
+
+def check_tiled_band(params) -> dict:
+    """Phase 10: the FPN flagship, fused, ``detect(tiled=True)`` with band
+    recall on two shift pages side by side, against its JAX reference; the
+    rough pass's blocks at B = 6 (the tiles), neck and heads 1 + 1 a chunk;
+    every launch of its forwards against the plain twins, the fused forwards
+    against the module path."""
+    import numpy as np
+    import torch
+
+    ref = np.load(TILED_BAND_REFERENCE)
+    image = np.concatenate([np.load(os.path.join(ROOT, str(p)))["image"] for p in ref["pages"]], axis=1)
+    if image.shape != tuple(ref["image_shape"]):
+        raise AssertionError(f"tiled page {image.shape} != {tuple(ref['image_shape'])}")
+    engine = engine_for(
+        params, use_pallas_neck_heads=True,
+        precise_band_recall_center_dist_ratio=float(ref["precise_band_recall_center_dist_ratio"]),
+    )
+    wall = time.perf_counter()
+    with recorded_forwards(engine) as calls:
+        result, launches = counted(lambda: engine.detect(image, tiled=True))
+    wall = (time.perf_counter() - wall) * 1e3
+    chunks = result["num_precise_chunks"]
+    rough = result["rough"]
+    if rough.padded_image_shape != tuple(ref["rough_padded_image_shape"]):
+        raise AssertionError(f"tiled padded shape {rough.padded_image_shape}")
+    check_against_reference(result, ref, f"LAUNCHES={launches} wall {wall:.1f} ms (first call)")
+    blocks = sum(n for _, n in engine.config.model.backbone_spec())
+    want = {"convnext_block": blocks * (1 + chunks), "fpn_neck_l0": 1 + chunks, "fpn_heads": 1, "precise_heads": chunks}
+    if launches != want:
+        raise AssertionError(f"tiled LAUNCHES {launches} != {want}")
+    tiles = [x for which, x in calls if which == "rough"]
+    print(f"tiled rough pass: {[tuple(x.shape) for x in tiles]}", flush=True)
+    if len(tiles) != 1 or tuple(tiles[0].shape) != (6, 768, 768, 3):
+        raise AssertionError("the tiled rough pass is not one forward of 6 tiles of 768")
+    check_path_forwards("tiled", engine, calls)
+    tiles = tiles[0]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: engine._forward(tiles, "rough"), reps=3)
+        print(f"tiled rough forward {tuple(tiles.shape)}: {ms:.3f} ms (CUDA events, warm)", flush=True)
+        parts = print_forward_profile("tiled rough forward (B = 6)", lambda: engine._forward(tiles, "rough"))
+    return {"launches": launches, "rough_ms": ms, "rough": parts}
+
+
+def check_detect_many(params) -> dict:
+    """Phase 11: ``detect_many`` (fused) over the three shift pages and a
+    blank page: its forwards' batches and launches as MANY_BATCHES and
+    MANY_LAUNCHES say, every launch of those forwards against the plain
+    twins and the fused forwards against the module path, each page against
+    single-page detect(), page_0 against the JAX reference too; then the
+    fused forwards at B = MANY_BATCH checked the same way, and timed at
+    B = 1 and B = MANY_BATCH, ms per page."""
+    import numpy as np
+    import torch
+
+    from adascale_torch import BatchedAdaptiveScalingInference
+
+    pages = [np.load(p)["image"] for p in SHIFT_PAGES] + [np.zeros(BLANK_SHAPE, np.uint8)]
+    engine = engine_for(params, use_pallas_neck_heads=True)
+    batched = BatchedAdaptiveScalingInference(engine)
+    wall = time.perf_counter()
+    with recorded_forwards(engine) as calls:
+        results, launches = counted(lambda: batched.detect_many(pages))
+    wall = (time.perf_counter() - wall) * 1e3
+    batches = [(which, x.shape[0]) for which, x in calls]
+    print(
+        f"detect_many: {len(pages)} pages in {wall:.1f} ms (first call); forwards "
+        + ", ".join(f"{which} {tuple(x.shape)}" for which, x in calls)
+        + f"; LAUNCHES={launches}",
+        flush=True,
+    )
+    if batches != MANY_BATCHES:
+        raise AssertionError(f"detect_many forwards {batches} != {MANY_BATCHES}")
+    if launches != MANY_LAUNCHES:
+        raise AssertionError(f"detect_many LAUNCHES {launches} != {MANY_LAUNCHES}")
+    check_path_forwards("detect_many", engine, calls)
+    check_against_reference(results[0], np.load(REFERENCE), "(detect_many, page_0)")
+    for k, (image, res) in enumerate(zip(pages, results)):
+        single = engine.detect(image)
+        vh, vw = single["rough"].resized_shape
+        mask_diff = int((res["rough"].rough_char_mask[:vh, :vw] != single["rough"].rough_char_mask[:vh, :vw]).sum())
+        ours, theirs = res["char_polygons"], single["char_polygons"]
+        worst = max((float(np.abs(a.points - b.points).max()) for a, b in zip(ours, theirs)), default=0.0)
+        print(
+            f"detect_many page {k} {image.shape[:2]}: polygons batched={len(ours)} single={len(theirs)}, "
+            f"worst point difference {worst:.3e}, rough mask pixels that differ {mask_diff}",
+            flush=True,
+        )
+        if len(ours) != len(theirs) or not worst <= MANY_POINT_TOL:
+            raise AssertionError(f"detect_many page {k} differs from detect(): {len(ours)} / {len(theirs)}, {worst}")
+
+    # The fused forwards at B = 1 and B = MANY_BATCH, ms per page.
+    x_rough, x_precise = forward_inputs(pages[0], results[0], engine.device)
+    xs = (("rough", x_rough), ("precise", x_precise))
+    with torch.inference_mode():
+        xbs = [(which, x.expand(MANY_BATCH, *x.shape[1:]).contiguous()) for which, x in xs]
+    check_path_forwards(f"fused forwards B={MANY_BATCH}", engine, xbs)
+    per_page = {}
+    with torch.inference_mode():
+        for (which, x), (_, xb) in zip(xs, xbs):
+            one = cuda_ms(lambda: engine._forward(x, which), reps=3)
+            many = cuda_ms(lambda: engine._forward(xb, which), reps=3) / MANY_BATCH
+            per_page[which] = {"b1_ms": one, f"b{MANY_BATCH}_ms_per_page": many}
+            print(
+                f"fused {which} forward, ms per page (CUDA events, warm): B=1 {one:.3f} "
+                f"{tuple(x.shape)}; B={MANY_BATCH} {many:.3f} {tuple(xb.shape)}",
+                flush=True,
+            )
+            per_page[which]["profile"] = print_forward_profile(
+                f"fused {which} forward B={MANY_BATCH}", lambda: engine._forward(xb, which), top=4
+            )
+    return {"launches": launches, "forwards": per_page}
+
+
+def check_grad_refusal(gen, device) -> None:
+    """Phase 12: the three fused wrappers raise, launching nothing, where a
+    gradient is wanted on the card (their kernels have no backward)."""
+    import torch
+
+    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
+
+    (h, w, c0, cm, co), _ = NECK_SHAPES[-1]
+    neck = random_neck_params(c0, cm, co, gen, device)
+    f0 = torch.randn(1, h, w, c0, generator=gen).to(device)
+    u = torch.randn(1, h, w, cm, generator=gen).to(device)
+    x = torch.randn(1, h, w, 32, generator=gen).to(device)
+    rough = [random_head_params(32, 1, gen, device) for _ in range(2)]
+    precise = [random_head_params(32, m, gen, device) for m in PRECISE_OUT]
+    cases = [
+        ("fused_neck_l0", fpn_neck, lambda: fpn_neck.fused_neck_l0(f0, u, neck), neck["step2_0.conv.weight"]),
+        ("fused_rough_heads", fpn_heads, lambda: fpn_heads.fused_rough_heads(x, *rough), x),
+        ("fused_precise_heads", precise_heads, lambda: precise_heads.fused_precise_heads(x, precise),
+         precise[2]["step2.bias"]),
+    ]
+    for name, module, call, needs_grad in cases:
+        with torch.inference_mode():
+            call()  # serving launches
+        before = module.LAUNCHES
+        needs_grad.requires_grad_()
+        try:
+            out = call()
+        except RuntimeError as e:
+            if name not in str(e) or module.LAUNCHES != before:
+                raise
+            print(f"{name} with a gradient on the card: RuntimeError: {e}", flush=True)
+        else:
+            raise AssertionError(f"{name} returned {type(out)} with a gradient wanted; it must raise")
+        finally:
+            needs_grad.requires_grad_(False)
+
+
+def parse_phases(argv=None):
+    """The phases to run: all of them, or those ``--phases`` lists (phases 1
+    and 2, the device and the build, always run)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help=f"comma-separated phases to run after 1 and 2, of {','.join(PHASES)} (default: all)",
+    )
+    phases = [p.strip() for p in parser.parse_args(argv).phases.split(",") if p.strip()]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
+    return set(phases)
+
+
 def main() -> None:
+    phases = parse_phases()
     # A hang ends as a traceback naming the phase, not as a cut run.
-    faulthandler.dump_traceback_later(420, exit=True)
+    faulthandler.dump_traceback_later(900, exit=True)
     import numpy as np
     import torch
 
@@ -1132,188 +1593,195 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
 
-    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.utils.params import load_npz
 
     stamp("phase 2: build")
     build_all()
-
-    stamp("phase 3: kernels against plain")
+    # A missing weight file or reference is an error, never a skipped phase.
+    params = load_npz(WEIGHTS)
     gen = torch.Generator().manual_seed(0)
-    block_rows = check_blocks(gen, device)
-
-    stamp("phase 3b: neck and head kernels against plain")
-    neck_row, rough_row, precise_row = check_neck_and_heads(gen, device)
-
-    stamp("phase 4: detect() with the tiny/FPN flagship")
-    from adascale_torch import AdaptiveScalingConfig, AdaptiveScalingInference, AdaptiveScalingInferenceConfig
-    from adascale_torch.utils.params import load_npz
-
     ref = np.load(REFERENCE)
     image = np.load(os.path.join(ROOT, str(ref["page"])))["image"]
-    cfg = AdaptiveScalingInferenceConfig(
-        model=AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"),
-        use_pallas_backbone=True,
-        device="cuda",
-    )
-    params = load_npz(WEIGHTS)
-    engine = AdaptiveScalingInference(cfg, params=params)
-    stamp("engine built; first detect() (counted)")
-    K.LAUNCHES = 0
-    result = engine.detect(image)
-    torch.cuda.synchronize()
-    launches = K.LAUNCHES
-    chunks = result["num_precise_chunks"]
+    rows, by_path = {}, {}
+
+    if "3" in phases:
+        stamp("phase 3: kernels against plain")
+        rows["convnext_block"] = check_blocks(gen, device)
+
+    if "3b" in phases:
+        stamp("phase 3b: neck and head kernels against plain")
+        rows["fpn_neck_l0"], rows["fpn_heads"], rows["precise_heads"] = check_neck_and_heads(gen, device)
+
+    engine = engine_for(params)
     blocks_per_pass = sum(n for _, n in engine.config.model.backbone_spec())
-    stamp("detect() done; comparing with the JAX reference")
+    if "4" in phases:
+        stamp("phase 4: detect() with the tiny/FPN flagship")
+        result, launches = counted(lambda: engine.detect(image))
+        chunks = result["num_precise_chunks"]
+        stamp("detect() done; comparing with the JAX reference")
+        check_against_reference(result, ref, f"LAUNCHES={launches}")
+        want = {"convnext_block": blocks_per_pass * (1 + chunks), "fpn_neck_l0": 0, "fpn_heads": 0,
+                "precise_heads": 0}
+        if launches != want:
+            raise AssertionError(f"LAUNCHES {launches} != {want}")
+        by_path["detect"] = launches
 
-    check_against_reference(result, ref, f"convnext_block LAUNCHES={launches}")
-    if launches != blocks_per_pass * (1 + chunks):
-        raise AssertionError(f"LAUNCHES {launches} != {blocks_per_pass} x (1 + {chunks})")
-
-    stamp("warm timings")
-    h, w = image.shape[:2]
-    from adascale_torch.inference.preprocess import compute_rough_shapes, preprocess_image
-
-    resized_hw, padded_hw = compute_rough_shapes(h, w)
-    with torch.inference_mode():
-        x_rough = preprocess_image(torch.from_numpy(image).to(device), resized_hw, padded_hw)
-        stacked = result["stacked_image"]
-        ph, pw = result["precise"].padded_image_shape
-        x_precise = torch.nn.functional.pad(
-            torch.from_numpy(stacked).to(device).float()[None],
-            (0, 0, 0, pw - stacked.shape[1], 0, ph - stacked.shape[0]),
+        stamp("warm timings")
+        x_rough, x_precise = forward_inputs(image, result, device)
+        with torch.inference_mode():
+            rough_ms = cuda_ms(lambda: engine.model.forward_rough(x_rough), reps=5)
+            precise_ms = cuda_ms(lambda: engine.model.forward_precise(x_precise), reps=5)
+        print(
+            f"rough forward {tuple(x_rough.shape)}: {rough_ms:.3f} ms; precise forward "
+            f"{tuple(x_precise.shape)}: {precise_ms:.3f} ms; detect() wall: "
+            f"{detect_wall_ms(engine, image):.1f} ms per page (median of 3)",
+            flush=True,
         )
-        rough_ms = cuda_ms(lambda: engine.model.forward_rough(x_rough), reps=5)
-        precise_ms = cuda_ms(lambda: engine.model.forward_precise(x_precise), reps=5)
-    print(
-        f"rough forward {tuple(x_rough.shape)}: {rough_ms:.3f} ms; precise forward "
-        f"{tuple(x_precise.shape)}: {precise_ms:.3f} ms; detect() wall: "
-        f"{detect_wall_ms(engine, image):.1f} ms per page (median of 3)",
-        flush=True,
-    )
-    print_detect_steps(engine, image)
+        print_detect_steps(engine, image)
 
-    stamp("phase 5: detect() with use_pallas_neck_heads=True")
-    from adascale_torch.kernels import packing
+    fused = engine_for(params, use_pallas_neck_heads=True)
+    if "5" in phases:
+        stamp("phase 5: detect() with use_pallas_neck_heads=True")
+        from adascale_torch.kernels import packing
 
-    fused_cfg = dataclasses.replace(cfg, use_pallas_neck_heads=True)
-    fused = AdaptiveScalingInference(fused_cfg, params=params)
-    _, fused_launches = fused_detect_checked(fused, image, ref, blocks_per_pass)
+        result, by_path["detect_fused"] = fused_detect_checked(fused, image, ref, blocks_per_pass)
+        x_rough, x_precise = forward_inputs(image, result, device)
 
-    stamp("fused forwards against the module path; warm timings")
-    forward_ms = {}
-    with torch.inference_mode():
-        for which, x in (("rough", x_rough), ("precise", x_precise)):
-            want = engine._forward(x, which)
-            got = fused._forward(x, which)
-            for k, (g, w_) in enumerate(zip(got, want)):
-                rel = float((g - w_).abs().max()) / float(w_.abs().max())
+        stamp("fused forwards against the module path; warm timings")
+        forward_ms = {}
+        with torch.inference_mode():
+            for which, x in (("rough", x_rough), ("precise", x_precise)):
+                want = engine._forward(x, which)
+                got = fused._forward(x, which)
+                for k, (g, w_) in enumerate(zip(got, want)):
+                    rel = float((g - w_).abs().max()) / float(w_.abs().max())
+                    print(
+                        f"fused {which} output {k} {tuple(g.shape)}: rel err vs module path {rel:.3e}",
+                        flush=True,
+                    )
+                    if not rel <= FORWARD_REL_TOL:
+                        raise AssertionError(f"fused {which} output {k}: rel err {rel} > {FORWARD_REL_TOL}")
+                forward_ms[which] = (
+                    cuda_ms(lambda: engine._forward(x, which), reps=5),
+                    cuda_ms(lambda: fused._forward(x, which), reps=5),
+                )
+                parts = forward_device_ms(lambda: fused._forward(x, which))
                 print(
-                    f"fused {which} output {k} {tuple(g.shape)}: rel err vs module path {rel:.3e}",
+                    f"fused {which} forward, device ms a call by kernel (torch.profiler, 3 calls): "
+                    + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()),
                     flush=True,
                 )
-                if not rel <= FORWARD_REL_TOL:
-                    raise AssertionError(f"fused {which} output {k}: rel err {rel} > {FORWARD_REL_TOL}")
-            forward_ms[which] = (
-                cuda_ms(lambda: engine._forward(x, which), reps=5),
-                cuda_ms(lambda: fused._forward(x, which), reps=5),
-            )
-            parts = forward_device_ms(lambda: fused._forward(x, which))
-            print(
-                f"fused {which} forward, device ms a call by kernel (torch.profiler, 3 calls): "
-                + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()),
-                flush=True,
-            )
-    packs = packing.PACKS
-    wall = detect_wall_ms(fused, image)
-    print(
-        "forward ms (module path / fused): "
-        + "; ".join(f"{k} {m:.3f} / {f:.3f}" for k, (m, f) in forward_ms.items())
-        + f"; fused detect() wall: {wall:.1f} ms per page (median of 3); weight packs built "
-        f"during those 3 warm detect(): {packing.PACKS - packs}",
-        flush=True,
-    )
-    if packing.PACKS != packs:
-        raise AssertionError(f"warm fused detect() built {packing.PACKS - packs} weight packs")
-    print_detect_steps(fused, image)
+        packs = packing.PACKS
+        wall = detect_wall_ms(fused, image)
+        print(
+            "forward ms (module path / fused): "
+            + "; ".join(f"{k} {m:.3f} / {f:.3f}" for k, (m, f) in forward_ms.items())
+            + f"; fused detect() wall: {wall:.1f} ms per page (median of 3); weight packs built "
+            f"during those 3 warm detect(): {packing.PACKS - packs}",
+            flush=True,
+        )
+        if packing.PACKS != packs:
+            raise AssertionError(f"warm fused detect() built {packing.PACKS - packs} weight packs")
+        print_detect_steps(fused, image)
 
-    stamp("phase 6: multi-chunk fused detect() (a small precise stack-area cap)")
-    ref = np.load(MULTICHUNK_REFERENCE)
-    chunked = AdaptiveScalingInference(
-        dataclasses.replace(
-            fused_cfg, precise_stacked_image_max_area=int(ref["precise_stacked_image_max_area"])
-        ),
-        params=params,
-    )
-    fused_detect_checked(chunked, np.load(os.path.join(ROOT, str(ref["page"])))["image"], ref,
-                         blocks_per_pass, min_chunks=2)
-
-    stamp("phase 7: fused detect() on a blank page")
-    ref = np.load(BLANK_REFERENCE)
-    result, _ = fused_detect_checked(
-        fused, np.zeros(tuple(ref["image_shape"]), np.uint8), ref, blocks_per_pass
-    )
-    if result["stacked_image"].shape != tuple(ref["stacked_image_shape"]):
-        raise AssertionError(
-            f"blank page stack {result['stacked_image'].shape} != {tuple(ref['stacked_image_shape'])}"
+    if "6" in phases:
+        stamp("phase 6: multi-chunk fused detect() (a small precise stack-area cap)")
+        chunk_ref = np.load(MULTICHUNK_REFERENCE)
+        chunked = engine_for(
+            params, use_pallas_neck_heads=True,
+            precise_stacked_image_max_area=int(chunk_ref["precise_stacked_image_max_area"]),
+        )
+        _, by_path["detect_fused_chunks"] = fused_detect_checked(
+            chunked, np.load(os.path.join(ROOT, str(chunk_ref["page"])))["image"], chunk_ref,
+            blocks_per_pass, min_chunks=2,
         )
 
-    stamp("phase 8a: the trainable block against autograd of the plain version")
-    trainable_row = check_trainable_block(gen, device)
+    if "7" in phases:
+        stamp("phase 7: fused detect() on a blank page")
+        blank_ref = np.load(BLANK_REFERENCE)
+        result, by_path["detect_fused_blank"] = fused_detect_checked(
+            fused, np.zeros(tuple(blank_ref["image_shape"]), np.uint8), blank_ref, blocks_per_pass
+        )
+        if result["stacked_image"].shape != tuple(blank_ref["stacked_image_shape"]):
+            raise AssertionError(
+                f"blank page stack {result['stacked_image'].shape} != {tuple(blank_ref['stacked_image_shape'])}"
+            )
 
-    stamp("phase 8b: the flagship's two-task step against the JAX reference")
-    check_train_reference(params, device)
+    if "8a" in phases:
+        stamp("phase 8a: the trainable block against autograd of the plain version")
+        rows["convnext_block_trainable"] = check_trainable_block(gen, device)
 
-    stamp("phase 8c: train steps with the flagship")
-    trained = train_steps(params, device)
+    if "8b" in phases:
+        stamp("phase 8b: the flagship's two-task step against the JAX reference")
+        check_train_reference(params, device)
+
+    if "8c" in phases:
+        stamp("phase 8c: train steps with the flagship")
+        trained = train_steps(params, device)
+        by_path["train_step"] = {"convnext_block": trained["launches"]}
+        rows.setdefault("convnext_block_trainable", {}).update(
+            # Device ms of one traced B = 6 step's 36 block forwards (kernel;
+            # plain version in the same place) and of their backward.
+            launches=trained["launches"],
+            ms=trained["split"]["blocks_forward_kernel"],
+            plain_ms=trained["plain_forward_ms"],
+            backward_ms=trained["split"]["blocks_backward_recompute"],
+        )
+
+    if "9" in phases:
+        stamp("phase 9: detect() with the tiny/UPerNeXt flagship (fused configuration)")
+        by_path["upernext_detect"] = check_upernext(image)["launches"]
+
+    if "10" in phases:
+        stamp("phase 10: tiled detect() with band recall on a 1024x1536 page")
+        by_path["tiled_band_detect"] = check_tiled_band(params)["launches"]
+
+    if "11" in phases:
+        stamp("phase 11: detect_many over three shift pages and a blank page")
+        by_path["detect_many"] = check_detect_many(params)["launches"]
+
+    if "12" in phases:
+        stamp("phase 12: the fused wrappers refuse a gradient on the card")
+        check_grad_refusal(gen, device)
+
+    # Every kernel a path runs was launched in that path's counted run.
+    path_kernels = {
+        "detect": ["convnext_block"], "upernext_detect": ["convnext_block"],
+        "train_step": ["convnext_block"],
+    }
+    for path, launches in by_path.items():
+        missing = [k for k in path_kernels.get(path, KERNEL_NAMES) if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"path {path}: kernels {missing} were not launched ({launches})")
+    print("launches by path: " + json.dumps(by_path), flush=True)
 
     stamp("done")
     print(smi_line(), flush=True)
-    kernels = [
-        {
-            "name": "convnext_block",
+    sources = {
+        "convnext_block": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:290", "detect"),
+        "fpn_neck_l0": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_fused"),
+        "fpn_heads": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_fused"),
+        "precise_heads": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_fused"),
+        "convnext_block_trainable": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:340", "train_step"),
+    }
+    kernels = []
+    for kernel, (source, replaces, main_path) in sources.items():
+        kernel_name = "convnext_block" if kernel == "convnext_block_trainable" else kernel
+        entry = {
+            "name": kernel,
             "route": "cuda",
-            "source": "adascale_torch/kernels/csrc/convnext_block.cu",
-            "replaces": "adascale/ops/pallas/convnext_block.py:290",
-            "launches": launches,
-            **block_rows,
+            "source": f"adascale_torch/kernels/csrc/{source}",
+            "replaces": replaces,
+            # The count of the main path's run; the other paths' beside it.
+            "launches": by_path.get(main_path, {}).get(kernel_name),
+            "launches_by_path": {
+                path: c[kernel_name] for path, c in by_path.items()
+                if kernel_name in c and (path == "train_step") == (main_path == "train_step")
+            },
+            **rows.get(kernel, {}),
             "library_ms": None,
         }
-    ]
-    # The neck and head kernels: launches from phase 5; times and bounds
-    # summed over one one-chunk detect()'s calls at the flagship shapes.
-    for kernel, source, replaces, numbers in (
-        ("fpn_neck_l0", "fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", neck_row),
-        ("fpn_heads", "fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", rough_row),
-        ("precise_heads", "precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", precise_row),
-    ):
-        kernels.append(
-            {
-                "name": kernel,
-                "route": "cuda",
-                "source": f"adascale_torch/kernels/csrc/{source}",
-                "replaces": replaces,
-                "launches": fused_launches[kernel],
-                **numbers,
-                "library_ms": None,
-            }
-        )
-    kernels.append(
-        {
-            "name": "convnext_block_trainable",
-            "route": "cuda",
-            "source": "adascale_torch/kernels/csrc/convnext_block.cu",
-            "replaces": "adascale/ops/pallas/convnext_block.py:340",
-            "launches": trained["launches"],
-            # Device ms of one traced B = 6 step's 36 block forwards (kernel;
-            # plain version in the same place) and of their backward.
-            "ms": trained["split"]["blocks_forward_kernel"],
-            "plain_ms": trained["plain_forward_ms"],
-            "backward_ms": trained["split"]["blocks_backward_recompute"],
-            **trainable_row,
-            "library_ms": None,
-        }
-    )
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

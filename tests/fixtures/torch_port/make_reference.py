@@ -7,6 +7,13 @@ weights, f32, one ``.npz`` per case:
     ``precise_stacked_image_max_area`` small enough that the regions are
     stacked into several precise chunks;
   * ``flagship_fpn_blank_reference.npz``: a blank page (no text);
+  * ``flagship_upernext_reference.npz`` (case ``upernext``): the tiny/UPerNeXt
+    flagship (``examples/flagship_upernext/``) on the same page, engine
+    defaults;
+  * ``flagship_fpn_tiled_band_reference.npz`` (case ``tiled_band``): the
+    tiny/FPN flagship on a 1024x1536 page, ``page_0`` and ``page_1`` side by
+    side, with ``detect(tiled=True)`` (6 tiles of 768 with overlap 128, the
+    engine's defaults) and ``precise_band_recall_center_dist_ratio=0.5``;
   * ``flagship_fpn_train_reference.npz`` (case ``train``): one two-task
     training step of the flagship, deterministic (no drop path, which the
     two frameworks cannot draw alike), on a seeded batch of B = 2 at the
@@ -30,7 +37,8 @@ The text page is the first of ``tests/fixtures/shift_pages/page_{0,1,2}.npz``
 on which the engine finds at least 100 char polygons.
 
 Run from the repository root (a few minutes a case on a CPU); with case
-names (``page``, ``multichunk``, ``blank``, ``train``) it makes only those:
+names (``page``, ``multichunk``, ``blank``, ``train``, ``upernext``,
+``tiled_band``) it makes only those:
 
     JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py [case ...]
 """
@@ -59,6 +67,7 @@ from adascale_torch.utils.params import (  # noqa: E402
 )
 
 WEIGHTS = "examples/flagship_training/flagship_fpn_params.f16.npz"
+UPERNEXT_WEIGHTS = "examples/flagship_upernext/flagship_upernext_params.f16.npz"
 PAGES = [f"tests/fixtures/shift_pages/page_{i}.npz" for i in range(3)]
 HERE = os.path.dirname(os.path.abspath(__file__))
 MIN_POLYGONS = 100
@@ -67,15 +76,18 @@ MIN_POLYGONS = 100
 MULTICHUNK_MAX_AREA = 300_000
 BLANK_SHAPE = (100, 700, 3)
 TRAIN_SEED, TRAIN_BATCH, FINGERPRINT_SEED = 0, 2, 0
+# The tiled band-recall case: two shift pages side by side, band recall on.
+TILED_PAGES = PAGES[:2]
+BAND_RATIO = 0.5
 
 
-def save(name: str, result, page: str, **extra) -> None:
+def save(name: str, result, page: str, weights: str = WEIGHTS, **extra) -> None:
     polys = result["char_polygons"]
     out = os.path.join(HERE, name)
     np.savez_compressed(
         out,
         page=np.asarray(page),
-        weights=np.asarray(WEIGHTS),
+        weights=np.asarray(weights),
         rough_char_mask=result["rough"].rough_char_mask,
         rough_resized_shape=np.asarray(result["rough"].resized_shape),
         char_polygons=np.asarray([p.points for p in polys], np.float32).reshape(-1, 4, 2),
@@ -141,14 +153,42 @@ def train_reference() -> None:
           "grad norm", float(optax.global_norm(grads)), len(names), "leaves", flush=True)
 
 
+def upernext_reference() -> None:
+    model = AdaptiveScalingConfig(size="tiny", neck_head_type="upernext")
+    engine = AdaptiveScalingInference(
+        AdaptiveScalingInferenceConfig(model=model),
+        params=load_params(os.path.join(ROOT, UPERNEXT_WEIGHTS), model),
+    )
+    image = np.load(os.path.join(ROOT, PAGES[0]))["image"]
+    save("flagship_upernext_reference.npz", engine.detect(image), PAGES[0], weights=UPERNEXT_WEIGHTS)
+
+
+def tiled_band_reference(params) -> None:
+    model = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
+    engine = AdaptiveScalingInference(
+        AdaptiveScalingInferenceConfig(model=model, precise_band_recall_center_dist_ratio=BAND_RATIO),
+        params=params,
+    )
+    image = np.concatenate([np.load(os.path.join(ROOT, p))["image"] for p in TILED_PAGES], axis=1)
+    result = engine.detect(image, tiled=True)
+    save("flagship_fpn_tiled_band_reference.npz", result, "", pages=np.asarray(TILED_PAGES),
+         image_shape=np.asarray(image.shape),
+         precise_band_recall_center_dist_ratio=np.asarray(BAND_RATIO),
+         rough_padded_image_shape=np.asarray(result["rough"].padded_image_shape))
+
+
 def main(cases) -> None:
     if "train" in cases:
         train_reference()
-    if not {"page", "multichunk", "blank"} & set(cases):
+    if "upernext" in cases:
+        upernext_reference()
+    if not {"page", "multichunk", "blank", "tiled_band"} & set(cases):
         return
     model = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
     cfg = AdaptiveScalingInferenceConfig(model=model)
     params = load_params(os.path.join(ROOT, WEIGHTS), model)
+    if "tiled_band" in cases:
+        tiled_band_reference(params)
     engine = AdaptiveScalingInference(cfg, params=params)
     if "page" in cases:
         for page_path in PAGES:
@@ -178,4 +218,4 @@ def main(cases) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["page", "multichunk", "blank", "train"])
+    main(sys.argv[1:] or ["page", "multichunk", "blank", "train", "upernext", "tiled_band"])

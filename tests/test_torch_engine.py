@@ -1,5 +1,6 @@
 """The port's two-pass detect() against the JAX engine on the overfit micro
 fixture (page [42, 0] of the detection-quality spec), both on the CPU."""
+import dataclasses
 import os
 import sys
 
@@ -170,9 +171,71 @@ def test_blank_page_matches_jax_both_ways(blank_jax, fused):
 def test_unported_options_raise():
     for field, value in [
         ("compute_dtype", "bfloat16"),
-        ("tiled_rough_long_side_min", 2048),
-        ("precise_band_recall_center_dist_ratio", 0.5),
+        ("matmul_precision", "default"),
     ]:
         config = AdaptiveScalingInferenceConfig(device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             AdaptiveScalingInference(config, params={})
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_band_recall_detect_matches_jax(results, fused):
+    """``precise_band_recall_center_dist_ratio``: peaks in a region's full
+    dilated mask but outside its core are ranked by their distance to the
+    core (the chamfer twin of cv2.distanceTransform) and merged after NMS;
+    detect() matches the JAX engine with the same bars."""
+    page, _, _ = results
+    ratio = 0.5
+    want = JaxEngine(
+        JaxEngineConfig(model=MODEL_SPEC, precise_band_recall_center_dist_ratio=ratio),
+        params=_load_fixture_params(),
+    ).detect(page.image)
+    config = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(
+            custom_block_channels_and_num_layers=MODEL_SPEC.custom_block_channels_and_num_layers
+        ),
+        precise_band_recall_center_dist_ratio=ratio,
+        use_pallas_neck_heads=fused,
+        device="cpu",
+    )
+    engine = AdaptiveScalingInference(config, params=_load_fixture_params())
+    got = engine.detect(page.image)
+    _, band, dists = engine.precise_build_grouped_polygons(
+        got["precise"], got["regions"], got["boxes"], collect_band=True
+    )
+    assert sum(map(len, band)) > 0 and all(len(b) == len(d) for b, d in zip(band, dists))
+    plain = AdaptiveScalingInference(
+        dataclasses.replace(config, precise_band_recall_center_dist_ratio=None),
+        params=_load_fixture_params(),
+    ).detect(page.image)
+    assert len(got["char_polygons"]) > len(plain["char_polygons"])
+    ours, theirs = got["char_polygons"], want["char_polygons"]
+    matched = len(match_polygons(ours, theirs, 0.5))
+    assert matched >= 0.95 * len(theirs), (matched, len(theirs))
+    assert matched >= 0.95 * len(ours), (matched, len(ours))
+
+
+def test_merge_band_polygons_equals_jax():
+    from adascale.data.geometry import Polygon as JaxPolygon
+    from adascale_torch.data.geometry import Polygon
+
+    rng = np.random.default_rng(3)
+    quads = [rng.uniform(0, 5, (4, 2)) + rng.uniform(0, 60, 2) for _ in range(40)]
+    ratio = 0.7
+    jax_engine = JaxEngine(
+        JaxEngineConfig(model=MODEL_SPEC, precise_band_recall_center_dist_ratio=ratio), params={}
+    )
+    # merge_band_polygons reads the config only: no model is built.
+    port = AdaptiveScalingInference.__new__(AdaptiveScalingInference)
+    port.config = AdaptiveScalingInferenceConfig(precise_band_recall_center_dist_ratio=ratio, device="cpu")
+    kept, band = quads[:15], quads[15:]
+    want = jax_engine.merge_band_polygons([JaxPolygon(q) for q in kept], [JaxPolygon(q) for q in band])
+    got = port.merge_band_polygons([Polygon(q) for q in kept], [Polygon(q) for q in band])
+    assert len(got) == len(want) > len(kept)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.points, w.points)
+    for q in quads:
+        c, s = AdaptiveScalingInference._polygon_center_size(Polygon(q))
+        jc, js = JaxEngine._polygon_center_size(JaxPolygon(q))
+        np.testing.assert_allclose(c, jc, rtol=1e-12)
+        assert abs(s - js) <= 1e-9 * js

@@ -150,3 +150,33 @@ def test_polygon_iou_and_matching_equal_jax():
     assert TE.match_polygons(shifted, ours) == JE.match_polygons(
         [JG.Polygon(p.points) for p in shifted], theirs
     )
+
+
+def test_distance_transform_follows_cv2():
+    """The chamfer twin of ``cv2.distanceTransform(m, cv2.DIST_L2, 3)``.
+    Zeros and pixels with no zero pixel anywhere (FLT_MAX) agree exactly;
+    elsewhere the twin takes OpenCV's two passes in f32 in raster order,
+    while a cv2 built with Intel IPP (as its wheels are) runs IPP's
+    vectorised routine, whose f32 sums take another order: where two paths
+    of equal length are summed in different orders the results differ by a
+    few ulps (measured <= 1.3e-6 relative on crops up to 80 x 700), so the
+    rest is held to 4e-6. Along a 2000-pixel row from one zero the
+    differences add up (1.6e-5 in the rows below it); the row itself, a
+    chain of straight steps, is exact."""
+    rng = np.random.default_rng(5)
+    masks = [np.zeros((7, 9), np.uint8), np.ones((7, 9), np.uint8), np.ones((1, 1), np.uint8)]
+    for _ in range(80):
+        h, w = int(rng.integers(1, 60)), int(rng.integers(1, 300))
+        masks.append((rng.random((h, w)) < rng.uniform(0.3, 1.0)).astype(np.uint8))
+    for m in masks:
+        want = cv2.distanceTransform(m, cv2.DIST_L2, 3)
+        got = TG.distance_transform_l2_3x3(m)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        for special in (0.0, np.finfo(np.float32).max):
+            np.testing.assert_array_equal(got == special, want == special)
+        np.testing.assert_allclose(got, want, rtol=4e-6, atol=0)
+    line = np.ones((3, 2000), np.uint8)
+    line[0, 0] = 0
+    got, want = TG.distance_transform_l2_3x3(line), cv2.distanceTransform(line, cv2.DIST_L2, 3)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=0)

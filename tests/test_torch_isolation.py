@@ -17,6 +17,8 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import sys\n"
         "import adascale_torch, adascale_torch.inference.engine, adascale_torch.inference.flatten\n"
         "import adascale_torch.inference.eval, adascale_torch.kernels.convnext_block\n"
+        "import adascale_torch.inference.tiled, adascale_torch.inference.batch\n"
+        "import adascale_torch.models.upernext, adascale_torch.data.geometry\n"
         "import adascale_torch.kernels._nvcc, adascale_torch.kernels.fpn_neck\n"
         "import adascale_torch.kernels.fpn_heads, adascale_torch.kernels.precise_heads\n"
         "import adascale_torch.losses, adascale_torch.training\n"

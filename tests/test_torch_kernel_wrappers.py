@@ -37,3 +37,22 @@ def test_wrappers_raise_on_a_device_without_their_kernel(call):
     with pytest.raises(ValueError, match="device|CUDA"):
         call(x)
 
+
+
+@pytest.mark.parametrize("wrapper", ["fused_neck_l0", "fused_rough_heads", "fused_precise_heads"])
+def test_refuse_grad_raises_only_where_a_gradient_is_wanted(wrapper):
+    """The fused neck and heads kernels have no backward: on the card their
+    wrappers call ``_nvcc.refuse_grad`` before the launch, which raises
+    where grad is enabled and the input or a parameter requires grad, and
+    lets serving (inference mode, no_grad, frozen tensors) through."""
+    x = torch.zeros(1, 2, 2, 4)
+    w = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match=f"{wrapper}: .*no backward.*module neck and heads"):
+        _nvcc.refuse_grad(wrapper, x, w)
+    with pytest.raises(RuntimeError, match=wrapper):
+        _nvcc.refuse_grad(wrapper, x.clone().requires_grad_(), torch.zeros(3))
+    _nvcc.refuse_grad(wrapper, x, w.detach())
+    with torch.no_grad():
+        _nvcc.refuse_grad(wrapper, x, w)
+    with torch.inference_mode():
+        _nvcc.refuse_grad(wrapper, x, w)
