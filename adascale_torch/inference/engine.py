@@ -20,11 +20,16 @@ runs the rough pass at full resolution over overlapping tiles
 the boundary-band recall pass. ``inference/batch.py`` serves many pages at
 once.
 
-Ported: f32 serving at ``matmul_precision="highest"``, both neck types, the
-fused neck/head configuration, the single and tiled rough passes, core-mask
-peak gating, band recall, NMS and area-chunked precise stacks. Not ported:
-bf16 (``compute_dtype``) and other matmul precisions; the engine raises if a
-config asks for them.
+Ported: f32 and bf16 (``compute_dtype="bfloat16"``) serving at
+``matmul_precision="highest"``, both neck types, the fused neck/head
+configuration, the single and tiled rough passes, core-mask peak gating,
+band recall, NMS and area-chunked precise stacks. In bf16 the engine follows
+the JAX engine's two paths: ``use_pallas_backbone`` picks the Pallas
+backbone's rounding (a bf16 residual between blocks) over the Flax module's
+(f32 residual), and the fused neck and heads run only together with it, as
+there; the input is cast to bf16 before the backbone and the maps come back
+in f32. Not ported: other matmul precisions (ROADMAP Queue 1: single-pass
+TF32 for "default"/"high"); the engine raises if a config asks for them.
 """
 from __future__ import annotations
 
@@ -87,14 +92,17 @@ class AdaptiveScalingInferenceConfig:
     precise_stacked_image_max_area: Optional[int] = 2048 * 2048
     shape_bucket: int = 64
     matmul_precision: str = "highest"
-    compute_dtype: str = "float32"
-    # The port always runs the backbone blocks through its kernel; this
-    # field is kept so that configs carry over and is not read.
+    compute_dtype: str = "float32"  # or "bfloat16"
+    # The port always runs the backbone blocks through its kernel. In f32
+    # this field is not read (both backbones compute the same function); in
+    # bf16 it picks the Pallas backbone's rounding (a bf16 residual between
+    # blocks) over the Flax module's (an f32 one), as the JAX engine does.
     use_pallas_backbone: bool = False
     # Level 0 of each FPN neck and the heads of each pass through their
     # kernels. The JAX engine reads this only together with
-    # use_pallas_backbone; the port reads it alone, since its backbone always
-    # runs its kernel. Either way the function computed is the same.
+    # use_pallas_backbone; in f32 the port reads it alone, since its backbone
+    # always runs its kernel and the function computed is the same; in bf16
+    # it reads it as the JAX engine does.
     use_pallas_neck_heads: bool = False
     tiled_rough_tile_size: int = 768
     tiled_rough_tile_overlap: int = 128
@@ -122,14 +130,28 @@ class PreciseInferResult:
     precise_np_char_corner_distance: np.ndarray  # (FH, FW, 4)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _check_supported(cfg: AdaptiveScalingInferenceConfig) -> None:
-    unsupported = {
-        "compute_dtype": cfg.compute_dtype != "float32",
-        "matmul_precision": cfg.matmul_precision != "highest",
-    }
-    bad = [name for name, flag in unsupported.items() if flag]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+    if cfg.matmul_precision != "highest":
+        raise NotImplementedError(
+            f"not ported yet: matmul_precision={cfg.matmul_precision!r} (only \"highest\"; "
+            "single-pass TF32 for \"default\"/\"high\" is ROADMAP Queue 1's matmul_precision item)"
+        )
+
+
+def fused_neck_heads(cfg: AdaptiveScalingInferenceConfig) -> bool:
+    """Whether the engine runs an FPN model's neck level 0 and heads through
+    their kernels: ``use_pallas_neck_heads``, and in bf16 only together with
+    ``use_pallas_backbone``, as the JAX engine routes them."""
+    return (
+        cfg.use_pallas_neck_heads
+        and cfg.model.neck_head_type == "fpn"
+        and (cfg.compute_dtype == "float32" or cfg.use_pallas_backbone)
+    )
 
 
 def valid_mask(
@@ -182,22 +204,30 @@ class AdaptiveScalingInference:
         # calls) need full f32. Matmuls are set likewise.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # bf16 products sum in f32 and round once, as XLA's do; cuBLAS may
+        # otherwise reduce split-K partial sums in bf16.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         if params is None:
             if config.checkpoint is None:
                 raise ValueError("need params or config.checkpoint")
             params = load_npz(config.checkpoint)
-        model = AdaptiveScaling(config.model)
+        self.dtype = COMPUTE_DTYPES[config.compute_dtype]
+        pallas_residual = self.dtype == torch.bfloat16 and config.use_pallas_backbone
+        model = AdaptiveScaling(
+            config.model, self.dtype, torch.bfloat16 if pallas_residual else torch.float32
+        )
         model.load_state_dict(state_dict_from_jax(params), strict=True)
         self.model = model.to(self.device).eval()
 
     def _forward(self, x: torch.Tensor, which: str):
-        """Backbone, neck and heads of the rough or precise pass. With
-        ``use_pallas_neck_heads`` an FPN model's neck level 0 and heads go
-        through their kernels; their kernels take the FPN's structure only,
-        so a UPerNeXt model runs its module neck and heads, as the JAX
-        engine routes it (the backbone runs the block kernel either way)."""
-        fused = self.config.use_pallas_neck_heads and self.config.model.neck_head_type == "fpn"
-        if not fused:
+        """Backbone, neck and heads of the rough or precise pass, on ``x``
+        cast to the compute dtype. Where ``fused_neck_heads`` says so an FPN
+        model's neck level 0 and heads go through their kernels; their
+        kernels take the FPN's structure only, so a UPerNeXt model runs its
+        module neck and heads, as the JAX engine routes it (the backbone runs
+        the block kernel either way)."""
+        x = x.to(self.dtype)
+        if not fused_neck_heads(self.config):
             return self.model.forward_rough(x) if which == "rough" else self.model.forward_precise(x)
         features = self.model.backbone(x)
         if which == "rough":

@@ -49,23 +49,23 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(source: Path) -> str:
+def _digest(source: Path, defines: Sequence[str] = ()) -> str:
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + [f"-D{d}" for d in defines]).encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str, source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per content hash) and load it as
-    ``lib<name>.so``. Safe to call from several threads at once: each name
-    builds in its own ``nvcc`` process."""
+def build(name: str, source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per content hash, with ``-D`` for each
+    of ``defines``) and load it as ``lib<name>.so``. Safe to call from
+    several threads at once: each name builds in its own ``nvcc`` process."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
     src = CSRC / source
-    out_dir = BUILD_ROOT / f"{name}-{_digest(src)}"
+    out_dir = BUILD_ROOT / f"{name}-{_digest(src, defines)}"
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "ptxas.log"
     start = time.perf_counter()
@@ -73,7 +73,8 @@ def build(name: str, source: str) -> ctypes.CDLL:
     if not cached:
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.{os.getpid()}.{threading.get_ident()}.so"
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *(f"-D{d}" for d in defines), f"-I{CSRC}",
+               "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -92,6 +93,18 @@ def build(name: str, source: str) -> ctypes.CDLL:
         return _LIBS.setdefault(name, lib)
 
 
+# The activation types the kernels take, and the channel multiple each needs
+# (a 16-byte copy: 4 f32 or 8 bf16 channels).
+CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def check_dtype(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` is of a type the kernels take (f32 or bf16), on
+    any device: the plain twins on the CPU refuse what the kernels refuse."""
+    if t.dtype not in CHANNEL_MULTIPLE:
+        raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
+
+
 def check_param(name: str, t: torch.Tensor, shape: Sequence[int], device: torch.device) -> None:
     """Raise unless ``t`` is a float32 tensor of ``shape`` on ``device``."""
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
@@ -101,20 +114,23 @@ def check_param(name: str, t: torch.Tensor, shape: Sequence[int], device: torch.
         )
 
 
-def check_activation(name: str, t: torch.Tensor, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned float32 NHWC tensor
-    on the CUDA ``device`` whose channel count is a multiple of 4 (the
-    kernels copy it 16 bytes at a time)."""
+def check_activation(
+    name: str, t: torch.Tensor, device: torch.device, dtypes=(torch.float32,)
+) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned NHWC tensor of one
+    of ``dtypes`` on the CUDA ``device`` whose channel count is a multiple of
+    4 (f32) or 8 (bf16): the kernels copy it 16 bytes at a time."""
     if device.type != "cuda" or t.device != device:
         raise ValueError(f"{name}: want a tensor on a CUDA device, got {t.device}")
-    if t.dim() != 4 or t.dtype != torch.float32 or not t.is_contiguous():
+    if t.dim() != 4 or t.dtype not in dtypes or not t.is_contiguous():
         raise ValueError(
-            f"{name}: want a contiguous (B, H, W, C) float32 tensor, got "
+            f"{name}: want a contiguous (B, H, W, C) tensor of {[str(d) for d in dtypes]}, got "
             f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
-    if t.shape[-1] % 4 or t.data_ptr() % 16:
+    multiple = CHANNEL_MULTIPLE[t.dtype]
+    if t.shape[-1] % multiple or t.data_ptr() % 16:
         raise ValueError(
-            f"{name}: want C % 4 == 0 and 16-byte alignment, got C={t.shape[-1]} "
+            f"{name}: want C % {multiple} == 0 and 16-byte alignment, got C={t.shape[-1]} "
             f"at address {t.data_ptr():#x}"
         )
 

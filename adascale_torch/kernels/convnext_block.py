@@ -24,9 +24,19 @@ package has no backward kernel, and neither has the port. ``convnext_block``
 routes a call through it whenever grad is enabled and an input requires
 grad, so a launch never drops the graph.
 
-The kernel is built on first use by ``_nvcc.build`` (``nvcc`` into a shared
-library with a plain C interface, loaded with ``ctypes``): no PyTorch headers,
-so the build takes seconds.
+bf16 (the JAX package's ``compute_dtype="bfloat16"``) has two modes, as the
+JAX package's two backbone paths round differently: ``convnext_block(x, p,
+torch.bfloat16)`` with a bf16 ``x`` is the Pallas backbone's block (bf16 in
+and out; the residual between blocks is bf16), with an f32 ``x`` the Flax
+module's (f32 residual in and out, bf16 rounding inside); both launch
+``convnext_block_bf16`` (bf16 ``mma.sync`` GEMMs, W1 and W2 cast to bf16
+once per parameter set) and have the plain twin ``convnext_block_plain_bf16``.
+bf16 has no gradient path (the JAX package trains in f32).
+
+The kernels are built on first use by ``_nvcc.build`` (``nvcc`` into a
+shared library with a plain C interface, loaded with ``ctypes``; ``build``:
+f32, ``build_bf16``: bf16, one library a mode, all from the same source): no
+PyTorch headers, so a build takes seconds.
 
 ``p`` holds the block's parameters in PyTorch layout, as the port's
 ``ConvNeXtBlock.state_dict()`` does: ``dwconv.weight`` (C, 1, 7, 7),
@@ -37,30 +47,50 @@ so the build takes seconds.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import _nvcc
+from ..ops.bf16 import gelu, round_bf16
+from . import _nvcc, packing
 
 # Number of kernel launches, counted once per call (the call's three or four
 # CUDA launches together). Plain integer, reset by whoever counts a run.
 LAUNCHES = 0
+# Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
+# the f32 ones).
+LAUNCHES_BF16 = 0
 
 MAX_CHANNELS = 1536
 EPS = 1e-6
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the f32 kernel library."""
     lib = _nvcc.build("convnext_block", "convnext_block.cu")
     fn = lib.convnext_block_f32
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ws = lib.convnext_block_f32_workspace
-    ws.argtypes = [ctypes.c_int] * 5
-    ws.restype = ctypes.c_longlong
+    lib.convnext_block_f32_workspace.argtypes = [ctypes.c_int] * 5
+    lib.convnext_block_f32_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def build_bf16(module: bool) -> ctypes.CDLL:
+    """Compile and load the bf16 kernel library of one mode (``module``: the
+    module mode, else the Pallas mode): the same source built with
+    ``-DCONVNEXT_BLOCK_BF16`` and ``-DCONVNEXT_BLOCK_BF16_MODULE``, a library
+    of its own, so that the three compile in parallel."""
+    lib = _nvcc.build(
+        "convnext_block_bf16" + ("_module" if module else ""), "convnext_block.cu",
+        ("CONVNEXT_BLOCK_BF16", f"CONVNEXT_BLOCK_BF16_MODULE={int(module)}"),
+    )
+    fn = lib.convnext_block_bf16
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.convnext_block_bf16_workspace.argtypes = [ctypes.c_int] * 5
+    lib.convnext_block_bf16_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -76,22 +106,68 @@ def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.T
     return x + y * p["block_scale"]
 
 
+def convnext_block_plain_bf16(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool
+) -> torch.Tensor:
+    """Eager PyTorch twin of the bf16 kernel, in f32 on bf16 values, rounded
+    where the kernel rounds (``csrc/convnext_block.cu``): ``module=False``
+    the Pallas mode (bf16 ``x``, bf16 out), ``module=True`` the Flax
+    module's (f32 ``x``, f32 out)."""
+    r = round_bf16
+    c = x.shape[-1]
+    xf = x.float()
+    w1, w2 = r(p["mlp_up.weight"]), r(p["mlp_down.weight"])
+    if module:
+        y = F.conv2d(r(xf).permute(0, 3, 1, 2), r(p["dwconv.weight"]), padding=3, groups=c)
+        y = r(r(y.permute(0, 2, 3, 1)) + r(p["dwconv.bias"]))
+        h = r(F.layer_norm(y, (c,), p["ln.weight"], p["ln.bias"], eps=EPS))
+        u = gelu(r(r(F.linear(h, w1)) + r(p["mlp_up.bias"])), torch.bfloat16).float()
+        y = r(r(F.linear(u, w2)) + r(p["mlp_down.bias"]))
+        return xf + y * p["block_scale"]
+    y = F.conv2d(
+        xf.permute(0, 3, 1, 2), p["dwconv.weight"], p["dwconv.bias"], padding=3, groups=c
+    ).permute(0, 2, 3, 1)
+    h = r(F.layer_norm(y, (c,), p["ln.weight"], p["ln.bias"], eps=EPS))
+    u = r(F.gelu(F.linear(h, w1, p["mlp_up.bias"]), approximate="none"))
+    y = F.linear(u, w2, p["mlp_down.bias"])
+    return (xf + y * p["block_scale"]).to(torch.bfloat16)
+
+
 PARAM_NAMES = (
     "dwconv.weight", "dwconv.bias", "ln.weight", "ln.bias", "mlp_up.weight",
     "mlp_up.bias", "mlp_down.weight", "mlp_down.bias", "block_scale",
 )
 
 
-def convnext_block(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One ConvNeXt block on an NHWC f32 tensor: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor. Where grad is enabled and
+def convnext_block(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """One ConvNeXt block on an NHWC tensor: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor. ``compute_dtype`` f32 takes
+    an f32 ``x``; bf16 takes a bf16 ``x`` (the Pallas mode, bf16 out) or an
+    f32 one (the module mode, f32 out). In f32, where grad is enabled and
     ``x`` or a parameter requires grad, the call goes through
-    ``TrainableBlock``, so that the result carries its gradient."""
+    ``TrainableBlock``, so that the result carries its gradient; bf16 has no
+    gradient path and raises there."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"convnext_block: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (
-        x.requires_grad or any(p[name].requires_grad for name in PARAM_NAMES)
+    if (
+        x.dtype not in (torch.float32, torch.bfloat16)
+        or compute_dtype not in (torch.float32, torch.bfloat16)
+        or (compute_dtype == torch.float32 and x.dtype != torch.float32)
     ):
+        raise ValueError(f"convnext_block: x {x.dtype} at compute dtype {compute_dtype}")
+    wants_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(p[name].requires_grad for name in PARAM_NAMES)
+    )
+    if compute_dtype == torch.bfloat16:
+        if wants_grad:
+            raise NotImplementedError("convnext_block: no gradient in bf16 (training runs in f32)")
+        module = x.dtype == torch.float32
+        if x.device.type == "cpu":
+            return convnext_block_plain_bf16(x, p, module)
+        return _launch(x, p, module)
+    if wants_grad:
         return TrainableBlock.apply(x, *(p[name] for name in PARAM_NAMES))
     if x.device.type == "cpu":
         return convnext_block_plain(x, p)
@@ -122,10 +198,25 @@ class TrainableBlock(torch.autograd.Function):
             return torch.autograd.grad(out, inputs, grad)
 
 
-def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor; raises on what it does not take."""
-    global LAUNCHES
-    _nvcc.check_activation("convnext_block x", x, x.device)
+def bf16_weights(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """W1 and W2 cast to bf16 for the bf16 kernel, once per parameter set
+    (``packing.cached``)."""
+    up, down = p["mlp_up.weight"], p["mlp_down.weight"]
+    return packing.cached(
+        [up, down], "block_bf16",
+        lambda: {"w1": up.detach().to(torch.bfloat16).contiguous(),
+                 "w2": down.detach().to(torch.bfloat16).contiguous()},
+    )
+
+
+def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor], module: Optional[bool] = None) -> torch.Tensor:
+    """Launch the kernel on a CUDA tensor (``module`` None: f32; False: the
+    bf16 Pallas mode; True: the bf16 module mode); raises on what it does
+    not take."""
+    global LAUNCHES, LAUNCHES_BF16
+    bf16 = module is not None
+    dtype = torch.float32 if module in (None, True) else torch.bfloat16
+    _nvcc.check_activation("convnext_block x", x, x.device, (dtype,))
     b, h, w, c = x.shape
     if c > MAX_CHANNELS or h > 65535 or b > 65535:
         raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
@@ -146,22 +237,45 @@ def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     for name in ("dwconv.weight", "mlp_up.weight", "mlp_down.weight"):
         if q[name].data_ptr() % 16:
             raise ValueError(f"convnext_block: {name} is not 16-byte aligned")
-    lib = build()
+    lib = build_bf16(module) if bf16 else build()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    workspace = torch.empty(
-        lib.convnext_block_f32_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
-    )
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.convnext_block_f32(
-            x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
-            q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
-            q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
-            q["mlp_down.weight"].data_ptr(), q["mlp_down.bias"].data_ptr(),
-            q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
-            b, h, w, c, sms, torch.cuda.current_stream().cuda_stream,
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        if c % 8:
+            raise ValueError(f"convnext_block: bf16 wants C % 8 == 0, got {c}")
+        wb = bf16_weights(p)
+        workspace = torch.empty(
+            lib.convnext_block_bf16_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
         )
+        with torch.cuda.device(x.device):
+            rc = lib.convnext_block_bf16(
+                x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
+                q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
+                wb["w1"].data_ptr(), q["mlp_up.bias"].data_ptr(),
+                wb["w2"].data_ptr(), q["mlp_down.bias"].data_ptr(),
+                q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
+                b, h, w, c, sms, stream,
+            )
+        entry = "convnext_block_bf16"
+    else:
+        workspace = torch.empty(
+            lib.convnext_block_f32_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
+        )
+        with torch.cuda.device(x.device):
+            rc = lib.convnext_block_f32(
+                x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
+                q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
+                q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
+                q["mlp_down.weight"].data_ptr(), q["mlp_down.bias"].data_ptr(),
+                q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
+                b, h, w, c, sms, stream,
+            )
+        entry = "convnext_block_f32"
     if rc != 0:
-        raise RuntimeError(f"convnext_block_f32 launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out

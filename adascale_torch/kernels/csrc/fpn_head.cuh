@@ -1,6 +1,6 @@
 // FpnHead chains over one shared neck output, for fpn_heads.cu (the two
 // rough heads) and precise_heads.cu (the four precise heads), f32 results
-// from Hopper's tensor cores (sm_90a):
+// from Hopper's tensor cores (sm_90a), from f32 or bf16 operands:
 //
 //   y_h = Linear_h(GELU(LN_h(conv3x3_h(nearest_x2(x)) + sb_h)))
 //
@@ -39,11 +39,31 @@
 //     GELU, the projection to the head's M <= 4 channels, and the
 //     interleaved (B, 2H, 2W, Mtot) write, each head at its own channel
 //     offset.
+//   * Heads wider than the tile (F > N: the base and large backbones' 256-258
+//     and 384-386) split F into `slices` tiles of N: each block runs the
+//     same main loop over one slice and stores its pre-LN sums plus the bias
+//     (f32) to a workspace (heads, 4 phases, pixels, slices x N); then
+//     heads_ln_kernel, a warp per (head, phase, pixel), takes the LayerNorm
+//     over the F features, the GELU, the projection and the interleaved
+//     write. The two passes go over the pixels a chunk at a time, so the
+//     workspace holds one chunk, whatever the batch (the wrapper sizes it).
+//     The flagship's widths keep the one-pass kernel.
+//
+// bf16 (the JAX package's compute_dtype="bfloat16"): x and the collapsed
+// taps in bf16 (collapsed in f32, then rounded, as the Pallas kernel packs
+// them), products accumulated in f32 (conv_gemm.cuh's mainloop_bf16), the
+// bias, LayerNorm, GELU and projection in f32, as the Pallas kernels keep
+// them; the precise heads (ROUND_Y) round the GELU output to bf16 before
+// their projection, whose weights the wrapper rounds to bf16, as the Pallas
+// precise-heads kernel does (the rough heads' projection stays f32 there).
+// The outputs are f32 either way.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "conv_gemm.cuh"
 
@@ -55,6 +75,7 @@ constexpr int kMaxHeads = 4;
 constexpr int kMaxOut = 4;
 constexpr int kBM = 128;  // low-resolution pixels a block
 constexpr int kStages = 3;
+constexpr int kMaxSlices = 4;  // the widest head: kMaxSlices tiles of N
 
 struct HeadSizes {
   int F[kMaxHeads];
@@ -62,56 +83,28 @@ struct HeadSizes {
   int moff[kMaxHeads];
 };
 
-template <int N>
+template <typename T, int N>
 struct Layout {
   static constexpr int N0 = (N / 2 + 7) / 8 * 8;  // the two wgmma widths
   static constexpr int N1 = N - N0;
-  using R = Ring<kBM, N, kStages>;
+  using R = typename RingFor<T, kBM, N, kStages>::type;
   static constexpr int VEC_BYTES = (3 + kMaxOut) * N * 4;  // the head's epilogue vectors
   static constexpr int LDZ = ldz(N);
-  static constexpr size_t SMEM_BYTES = (size_t)R::BYTES + VEC_BYTES + 8 * kStages;
+  static constexpr int TILE_BYTES = kBM * LDZ * 4;
+  // The ring, or the epilogue tile over it where the tile is larger (bf16).
+  static constexpr int BASE = R::BYTES > TILE_BYTES ? R::BYTES : TILE_BYTES;
+  static constexpr size_t SMEM_BYTES = (size_t)BASE + VEC_BYTES + 8 * kStages;
   static_assert(N % 8 == 0 && (N0 == 96 || N0 == 104) && N1 == 96, "head width");
-  static_assert(kBM * LDZ * 4 <= R::BYTES, "epilogue tile");
+  static_assert(BASE % 16 == 0, "epilogue vectors");
 };
 
-// x (B, H, W, C); w (heads, 4 phases, 4 taps, ceil(C/32) chunks, [hi, lo],
-// N/8, 8, 8, 4): each chunk's B in core-matrix order (row group, K group of
-// 4, row, K), K permuted within each 8 as above, zero past the head's F and
-// past C; vec (heads, 3, N): smoothing bias, LN scale, LN bias; w2 (heads,
-// kMaxOut, N) and b2 (heads, kMaxOut), zero past each head's real sizes;
-// out (B, 2H, 2W, Mtot).
-template <int N>
-__global__ void __launch_bounds__(kThreads, 1)
-heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ vec, const float* __restrict__ w2,
-             const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes, int npix,
-             int H, int W, int C, int Mtot) {
-  using L = Layout<N>;
-  constexpr int N0 = L::N0, N1 = L::N1;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int head = blockIdx.x / 4, phase = blockIdx.x % 4;
-  const int pa = phase / 2, pb = phase % 2;
-  const int m0 = blockIdx.y * kBM;
-  const int nk = 4 * ((C + kKC - 1) / kKC);
-  const float* wb = w + (long long)(head * 4 + phase) * nk * 2 * N * kKC;
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // The head's bias, LN scale, LN bias (N each) and projection (kMaxOut x N)
-  // for the epilogue, after the ring; then the ring's mbarriers.
-  float* sv = reinterpret_cast<float*>(smem + L::R::BYTES);
-  for (int i = tid; i < 3 * N; i += kThreads) sv[i] = vec[head * 3 * N + i];
-  for (int i = tid; i < kMaxOut * N; i += kThreads) sv[3 * N + i] = w2[head * kMaxOut * N + i];
-  const uint32_t bars = sbase + L::R::BYTES + L::VEC_BYTES;
-
-  // Tap t of phase (pa, pb) reads source pixel (i + pa - 1 + t / 2, j + pb - 1 + t % 2).
-  const int arow = 64 * (tid / 128);
-  float acc0[N0 / 2], acc1[N1 / 2];
-  mainloop<kBM, N, kStages, N0, N1>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0, smem,
-                                    bars, arow, 0, acc0, acc1);
-
-  // Select this block's sizes without indexing the parameter struct by a
-  // run-time value (which would copy it to local memory).
-  int F = sizes.F[0], M = sizes.M[0], moff = sizes.moff[0];
+// Selects a head's sizes without indexing the parameter struct by a
+// run-time value (which would copy it to local memory).
+__device__ __forceinline__ void head_sizes(const HeadSizes& sizes, int head, int& F, int& M,
+                                           int& moff) {
+  F = sizes.F[0];
+  M = sizes.M[0];
+  moff = sizes.moff[0];
 #pragma unroll
   for (int h = 1; h < kMaxHeads; ++h) {
     if (head == h) {
@@ -120,6 +113,54 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
       moff = sizes.moff[h];
     }
   }
+}
+
+// Output pixel of low-resolution pixel m at phase (pa, pb).
+__device__ __forceinline__ long long out_pixel(int m, int H, int W, int pa, int pb) {
+  const int hw = H * W;
+  const int b = m / hw, rem = m - b * hw;
+  const int si = rem / W, sj = rem - si * W;
+  return ((long long)b * 2 * H + 2 * si + pa) * 2 * W + 2 * sj + pb;
+}
+
+// x (B, H, W, C); w (heads, 4 phases, 4 taps, ceil(C/32) chunks, parts,
+// N/8, 8, 8 rows, 16 bytes of K): each chunk's B in core-matrix order (row
+// group, K group, row, K), for f32 a TF32 hi and lo part with K permuted
+// within each 8 as conv_gemm.cuh says, for bf16 one part in K's order; zero
+// past the head's F and past C; vec (heads, 3, N): smoothing bias, LN
+// scale, LN bias; w2 (heads, kMaxOut, N) and b2 (heads, kMaxOut), zero past
+// each head's real sizes; out (B, 2H, 2W, Mtot).
+template <typename T, int N, bool ROUND_Y>
+__global__ void __launch_bounds__(kThreads, 1)
+heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
+             const float* __restrict__ vec, const float* __restrict__ w2,
+             const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes, int npix,
+             int H, int W, int C, int Mtot) {
+  using L = Layout<T, N>;
+  constexpr int N0 = L::N0, N1 = L::N1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int head = blockIdx.x / 4, phase = blockIdx.x % 4;
+  const int pa = phase / 2, pb = phase % 2;
+  const int m0 = blockIdx.y * kBM;
+  const int nk = 4 * ((C + kKC - 1) / kKC);
+  const T* wb = w + (long long)(head * 4 + phase) * nk * kParts<T> * N * kKC;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // The head's bias, LN scale, LN bias (N each) and projection (kMaxOut x N)
+  // for the epilogue, after the ring; then the ring's mbarriers.
+  float* sv = reinterpret_cast<float*>(smem + L::BASE);
+  for (int i = tid; i < 3 * N; i += kThreads) sv[i] = vec[head * 3 * N + i];
+  for (int i = tid; i < kMaxOut * N; i += kThreads) sv[3 * N + i] = w2[head * kMaxOut * N + i];
+  const uint32_t bars = sbase + L::BASE + L::VEC_BYTES;
+
+  // Tap t of phase (pa, pb) reads source pixel (i + pa - 1 + t / 2, j + pb - 1 + t % 2).
+  const int arow = 64 * (tid / 128);
+  float acc0[N0 / 2], acc1[N1 / 2];
+  conv_mainloop<T, kBM, N, kStages, N0, N1>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0,
+                                            smem, bars, arow, 0, acc0, acc1);
+
+  int F, M, moff;
+  head_sizes(sizes, head, F, M, moff);
   // The epilogue reads the tile back from shared memory, one row and 8
   // features at a time, so its GELUs do not compete with the accumulators
   // for registers: z = acc + bias (kBM x LDZ) goes over the ring, which
@@ -130,7 +171,6 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
   store_pairs(acc0, z + row0 * L::LDZ, L::LDZ, 0, t4, sv);
   store_pairs(acc1, z + row0 * L::LDZ, L::LDZ, N0, t4, sv);
   __syncwarp();  // a row's features come from the four threads of its quad
-  const int hw = H * W;
 #pragma unroll 1
   for (int r = 0; r < 2; ++r) {
     const float* zr = z + (row0 + 8 * r) * L::LDZ + 2 * t4;
@@ -144,7 +184,8 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = 8 * j + 2 * t4 + e;
-        const float y = gelu_exact((zr[8 * j + e] - mean) * rstd * sv[N + n] + sv[2 * N + n]);
+        float y = gelu_exact((zr[8 * j + e] - mean) * rstd * sv[N + n] + sv[2 * N + n]);
+        if constexpr (ROUND_Y) y = round_bf16(y);
 #pragma unroll
         for (int o = 0; o < kMaxOut; ++o) dot[o] = fmaf(y, sv[(3 + o) * N + n], dot[o]);
       }
@@ -156,28 +197,99 @@ heads_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (t4 == o) mine = v + __ldg(b2 + head * kMaxOut + o);
     }
     const int m = m0 + row0 + 8 * r;
-    if (m < npix && t4 < M) {
-      const int b = m / hw, rem = m - b * hw;
-      const int si = rem / W, sj = rem - si * W;
-      const long long pix = ((long long)b * 2 * H + 2 * si + pa) * 2 * W + 2 * sj + pb;
-      out[pix * Mtot + moff + t4] = mine;
-    }
+    if (m < npix && t4 < M) out[out_pixel(m, H, W, pa, pb) * Mtot + moff + t4] = mine;
   }
 }
 
-// The C entry points' body: checks, head sizes, one launch.
-template <int N>
-int launch_heads(const float* x, const float* w, const float* vec, const float* w2,
-                 const float* b2, float* out, const int* F, const int* M, int heads, int B,
-                 int H, int W, int C, cudaStream_t stream) {
-  using L = Layout<N>;
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 4 || H > 32767 || W > 32767 || heads <= 0 ||
-      heads > kMaxHeads)
+// The wide heads' first pass over the n pixels from p0: block (head,
+// slice, phase) x tile runs the main loop over its slice's N features and
+// stores z = acc + bias (f32) to ws (heads, 4 phases, chunk, slices N),
+// pixel p0 + r at row r. w (heads, slices, 4 phases, ...) as heads_kernel's
+// per slice; vec (heads, 3, slices N).
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+heads_sums_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  const float* __restrict__ vec, float* __restrict__ ws, int slices, int p0,
+                  int n, int chunk, int H, int W, int C) {
+  using L = Layout<T, N>;
+  constexpr int N0 = L::N0, N1 = L::N1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int phase = blockIdx.x % 4, slice = (blockIdx.x / 4) % slices;
+  const int head = blockIdx.x / (4 * slices);
+  const int pa = phase / 2, pb = phase % 2;
+  const int r0 = blockIdx.y * kBM;
+  const int nk = 4 * ((C + kKC - 1) / kKC);
+  const T* wb = w + (long long)((head * slices + slice) * 4 + phase) * nk * kParts<T> * N * kKC;
+  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + L::R::BYTES;
+  const int arow = 64 * (tid / 128);
+  float acc0[N0 / 2], acc1[N1 / 2];
+  conv_mainloop<T, kBM, N, kStages, N0, N1>(x, wb, p0 + n, H, W, C, Taps{4, 2, pa - 1, pb - 1},
+                                            p0 + r0, smem, bars, arow, 0, acc0, acc1);
+  const int fp = slices * N;
+  float* wsb = ws + (long long)(head * 4 + phase) * chunk * fp;
+  const float* bias = vec + (long long)head * 3 * fp;
+  const int t4 = tid % 4, r = r0 + arow + quad_row();
+  store_sums(acc0, wsb, r, n, fp, slice * N, t4, bias);
+  store_sums(acc1, wsb, r, n, fp, slice * N + N0, t4, bias);
+}
+
+// The wide heads' second pass over heads_sums_kernel's chunk: warp w of
+// block (x, head * 4 + phase) takes pixel p0 + 8 x + w: LayerNorm over the
+// head's F sums, GELU (rounded to bf16 where ROUND_Y), the projection and
+// the interleaved write. vec (heads, 3, fp), w2 (heads, kMaxOut, fp), b2
+// (heads, kMaxOut).
+template <bool ROUND_Y>
+__global__ void __launch_bounds__(kThreads)
+heads_ln_kernel(const float* __restrict__ ws, const float* __restrict__ vec,
+                const float* __restrict__ w2, const float* __restrict__ b2,
+                float* __restrict__ out, HeadSizes sizes, int fp, int p0, int n, int chunk,
+                int H, int W, int Mtot) {
+  const int head = blockIdx.y / 4, phase = blockIdx.y % 4;
+  const int r = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= n) return;
+  const int m = p0 + r;
+  int F, M, moff;
+  head_sizes(sizes, head, F, M, moff);
+  const float* z = ws + ((long long)blockIdx.y * chunk + r) * fp;
+  const float* g = vec + (long long)head * 3 * fp + fp;
+  const float* wp = w2 + (long long)head * kMaxOut * fp;
+  float rstd;
+  const float mean = warp_ln_stats(z, F, rstd);
+  float dot[kMaxOut] = {};
+  for (int n = lane; n < F; n += 32) {
+    float y = gelu_exact((z[n] - mean) * rstd * g[n] + g[fp + n]);
+    if constexpr (ROUND_Y) y = round_bf16(y);
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) dot[o] = fmaf(y, wp[o * fp + n], dot[o]);
+  }
+  float mine = 0.0f;
+#pragma unroll
+  for (int o = 0; o < kMaxOut; ++o) {
+    const float v = warp_sum(dot[o]);
+    if (lane == o) mine = v + __ldg(b2 + head * kMaxOut + o);
+  }
+  if (lane < M) out[out_pixel(m, H, W, phase / 2, phase % 2) * Mtot + moff + lane] = mine;
+}
+
+// The C entry points' body: checks, head sizes, one launch (where the
+// heads are split into slices, two a chunk of `chunk` pixels, a multiple of
+// kBM; ws then holds heads x 4 x chunk x slices N floats).
+template <typename T, int N, bool ROUND_Y>
+int launch_heads(const T* x, const T* w, const float* vec, const float* w2, const float* b2,
+                 float* out, float* ws, int chunk, const int* F, const int* M, int heads,
+                 int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  using L = Layout<T, N>;
+  constexpr int kVec = std::is_same<T, float>::value ? 4 : 8;  // channels a 16-byte copy
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec || H > 32767 || W > 32767 ||
+      heads <= 0 || heads > kMaxHeads || slices <= 0 || slices > kMaxSlices ||
+      (slices > 1 && (ws == nullptr || chunk <= 0 || chunk % kBM)))
     return (int)cudaErrorInvalidValue;
   HeadSizes sizes{};
   int mtot = 0;
   for (int h = 0; h < heads; ++h) {
-    if (F[h] <= 0 || F[h] > N || M[h] <= 0 || M[h] > kMaxOut) return (int)cudaErrorInvalidValue;
+    if (F[h] <= 0 || F[h] > slices * N || M[h] <= 0 || M[h] > kMaxOut)
+      return (int)cudaErrorInvalidValue;
     sizes.F[h] = F[h];
     sizes.M[h] = M[h];
     sizes.moff[h] = mtot;
@@ -186,12 +298,30 @@ int launch_heads(const float* x, const float* w, const float* vec, const float* 
   const long long npix = (long long)B * H * W;
   const long long tiles = (npix + kBM - 1) / kBM;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(heads_kernel<N>, L::SMEM_BYTES);
+  if (slices == 1) {
+    cudaError_t e = allow_smem(heads_kernel<T, N, ROUND_Y>, L::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(4 * heads, (unsigned)tiles);
+    heads_kernel<T, N, ROUND_Y><<<grid, kThreads, L::SMEM_BYTES, stream>>>(
+        x, w, vec, w2, b2, out, sizes, (int)npix, H, W, C, mtot);
+    return (int)cudaGetLastError();
+  }
+  constexpr size_t smem = (size_t)L::R::BYTES + 8 * kStages;
+  cudaError_t e = allow_smem(heads_sums_kernel<T, N>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(4 * heads, (unsigned)tiles);
-  heads_kernel<N><<<grid, kThreads, L::SMEM_BYTES, stream>>>(x, w, vec, w2, b2, out, sizes,
-                                                             (int)npix, H, W, C, mtot);
-  return (int)cudaGetLastError();
+  for (int p0 = 0; p0 < npix; p0 += chunk) {
+    const int n = (int)std::min<long long>(chunk, npix - p0);
+    heads_sums_kernel<T, N><<<dim3(4 * heads * slices, (n + kBM - 1) / kBM), kThreads, smem,
+                              stream>>>(x, w, vec, ws, slices, p0, n, chunk, H, W, C);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int rows = (n + kThreads / 32 - 1) / (kThreads / 32);
+    heads_ln_kernel<ROUND_Y><<<dim3(rows, 4 * heads), kThreads, 0, stream>>>(
+        ws, vec, w2, b2, out, sizes, slices * N, p0, n, chunk, H, W, mtot);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace fpn_head

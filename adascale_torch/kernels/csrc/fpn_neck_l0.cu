@@ -1,4 +1,4 @@
-// The FPN neck's level-0 chain in f32 for Hopper (sm_90a), NHWC:
+// The FPN neck's level-0 chain for Hopper (sm_90a), NHWC, f32 or bf16:
 //
 //   a  = GELU(LN(f0 · W1 + b1))                 step1 lateral, C0 -> Cm
 //   t  = a + u                                  u: nearest-x2 of the level-1 sum
@@ -41,6 +41,19 @@
 // t costs 4*Cm bytes a pixel each way (70.8 MB at 240x192, ~0.04 ms of
 // traffic against the 0.206 ms bound); the TPU kept it out of HBM where it
 // was ~1.3 GB at batch 16. Tiles walk gridDim.x, which has no 65535 cap.
+//
+// Wider necks (the base and large backbones: Cm 512 / 768, Co 128 / 192)
+// split a step's features into slices of kMid (step1) or kNB (step2), one
+// slice a block (gridDim.y): the block stores its pre-LN sums plus the bias
+// (f32) to a workspace, and ln_gelu_rows, a warp per pixel, takes the
+// LayerNorm over all the features, the GELU and (step1) + u. The flagship's
+// widths keep the one-pass kernels.
+//
+// bf16 (the JAX package's compute_dtype="bfloat16", as the Pallas kernel
+// computes it): f0, u and the packed W1, W2 in bf16, products accumulated
+// in f32 (conv_gemm.cuh's mainloop_bf16), bias, LayerNorm, GELU and + u in
+// f32; t rounded to bf16 before the 3x3 (fpn_neck.py:98), z0 written in
+// bf16. One bf16 product a product: 0.069 ms at 240x192 at 989 TFLOP/s.
 
 #include <cuda_runtime.h>
 
@@ -50,42 +63,68 @@ namespace {
 
 using namespace conv_gemm;
 
-constexpr int kMid = 384;  // widest Cm: step1's features a block
-constexpr int kNB = 96;    // widest Co: step2's features a block, one wgmma
+constexpr int kMid = 384;  // step1's features a block (one slice)
+constexpr int kNB = 96;    // step2's features a block (one slice), one wgmma
+constexpr int kMaxSlices = 4;
 constexpr int kBM1 = 64, kBM2 = 128;  // pixels a block
-using R1 = Ring<kBM1, kMid, 2>;
-using R2 = Ring<kBM2, kNB, 2>;
+template <typename T>
+using R1 = typename RingFor<T, kBM1, kMid, 2>::type;
+template <typename T>
+using R2 = typename RingFor<T, kBM2, kNB, 2>::type;
 constexpr int kLdz1 = ldz(kMid), kLdz2 = ldz(kNB);
-// The ring, then the bias, LN scale and LN bias, then the mbarriers.
-constexpr size_t kSmem1 = (size_t)R1::BYTES + 3 * kMid * 4 + 16;
-constexpr size_t kSmem2 = (size_t)R2::BYTES + 3 * kNB * 4 + 16;
-static_assert(kBM1 * kLdz1 * 4 <= R1::BYTES && kBM2 * kLdz2 * 4 <= R2::BYTES, "epilogue tile");
-static_assert(kSmem1 <= 232448 && 2 * (kSmem2 + 1024) <= 233472, "shared memory");
+constexpr int max_int(int a, int b) { return a > b ? a : b; }
+// The ring (or the epilogue tile over it, where larger), then the bias, LN
+// scale and LN bias, then the mbarriers.
+template <typename T>
+constexpr int kBase1 = max_int(R1<T>::BYTES, kBM1 * kLdz1 * 4);
+template <typename T>
+constexpr int kBase2 = max_int(R2<T>::BYTES, kBM2 * kLdz2 * 4);
+template <typename T>
+constexpr size_t kSmem1 = (size_t)kBase1<T> + 3 * kMid * 4 + 16;
+template <typename T>
+constexpr size_t kSmem2 = (size_t)kBase2<T> + 3 * kNB * 4 + 16;
+static_assert(kBase1<float> == R1<float>::BYTES && kBase2<float> == R2<float>::BYTES,
+              "epilogue tile");
+static_assert(kSmem1<float> <= 232448 && 2 * (kSmem2<float> + 1024) <= 233472, "shared memory");
+static_assert(kSmem1<bf16> <= 232448 && 2 * (kSmem2<bf16> + 1024) <= 233472, "shared memory");
 
-// f0 (B, H, W, C0); w1 (1 tap, ceil(C0/32) chunks, [hi, lo], kMid/8, 8, 8,
-// 4) and vec1 (3, kMid): b1, LN scale, LN bias, zero past Cm; u and t (B, H,
-// W, Cm).
+// f0 (B, H, W, C0); w1 (slices, 1 tap, ceil(C0/32) chunks, parts, kMid/8,
+// 8, 8, 16 bytes of K) and vec1 (3, slices kMid): b1, LN scale, LN bias,
+// zero past Cm; u and t (B, H, W, Cm). With SUMS, block (x, y) stores
+// slice y's pre-LN sums to ws (npix, slices kMid) and writes no t.
+template <typename T, bool SUMS>
 __global__ void __launch_bounds__(kThreads, 1)
-neck_step1_kernel(const float* __restrict__ f0, const float* __restrict__ w1,
-                  const float* __restrict__ vec1, const float* __restrict__ u,
-                  float* __restrict__ t, int npix, int H, int W, int C0, int Cm) {
+neck_step1_kernel(const T* __restrict__ f0, const T* __restrict__ w1,
+                  const float* __restrict__ vec1, const T* __restrict__ u,
+                  T* __restrict__ t, float* __restrict__ ws, int npix, int H, int W, int C0,
+                  int Cm) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kBM1;
-  float* sv = reinterpret_cast<float*>(smem + R1::BYTES);
-  for (int i = tid; i < 3 * kMid; i += kThreads) sv[i] = vec1[i];
+  const int slice = blockIdx.y, cmp = gridDim.y * kMid;
+  float* sv = reinterpret_cast<float*>(smem + kBase1<T>);
+  if constexpr (!SUMS)
+    for (int i = tid; i < 3 * kMid; i += kThreads) sv[i] = vec1[i];
   const uint32_t bars =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + R1::BYTES + 3 * kMid * 4;
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + kBase1<T> + 3 * kMid * 4;
 
   // Warpgroup wg: all 64 rows, features 192 wg .. 192 wg + 191.
   const int nb0 = (kMid / 2) * (tid / 128);
+  const int chunks = (C0 + kKC - 1) / kKC;
+  const T* wb = w1 + (long long)slice * chunks * kParts<T> * kMid * kKC;
   float acc0[48], acc1[48];
-  mainloop<kBM1, kMid, 2, 96, 96>(f0, w1, npix, H, W, C0, Taps{1, 1, 0, 0}, m0, smem, bars, 0,
-                                  nb0, acc0, acc1);
+  conv_mainloop<T, kBM1, kMid, 2, 96, 96>(f0, wb, npix, H, W, C0, Taps{1, 1, 0, 0}, m0, smem,
+                                          bars, 0, nb0, acc0, acc1);
+  const int t4 = tid % 4;
+  if constexpr (SUMS) {
+    const int m = m0 + quad_row();
+    store_sums(acc0, ws, m, npix, cmp, slice * kMid + nb0, t4, vec1);
+    store_sums(acc1, ws, m, npix, cmp, slice * kMid + nb0 + 96, t4, vec1);
+    return;
+  }
 
   __syncthreads();  // both warpgroups are done with the ring
   float* z = reinterpret_cast<float*>(smem);
-  const int t4 = tid % 4;
   store_pairs(acc0, z + quad_row() * kLdz1, kLdz1, nb0, t4, sv);
   store_pairs(acc1, z + quad_row() * kLdz1, kLdz1, nb0 + 96, t4, sv);
   __syncthreads();  // a row's features come from both warpgroups
@@ -97,14 +136,14 @@ neck_step1_kernel(const float* __restrict__ f0, const float* __restrict__ w1,
   float rstd;
   const float mean = ln_stats<kMid>(zr, Cm, t4, rstd);
   if (m >= npix) return;
-  const float* ur = u + (long long)m * Cm + 2 * t4;
-  float* tr = t + (long long)m * Cm + 2 * t4;
+  const T* ur = u + (long long)m * Cm + 2 * t4;
+  T* tr = t + (long long)m * Cm + 2 * t4;
 #pragma unroll 1
   for (int j0 = 0; j0 < kMid / 8; j0 += 12) {
     float2 uv[12];
 #pragma unroll
     for (int j = 0; j < 12; ++j)  // Cm % 4 == 0: a pair is all in or all out
-      if (8 * (j0 + j) + 2 * t4 < Cm) uv[j] = *reinterpret_cast<const float2*>(ur + 8 * (j0 + j));
+      if (8 * (j0 + j) + 2 * t4 < Cm) uv[j] = load_pair(ur + 8 * (j0 + j));
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
       const int n = 8 * (j0 + j) + 2 * t4;
@@ -113,37 +152,47 @@ neck_step1_kernel(const float* __restrict__ f0, const float* __restrict__ w1,
             gelu_exact((zr[8 * (j0 + j)] - mean) * rstd * sv[kMid + n] + sv[2 * kMid + n]);
         const float y1 = gelu_exact((zr[8 * (j0 + j) + 1] - mean) * rstd * sv[kMid + n + 1] +
                                     sv[2 * kMid + n + 1]);
-        *reinterpret_cast<float2*>(tr + 8 * (j0 + j)) = make_float2(y0 + uv[j].x, y1 + uv[j].y);
+        store_pair(tr + 8 * (j0 + j), y0 + uv[j].x, y1 + uv[j].y);
       }
     }
   }
 }
 
-// t (B, H, W, Cm); w2 (9 taps, ceil(Cm/32) chunks, [hi, lo], kNB/8, 8, 8,
-// 4) and vec2 (3, kNB): b2, LN scale, LN bias, zero past Co; out (B, H, W,
-// Co).
+// t (B, H, W, Cm); w2 (slices, 9 taps, ceil(Cm/32) chunks, parts, kNB/8, 8,
+// 8, 16 bytes of K) and vec2 (3, slices kNB): b2, LN scale, LN bias, zero
+// past Co; out (B, H, W, Co). With SUMS, block (x, y) stores slice y's
+// pre-LN sums to ws (npix, slices kNB) and writes no out.
+template <typename T, bool SUMS>
 __global__ void __launch_bounds__(kThreads, 2)
-neck_step2_kernel(const float* __restrict__ t, const float* __restrict__ w2,
-                  const float* __restrict__ vec2, float* __restrict__ out, int npix, int H,
-                  int W, int Cm, int Co) {
+neck_step2_kernel(const T* __restrict__ t, const T* __restrict__ w2,
+                  const float* __restrict__ vec2, T* __restrict__ out, float* __restrict__ ws,
+                  int npix, int H, int W, int Cm, int Co) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kBM2;
-  float* sv = reinterpret_cast<float*>(smem + R2::BYTES);
-  for (int i = tid; i < 3 * kNB; i += kThreads) sv[i] = vec2[i];
+  const int slice = blockIdx.y, cop = gridDim.y * kNB;
+  float* sv = reinterpret_cast<float*>(smem + kBase2<T>);
+  if constexpr (!SUMS)
+    for (int i = tid; i < 3 * kNB; i += kThreads) sv[i] = vec2[i];
   const uint32_t bars =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + R2::BYTES + 3 * kNB * 4;
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + kBase2<T> + 3 * kNB * 4;
 
   // Warpgroup wg: rows 64 wg .. 64 wg + 63, all features. Tap t reads
   // source pixel (i - 1 + t / 3, j - 1 + t % 3).
   const int arow = 64 * (tid / 128);
+  const int chunks = (Cm + kKC - 1) / kKC;
+  const T* wb = w2 + (long long)slice * 9 * chunks * kParts<T> * kNB * kKC;
   float acc[kNB / 2], none[1];
-  mainloop<kBM2, kNB, 2, kNB, 0>(t, w2, npix, H, W, Cm, Taps{9, 3, -1, -1}, m0, smem, bars, arow,
-                                 0, acc, none);
+  conv_mainloop<T, kBM2, kNB, 2, kNB, 0>(t, wb, npix, H, W, Cm, Taps{9, 3, -1, -1}, m0, smem, bars,
+                                         arow, 0, acc, none);
+  const int t4 = tid % 4, row0 = arow + quad_row();
+  if constexpr (SUMS) {
+    store_sums(acc, ws, m0 + row0, npix, cop, slice * kNB, t4, vec2);
+    return;
+  }
 
   __syncthreads();  // both warpgroups are done with the ring
   float* z = reinterpret_cast<float*>(smem);
-  const int t4 = tid % 4, row0 = arow + quad_row();
   store_pairs(acc, z + row0 * kLdz2, kLdz2, 0, t4, sv);
   __syncwarp();  // a row's features come from the four threads of its quad
 #pragma unroll 1
@@ -153,49 +202,121 @@ neck_step2_kernel(const float* __restrict__ t, const float* __restrict__ w2,
     float rstd;
     const float mean = ln_stats<kNB>(zr, Co, t4, rstd);
     if (m >= npix) continue;
-    float* orow = out + (long long)m * Co;
+    T* orow = out + (long long)m * Co;
 #pragma unroll
     for (int j = 0; j < kNB / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = 8 * j + 2 * t4 + e;
         if (n < Co)
-          orow[n] = gelu_exact((zr[8 * j + e] - mean) * rstd * sv[kNB + n] + sv[2 * kNB + n]);
+          store_one(orow + n,
+                    gelu_exact((zr[8 * j + e] - mean) * rstd * sv[kNB + n] + sv[2 * kNB + n]));
       }
     }
   }
 }
 
-}  // namespace
+// The split steps' second pass: warp w of block x takes pixel 8 x + w:
+// out[m, :F] = GELU(LN(ws[m, :F])) (+ add[m, :F] where add is given), from
+// the F of fp pre-LN sums a row; vec (3, fp): bias (added already), LN
+// scale, LN bias.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_gelu_rows(const float* __restrict__ ws, const float* __restrict__ vec,
+             const T* __restrict__ add, T* __restrict__ out, int npix, int F, int fp) {
+  const int m = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (m >= npix) return;
+  const float* z = ws + (long long)m * fp;
+  float rstd;
+  const float mean = warp_ln_stats(z, F, rstd);
+  for (int n = lane; n < F; n += 32) {
+    float y = gelu_exact((z[n] - mean) * rstd * vec[fp + n] + vec[2 * fp + n]);
+    if (add != nullptr) y += load_one(add + (long long)m * F + n);
+    store_one(out + (long long)m * F + n, y);
+  }
+}
 
-extern "C" int fpn_neck_l0_max_mid() { return kMid; }
-extern "C" int fpn_neck_l0_max_out() { return kNB; }
-
-// f0 (B, H, W, C0), u and t (B, H, W, Cm), out (B, H, W, Co), all f32 and
-// contiguous; C0 % 4 == 0, Cm % 4 == 0, Cm <= 384, Co <= 96. w1, vec1, w2
-// and vec2 as the kernels above take them (kernels/fpn_neck.py::pack_neck).
-// t is scratch. Returns cudaGetLastError() after the two launches (0 on
-// success).
-extern "C" int fpn_neck_l0_f32(const float* f0, const float* u, const float* w1,
-                               const float* vec1, const float* w2, const float* vec2, float* t,
-                               float* out, int B, int H, int W, int C0, int Cm, int Co,
-                               cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C0 <= 0 || Cm <= 0 || Co <= 0 || C0 % 4 || Cm % 4 ||
-      Cm > kMid || Co > kNB || H > 32767 || W > 32767)
+template <typename T>
+int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w2,
+             const float* vec2, T* t, T* out, float* ws, int B, int H, int W, int C0, int Cm,
+             int Co, cudaStream_t stream) {
+  constexpr int kVec = std::is_same<T, float>::value ? 4 : 8;  // channels a 16-byte copy
+  const int s1 = (Cm + kMid - 1) / kMid, s2 = (Co + kNB - 1) / kNB;
+  if (B <= 0 || H <= 0 || W <= 0 || C0 <= 0 || Cm <= 0 || Co <= 0 || C0 % kVec || Cm % kVec ||
+      Co % 4 || s1 > kMaxSlices || s2 > kMaxSlices || H > 32767 || W > 32767 ||
+      ((s1 > 1 || s2 > 1) && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
   if (npix > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(neck_step1_kernel, kSmem1);
-  if (e != cudaSuccess) return (int)e;
-  e = allow_smem(neck_step2_kernel, kSmem2);
-  if (e != cudaSuccess) return (int)e;
   const unsigned grid1 = (unsigned)((npix + kBM1 - 1) / kBM1);
-  neck_step1_kernel<<<grid1, kThreads, kSmem1, stream>>>(f0, w1, vec1, u, t, (int)npix, H, W, C0,
-                                                         Cm);
+  const unsigned grid2 = (unsigned)((npix + kBM2 - 1) / kBM2);
+  const unsigned rows = (unsigned)((npix + kThreads / 32 - 1) / (kThreads / 32));
+  constexpr size_t smem1 = kSmem1<T>, smem2 = kSmem2<T>;
+  cudaError_t e;
+  if (s1 == 1) {
+    e = allow_smem(neck_step1_kernel<T, false>, smem1);
+    if (e != cudaSuccess) return (int)e;
+    neck_step1_kernel<T, false><<<grid1, kThreads, smem1, stream>>>(f0, w1, vec1, u, t, ws,
+                                                                      (int)npix, H, W, C0, Cm);
+  } else {
+    e = allow_smem(neck_step1_kernel<T, true>, smem1);
+    if (e != cudaSuccess) return (int)e;
+    neck_step1_kernel<T, true><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
+        f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ln_gelu_rows<T><<<rows, kThreads, 0, stream>>>(ws, vec1, u, t, (int)npix, Cm, s1 * kMid);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid2 = (unsigned)((npix + kBM2 - 1) / kBM2);
-  neck_step2_kernel<<<grid2, kThreads, kSmem2, stream>>>(t, w2, vec2, out, (int)npix, H, W, Cm,
-                                                         Co);
+  if (s2 == 1) {
+    e = allow_smem(neck_step2_kernel<T, false>, smem2);
+    if (e != cudaSuccess) return (int)e;
+    neck_step2_kernel<T, false><<<grid2, kThreads, smem2, stream>>>(t, w2, vec2, out, ws,
+                                                                      (int)npix, H, W, Cm, Co);
+  } else {
+    e = allow_smem(neck_step2_kernel<T, true>, smem2);
+    if (e != cudaSuccess) return (int)e;
+    neck_step2_kernel<T, true><<<dim3(grid2, s2), kThreads, smem2, stream>>>(
+        t, w2, vec2, out, ws, (int)npix, H, W, Cm, Co);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ln_gelu_rows<T><<<rows, kThreads, 0, stream>>>(ws, vec2, nullptr, out, (int)npix, Co,
+                                                   s2 * kNB);
+  }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The slice widths, and the widest Cm and Co (kMaxSlices slices).
+extern "C" int fpn_neck_l0_tile_mid() { return kMid; }
+extern "C" int fpn_neck_l0_tile_out() { return kNB; }
+extern "C" int fpn_neck_l0_max_mid() { return kMaxSlices * kMid; }
+extern "C" int fpn_neck_l0_max_out() { return kMaxSlices * kNB; }
+
+// f0 (B, H, W, C0), u and t (B, H, W, Cm), out (B, H, W, Co), all f32 and
+// contiguous; C0 % 4 == 0, Cm % 4 == 0, Co % 4 == 0, Cm <= max_mid, Co <=
+// max_out. w1, vec1, w2 and vec2 as the kernels above take them
+// (kernels/fpn_neck.py::pack_neck), with ceil(Cm / tile_mid) and
+// ceil(Co / tile_out) slices. t is scratch; ws is scratch of B H W x the
+// larger of the split steps' slices x tile widths floats where Cm > tile_mid
+// or Co > tile_out (else may be null). Returns cudaGetLastError() after the
+// launches (0 on success).
+extern "C" int fpn_neck_l0_f32(const float* f0, const float* u, const float* w1,
+                               const float* vec1, const float* w2, const float* vec2, float* t,
+                               float* out, float* ws, int B, int H, int W, int C0, int Cm, int Co,
+                               cudaStream_t stream) {
+  return run_neck<float>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
+}
+
+// As fpn_neck_l0_f32 with f0, u, t, out and the packed w1, w2 in bf16 (C0 %
+// 8 == 0, Cm % 8 == 0).
+extern "C" int fpn_neck_l0_bf16(const __nv_bfloat16* f0, const __nv_bfloat16* u,
+                                const __nv_bfloat16* w1, const float* vec1,
+                                const __nv_bfloat16* w2, const float* vec2, __nv_bfloat16* t,
+                                __nv_bfloat16* out, float* ws, int B, int H, int W, int C0,
+                                int Cm, int Co, cudaStream_t stream) {
+  return run_neck<__nv_bfloat16>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co,
+                                 stream);
 }

@@ -17,6 +17,14 @@ flagship's widths, three TF32 products each, 0.206 ms at 240x192 on an H100
 SXM (495 TFLOP/s dense TF32, 700 W). On a CPU tensor it runs
 ``fused_neck_l0_plain``.
 
+A bf16 ``f0`` and ``u`` (the JAX package's ``compute_dtype="bfloat16"``)
+launch the bf16 entry: bf16 operands, f32 sums, LN, GELU and ``+ u``, ``t``
+rounded to bf16 before the 3x3 and a bf16 output, as the Pallas kernel
+computes it (0.069 ms at 240x192 at 989 TFLOP/s dense bf16). Widths past
+the kernel's tiles (Cm 384, Co 96: the base and large backbones' 512 / 128
+and 768 / 192) run each step split into slices of its tile, with a second
+pass for the LayerNorm (``csrc/fpn_neck_l0.cu``).
+
 ``fpn_neck_forward_fused(neck, features)`` is the counterpart of
 ``adascale/ops/pallas/fpn_neck.py::fpn_neck_forward_fused``: the port's
 ``FpnNeck`` output with level 0 through ``fused_neck_l0`` and levels 1..n
@@ -38,16 +46,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bf16 import round_bf16
 from ..ops.resize import resize_nearest
 from . import _nvcc, packing
 
 # Calls that launched the kernel (its two CUDA launches count once).
 LAUNCHES = 0
+# Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
+# the f32 ones).
+LAUNCHES_BF16 = 0
 
 EPS = 1e-6
-# The packed layout's widths, as csrc/fpn_neck_l0.cu reads them (``build``
-# checks the library's): Cm and Co are padded to these.
+# The packed layout's slice widths, as csrc/fpn_neck_l0.cu reads them
+# (``build`` checks the library's): Cm and Co are padded to multiples of
+# these, one slice a tile.
 MID_WIDTH, OUT_WIDTH = 384, 96
+# The most slices a step takes (csrc/fpn_neck_l0.cu kMaxSlices).
+MAX_SLICES = 4
 PARAM_NAMES = (
     "step1_0.conv.weight", "step1_0.conv.bias", "step1_0.ln.weight", "step1_0.ln.bias",
     "step2_0.conv.weight", "step2_0.conv.bias", "step2_0.ln.weight", "step2_0.ln.bias",
@@ -57,17 +72,18 @@ PARAM_NAMES = (
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _nvcc.build("fpn_neck_l0", "fpn_neck_l0.cu")
-    fn = lib.fpn_neck_l0_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.fpn_neck_l0_f32, lib.fpn_neck_l0_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     widths = []
-    for name in ("fpn_neck_l0_max_mid", "fpn_neck_l0_max_out"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-        widths.append(getattr(lib, name)())
-    if tuple(widths) != (MID_WIDTH, OUT_WIDTH):
-        raise RuntimeError(f"fpn_neck_l0: library widths {widths} != {(MID_WIDTH, OUT_WIDTH)}")
+    for name in ("tile_mid", "tile_out", "max_mid", "max_out"):
+        getattr(lib, f"fpn_neck_l0_{name}").argtypes = []
+        getattr(lib, f"fpn_neck_l0_{name}").restype = ctypes.c_int
+        widths.append(getattr(lib, f"fpn_neck_l0_{name}")())
+    if tuple(widths[:2]) != (MID_WIDTH, OUT_WIDTH):
+        raise RuntimeError(f"fpn_neck_l0: library tiles {widths[:2]} != {(MID_WIDTH, OUT_WIDTH)}")
     return lib
+
 
 
 def _ln_gelu(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -78,64 +94,92 @@ def _ln_gelu(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
 def fused_neck_l0_plain(
     f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor]
 ) -> torch.Tensor:
-    """Eager PyTorch twin of the kernel (NHWC in, NHWC out)."""
+    """Eager PyTorch twin of the kernel (NHWC in, NHWC out). For bf16 ``f0``
+    and ``u`` it computes in f32 on the bf16 values and rounds ``t`` and the
+    output to bf16, where the bf16 kernel rounds."""
+    w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
+    bf16 = f0.dtype == torch.bfloat16
+    if bf16:
+        f0, u, w1, w2 = f0.float(), u.float(), round_bf16(w1), round_bf16(w2)
     a = _ln_gelu(
-        F.linear(f0, p["step1_0.conv.weight"], p["step1_0.conv.bias"]),
-        p["step1_0.ln.weight"], p["step1_0.ln.bias"],
+        F.linear(f0, w1, p["step1_0.conv.bias"]), p["step1_0.ln.weight"], p["step1_0.ln.bias"],
     )
-    t = (a + u).permute(0, 3, 1, 2)
-    z = F.conv2d(t, p["step2_0.conv.weight"], p["step2_0.conv.bias"], padding=1)
-    return _ln_gelu(z.permute(0, 2, 3, 1), p["step2_0.ln.weight"], p["step2_0.ln.bias"])
+    t = a + u
+    if bf16:
+        t = round_bf16(t)
+    z = F.conv2d(t.permute(0, 3, 1, 2), w2, p["step2_0.conv.bias"], padding=1)
+    out = _ln_gelu(z.permute(0, 2, 3, 1), p["step2_0.ln.weight"], p["step2_0.ln.bias"])
+    return out.to(torch.bfloat16) if bf16 else out
 
 
-def pack_neck(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The level-0 parameters in the kernel's layouts (``csrc/fpn_neck_l0.cu``),
-    zero past the real widths and past the input channels:
+def slices(cm: int, co: int) -> tuple:
+    """The kernel's slices of Cm and of Co (one at the flagship's widths)."""
+    return -(-cm // MID_WIDTH), -(-co // OUT_WIDTH)
 
-    - ``w1`` (1 tap, ceil(C0/32) chunks, 2, MID_WIDTH/8, 8, 8, 4): W1 as
-      (C0, MID_WIDTH), ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` of
-      each 32-channel chunk in wgmma's K-major core-matrix order;
-    - ``w2`` (9 taps, ceil(Cm/32) chunks, 2, OUT_WIDTH/8, 8, 8, 4): the 3x3,
-      tap 3 ky + kx as (Cm, OUT_WIDTH), the same way;
-    - ``vec1`` (3, MID_WIDTH) and ``vec2`` (3, OUT_WIDTH): conv bias, LN
-      scale, LN bias of step1 and step2."""
+
+def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The level-0 parameters in the kernel's layouts (``csrc/fpn_neck_l0.cu``)
+    for ``dtype`` operands, zero past the real widths and past the input
+    channels, with s1, s2 = ``slices(Cm, Co)``:
+
+    - ``w1`` (s1 slices, 1 tap, ceil(C0/32) chunks, ...; no slice axis
+      where s1 = 1): W1 as (C0, s1 MID_WIDTH) cut into slices of MID_WIDTH, each chunk for f32
+      ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` (2, MID_WIDTH/8, 8,
+      8, 4), for bf16 ``packing.pack_kmajor_bf16``'s tile (MID_WIDTH/8, 4,
+      8, 8), in wgmma's K-major core-matrix order;
+    - ``w2`` (s2 slices, 9 taps, ceil(Cm/32) chunks, ...; likewise): the 3x3, tap
+      3 ky + kx as (Cm, s2 OUT_WIDTH), the same way;
+    - ``vec1`` (3, s1 MID_WIDTH) and ``vec2`` (3, s2 OUT_WIDTH): conv bias,
+      LN scale, LN bias of step1 and step2."""
     w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
     (cm, c0), co = w1.shape, w2.shape[0]
-    if cm > MID_WIDTH or co > OUT_WIDTH:
-        raise ValueError(f"pack_neck: widths {cm}/{co}; the layout takes {MID_WIDTH}/{OUT_WIDTH}")
+    s1, s2 = slices(cm, co)
+    if max(s1, s2) > MAX_SLICES:
+        raise ValueError(
+            f"pack_neck: widths {cm}/{co}; the layout takes {MAX_SLICES * MID_WIDTH}/{MAX_SLICES * OUT_WIDTH}"
+        )
     kc = packing.KC
     with torch.no_grad():
-        taps1 = w1.new_zeros(1, -(-c0 // kc) * kc, MID_WIDTH)
+        taps1 = w1.new_zeros(1, -(-c0 // kc) * kc, s1 * MID_WIDTH)
         taps1[0, :c0, :cm] = w1.t()
-        taps2 = w2.new_zeros(9, -(-cm // kc) * kc, OUT_WIDTH)
+        taps2 = w2.new_zeros(9, -(-cm // kc) * kc, s2 * OUT_WIDTH)
         taps2[:, :cm, :co] = w2.permute(2, 3, 1, 0).reshape(9, cm, co)
-        vec1 = w1.new_zeros(3, MID_WIDTH)
-        vec2 = w2.new_zeros(3, OUT_WIDTH)
+        vec1 = w1.new_zeros(3, s1 * MID_WIDTH)
+        vec2 = w2.new_zeros(3, s2 * OUT_WIDTH)
         for k, part in enumerate(("conv.bias", "ln.weight", "ln.bias")):
             vec1[k, :cm] = p[f"step1_0.{part}"]
             vec2[k, :co] = p[f"step2_0.{part}"]
+        # One slice (its axis dropped) is the one-pass kernels' layout.
+        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype)
+        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype)
         return {
-            "w1": packing.pack_kmajor(taps1), "vec1": vec1,
-            "w2": packing.pack_kmajor(taps2), "vec2": vec2,
+            "w1": w1p.squeeze(0) if s1 == 1 else w1p, "vec1": vec1,
+            "w2": w2p.squeeze(0) if s2 == 1 else w2p, "vec2": vec2,
         }
 
 
-def packed_neck(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """``pack_neck(p)``, packed once per parameter set (``packing.cached``:
-    kept while ``step1_0.conv.weight`` lives, repacked when any parameter's
-    version or storage changes)."""
-    return packing.cached([p[name] for name in PARAM_NAMES], "neck", lambda: pack_neck(p))
+def packed_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """``pack_neck(p, dtype)``, packed once per parameter set and dtype
+    (``packing.cached``: kept while ``step1_0.conv.weight`` lives, repacked
+    when any parameter's version or storage changes)."""
+    return packing.cached(
+        [p[name] for name in PARAM_NAMES], ("neck", dtype), lambda: pack_neck(p, dtype)
+    )
 
 
 def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The level-0 chain: the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor. On the card it raises where a gradient is wanted
+    """The level-0 chain, f32 or bf16 (``f0`` and ``u`` of one dtype; the
+    output in it): the CUDA kernel on a CUDA tensor, the plain version on a
+    CPU tensor. On the card it raises where a gradient is wanted
     (``_nvcc.refuse_grad``)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
+    _nvcc.check_dtype("fused_neck_l0 f0", f0)
+    _nvcc.check_dtype("fused_neck_l0 u", u)
     if f0.device.type == "cpu":
         return fused_neck_l0_plain(f0, u, p)
-    _nvcc.check_activation("fused_neck_l0 f0", f0, f0.device)
-    _nvcc.check_activation("fused_neck_l0 u", u, f0.device)
+    dtypes = tuple(_nvcc.CHANNEL_MULTIPLE)
+    _nvcc.check_activation("fused_neck_l0 f0", f0, f0.device, dtypes)
+    _nvcc.check_activation("fused_neck_l0 u", u, f0.device, (f0.dtype,))
     b, h, w, c0 = f0.shape
     cm, co = p["step1_0.conv.weight"].shape[0], p["step2_0.conv.weight"].shape[0]
     if tuple(u.shape) != (b, h, w, cm):
@@ -145,20 +189,31 @@ def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor])
         _nvcc.check_param(name, p[name], shape, f0.device)
     _nvcc.refuse_grad("fused_neck_l0", f0, u, *(p[name] for name in PARAM_NAMES))
     lib = build()
-    packed = packed_neck(p)
+    max_mid, max_out = lib.fpn_neck_l0_max_mid(), lib.fpn_neck_l0_max_out()
+    if cm > max_mid or co > max_out or co % 4:
+        raise ValueError(f"fused_neck_l0: widths {cm}/{co}; the kernel takes {max_mid}/{max_out}, Co % 4 == 0")
+    packed = packed_neck(p, f0.dtype)
+    s1, s2 = slices(cm, co)
     t = torch.empty_like(u)
-    out = torch.empty(b, h, w, co, dtype=torch.float32, device=f0.device)
+    out = torch.empty(b, h, w, co, dtype=f0.dtype, device=f0.device)
+    ws_cols = max(s1 * MID_WIDTH if s1 > 1 else 0, s2 * OUT_WIDTH if s2 > 1 else 0)
+    ws = torch.empty(b * h * w * ws_cols, dtype=torch.float32, device=f0.device) if ws_cols else None
+    entry = "fpn_neck_l0_bf16" if f0.dtype == torch.bfloat16 else "fpn_neck_l0_f32"
     with torch.cuda.device(f0.device):
-        rc = lib.fpn_neck_l0_f32(
+        rc = getattr(lib, entry)(
             f0.data_ptr(), u.data_ptr(), packed["w1"].data_ptr(), packed["vec1"].data_ptr(),
             packed["w2"].data_ptr(), packed["vec2"].data_ptr(), t.data_ptr(), out.data_ptr(),
-            b, h, w, c0, cm, co, torch.cuda.current_stream().cuda_stream,
+            0 if ws is None else ws.data_ptr(), b, h, w, c0, cm, co,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         # 1 (invalid value): a shape the kernel does not take, such as a side
         # over 32767 or more than 2^30 pixels.
-        raise RuntimeError(f"fpn_neck_l0_f32 launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    if f0.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -180,7 +235,8 @@ def fpn_neck_forward_fused(neck: nn.Module, features: Sequence[torch.Tensor]) ->
     f0 = features[0]
     shape0 = (f0.shape[1], f0.shape[2])
     u = resize_nearest(outs[1], shape0)
-    z0 = fused_neck_l0(f0.float().contiguous(), u.contiguous(), level0_params(neck))
+    dtype = neck.dtype
+    z0 = fused_neck_l0(f0.to(dtype).contiguous(), u.to(dtype).contiguous(), level0_params(neck))
     zs = [z0] + [
         resize_nearest(getattr(neck, f"step2_{i}")(outs[i]), shape0) for i in range(1, num)
     ]

@@ -2,8 +2,12 @@
 and the cache that packs them once per parameter set.
 
 ``pack_kmajor(taps)`` lays a (..., K, n) weight operand out as the kernels'
-B: per 32-deep K chunk a TF32 ``hi`` and ``lo = tf32(w - hi)``, each in
-wgmma's no-swizzle K-major core-matrix order. ``cached(tensors, tag, pack)``
+f32 B: per 32-deep K chunk a TF32 ``hi`` and ``lo = tf32(w - hi)``, each in
+wgmma's no-swizzle K-major core-matrix order; ``pack_kmajor_bf16(taps)`` as
+their bf16 B, one bf16 tile a chunk in the same order (8 bf16 a core-matrix
+row, K in its natural order). ``split_slices(taps, slices)`` cuts the output
+features into the slices a wide kernel launches one block each for, before
+either packing. ``cached(tensors, tag, pack)``
 keeps what ``pack()`` built while ``tensors[0]`` lives, and reuses it while
 every tensor it was packed from is unchanged. The heads (``fpn_heads``,
 ``precise_heads``) and the neck level 0 (``fpn_neck``) pack through both.
@@ -51,6 +55,41 @@ def pack_kmajor(taps: torch.Tensor) -> torch.Tensor:
     t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
     hi = tf32_round(t)
     return torch.stack([hi, tf32_round(t - hi)], dim=nl + 1)
+
+
+def pack_kmajor_bf16(taps: torch.Tensor) -> torch.Tensor:
+    """``taps`` (..., K, n), K a multiple of 32 (zero past the real
+    channels) and n of 8, as bf16 (..., K/32 chunks, n/8, 4, 8, 8): each
+    chunk in wgmma's K-major core-matrix order (row group, K group of 8,
+    row, K in group), the layout ``conv_gemm.cuh::mainloop_bf16`` reads."""
+    *lead, k, n = taps.shape
+    if k % KC or n % 8:
+        raise ValueError(f"pack_kmajor_bf16: K={k}, n={n}; want K % {KC} == 0 and n % 8 == 0")
+    nl = len(lead)
+    t = taps.reshape(*lead, k // KC, KC // 8, 8, n // 8, 8)
+    t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
+    return t.to(torch.bfloat16).contiguous()
+
+
+def pack_for(taps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``pack_kmajor`` (f32) or ``pack_kmajor_bf16`` by the kernel's operand
+    type."""
+    if dtype == torch.bfloat16:
+        return pack_kmajor_bf16(taps)
+    if dtype == torch.float32:
+        return pack_kmajor(taps)
+    raise ValueError(f"no packed layout for {dtype}")
+
+
+def split_slices(taps: torch.Tensor, slices: int, axis: int) -> torch.Tensor:
+    """(..., K, slices * n) -> the slices as a new axis at ``axis`` (counted
+    before the split), each (..., K, n): the layout of a kernel that gives
+    each slice of the output features its own block."""
+    *lead, k, fp = taps.shape
+    t = taps.reshape(*lead, k, slices, fp // slices)
+    order = list(range(t.dim()))
+    order.insert(axis, order.pop(-2))
+    return t.permute(*order).contiguous()
 
 
 def cached(

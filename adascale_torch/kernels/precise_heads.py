@@ -12,7 +12,11 @@ shares the phase-collapsed packing and the plain version with the rough heads
 heads kernel of ``csrc/fpn_head.cuh`` in 200-wide tiles for inner widths of
 192..194. Bound by operations: 506.7 GFLOP at the flagship's 256x208x384,
 three TF32 products each, 3.07 ms on an H100 SXM (495 TFLOP/s dense TF32,
-700 W).
+700 W). A bf16 ``x`` launches the bf16 entry (as the rough heads', with the
+GELU output and projection rounded to bf16 before the projection, as the
+Pallas kernel's compute-dtype projection; 0.51 ms at 989 TFLOP/s); heads
+wider than the 200-wide tile (base 256-258, large 384-386) run split into
+slices of it.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ from .fpn_neck import fpn_neck_forward_fused
 
 # Calls that launched the kernel.
 LAUNCHES = 0
+# Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
+# the f32 ones).
+LAUNCHES_BF16 = 0
 
 HEAD_NAMES = (
     "precise_char_prob_head",
@@ -45,19 +52,25 @@ def build() -> ctypes.CDLL:
 
 
 def fused_precise_heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
-    """Eager PyTorch twin of the kernel: each head's (B, 2H, 2W, M) output."""
-    return heads_phase_form(x, heads)
+    """Eager PyTorch twin of the kernel: each head's (B, 2H, 2W, M) f32
+    output; for a bf16 ``x`` rounded where the bf16 kernel rounds."""
+    bf16 = x.dtype == torch.bfloat16
+    return heads_phase_form(x, heads, kernel=bf16, round_y=bf16)
 
 
 def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
-    """Each head's (B, 2H, 2W, M) output: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor. On the card it raises where a
+    """Each head's (B, 2H, 2W, M) f32 output from an f32 or bf16 ``x``: the
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor. On the card it raises where a
     gradient is wanted."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
+    _nvcc.check_dtype("fused_precise_heads x", x)
     if x.device.type == "cpu":
         return fused_precise_heads_plain(x, heads)
-    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads")
-    LAUNCHES += 1
+    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True)
+    if x.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return outs
 
 

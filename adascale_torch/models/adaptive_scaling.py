@@ -13,7 +13,9 @@ Counterpart of ``adascale/models/adaptive_scaling.py``:
 Each forward takes ``deterministic`` (False: stochastic depth in the
 backbone, with the ``drop_masks`` of ``ConvNeXt.draw_drop_masks``).
 
-Softplus on the height and distance heads runs in f32. Submodule names
+``AdaptiveScaling(config, dtype, residual_dtype)`` takes Flax's ``dtype``
+(``ConvNeXt`` says what ``residual_dtype`` picks). Softplus on the height
+and distance heads runs in f32. Submodule names
 follow the Flax tree, so ``utils.params.state_dict_from_jax`` loads the
 committed weights directly.
 """
@@ -53,26 +55,32 @@ class AdaptiveScalingConfig:
 
 
 class AdaptiveScaling(nn.Module):
-    def __init__(self, config: AdaptiveScalingConfig = AdaptiveScalingConfig()):
+    def __init__(
+        self,
+        config: AdaptiveScalingConfig = AdaptiveScalingConfig(),
+        dtype: torch.dtype = torch.float32,
+        residual_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         if config.neck_head_type not in NECK_HEADS:
             raise ValueError(f"neck_head_type {config.neck_head_type!r}: one of {sorted(NECK_HEADS)}")
         neck_cls, head_cls = NECK_HEADS[config.neck_head_type]
         self.config = config
-        self.backbone = ConvNeXt(config.backbone_spec())
+        self.dtype = dtype
+        self.backbone = ConvNeXt(config.backbone_spec(), dtype, residual_dtype)
         group = self.backbone.in_channels_group
         neck_c = group[-2]
         ru, pu = config.rough_upsampling_factor, config.precise_upsampling_factor
-        self.rough_neck = neck_cls(group, neck_c)
-        self.rough_char_mask_head = head_cls(neck_c, 1, ru)
-        self.rough_char_height_head = head_cls(neck_c, 1, ru)
-        self.precise_neck = neck_cls(group, neck_c)
+        self.rough_neck = neck_cls(group, neck_c, dtype)
+        self.rough_char_mask_head = head_cls(neck_c, 1, ru, dtype)
+        self.rough_char_height_head = head_cls(neck_c, 1, ru, dtype)
+        self.precise_neck = neck_cls(group, neck_c, dtype)
         if config.precise_enable_char_mask_head:
-            self.precise_char_mask_head = head_cls(neck_c, 1, pu)
-        self.precise_char_prob_head = head_cls(neck_c, 1, pu)
-        self.precise_char_up_left_corner_offset_head = head_cls(neck_c, 2, pu)
-        self.precise_char_corner_angle_head = head_cls(neck_c, 4, pu)
-        self.precise_char_corner_distance_head = head_cls(neck_c, 4, pu)
+            self.precise_char_mask_head = head_cls(neck_c, 1, pu, dtype)
+        self.precise_char_prob_head = head_cls(neck_c, 1, pu, dtype)
+        self.precise_char_up_left_corner_offset_head = head_cls(neck_c, 2, pu, dtype)
+        self.precise_char_corner_angle_head = head_cls(neck_c, 4, pu, dtype)
+        self.precise_char_corner_distance_head = head_cls(neck_c, 4, pu, dtype)
         with torch.no_grad():
             self.rough_char_height_head.step2.bias.fill_(
                 config.rough_init_char_height_output_bias

@@ -6,6 +6,14 @@ block goes through ``adascale_torch.kernels.convnext_block`` (the CUDA kernel
 on the card, its plain twin on the CPU; with a gradient, through
 ``TrainableBlock``). The residual stream is f32.
 
+``dtype=torch.bfloat16`` (the JAX package's ``compute_dtype="bfloat16"``)
+runs the stem and the downsamples in bf16 and rounds every LayerNorm's
+output to bf16, as Flax's modules at that dtype do; ``residual_dtype`` picks
+which of the JAX package's two backbones the blocks follow: f32 (the Flax
+module path, whose blocks keep an f32 residual and round inside) or bf16
+(``convnext_forward_pallas``, whose blocks take and return bf16). Parameters
+stay f32 and are cast where they are used.
+
 Stochastic depth (``deterministic=False``) is applied outside the block, as
 ``convnext_forward_pallas_train`` does: ``x + mask * ((block(x) - x) /
 keep)``, with one keep/drop draw per sample and the per-layer rate
@@ -33,15 +41,37 @@ CONVNEXT_PRESETS = {
 }
 
 
-def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply an ``nn.Conv2d`` to an NHWC tensor; returns contiguous NHWC."""
-    y = conv(x.permute(0, 3, 1, 2))
+def per_image(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over a batch one image at a time, for a library call in bf16.
+    cuDNN and cuBLAS pick their algorithm (and so the order of each sum) by
+    the batch too, and a bf16 output rounds the sum: on an H100 the same
+    page came out of a batch of 4 one bf16 ulp apart in a third of stage 2's
+    features, and its polygons moved. One image a call keeps a page's
+    numbers the same alone and in a batch (``detect_many``)."""
+    if x.shape[0] == 1:
+        return fn(x)
+    return torch.cat([fn(x[i : i + 1]) for i in range(x.shape[0])])
+
+
+def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Apply an ``nn.Conv2d`` to an NHWC tensor in ``dtype`` (input and
+    parameters cast to it; in bf16 the convolution and the bias add each
+    rounded, as Flax's Conv rounds them, one image a call: ``per_image``);
+    returns contiguous NHWC."""
+    if dtype == torch.float32:
+        y = conv(x.float().permute(0, 3, 1, 2))
+    else:
+        y = per_image(lambda xi: F.conv2d(
+            xi.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype), None,
+            conv.stride, conv.padding, conv.dilation, conv.groups,
+        ), x) + conv.bias.to(dtype)[:, None, None]
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm over the channel (last) axis in f32, eps 1e-6."""
-    return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, eps=EPS)
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """LayerNorm over the channel (last) axis in f32, eps 1e-6, rounded to
+    ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, eps=EPS).to(dtype)
 
 
 def drop_path(x: torch.Tensor, out: torch.Tensor, mask: torch.Tensor, keep_prob: float) -> torch.Tensor:
@@ -55,12 +85,17 @@ def drop_path(x: torch.Tensor, out: torch.Tensor, mask: torch.Tensor, keep_prob:
 
 class ConvNeXtBlock(nn.Module):
     """dwconv7x7 -> LN -> Linear(4C) -> GELU -> Linear(C) -> * scale -> + x;
-    ``prob_bypass`` is its stochastic-depth rate."""
+    ``prob_bypass`` is its stochastic-depth rate; ``dtype`` and
+    ``residual_dtype`` as the module docstring says."""
 
-    def __init__(self, channels: int, prob_bypass: float):
+    def __init__(
+        self, channels: int, prob_bypass: float, dtype: torch.dtype = torch.float32,
+        residual_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         c = channels
         self.prob_bypass = prob_bypass
+        self.dtype, self.residual_dtype = dtype, residual_dtype
         self.dwconv = nn.Conv2d(c, c, 7, padding=3, groups=c)
         self.ln = nn.LayerNorm(c, eps=EPS)
         self.mlp_up = nn.Linear(c, 4 * c)
@@ -81,8 +116,8 @@ class ConvNeXtBlock(nn.Module):
             "mlp_down.bias": self.mlp_down.bias,
             "block_scale": self.block_scale,
         }
-        x = x.float().contiguous()
-        out = convnext_block(x, p)
+        x = x.to(self.residual_dtype).contiguous()
+        out = convnext_block(x, p) if self.dtype == torch.float32 else convnext_block(x, p, self.dtype)
         if drop_mask is None or self.prob_bypass == 0.0:
             return out
         return drop_path(x, out, drop_mask, 1.0 - self.prob_bypass)
@@ -92,12 +127,16 @@ class ConvNeXtStage(nn.Module):
     """N blocks + LN; returns (feature, downsampled input of the next stage)."""
 
     def __init__(
-        self, channels: int, num_layers: int, out_channels: int | None, prob_bypass: Sequence[float]
+        self, channels: int, num_layers: int, out_channels: int | None, prob_bypass: Sequence[float],
+        dtype: torch.dtype = torch.float32, residual_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         for i in range(num_layers):
-            self.add_module(f"layer{i}", ConvNeXtBlock(channels, prob_bypass[i]))
+            self.add_module(
+                f"layer{i}", ConvNeXtBlock(channels, prob_bypass[i], dtype, residual_dtype)
+            )
         self.num_layers = num_layers
+        self.dtype = dtype
         self.ln = nn.LayerNorm(channels, eps=EPS)
         self.downsample = (
             nn.Conv2d(channels, out_channels, 2, stride=2) if out_channels else None
@@ -108,26 +147,34 @@ class ConvNeXtStage(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i}")(x, None if drop_masks is None else drop_masks[i])
-        feature = layer_norm(x, self.ln)
+        feature = layer_norm(x, self.ln, self.dtype)
         if self.downsample is None:
             return feature, feature
-        return feature, conv2d_nhwc(feature, self.downsample)
+        return feature, conv2d_nhwc(feature, self.downsample, self.dtype)
 
 
 class ConvNeXt(nn.Module):
-    """(B, H, W, 3) -> four NHWC features at strides 4, 8, 16, 32."""
+    """(B, H, W, 3) -> four NHWC features at strides 4, 8, 16, 32, in
+    ``dtype``."""
 
-    def __init__(self, block_channels_and_num_layers: Sequence[Tuple[int, int]]):
+    def __init__(
+        self, block_channels_and_num_layers: Sequence[Tuple[int, int]],
+        dtype: torch.dtype = torch.float32, residual_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         specs = tuple(tuple(s) for s in block_channels_and_num_layers)
         self.specs = specs
+        self.dtype = dtype
         self.stem_conv = nn.Conv2d(3, specs[0][0], 4, stride=4)
         self.stem_ln = nn.LayerNorm(specs[0][0], eps=EPS)
         rates = drop_path_rates(specs)
         begin = 0
         for i, (c, n) in enumerate(specs):
             out_c = specs[i + 1][0] if i + 1 < len(specs) else None
-            self.add_module(f"stage{i}", ConvNeXtStage(c, n, out_c, rates[begin : begin + n]))
+            self.add_module(
+                f"stage{i}",
+                ConvNeXtStage(c, n, out_c, rates[begin : begin + n], dtype, residual_dtype),
+            )
             begin += n
 
     @property
@@ -168,7 +215,7 @@ class ConvNeXt(nn.Module):
             drop_masks = None
         elif drop_masks is None:
             raise ValueError("deterministic=False needs drop_masks (draw_drop_masks)")
-        x = layer_norm(conv2d_nhwc(x, self.stem_conv), self.stem_ln)
+        x = layer_norm(conv2d_nhwc(x, self.stem_conv, self.dtype), self.stem_ln, self.dtype)
         features: List[torch.Tensor] = []
         begin = 0
         for i, (_, n) in enumerate(self.specs):

@@ -11,6 +11,8 @@ with eps 1e-6, exact GELU), so the submodule names are the Flax tree's
 (``step1_{i}``, ``ppm.ap_conv{k}``, ``ppm.final_conv``, ``step2_{i}``, the
 head's ``step1`` and ``step2``, ``conv``/``ln`` inside) and
 ``utils.params.state_dict_from_jax`` loads the committed weights directly.
+Each module takes ``dtype`` as the FPN's do; the pools and bilinear resizes
+compute in f32 and return the input's dtype, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import adaptive_avg_pool, resize_bilinear
-from .fpn import Conv1x1Block, ConvKxKBlock
+from .fpn import Conv1x1Block, ConvKxKBlock, linear
 
 PPM_SCALES = (1, 2, 3, 6)
 
@@ -28,12 +30,17 @@ PPM_SCALES = (1, 2, 3, 6)
 class PpmBlock(nn.Module):
     """Pyramid pooling over the last backbone level."""
 
-    def __init__(self, in_channels: int, out_channels: int, scales: Sequence[int] = PPM_SCALES):
+    def __init__(
+        self, in_channels: int, out_channels: int, scales: Sequence[int] = PPM_SCALES,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.scales = tuple(scales)
         for k in range(len(self.scales)):
-            self.add_module(f"ap_conv{k}", Conv1x1Block(in_channels, out_channels))
-        self.final_conv = ConvKxKBlock(in_channels + len(self.scales) * out_channels, out_channels, 3)
+            self.add_module(f"ap_conv{k}", Conv1x1Block(in_channels, out_channels, dtype))
+        self.final_conv = ConvKxKBlock(
+            in_channels + len(self.scales) * out_channels, out_channels, 3, dtype
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (x.shape[1], x.shape[2])
@@ -45,18 +52,21 @@ class PpmBlock(nn.Module):
 
 
 class UperNextNeck(nn.Module):
-    def __init__(self, in_channels_group: Sequence[int], out_channels: int):
+    def __init__(
+        self, in_channels_group: Sequence[int], out_channels: int, dtype: torch.dtype = torch.float32
+    ):
         super().__init__()
         num = len(in_channels_group)
         if num < 2 or out_channels % num:
             raise ValueError(f"UperNextNeck: {num} levels, out_channels {out_channels}")
         self.num = num
+        self.dtype = dtype
         inner = out_channels // num
         for i, c in enumerate(in_channels_group[:-1]):
-            self.add_module(f"step1_{i}", Conv1x1Block(c, inner))
-        self.ppm = PpmBlock(in_channels_group[-1], inner)
+            self.add_module(f"step1_{i}", Conv1x1Block(c, inner, dtype))
+        self.ppm = PpmBlock(in_channels_group[-1], inner, dtype=dtype)
         for i in range(num - 1):
-            self.add_module(f"step2_{i}", ConvKxKBlock(inner, inner, 3))
+            self.add_module(f"step2_{i}", ConvKxKBlock(inner, inner, 3, dtype))
 
     def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
         num = self.num
@@ -76,15 +86,19 @@ class UperNextHead(nn.Module):
     """Bilinear upsample by ``upsampling_factor`` -> 3x3 -> LN -> GELU ->
     Linear."""
 
-    def __init__(self, in_channels: int, out_channels: int, upsampling_factor: int = 1):
+    def __init__(
+        self, in_channels: int, out_channels: int, upsampling_factor: int = 1,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         self.upsampling_factor = upsampling_factor
+        self.dtype = dtype
         inner = (in_channels + out_channels) // 2
-        self.step1 = ConvKxKBlock(in_channels, inner, 3)
+        self.step1 = ConvKxKBlock(in_channels, inner, 3, dtype)
         self.step2 = nn.Linear(inner, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.upsampling_factor
         if f > 1:
             x = resize_bilinear(x, (x.shape[1] * f, x.shape[2] * f))
-        return self.step2(self.step1(x))
+        return linear(self.step1(x), self.step2, self.dtype)

@@ -42,17 +42,21 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NHWC, half-pixel centres (align_corners=False).
     The JAX package computes the same weights as two dense products; here
-    PyTorch's own kernel runs on a channels-last NCHW view."""
+    PyTorch's own kernel runs on a channels-last NCHW view. In f32 for any
+    input, cast back to its dtype, as the JAX package's bf16 path does."""
     if (out_hw[0], out_hw[1]) == (x.shape[1], x.shape[2]):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1)
+    y = F.interpolate(
+        x.float().permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False
+    )
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """Adaptive average pooling of NHWC to (out_size, out_size), as
-    ``nn.AdaptiveAvgPool2d``."""
-    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_size).permute(0, 2, 3, 1)
+    ``nn.AdaptiveAvgPool2d``; in f32, cast back to the input's dtype."""
+    y = F.adaptive_avg_pool2d(x.float().permute(0, 3, 1, 2), out_size)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def area_resize_weights(in_size: int, out_size: int) -> np.ndarray:

@@ -26,9 +26,29 @@ weights, f32, one ``.npz`` per case:
     the gradient's and the update's L2 norm and projection on a seeded unit
     vector (``adascale_torch.utils.params.leaf_fingerprints``), their largest
     magnitude and a strided sample of 64 of their elements
-    (``leaf_sample``), not the arrays themselves.
+    (``leaf_sample``), not the arrays themselves;
+  * ``flagship_fpn_bf16_reference.npz`` (case ``fpn_bf16``): the page case at
+    ``compute_dtype="bfloat16"``, the Flax module path (f32 residual stream);
+  * ``flagship_fpn_fused_bf16_reference.npz`` (case ``fpn_fused_bf16``): the
+    same with ``use_pallas_backbone=True, use_pallas_neck_heads=True`` (bf16
+    residual between blocks, the fused neck level 0 and heads), the Pallas
+    kernels in interpret mode on the CPU;
+  * ``flagship_upernext_bf16_reference.npz`` (case ``upernext_bf16``): the
+    UPerNeXt case at ``compute_dtype="bfloat16"`` with
+    ``use_pallas_backbone=True, use_pallas_neck_heads=True`` (the Pallas
+    backbone in interpret mode; the JAX engine keeps UPerNeXt's neck and
+    heads on their Flax modules).
 
-Settings are otherwise the engine's defaults (f32, matmul precision
+  The bf16 cases run the JAX engine under ``jax.disable_jit()``: each
+  operation then rounds its bf16 result, as the Flax modules and the Pallas
+  kernels state it and as the port computes it, where XLA's fusions under
+  ``jit`` keep some bf16 intermediates in f32. They also keep the rough
+  height score map at every HEIGHT_STRIDE-th row and column
+  (``rough_char_height_score_map_strided``): a function of the bf16 height
+  logit, so a port that rounds where JAX rounds reproduces most of its
+  values bit for bit, and one that computes in f32 almost none.
+
+Settings are otherwise the engine's defaults (f32 but for the bf16 cases, matmul precision
 "highest", short side 720, shape bucket 64, core gating 0.4, NMS 0.3). The
 backbone runs as the Flax blocks: the Pallas block kernel compiles only for a
 TPU, and the repo's ``tests/test_pallas.py`` holds the two to 1e-5.
@@ -38,7 +58,8 @@ on which the engine finds at least 100 char polygons.
 
 Run from the repository root (a few minutes a case on a CPU); with case
 names (``page``, ``multichunk``, ``blank``, ``train``, ``upernext``,
-``tiled_band``) it makes only those:
+``tiled_band``, ``fpn_bf16``, ``fpn_fused_bf16``, ``upernext_bf16``) it makes
+only those:
 
     JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py [case ...]
 """
@@ -79,6 +100,8 @@ TRAIN_SEED, TRAIN_BATCH, FINGERPRINT_SEED = 0, 2, 0
 # The tiled band-recall case: two shift pages side by side, band recall on.
 TILED_PAGES = PAGES[:2]
 BAND_RATIO = 0.5
+# The bf16 cases' strided copy of the rough height score map.
+HEIGHT_STRIDE = 4
 
 
 def save(name: str, result, page: str, weights: str = WEIGHTS, **extra) -> None:
@@ -177,7 +200,55 @@ def tiled_band_reference(params) -> None:
          rough_padded_image_shape=np.asarray(result["rough"].padded_image_shape))
 
 
+def interpret_pallas() -> None:
+    """Run the JAX engine's Pallas paths in interpret mode (the CPU has no
+    Mosaic): the backbone and the fused rough and precise forwards."""
+    import functools
+
+    from adascale.ops import pallas
+
+    for name in ("convnext_forward_pallas", "forward_rough_from_features_fused",
+                 "forward_precise_from_features_fused"):
+        setattr(pallas, name, functools.partial(getattr(pallas, name), interpret=True))
+
+
+def bf16_reference(case: str) -> None:
+    """One of the three bf16 cases on ``page_0``, timed."""
+    import time
+
+    neck = "upernext" if case == "upernext_bf16" else "fpn"
+    weights = UPERNEXT_WEIGHTS if neck == "upernext" else WEIGHTS
+    model = AdaptiveScalingConfig(size="tiny", neck_head_type=neck)
+    fused = case != "fpn_bf16"
+    if fused:
+        interpret_pallas()
+    engine = AdaptiveScalingInference(
+        AdaptiveScalingInferenceConfig(
+            model=model, compute_dtype="bfloat16",
+            use_pallas_backbone=fused, use_pallas_neck_heads=fused,
+        ),
+        params=load_params(os.path.join(ROOT, weights), model),
+    )
+    image = np.load(os.path.join(ROOT, PAGES[0]))["image"]
+    start = time.perf_counter()
+    with jax.disable_jit():
+        result = engine.detect(image)
+    print(case, "took", round(time.perf_counter() - start, 1), "s on the CPU", flush=True)
+    name = {"fpn_bf16": "flagship_fpn_bf16_reference.npz",
+            "fpn_fused_bf16": "flagship_fpn_fused_bf16_reference.npz",
+            "upernext_bf16": "flagship_upernext_bf16_reference.npz"}[case]
+    height = result["rough"].rough_char_height_score_map
+    save(name, result, PAGES[0], weights=weights, compute_dtype=np.asarray("bfloat16"),
+         use_pallas_backbone=np.asarray(fused), use_pallas_neck_heads=np.asarray(fused),
+         eager=np.asarray(True), height_stride=np.asarray(HEIGHT_STRIDE),
+         rough_char_height_score_map_strided=np.asarray(
+             height[::HEIGHT_STRIDE, ::HEIGHT_STRIDE], np.float32))
+
+
 def main(cases) -> None:
+    for case in ("fpn_bf16", "fpn_fused_bf16", "upernext_bf16"):
+        if case in cases:
+            bf16_reference(case)
     if "train" in cases:
         train_reference()
     if "upernext" in cases:
@@ -218,4 +289,5 @@ def main(cases) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["page", "multichunk", "blank", "train", "upernext", "tiled_band"])
+    main(sys.argv[1:] or ["page", "multichunk", "blank", "train", "upernext", "tiled_band",
+                          "fpn_bf16", "fpn_fused_bf16", "upernext_bf16"])

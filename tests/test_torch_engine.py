@@ -169,9 +169,11 @@ def test_blank_page_matches_jax_both_ways(blank_jax, fused):
 
 
 def test_unported_options_raise():
+    """matmul_precision other than "highest" is not ported (compute_dtype
+    "bfloat16" is: tests/test_torch_bf16.py)."""
     for field, value in [
-        ("compute_dtype", "bfloat16"),
         ("matmul_precision", "default"),
+        ("matmul_precision", "high"),
     ]:
         config = AdaptiveScalingInferenceConfig(device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match=field):

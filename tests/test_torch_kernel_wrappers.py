@@ -56,3 +56,21 @@ def test_refuse_grad_raises_only_where_a_gradient_is_wanted(wrapper):
         _nvcc.refuse_grad(wrapper, x, w)
     with torch.inference_mode():
         _nvcc.refuse_grad(wrapper, x, w)
+
+
+@pytest.mark.cuda
+def test_bf16_shapes_the_kernels_cannot_take_raise_on_the_card():
+    """On the card a bf16 call the kernels cannot take raises and launches
+    nothing: bf16 needs C % 8 == 0 (16-byte copies of 8 channels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from adascale_torch.models.fpn import FpnHead
+
+    x = torch.zeros(1, 4, 4, 12, dtype=torch.bfloat16, device="cuda")
+    heads = [fpn_heads.head_params(FpnHead(12, m).cuda()) for m in (1, 2, 4, 4)]
+    before = (fpn_heads.LAUNCHES_BF16, precise_heads.LAUNCHES_BF16)
+    with pytest.raises(ValueError, match="C % 8"):
+        fpn_heads.fused_rough_heads(x, heads[0], heads[1])
+    with pytest.raises(ValueError, match="C % 8"):
+        precise_heads.fused_precise_heads(x, heads)
+    assert (fpn_heads.LAUNCHES_BF16, precise_heads.LAUNCHES_BF16) == before

@@ -77,10 +77,12 @@ def test_packed_weights_unpack_to_w1_and_taps_and_hi_is_tf32(shape):
 
 
 def test_pack_refuses_widths_above_the_layout():
+    """Past one tile the layout takes slices of it (the base and large
+    widths), up to MAX_SLICES; wider raises."""
     with pytest.raises(ValueError, match="widths"):
-        K.pack_neck(_params(8, K.MID_WIDTH + 8, 8))
+        K.pack_neck(_params(8, K.MAX_SLICES * K.MID_WIDTH + 8, 8))
     with pytest.raises(ValueError, match="widths"):
-        K.pack_neck(_params(8, 32, K.OUT_WIDTH + 8))
+        K.pack_neck(_params(8, 32, K.MAX_SLICES * K.OUT_WIDTH + 8))
 
 
 def _split_a(a):

@@ -1,14 +1,16 @@
-"""Time the FPN neck level-0 and heads kernels of one checkout's
-``adascale_torch`` alone, on one CUDA card, at the flagship's shapes, random
-weights from ``--seed``:
+"""Time the f32 FPN neck level-0, heads and ConvNeXt-block kernels of one
+checkout's ``adascale_torch`` alone, on one CUDA card, at the flagship's
+shapes, random weights from ``--seed``:
 
+- the block (``convnext_block``) at the four stage shapes of the rough pass
+  of a 1024x768 page (240x192x96 .. 30x24x768);
 - the neck level 0 (``fused_neck_l0``) over f0 (1, H, W, 96) and u
   (1, H, W, 384), 384 -> 96, at the rough pass's 240x192 and the precise
   pass's 256x208;
 - the rough heads over (1, 240, 192, 384) and the precise heads over
   (1, 256, 208, 384).
 
-    python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME] [--only neck|heads]
+    python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME] [--only neck|heads|block]
 
 For each case it prints one JSON line with:
 
@@ -47,9 +49,11 @@ ROUGH_SHAPE = (1, 240, 192, 384)
 PRECISE_SHAPE = (1, 256, 208, 384)
 ROUGH_OUT = (1, 1)
 PRECISE_OUT = (1, 2, 4, 4)
+BLOCK_SHAPES = ((1, 240, 192, 96), (1, 120, 96, 192), (1, 60, 48, 384), (1, 30, 24, 768))
 # Kernel-name patterns of each wrapper's launches.
 NECK_KERNELS = ("step1_kernel", "step2_kernel")
 HEADS_KERNELS = ("heads_kernel",)
+BLOCK_KERNELS = ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel")
 
 
 def randn(gen: torch.Generator, *shape, scale=1.0, shift=0.0):
@@ -81,6 +85,21 @@ def neck_params(c0: int, cm: int, co: int, gen: torch.Generator):
         "step2_0.conv.bias": randn(gen, co, scale=0.1),
         "step2_0.ln.weight": randn(gen, co, scale=0.1, shift=1.0),
         "step2_0.ln.bias": randn(gen, co, scale=0.1),
+    }
+
+
+def block_params(c: int, gen: torch.Generator):
+    """A ConvNeXt block's parameters under the port's names."""
+    return {
+        "dwconv.weight": randn(gen, c, 1, 7, 7, scale=0.1),
+        "dwconv.bias": randn(gen, c, scale=0.1),
+        "ln.weight": randn(gen, c, scale=0.1, shift=1.0),
+        "ln.bias": randn(gen, c, scale=0.1),
+        "mlp_up.weight": randn(gen, 4 * c, c, scale=c ** -0.5),
+        "mlp_up.bias": randn(gen, 4 * c, scale=0.1),
+        "mlp_down.weight": randn(gen, c, 4 * c, scale=(4 * c) ** -0.5),
+        "mlp_down.bias": randn(gen, c, scale=0.1),
+        "block_scale": randn(gen, c, scale=0.1),
     }
 
 
@@ -138,13 +157,13 @@ def main() -> None:
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--only", choices=("neck", "heads"))
+    parser.add_argument("--only", choices=("neck", "heads", "block"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ms: no CUDA device")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
+    from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
 
     if not os.path.abspath(fpn_heads.__file__).startswith(root + os.sep):
         sys.exit(f"kernel_ms: imported {fpn_heads.__file__}, not from {root}")
@@ -154,15 +173,21 @@ def main() -> None:
     ).stdout.strip()
     print(card, flush=True)
     gen = torch.Generator().manual_seed(args.seed)
+    wanted = {args.only} if args.only else {"neck", "heads", "block"}
     cases = []
-    if args.only != "heads":
+    if "block" in wanted:
+        for shape in BLOCK_SHAPES:
+            p, x = block_params(shape[-1], gen), randn(gen, *shape)
+            cases.append(("convnext_block", list(shape), BLOCK_KERNELS,
+                          lambda x=x, p=p: convnext_block.convnext_block(x, p)))
+    if "neck" in wanted:
         c0, cm, co = NECK_WIDTHS
         for shape in NECK_SHAPES:
             p = neck_params(c0, cm, co, gen)
             f0, u = randn(gen, *shape, c0), randn(gen, *shape, cm)
             cases.append(("fpn_neck_l0", [*shape, c0, cm, co], NECK_KERNELS,
                           lambda f0=f0, u=u, p=p: fpn_neck.fused_neck_l0(f0, u, p)))
-    if args.only != "neck":
+    if "heads" in wanted:
         for name, shape, outs, wrapper in (
             ("fpn_heads", ROUGH_SHAPE, ROUGH_OUT, lambda x, heads: fpn_heads.fused_rough_heads(x, *heads)),
             ("precise_heads", PRECISE_SHAPE, PRECISE_OUT, precise_heads.fused_precise_heads),
