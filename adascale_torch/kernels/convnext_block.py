@@ -29,9 +29,12 @@ JAX package's two backbone paths round differently: ``convnext_block(x, p,
 torch.bfloat16)`` with a bf16 ``x`` is the Pallas backbone's block (bf16 in
 and out; the residual between blocks is bf16), with an f32 ``x`` the Flax
 module's (f32 residual in and out, bf16 rounding inside); both launch
-``convnext_block_bf16`` (bf16 ``mma.sync`` GEMMs, W1 and W2 cast to bf16
-once per parameter set) and have the plain twin ``convnext_block_plain_bf16``.
-bf16 has no gradient path (the JAX package trains in f32).
+``convnext_block_bf16`` (``csrc/block_bf16.cuh``: a channel-parallel
+depthwise + LN, then the MLP on bf16 ``wgmma``, the 4C hidden kept on chip
+for C <= 192; W1 and W2 packed once per parameter set by
+``packing.pack_block_bf16``) and have the plain twin
+``convnext_block_plain_bf16``. bf16 has no gradient path (the JAX package
+trains in f32).
 
 The kernels are built on first use by ``_nvcc.build`` (``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``; ``build``:
@@ -47,7 +50,8 @@ PyTorch headers, so a build takes seconds.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import weakref
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -81,17 +85,43 @@ def build_bf16(module: bool) -> ctypes.CDLL:
     """Compile and load the bf16 kernel library of one mode (``module``: the
     module mode, else the Pallas mode): the same source built with
     ``-DCONVNEXT_BLOCK_BF16`` and ``-DCONVNEXT_BLOCK_BF16_MODULE``, a library
-    of its own, so that the three compile in parallel."""
+    of its own, so that the three compile in parallel. Raises if the
+    library's packed layout is not the one ``packing.pack_block_bf16``
+    makes."""
+    if module in _BF16_LIBS:
+        return _BF16_LIBS[module]
     lib = _nvcc.build(
         "convnext_block_bf16" + ("_module" if module else ""), "convnext_block.cu",
         ("CONVNEXT_BLOCK_BF16", f"CONVNEXT_BLOCK_BF16_MODULE={int(module)}"),
     )
     fn = lib.convnext_block_bf16
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.convnext_block_bf16_gelu_table.argtypes = [ctypes.c_void_p] * 3
+    lib.convnext_block_bf16_gelu_table.restype = ctypes.c_int
+    lib.convnext_block_bf16_gelu_entries.restype = ctypes.c_int
     lib.convnext_block_bf16_workspace.argtypes = [ctypes.c_int] * 5
     lib.convnext_block_bf16_workspace.restype = ctypes.c_longlong
-    return lib
+    lib.convnext_block_bf16_fused_width.argtypes = [ctypes.c_int]
+    lib.convnext_block_bf16_fused_width.restype = ctypes.c_int
+    for c in range(8, MAX_CHANNELS + 1, 8):
+        if lib.convnext_block_bf16_fused_width(c) != packing.block_fused_width(c):
+            raise RuntimeError(f"convnext_block_bf16: the library's layout for C = {c} is not the packing's")
+    return _BF16_LIBS.setdefault(module, lib)
+
+
+# The loaded bf16 libraries by mode; the module mode's GELU table by card;
+# the bf16 launch's per-parameter-set arguments (_bf16_params), by the id of
+# the set's first tensor and dropped with it; multiprocessors by card and
+# workspace sizes by shape.
+_BF16_LIBS: Dict[bool, ctypes.CDLL] = {}
+_GELU_TABLES: Dict[int, torch.Tensor] = {}
+_BF16_PARAMS: Dict[int, tuple] = {}
+_SMS: Dict[int, int] = {}
+_BF16_WORKSPACE: Dict[tuple, int] = {}
+# The current stream's handle without building a Stream object (CUDA builds
+# of PyTorch have it; its compiler's generated launchers use it), else None.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -166,7 +196,7 @@ def convnext_block(
         module = x.dtype == torch.float32
         if x.device.type == "cpu":
             return convnext_block_plain_bf16(x, p, module)
-        return _launch(x, p, module)
+        return _launch_bf16(x, p, module)
     if wants_grad:
         return TrainableBlock.apply(x, *(p[name] for name in PARAM_NAMES))
     if x.device.type == "cpu":
@@ -199,28 +229,22 @@ class TrainableBlock(torch.autograd.Function):
 
 
 def bf16_weights(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """W1 and W2 cast to bf16 for the bf16 kernel, once per parameter set
+    """W1 and W2 packed for the bf16 kernel (``packing.pack_block_bf16``) and
+    the depthwise taps tap-major, (49, C) f32 (``dw_w``: a warp reads a tap
+    of neighbouring channels as one run), once per parameter set
     (``packing.cached``)."""
-    up, down = p["mlp_up.weight"], p["mlp_down.weight"]
-    return packing.cached(
-        [up, down], "block_bf16",
-        lambda: {"w1": up.detach().to(torch.bfloat16).contiguous(),
-                 "w2": down.detach().to(torch.bfloat16).contiguous()},
-    )
+    up, down, dw = p["mlp_up.weight"], p["mlp_down.weight"], p["dwconv.weight"]
+
+    def pack():
+        packed = packing.pack_block_bf16(up.detach(), down.detach())
+        packed["dw_w"] = dw.detach().reshape(dw.shape[0], 49).t().contiguous()
+        return packed
+
+    return packing.cached([up, down, dw], "block_bf16", pack)
 
 
-def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor], module: Optional[bool] = None) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor (``module`` None: f32; False: the
-    bf16 Pallas mode; True: the bf16 module mode); raises on what it does
-    not take."""
-    global LAUNCHES, LAUNCHES_BF16
-    bf16 = module is not None
-    dtype = torch.float32 if module in (None, True) else torch.bfloat16
-    _nvcc.check_activation("convnext_block x", x, x.device, (dtype,))
-    b, h, w, c = x.shape
-    if c > MAX_CHANNELS or h > 65535 or b > 65535:
-        raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
-    shapes = {
+def _param_shapes(c: int) -> Dict[str, tuple]:
+    return {
         "dwconv.weight": (c, 1, 7, 7),
         "dwconv.bias": (c,),
         "ln.weight": (c,),
@@ -231,51 +255,132 @@ def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor], module: Optional[bool] 
         "mlp_down.bias": (c,),
         "block_scale": (c,),
     }
+
+
+def _bf16_params(p: Dict[str, torch.Tensor], c: int, device: torch.device) -> tuple:
+    """The bf16 launch's parameter pointers, in the kernel's order (dw_w,
+    dw_b, ln_g, ln_b, w1, b1, w2, b2, scale; the taps, W1 and W2 packed),
+    checked and packed once per parameter set: reused while every tensor of
+    the set is the same object with the same version and storage, on the
+    same device. A serving call then spends a few microseconds here, not
+    the checks' tens. Returns (pointers, tensors they point into that the
+    set does not hold)."""
+    ts = [p[name] for name in PARAM_NAMES]
+    try:
+        state = (device, c, *[t._version for t in ts], *[t.data_ptr() for t in ts])
+    except RuntimeError:  # inference tensors carry no version counter: no reuse
+        state = None
+    key = id(ts[0])
+    entry = _BF16_PARAMS.get(key) if state is not None else None
+    if entry is not None and entry[1] == state and all(r() is t for r, t in zip(entry[0], ts)):
+        return entry[2]
+    for name, shape in _param_shapes(c).items():
+        _nvcc.check_param(name, p[name], shape, device)
+    q = {name: p[name].contiguous() for name in PARAM_NAMES}
+    wb = bf16_weights(p)
+    ptrs = tuple(
+        wb[name].data_ptr() if name in wb else q[key_].data_ptr()
+        for name, key_ in zip(("dw_w", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "scale"), PARAM_NAMES)
+    )
+    value = (ptrs, [wb] + [q[name] for name in PARAM_NAMES if q[name] is not p[name]])
+    if state is not None:
+        # Dropped with the set's first tensor.
+        refs = [weakref.ref(ts[0], lambda _, key=key: _BF16_PARAMS.pop(key, None))]
+        refs += [weakref.ref(t) for t in ts[1:]]
+        _BF16_PARAMS[key] = (refs, state, value)
+    return value
+
+
+def gelu_table(lib: ctypes.CDLL, index: int) -> torch.Tensor:
+    """The module mode's GELU table on card ``index``: XLA's bf16 GELU of each
+    bf16 value where a lookup is cheaper than computing it, filled by the
+    library once and checked there against the GELU itself for all 65536
+    bf16 values; raises if any lookup differs."""
+    table = _GELU_TABLES.get(index)
+    if table is None:
+        device = torch.device("cuda", index)
+        table = torch.empty(lib.convnext_block_bf16_gelu_entries(), dtype=torch.int16, device=device)
+        bad = torch.zeros(1, dtype=torch.int32, device=device)
+        with torch.cuda.device(index):
+            rc = lib.convnext_block_bf16_gelu_table(
+                table.data_ptr(), bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream
+            )
+        if rc != 0 or int(bad) != 0:
+            raise RuntimeError(
+                f"convnext_block_bf16: GELU table failed (CUDA error {rc}, {int(bad)} lookups differ)"
+            )
+        _GELU_TABLES[index] = table
+    return table
+
+
+def _launch_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool) -> torch.Tensor:
+    """Launch the bf16 kernel (``module``: the module mode, f32 x; else the
+    Pallas mode, bf16 x) on a CUDA tensor; raises on what it does not take."""
+    global LAUNCHES_BF16
+    _nvcc.check_activation(
+        "convnext_block x", x, x.device, (torch.float32 if module else torch.bfloat16,)
+    )
+    b, h, w, c = x.shape
+    if c > MAX_CHANNELS or h > 65535 or b > 65535:
+        raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
+    lib = build_bf16(module)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    ptrs, _keep = _bf16_params(p, c, x.device)
+    key = (b, h, w, c, sms)
+    floats = _BF16_WORKSPACE.get(key)
+    if floats is None:
+        floats = _BF16_WORKSPACE[key] = lib.convnext_block_bf16_workspace(b, h, w, c, sms)
+    table = gelu_table(lib, index).data_ptr() if module else 0
+    workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    stream = _raw_stream(index) if _raw_stream else torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), *ptrs[:9], table, workspace.data_ptr(), out.data_ptr(), b, h, w, c, sms, stream)
+    if index == torch.cuda.current_device():
+        rc = lib.convnext_block_bf16(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.convnext_block_bf16(*args)
+    if rc != 0:
+        raise RuntimeError(f"convnext_block_bf16 launch failed: CUDA error {rc}")
+    LAUNCHES_BF16 += 1
+    return out
+
+
+def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Launch the f32 kernel on a CUDA tensor; raises on what it does not
+    take."""
+    global LAUNCHES
+    _nvcc.check_activation("convnext_block x", x, x.device, (torch.float32,))
+    b, h, w, c = x.shape
+    if c > MAX_CHANNELS or h > 65535 or b > 65535:
+        raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
+    shapes = _param_shapes(c)
     for name, shape in shapes.items():
         _nvcc.check_param(name, p[name], shape, x.device)
     q = {k: p[k].contiguous() for k in shapes}
     for name in ("dwconv.weight", "mlp_up.weight", "mlp_down.weight"):
         if q[name].data_ptr() % 16:
             raise ValueError(f"convnext_block: {name} is not 16-byte aligned")
-    lib = build_bf16(module) if bf16 else build()
+    lib = build()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
-        if c % 8:
-            raise ValueError(f"convnext_block: bf16 wants C % 8 == 0, got {c}")
-        wb = bf16_weights(p)
-        workspace = torch.empty(
-            lib.convnext_block_bf16_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
+    workspace = torch.empty(
+        lib.convnext_block_f32_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
+    )
+    with torch.cuda.device(x.device):
+        rc = lib.convnext_block_f32(
+            x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
+            q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
+            q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
+            q["mlp_down.weight"].data_ptr(), q["mlp_down.bias"].data_ptr(),
+            q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
+            b, h, w, c, sms, stream,
         )
-        with torch.cuda.device(x.device):
-            rc = lib.convnext_block_bf16(
-                x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
-                q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
-                wb["w1"].data_ptr(), q["mlp_up.bias"].data_ptr(),
-                wb["w2"].data_ptr(), q["mlp_down.bias"].data_ptr(),
-                q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
-                b, h, w, c, sms, stream,
-            )
-        entry = "convnext_block_bf16"
-    else:
-        workspace = torch.empty(
-            lib.convnext_block_f32_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
-        )
-        with torch.cuda.device(x.device):
-            rc = lib.convnext_block_f32(
-                x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
-                q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
-                q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
-                q["mlp_down.weight"].data_ptr(), q["mlp_down.bias"].data_ptr(),
-                q["block_scale"].data_ptr(), workspace.data_ptr(), out.data_ptr(),
-                b, h, w, c, sms, stream,
-            )
-        entry = "convnext_block_f32"
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    if bf16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
+        raise RuntimeError(f"convnext_block_f32 launch failed: CUDA error {rc}")
+    LAUNCHES += 1
     return out

@@ -56,11 +56,12 @@
 // and hidden units are masked.
 //
 // bf16 (the JAX package's compute_dtype="bfloat16"), two modes, each a
-// template instantiation (no branch in the loops), both with the two GEMMs
-// as mma.sync m16n8k16 bf16 products accumulated in f32 (gemm_bf16_kernel;
-// one product a product, h and u in the workspace as bf16, W1 and W2 cast
-// to bf16 once per parameter set by the wrapper) and the depthwise and
-// LayerNorm in f32:
+// template instantiation (no branch in the loops), both with the depthwise
+// and LayerNorm in f32 and the MLP on Hopper's bf16 wgmma with f32 sums
+// (block_bf16.cuh: a channel-parallel depthwise + LN writing h in bf16;
+// the 4C hidden kept on chip in one kernel for C <= 192, two wgmma GEMMs
+// with u in bf16 above; W1 and W2 packed once per parameter set by the
+// wrapper):
 //   * Pallas mode (x and out bf16; adascale/ops/pallas/convnext_block.py:
 //     60-99, the JAX engine's use_pallas_backbone): the depthwise and LN in
 //     f32 on f32 taps, h cast to bf16 for the up product, GELU in f32 on
@@ -76,12 +77,11 @@
 // The bf16 entry points are this file built with -DCONVNEXT_BLOCK_BF16 and
 // -DCONVNEXT_BLOCK_BF16_MODULE=0 or 1 (the Pallas or the module mode), two
 // libraries of their own (kernels/convnext_block.py::build_bf16), so that
-// the three compile in parallel; each holds only its own instantiations.
-// In both the k-slots of each 16 are permuted alike in A and B (thread t
-// holds k 4t .. 4t + 3), so a fragment pair is one 8-byte shared load. C
-// must be a multiple of 8 (16-byte copies of bf16). Bound: the projections
-// at the 989 TFLOP/s dense bf16 rate, the depthwise at the 67 TFLOP/s f32
-// peak: 0.012-0.02 ms a block at the stages of a 1024x768 page.
+// the three compile in parallel; each holds only its own instantiations,
+// and only they include block_bf16.cuh. C must be a multiple of 8 (16-byte
+// copies of bf16). Bound: the projections at the 989 TFLOP/s dense bf16
+// rate, the depthwise at the 67 TFLOP/s f32 peak: 0.012-0.02 ms a block at
+// the stages of a 1024x768 page.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,6 +89,10 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#ifdef CONVNEXT_BLOCK_BF16  // the bf16 libraries: the block in block_bf16.cuh
+#include "block_bf16.cuh"
+#else  // the f32 library
 
 namespace {
 
@@ -572,8 +576,6 @@ Plan make_plan(long long M, int C, int sms) {
   return p;
 }
 
-#ifndef CONVNEXT_BLOCK_BF16  // the f32 library
-
 cudaError_t run_gemm1(const float* h, const float* w1, const float* b1, float* u, int M, int C,
                       const Plan& p, cudaStream_t stream) {
   const int N = 4 * C, K = C;
@@ -607,331 +609,71 @@ cudaError_t run_gemm2(const float* u, const float* w2, const float* b2, const fl
   return cudaGetLastError();
 }
 
-#endif  // !CONVNEXT_BLOCK_BF16
-
-// ---------------------------------------------------------------------------
-// 2-3 in bf16: C[M, N] = A[M, K] . B[N, K]^T with bf16 A and B, f32 sums.
-
-constexpr int kLd16 = kBK + 16;  // padded shared row in bf16 (96 bytes): conflict-free 8-byte reads
-
-template <int BN>
-struct GemmTile16 {
-  static constexpr int BM = kBM;
-  static constexpr int WM = BM / 2, WN = BN / 4;  // warp tile, 8 warps as 2 x 4
-  static constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles per warp
-  static constexpr int STAGE = (BM + BN) * kLd16;  // bf16 elements
-  static constexpr size_t SMEM_BYTES = (size_t)kStages * STAGE * sizeof(bf16);
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile");
-};
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One K stage (32) of bf16 products for a warp into a fresh tile, as
-// mma_stage. Thread (g, t) gives its k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of
-// each 16 the physical k 4t .. 4t + 3, in A and B alike: one 8-byte load
-// holds a fragment pair.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_stage_bf16(const bf16* __restrict__ As,
-                                               const bf16* __restrict__ Bs,
-                                               float (&part)[MT][NT][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint2 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      b[j] = *reinterpret_cast<const uint2*>(Bs + (j * 8 + g) * kLd16 + kk + 4 * t);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const uint2 v0 = *reinterpret_cast<const uint2*>(As + (i * 16 + g) * kLd16 + kk + 4 * t);
-      const uint2 v1 = *reinterpret_cast<const uint2*>(As + (i * 16 + g + 8) * kLd16 + kk + 4 * t);
-      const uint32_t a[4] = {v0.x, v1.x, v0.y, v1.y};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(part[i][j], a, b[j].x, b[j].y);
-    }
-  }
-}
-
-// jax.nn.gelu(x, approximate=False) on a bf16 x as XLA computes it: 0.5 x
-// erfc(-x s), s = sqrt(1/2) in bf16, each product and the erfc rounded to
-// bf16.
-__device__ __forceinline__ float gelu_bf16(float v) {
-  const float e = round_bf16(erfcf(round_bf16(-v * 0.70703125f)));
-  return round_bf16(0.5f * v * e);
-}
-
-// The bf16 modes' epilogue of one output pair (n, n + 1) of row m, on the
-// f32 sums v0, v1 (EPI as gemm_3xtf32_kernel's; MODULE picks the module
-// mode's roundings). out is bf16 for kGelu (u), XT for kResidual, f32 for
-// kPartial.
-template <int EPI, bool MODULE, typename XT>
-__device__ __forceinline__ void epilogue_bf16(float v0, float v1, long long o, int n,
-                                              const float* __restrict__ bias,
-                                              const XT* __restrict__ x,
-                                              const float* __restrict__ scale, void* out) {
-  if constexpr (EPI == kGelu) {
-    float g0, g1;
-    if constexpr (MODULE) {
-      g0 = gelu_bf16(round_bf16(round_bf16(v0) + round_bf16(bias[n])));
-      g1 = gelu_bf16(round_bf16(round_bf16(v1) + round_bf16(bias[n + 1])));
-    } else {
-      g0 = gelu_exact(v0 + bias[n]);
-      g1 = gelu_exact(v1 + bias[n + 1]);
-    }
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) = __floats2bfloat162_rn(g0, g1);
-  } else if constexpr (EPI == kResidual) {
-    float y0 = v0 + bias[n], y1 = v1 + bias[n + 1];
-    if constexpr (MODULE) {
-      y0 = round_bf16(round_bf16(v0) + round_bf16(bias[n]));
-      y1 = round_bf16(round_bf16(v1) + round_bf16(bias[n + 1]));
-    }
-    XT* dst = static_cast<XT*>(out) + o;
-    store_one(dst, to_f32(x[o]) + y0 * scale[n]);
-    store_one(dst + 1, to_f32(x[o + 1]) + y1 * scale[n + 1]);
-  } else {
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
-  }
-}
-
-// gemm_3xtf32_kernel's tiling and epilogues on bf16 operands (A (M, K) and
-// B (N, K) row-major bf16, K and N multiples of 8).
-template <int BN, int EPI, bool MODULE, typename XT>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bw, int M, int N, int K,
-                 int k_span, const float* __restrict__ bias, const XT* __restrict__ x,
-                 const float* __restrict__ scale, void* __restrict__ out) {
-  using T = GemmTile16<BN>;
-  constexpr int BM = T::BM, MT = T::MT, NT = T::NT;
-  extern __shared__ __align__(16) bf16 smem16[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const long long m0 = (long long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_span;
-  const int k_end = min(K, k_begin + k_span);
-  const int nk = (k_end - k_begin + kBK - 1) / kBK;
-
-  auto load = [&](int kt, int s) {
-    bf16* As = smem16 + s * T::STAGE;
-    bf16* Bs = As + BM * kLd16;
-    const int kc0 = k_begin + kt * kBK;
-#pragma unroll
-    for (int idx = tid; idx < BM * (kBK / 8); idx += kThreads) {
-      const int row = idx / (kBK / 8), q = idx % (kBK / 8);
-      const long long m = m0 + row;
-      const int k = kc0 + 8 * q;
-      const bool ok = m < M && k < k_end;
-      cp_async16(As + row * kLd16 + 8 * q, ok ? A + m * K + k : A, ok);
-    }
-#pragma unroll
-    for (int idx = tid; idx < BN * (kBK / 8); idx += kThreads) {
-      const int row = idx / (kBK / 8), q = idx % (kBK / 8);
-      const int n = n0 + row;
-      const int k = kc0 + 8 * q;
-      const bool ok = n < N && k < k_end;
-      cp_async16(Bs + row * kLd16 + 8 * q, ok ? Bw + (long long)n * K + k : Bw, ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk kt landed for all; chunk kt-1's stage is free
-    const int next = kt + kStages - 1;
-    if (next < nk) load(next, next % kStages);
-    cp_async_commit();
-
-    const bf16* As = smem16 + (kt % kStages) * T::STAGE + (wm * T::WM) * kLd16;
-    const bf16* Bs = smem16 + (kt % kStages) * T::STAGE + BM * kLd16 + (wn * T::WN) * kLd16;
-    float part[MT][NT][4];
-    mma_stage_bf16<MT, NT>(As, Bs, part);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-  }
-  cp_async_wait<0>();
-
-  void* dst = EPI == kPartial
-                  ? static_cast<void*>(static_cast<float*>(out) + (long long)blockIdx.z * M * N)
-                  : out;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * T::WM + i * 16 + g + 8 * half;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = n0 + wn * T::WN + j * 8 + 2 * t;  // even; N % 8 == 0
-        if (n >= N) continue;
-        epilogue_bf16<EPI, MODULE, XT>(acc[i][j][2 * half], acc[i][j][2 * half + 1], m * N + n, n,
-                                       bias, x, scale, dst);
-      }
-    }
-  }
-}
-
-// Adds the split partials in split order, then the bf16 modes' residual
-// epilogue; element i of each group of four.
-template <bool MODULE, typename XT>
-__global__ void __launch_bounds__(kThreads)
-reduce_bf16_kernel(const float4* __restrict__ partial, const XT* __restrict__ x,
-                   const float* __restrict__ bias, const float* __restrict__ scale,
-                   XT* __restrict__ out, long long n4, int C, int splits) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n4) return;
-  float4 s = partial[i];
-  for (int k = 1; k < splits; ++k) {
-    const float4 p = partial[k * n4 + i];
-    s.x += p.x;
-    s.y += p.y;
-    s.z += p.z;
-    s.w += p.w;
-  }
-  const int c = (int)((4 * i) % C);
-  epilogue_bf16<kResidual, MODULE, XT>(s.x, s.y, 4 * i, c, bias, x, scale, out);
-  epilogue_bf16<kResidual, MODULE, XT>(s.z, s.w, 4 * i + 2, c + 2, bias, x, scale, out);
-}
-
-template <int BN, int EPI, bool MODULE, typename XT>
-cudaError_t launch_gemm_bf16(const bf16* A, const bf16* Bw, int M, int N, int K, int splits,
-                             int k_span, const float* bias, const XT* x, const float* scale,
-                             void* out, cudaStream_t stream) {
-  constexpr size_t smem = GemmTile16<BN>::SMEM_BYTES;
-  auto kernel = gemm_bf16_kernel<BN, EPI, MODULE, XT>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(A, Bw, M, N, K, k_span, bias, x, scale, out);
-  return cudaGetLastError();
-}
-
-#ifdef CONVNEXT_BLOCK_BF16  // the bf16 library
-
-// The bf16 plan: make_plan's column tiles for all B H W pixels, but GEMM 2's
-// K splits chosen for one image (H W pixels), so that a page's sums run in
-// the same order alone and in a batch. A bf16 output rounds them, and a
-// split order that moved with B flipped roundings between detect_many and
-// detect() of the same page.
-Plan plan_bf16(int B, int H, int W, int C, int sms) {
-  Plan p = make_plan((long long)B * H * W, C, sms);
-  const Plan one = make_plan((long long)H * W, C, sms);
-  p.splits = one.splits;
-  p.k_span = one.k_span;
-  return p;
-}
-
-// The bf16 block: depthwise + LN -> h (bf16), GEMM 1 -> u (bf16), GEMM 2
-// (split as the f32 plan says) -> out.
-template <bool MODULE, typename XT>
-cudaError_t run_block_bf16(const XT* x, const float* dw_w, const float* dw_b, const float* ln_g,
-                           const float* ln_b, const bf16* w1, const float* b1, const bf16* w2,
-                           const float* b2, const float* scale, float* workspace, XT* out,
-                           int B, int H, int W, int C, const Plan& p, cudaStream_t stream) {
-  const long long M = (long long)B * H * W;
-  bf16* h = reinterpret_cast<bf16*>(workspace);
-  bf16* u = h + M * C;
-  float* partial = reinterpret_cast<float*>(u + M * 4 * C);
-  cudaError_t e = run_dw_ln<XT, bf16, MODULE>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
-  if (e != cudaSuccess) return e;
-  const int m = (int)M;
-  e = p.bn1 == 128 ? launch_gemm_bf16<128, kGelu, MODULE, XT>(h, w1, m, 4 * C, C, 1, C, b1,
-                                                              nullptr, nullptr, u, stream)
-                   : launch_gemm_bf16<96, kGelu, MODULE, XT>(h, w1, m, 4 * C, C, 1, C, b1,
-                                                             nullptr, nullptr, u, stream);
-  if (e != cudaSuccess) return e;
-  const int epi = p.splits == 1 ? kResidual : kPartial;
-  void* dst = p.splits == 1 ? static_cast<void*>(out) : static_cast<void*>(partial);
-  if (p.bn2 == 128)
-    e = epi == kResidual
-            ? launch_gemm_bf16<128, kResidual, MODULE, XT>(u, w2, m, C, 4 * C, 1, 4 * C, b2, x,
-                                                           scale, dst, stream)
-            : launch_gemm_bf16<128, kPartial, MODULE, XT>(u, w2, m, C, 4 * C, p.splits, p.k_span,
-                                                          nullptr, x, nullptr, dst, stream);
-  else
-    e = epi == kResidual
-            ? launch_gemm_bf16<96, kResidual, MODULE, XT>(u, w2, m, C, 4 * C, 1, 4 * C, b2, x,
-                                                          scale, dst, stream)
-            : launch_gemm_bf16<96, kPartial, MODULE, XT>(u, w2, m, C, 4 * C, p.splits, p.k_span,
-                                                         nullptr, x, nullptr, dst, stream);
-  if (e != cudaSuccess || p.splits == 1) return e;
-  const long long n4 = M * C / 4;
-  reduce_bf16_kernel<MODULE, XT><<<(unsigned)cdiv(n4, kThreads), kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(partial), x, b2, scale, out, n4, C, p.splits);
-  return cudaGetLastError();
-}
+}  // namespace
 
 #endif  // CONVNEXT_BLOCK_BF16
 
-}  // namespace
-
 #ifdef CONVNEXT_BLOCK_BF16
 
-// Floats of scratch that convnext_block_bf16 needs for this shape: h and
-// the hidden u in bf16 (M x 5C halves), then the GEMM 2 split partials in
-// f32.
+// Floats of scratch that convnext_block_bf16 needs for this shape: h in
+// bf16 (M x C halves), then the two-GEMM form's u in bf16 and its GEMM 2
+// split partials in f32.
 extern "C" long long convnext_block_bf16_workspace(int B, int H, int W, int C, int sms) {
   const long long M = (long long)B * H * W;
-  const Plan p = plan_bf16(B, H, W, C, sms);
-  return M * C * 5 / 2 + (p.splits > 1 ? M * C * p.splits : 0);
+  return M * C / 2 + block_bf16::workspace_floats(M, C, block_bf16::plan((long long)H * W, C, sms));
+}
+
+// The packed layout the library reads for width C: the fused form's wgmma
+// width (kernels/packing.py::pack_block_bf16 packs W1 and W2 as one buffer
+// of hidden chunks), or 0 for the two-GEMM form (W1 and W2 each in
+// 128 x 64 tiles).
+extern "C" int convnext_block_bf16_fused_width(int C) {
+  return C <= block_bf16::kFusedMaxC ? block_bf16::fused_width(C) : 0;
+}
+
+// Fills the module mode's GELU table (convnext_block_bf16_gelu_entries()
+// bf16 values at table) on stream and adds to *bad (device memory) the
+// bf16 values whose lookup differs from the GELU it stands for; the caller
+// launches the block only where that count is 0. Returns
+// cudaGetLastError().
+extern "C" int convnext_block_bf16_gelu_entries() { return block_bf16::kGeluTable; }
+extern "C" int convnext_block_bf16_gelu_table(uint16_t* table, unsigned* bad, cudaStream_t stream) {
+  return (int)block_bf16::make_gelu_table(table, bad, stream);
 }
 
 // The block in bf16, in the library's mode (CONVNEXT_BLOCK_BF16_MODULE):
 // the Pallas mode's x and out (B, H, W, C) are bf16, the module mode's f32.
-// C % 8 == 0; w1 (4C, C) and w2
-// (C, 4C) bf16; dw_w (C, 1, 7, 7) and the vectors f32, as
-// convnext_block_f32 takes them; workspace holds
+// C % 8 == 0; w1 and w2 bf16, packed for C as
+// convnext_block_bf16_fused_width(C) says (the fused form reads w1 alone);
+// dw_w the depthwise taps packed tap-major, (49, C) f32; the vectors f32,
+// as convnext_block_f32 takes them; gelu_table the module mode's GELU table
+// (convnext_block_bf16_gelu_table; unread in the Pallas mode); workspace
+// holds
 // convnext_block_bf16_workspace(B, H, W, C, sms) floats. Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int convnext_block_bf16(const void* x, const float* dw_w, const float* dw_b,
-                                   const float* ln_g, const float* ln_b, const bf16* w1,
-                                   const float* b1, const bf16* w2, const float* b2,
-                                   const float* scale, float* workspace, void* out, int B, int H,
-                                   int W, int C, int sms, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxC || C % 8 || H > 65535 || B > 65535 ||
+                                   const float* ln_g, const float* ln_b,
+                                   const block_bf16::bf16* w1, const float* b1,
+                                   const block_bf16::bf16* w2, const float* b2,
+                                   const float* scale, const uint16_t* gelu_table,
+                                   float* workspace, void* out, int B, int H, int W, int C,
+                                   int sms, cudaStream_t stream) {
+  using block_bf16::bf16;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > block_bf16::kMaxC || C % 8 || H > 65535 ||
+      B > 65535 ||
       sms <= 0)
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * H * W;
-  if (cdiv(M, kBM) > 65535) return (int)cudaErrorInvalidValue;
-  const Plan p = plan_bf16(B, H, W, C, sms);
+  if (block_bf16::cdiv(M, block_bf16::kBM) > 65535) return (int)cudaErrorInvalidValue;
+  const block_bf16::Plan p = block_bf16::plan((long long)H * W, C, sms);
 #if CONVNEXT_BLOCK_BF16_MODULE
-  return (int)run_block_bf16<true, float>(static_cast<const float*>(x), dw_w, dw_b, ln_g, ln_b, w1,
-                                          b1, w2, b2, scale, workspace, static_cast<float*>(out),
-                                          B, H, W, C, p, stream);
+  return (int)block_bf16::run_block<true, float>(
+      static_cast<const float*>(x), dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, gelu_table,
+      workspace, static_cast<float*>(out), B, H, W, C, sms, p, stream);
 #else
-  return (int)run_block_bf16<false, bf16>(static_cast<const bf16*>(x), dw_w, dw_b, ln_g, ln_b, w1,
-                                          b1, w2, b2, scale, workspace, static_cast<bf16*>(out), B,
-                                          H, W, C, p, stream);
+  return (int)block_bf16::run_block<false, bf16>(
+      static_cast<const bf16*>(x), dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, gelu_table,
+      workspace, static_cast<bf16*>(out), B, H, W, C, sms, p, stream);
 #endif
 }
 

@@ -7,7 +7,10 @@ wgmma's no-swizzle K-major core-matrix order; ``pack_kmajor_bf16(taps)`` as
 their bf16 B, one bf16 tile a chunk in the same order (8 bf16 a core-matrix
 row, K in its natural order). ``split_slices(taps, slices)`` cuts the output
 features into the slices a wide kernel launches one block each for, before
-either packing. ``cached(tensors, tag, pack)``
+either packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
+for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and
+``pack_block_bf16(w1, w2)`` packs that block's two projections in the form
+its kernel takes for their width. ``cached(tensors, tag, pack)``
 keeps what ``pack()`` built while ``tensors[0]`` lives, and reuses it while
 every tensor it was packed from is unchanged. The heads (``fpn_heads``,
 ``precise_heads``) and the neck level 0 (``fpn_neck``) pack through both.
@@ -69,6 +72,62 @@ def pack_kmajor_bf16(taps: torch.Tensor) -> torch.Tensor:
     t = taps.reshape(*lead, k // KC, KC // 8, 8, n // 8, 8)
     t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
     return t.to(torch.bfloat16).contiguous()
+
+
+# The bf16 block's forms (csrc/block_bf16.cuh): the fused form's widest C,
+# its wgmma widths (GEMM 2's N; C is padded up to one) and hidden units a
+# chunk; the two-GEMM form's tile of output columns by K.
+BLOCK_FUSED_MAX_C = 192
+BLOCK_FUSED_WIDTHS = (96, 128, 192)
+BLOCK_HIDDEN_CHUNK = 64
+BLOCK_TILE = (128, 64)
+
+
+def block_fused_width(c: int) -> int:
+    """The fused form's wgmma width for C (``block_bf16.cuh::fused_width``),
+    or 0 where C takes the two-GEMM form."""
+    if c > BLOCK_FUSED_MAX_C:
+        return 0
+    return next(w for w in BLOCK_FUSED_WIDTHS if w >= c)
+
+
+def pack_core_kmajor(w: torch.Tensor, rows: int, depth: int) -> torch.Tensor:
+    """An (N, K) operand, zero-padded to multiples of ``rows`` and ``depth``,
+    as bf16 tiles (N/rows, K/depth, rows/8, depth/8, 8, 8): tile (i, j)
+    holds rows [rows i, rows (i + 1)) by K [depth j, depth (j + 1)) in
+    wgmma's no-swizzle K-major core-matrix order (row group, K group, row,
+    K in group), so that one bulk copy brings it to shared memory as the
+    descriptor reads it."""
+    n, k = w.shape
+    if rows % 8 or depth % 8:
+        raise ValueError(f"pack_core_kmajor: tiles {rows} x {depth}; want multiples of 8")
+    np_, kp = -(-n // rows) * rows, -(-k // depth) * depth
+    t = torch.nn.functional.pad(w.to(torch.bfloat16), (0, kp - k, 0, np_ - n))
+    t = t.reshape(np_ // rows, rows // 8, 8, kp // depth, depth // 8, 8)
+    return t.permute(0, 3, 1, 4, 2, 5).contiguous()
+
+
+def pack_block_bf16(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The bf16 ConvNeXt block's W1 (4C, C) and W2 (C, 4C), nn.Linear's
+    layouts, packed for its kernel (bf16, flat):
+
+    - C <= ``BLOCK_FUSED_MAX_C`` (the fused form, C padded to CP =
+      ``block_fused_width(C)``): ``w1`` holds, per chunk of
+      ``BLOCK_HIDDEN_CHUNK`` hidden units, the chunk's W1 rows as one
+      64 x CP tile, then W2's columns of those units as one CP x 64 tile
+      (its rows the output channels), zero past C and 4C; ``w2`` is empty.
+    - wider: ``w1`` and ``w2`` each in ``BLOCK_TILE`` tiles (128 output
+      columns by 64 of K), column tile by column tile.
+    """
+    c = w1.shape[1]
+    cp = block_fused_width(c)
+    if cp:
+        h = BLOCK_HIDDEN_CHUNK
+        up = pack_core_kmajor(w1, h, cp).reshape(-1, h * cp)
+        down = pack_core_kmajor(w2, cp, h).reshape(-1, cp * h)
+        return {"w1": torch.stack([up, down], 1).reshape(-1), "w2": up.new_empty(0)}
+    return {"w1": pack_core_kmajor(w1, *BLOCK_TILE).reshape(-1),
+            "w2": pack_core_kmajor(w2, *BLOCK_TILE).reshape(-1)}
 
 
 def pack_for(taps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

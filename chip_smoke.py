@@ -106,11 +106,17 @@ that reads it. Phases, each announced with its elapsed seconds:
  bf16. serving at compute_dtype="bfloat16": each kernel's bf16 entry
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
-     and its module mode, f32 in and out; the neck and heads at the
-     flagship's), the largest difference <= BF16_TOL of the largest plain
-     value, max and median errors and each one's and the twin's error
-     against f64 on the bf16-rounded operands printed, kernel, plain and
-     bound ms (operations at the dense bf16 rate); detect()
+     and its module mode, f32 in and out, and at BF16_EXTRA_BLOCK_SHAPES,
+     a ragged one and C = 1536; the neck and heads at the flagship's), the
+     largest difference <= BF16_TOL of the largest plain value, max and
+     median errors and each one's and the twin's error against f64 on the
+     bf16-rounded operands printed, kernel, plain and bound ms (operations
+     at the dense bf16 rate); the block's launches by kernel name (device
+     ms from a torch.profiler trace), summed over the 36 blocks of both
+     passes beside the time before its redesign (BF16_BLOCK_BEFORE_MS),
+     and a cuBLAS bf16 torch.matmul of each of its GEMM shapes as a
+     yardstick (on no path of the port); the block at BF16_INVARIANCE_CASES' batches equal bit for
+     bit, in both modes, to its images run one at a time; detect()
      on page_0 at bf16 for the FPN flagship's module path and fused
      configuration and the UPerNeXt flagship's fused one, each against its
      JAX bf16 reference (tests/fixtures/torch_port/*_bf16_reference.npz:
@@ -233,6 +239,19 @@ KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # only where an f32 sum's order flips a bf16 rounding: one bf16 ulp, 2^-8).
 PEAK_BF16_FLOPS = 989e12
 BF16_TOL = 1e-2
+# The bf16 block beyond the main path's shapes: a ragged one and the large
+# preset's last stage (C = 1536, GEMM 2's K = 6144); and the batches whose
+# every image must come out bit for bit as it does alone: B = 4 at the
+# rough pass's stage shapes, and a tiled group's 6 tiles of 768 (a
+# 192 x 192 level 0) at its four.
+BF16_EXTRA_BLOCK_SHAPES = [RAGGED_SHAPE, (16, 12, 1536)]
+BF16_INVARIANCE_CASES = [(4, shape) for shape, _ in STAGE_SHAPES] + [
+    (6, (192 >> k, 192 >> k, 96 << k)) for k in range(4)
+]
+# The bf16 block's time on an NVIDIA H100 80GB HBM3 at 700 W before its
+# Hopper redesign (the mma.sync design, both passes, 36 blocks, CUDA events
+# of wrapper calls; PERF.md, Findings): printed beside the new one.
+BF16_BLOCK_BEFORE_MS = {"pallas": 5.586, "module": 6.657}
 # The bf16 detect()s against the JAX package's bf16 engine (tests/fixtures/
 # torch_port/make_reference.py): (label, reference, weights, neck, fused).
 FPN_BF16_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_bf16_reference.npz")
@@ -327,6 +346,18 @@ def block_bound_ms(npix: int, c: int):
         nbytes / PEAK_BYTES * 1e3,
         (mlp + dw) / PEAK_F32_FLOPS * 1e3,
     )
+
+
+def block_backward_bound_ms(npix: int, c: int):
+    """(ops_ms, bytes_ms) for one block's backward as the trainable block
+    computes it (``TrainableBlock.backward``: the forward recomputed, then
+    both gradients of each projection and of the depthwise, three times the
+    forward's products), at the rates of ``block_bound_ms``. Bytes: x, the
+    parameters and the output's gradient read once, x's and the
+    parameters' gradients written once."""
+    mlp, dw = 3 * npix * 16 * c * c, 3 * npix * 2 * 49 * c
+    nbytes = 4 * (3 * npix * c + 2 * (49 * c + 8 * c * c + 4 * c + 6 * c))
+    return (3 * mlp / PEAK_TF32_FLOPS + dw / PEAK_F32_FLOPS) * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def random_block_params(c: int, gen, device):
@@ -450,9 +481,12 @@ def check_kernel(label: str, kernel, plain, args, exact_args, work, reps: int = 
             "rel64": rel64}
 
 
-def kernel_device_ms(fn, reps: int = 10):
+def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False):
     """Device ms per call of each kernel that ``fn`` runs on the card, by its
-    name in a torch.profiler trace of ``reps`` warm calls."""
+    name in a torch.profiler trace of ``reps`` warm calls. ``once_a_call``:
+    each kernel launches once a call, so its mean launch is its ms a call,
+    which a trace that lost some of its events does not bias (late in a
+    run of every phase the profiler lost about half of phase bf16's)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -466,7 +500,8 @@ def kernel_device_ms(fn, reps: int = 10):
     ms = {}
     for event in prof.key_averages():
         if event.device_type == DeviceType.CUDA:  # host-side entries carry their kernels' time too
-            ms[event.key] = ms.get(event.key, 0.0) + event.device_time_total / 1e3 / reps
+            calls = event.count if once_a_call else reps
+            ms[event.key] = ms.get(event.key, 0.0) + event.device_time_total / 1e3 / calls
     return ms
 
 
@@ -480,7 +515,7 @@ def block_launch_ms(x, p, reps: int = 10):
     from adascale_torch.kernels import convnext_block as K
 
     part_ms, gemms = {"dw_ln": 0.0, "gemm1": 0.0, "gemm2": 0.0}, []
-    for key, ms in kernel_device_ms(lambda: K.convnext_block(x, p), reps).items():
+    for key, ms in kernel_device_ms(lambda: K.convnext_block(x, p), reps, once_a_call=True).items():
         gemm = re.search(r"(gemm_\w+_kernel)<(\d+), (\d)>", key)
         if "dw_ln_kernel" in key:
             part = "dw_ln"
@@ -834,7 +869,7 @@ def check_trainable_block(gen, device):
     from adascale_torch.kernels import convnext_block as K
 
     names = ("x",) + K.PARAM_NAMES
-    totals = dict.fromkeys(("t_ops", "t_bytes"), 0.0)
+    totals = dict.fromkeys(("t_ops", "t_bytes", "bwd_ops", "bwd_bytes"), 0.0)
     worst, max_abs = (0.0, ""), 0.0
     for (h, w, c), blocks in TRAIN_STAGE_SHAPES:
         p = {k: v.requires_grad_() for k, v in random_block_params(c, gen, device).items()}
@@ -870,6 +905,9 @@ def check_trainable_block(gen, device):
         )
         totals["t_ops"] += blocks * t_ops
         totals["t_bytes"] += blocks * t_bytes
+        bwd_ops, bwd_bytes = block_backward_bound_ms(TRAIN_BATCH * h * w, c)
+        totals["bwd_ops"] += blocks * bwd_ops
+        totals["bwd_bytes"] += blocks * bwd_bytes
         del out, want, got_grads, want_grads
 
     # The repair: a raw call that needs a gradient keeps it.
@@ -884,7 +922,8 @@ def check_trainable_block(gen, device):
           f"one kernel launch", flush=True)
     print(
         f"trainable block, one train step's 36 blocks: forward bound_ms="
-        f"{max(totals['t_ops'], totals['t_bytes']):.4f}; worst rel err {worst[0]:.3e} ({worst[1]})",
+        f"{max(totals['t_ops'], totals['t_bytes']):.4f}; backward bound_ms="
+        f"{max(totals['bwd_ops'], totals['bwd_bytes']):.4f}; worst rel err {worst[0]:.3e} ({worst[1]})",
         flush=True,
     )
     return {
@@ -893,6 +932,8 @@ def check_trainable_block(gen, device):
         "bound_ms": max(totals["t_ops"], totals["t_bytes"]),
         "bound_by": "operations" if totals["t_ops"] >= totals["t_bytes"] else "bytes",
         "bound_rate": "forward only: projections as 3 TF32 products at 495 TFLOP/s, depthwise at 67 TFLOP/s f32",
+        "backward_bound_ms": max(totals["bwd_ops"], totals["bwd_bytes"]),
+        "backward_bound_by": "operations" if totals["bwd_ops"] >= totals["bwd_bytes"] else "bytes",
     }
 
 
@@ -1310,6 +1351,7 @@ def held_against_plain(worst: dict):
 
     hooks = [
         ("convnext_block", convnext_block, "_launch", block_plain),
+        ("convnext_block", convnext_block, "_launch_bf16", block_plain),
         ("fpn_neck_l0", fpn_neck, "fused_neck_l0", fpn_neck.fused_neck_l0_plain),
         ("fpn_heads", fpn_heads, "fused_rough_heads", fpn_heads.fused_rough_heads_plain),
         ("precise_heads", precise_heads, "fused_precise_heads", precise_heads.fused_precise_heads_plain),
@@ -1688,6 +1730,69 @@ def block_work_bf16(npix: int, c: int, xbytes: int):
     return npix * 16 * c * c, npix * 2 * 49 * c, 2 * npix * c * xbytes + 2 * 8 * c * c + 4 * (49 * c + 10 * c)
 
 
+def short_kernel_name(key: str) -> str:
+    """A kernel's name with its template arguments, without its namespace
+    and argument list."""
+    found = re.search(r"\w+_kernel(<[^>]*>)?", key)
+    return found.group(0) if found else key
+
+
+def block_bf16_launch_ms(x, p, reps: int = 10) -> dict:
+    """Device ms per call of each launch of the bf16 block (by kernel name),
+    from a torch.profiler trace of ``reps`` whole calls."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    ms = {}
+    for key, v in kernel_device_ms(lambda: K.convnext_block(x, p, torch.bfloat16), reps, once_a_call=True).items():
+        name = short_kernel_name(key)
+        ms[name] = ms.get(name, 0.0) + v
+    if not ms:
+        raise AssertionError("bf16 block launches missing from the trace")
+    return ms
+
+
+def cublas_gemm_ms(m: int, c: int, gen, device) -> tuple:
+    """A yardstick on no path of the port: one cuBLAS bf16 torch.matmul of
+    each of the block's two GEMM shapes, M x C . C x 4C and M x 4C . 4C x C
+    (CUDA events, warm)."""
+    import torch
+
+    h = torch.randn(m, c, generator=gen).to(device, torch.bfloat16)
+    u = torch.randn(m, 4 * c, generator=gen).to(device, torch.bfloat16)
+    w1 = torch.randn(c, 4 * c, generator=gen).to(device, torch.bfloat16)
+    w2 = torch.randn(4 * c, c, generator=gen).to(device, torch.bfloat16)
+    return cuda_ms(lambda: torch.matmul(h, w1)), cuda_ms(lambda: torch.matmul(u, w2))
+
+
+def check_bf16_block_invariance(gen, device) -> None:
+    """Each image of a batch through the bf16 block equals the same image
+    run alone, bit for bit, in both modes (BF16_INVARIANCE_CASES): every
+    sum's order, split and chunking depends on H W and C only."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    for b, (h, w, c) in BF16_INVARIANCE_CASES:
+        p = random_block_params(c, gen, device)
+        x32 = torch.randn(b, h, w, c, generator=gen).to(device)
+        for module in (False, True):
+            x = x32 if module else x32.to(torch.bfloat16)
+            batched = K.convnext_block(x, p, torch.bfloat16)
+            alone = torch.cat([K.convnext_block(x[i : i + 1], p, torch.bfloat16) for i in range(b)])
+            torch.cuda.synchronize()
+            differ = int((batched.view(torch.int16 if batched.dtype == torch.bfloat16 else torch.int32)
+                          != alone.view(torch.int16 if alone.dtype == torch.bfloat16 else torch.int32)).sum())
+            print(
+                f"convnext_block bf16 {'module' if module else 'pallas'} mode, B={b} {h}x{w}x{c}: "
+                f"{differ} of {batched.numel()} values differ bit for bit from the images run alone",
+                flush=True,
+            )
+            if differ:
+                raise AssertionError(f"bf16 block at B={b} {h}x{w}x{c} is not batch-invariant: {differ} differ")
+
+
 def check_bf16_kernels(gen, device) -> dict:
     """The bf16 phase's kernel part: each bf16 kernel against its bf16 plain
     twin at the main path's shapes (the block at every stage shape of both
@@ -1715,9 +1820,20 @@ def check_bf16_kernels(gen, device) -> dict:
 
     out = {}
     rows = {True: [], False: []}
-    for (h, w, c), blocks in STAGE_SHAPES + PRECISE_STAGE_SHAPES:
+    # Each launch's device ms, summed over the 36 blocks, by mode; the
+    # cuBLAS yardstick over the same 36 blocks' GEMM shapes.
+    split = {True: {}, False: {}}
+    cublas = [0.0, 0.0]
+    cases = STAGE_SHAPES + PRECISE_STAGE_SHAPES + [(shape, 0) for shape in BF16_EXTRA_BLOCK_SHAPES]
+    for (h, w, c), blocks in cases:
         p = random_block_params(c, gen, device)
         x32 = torch.randn(1, h, w, c, generator=gen).to(device)
+        if blocks:
+            gemm1, gemm2 = cublas_gemm_ms(h * w, c, gen, device)
+            cublas[0] += blocks * gemm1
+            cublas[1] += blocks * gemm2
+            print(f"cuBLAS bf16 torch.matmul yardstick {h}x{w}x{c}: gemm1 {gemm1:.4f} ms, gemm2 {gemm2:.4f} ms",
+                  flush=True)
         for module in (False, True):
             x = x32 if module else x32.to(torch.bfloat16)
 
@@ -1731,18 +1847,39 @@ def check_bf16_kernels(gen, device) -> dict:
                 xin = bf16_values(x)
                 return x.double() + (K.convnext_block_plain(xin, pr) - xin)
 
+            label = f"convnext_block {h}x{w}x{c} {'module' if module else 'pallas'} mode"
             r = check_bf16_kernel(
-                f"convnext_block {h}x{w}x{c} {'module' if module else 'pallas'} mode",
+                label,
                 lambda x, p, module=module: K.convnext_block(x, p, torch.bfloat16),
                 lambda x, p, module=module: K.convnext_block_plain_bf16(x, p, module),
                 exact, (x, p), block_work_bf16(h * w, c, 4 if module else 2),
             )
-            rows[module].append((r, blocks))
+            parts = block_bf16_launch_ms(x, p)
+            print(f"{label} launches (device ms a call, torch.profiler): "
+                  + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()), flush=True)
+            if blocks:
+                rows[module].append((r, blocks))
+                for k, v in parts.items():
+                    split[module][k] = split[module].get(k, 0.0) + blocks * v
+    for module, name in ((False, "pallas"), (True, "module")):
+        print(
+            f"convnext_block bf16 {name} mode, both passes (36 blocks): "
+            f"kernel_ms={sum(n * r['ms'] for r, n in rows[module]):.4f} "
+            f"(before the redesign: {BF16_BLOCK_BEFORE_MS[name]}) device ms by launch: "
+            + ", ".join(f"{k}={v:.4f}" for k, v in split[module].items())
+            + f"; cuBLAS yardstick gemm1 {cublas[0]:.4f} + gemm2 {cublas[1]:.4f} ms",
+            flush=True,
+        )
     module = total(rows[True])
     out["convnext_block_bf16"] = total(
         rows[False], module_mode_ms=module["ms"], module_mode_plain_ms=module["plain_ms"],
         module_mode_max_abs_err=module["max_abs_err"], module_mode_bound_ms=module["bound_ms"],
+        launches_ms=split[False], module_mode_launches_ms=split[True],
+        before_redesign_ms=BF16_BLOCK_BEFORE_MS["pallas"],
+        module_mode_before_redesign_ms=BF16_BLOCK_BEFORE_MS["module"],
+        cublas_yardstick_ms={"gemm1": cublas[0], "gemm2": cublas[1]},
     )
+    check_bf16_block_invariance(gen, device)
 
     def rounded(params, names):
         return {k: bf16_values(v) if k in names else v.double() for k, v in params.items()}
@@ -1977,6 +2114,31 @@ def check_bf16(params, image, gen, device) -> tuple:
     return rows, by_path
 
 
+def widths_bound_ms(name: str, b: int, h: int, w: int, c0: int, cm: int, co: int, heads, dtype):
+    """(bound ms, what bounds it) of a neck or heads call of phase widths:
+    the operations at the kernel's rate (f32: three TF32 products a product
+    at the dense TF32 peak; bf16: the dense bf16 peak) against the bytes
+    (each input read once, each output written once, activations and
+    weights in the kernel's operand type, the vectors and the heads' f32
+    maps) at the memory rate, as phases 3b and bf16 count them."""
+    import torch
+
+    npix = b * h * w
+    if name == "fpn_neck_l0":
+        flops, f32_bytes = neck_work(b, h, w, c0, cm, co)
+        bf16_bytes = 2 * (npix * (c0 + cm + co) + c0 * cm + 9 * cm * co) + 4 * 3 * (cm + co)
+    else:
+        flops, f32_bytes = heads_work(b, h, w, cm, heads)
+        fsum = sum(p["step1.conv.weight"].shape[0] for p in heads)
+        outs = sum(p["step2.weight"].shape[0] for p in heads)
+        bf16_bytes = 2 * (npix * cm + 16 * cm * fsum) + 4 * (4 * npix * outs)
+    if dtype == torch.bfloat16:
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bf16_bytes / PEAK_BYTES * 1e3
+    else:
+        t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, f32_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def check_widths(gen, device) -> dict:
     """Phase widths: the neck and both heads kernels at the base and large
     backbones' widths on random weights (B = 2, a 64x48 level 0) against
@@ -2030,10 +2192,13 @@ def check_widths(gen, device) -> dict:
                 err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(gs, ws))
                 rel = err / max(float(w_.float().abs().max()) for w_ in ws)
                 ms = cuda_ms(lambda: kernel(*a), reps=3)
+                plain_ms = cuda_ms(lambda: plain(*a), reps=3)
+                bound, by = widths_bound_ms(name, b, h, w, c0, cm, co, heads, dtype)
                 print(
                     f"widths {preset} {name} {dtype} (C0 {c0}, Cm {cm}, Co {co}, heads F "
                     f"{[q['step1.conv.weight'].shape[0] for q in heads]}) "
                     f"at {tuple(a[0].shape)}: max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
                     f"workspace_chunks={chunks} LAUNCHES={launches}",
                     flush=True,
                 )

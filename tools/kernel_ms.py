@@ -1,16 +1,24 @@
-"""Time the f32 FPN neck level-0, heads and ConvNeXt-block kernels of one
-checkout's ``adascale_torch`` alone, on one CUDA card, at the flagship's
-shapes, random weights from ``--seed``:
+"""Time the f32 FPN neck level-0, heads and ConvNeXt-block kernels, and the
+block's bf16 entries, of one checkout's ``adascale_torch`` alone, on one
+CUDA card, at the flagship's shapes, random weights from ``--seed``:
 
 - the block (``convnext_block``) at the four stage shapes of the rough pass
   of a 1024x768 page (240x192x96 .. 30x24x768);
+- the block in bf16 (``--only block_bf16``; ``convnext_block(x, p,
+  torch.bfloat16)``), in its Pallas mode (bf16 x) and its module mode (f32
+  x), at the eight stage shapes of both passes of that page (the rough
+  pass's and its 1024x832 precise stack's), each launch by name; beside
+  them, as a yardstick that is on no path of the port, one cuBLAS bf16
+  ``torch.matmul`` of each of the block's two GEMM shapes (M x C . C x 4C
+  and M x 4C . 4C x C);
 - the neck level 0 (``fused_neck_l0``) over f0 (1, H, W, 96) and u
   (1, H, W, 384), 384 -> 96, at the rough pass's 240x192 and the precise
   pass's 256x208;
 - the rough heads over (1, 240, 192, 384) and the precise heads over
   (1, 256, 208, 384).
 
-    python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME] [--only neck|heads|block]
+    python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
+        [--only neck|heads|block|block_bf16]
 
 For each case it prints one JSON line with:
 
@@ -23,6 +31,15 @@ For each case it prints one JSON line with:
   kernel name (the neck's two launches apart);
 - ``other_device_ms``: the device time of everything else the call ran on
   the card (copies and fills, for a wrapper that packs per call).
+
+The bf16 block's cases add ``mode``, and after each pass's four shapes a
+line sums the pass (``blocks``: 3, 3, 9, 3 blocks a stage), launch by
+launch; a last line sums both passes (36 blocks) in each mode. The
+yardstick lines carry ``cublas_gemm1_ms`` and ``cublas_gemm2_ms`` (CUDA
+events, warm); a ``host_us_per_call`` line a mode gives the wrapper's host
+time a call (the wall clock over back-to-back calls on a 8x8x384 block,
+whose device work is shorter), which bounds a call from below where the
+device work is shorter still.
 
 Every checkout's wrappers take the same arguments, so two of them (each
 unpacked from ``git archive``) can be compared in one run on one card:
@@ -38,6 +55,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -50,10 +68,19 @@ PRECISE_SHAPE = (1, 256, 208, 384)
 ROUGH_OUT = (1, 1)
 PRECISE_OUT = (1, 2, 4, 4)
 BLOCK_SHAPES = ((1, 240, 192, 96), (1, 120, 96, 192), (1, 60, 48, 384), (1, 30, 24, 768))
+# Both passes' stage shapes (the rough pass's, then the 1024x832 precise
+# stack's) and the blocks each stage runs.
+BLOCK_BF16_SHAPES = {
+    "rough": BLOCK_SHAPES,
+    "precise": ((1, 256, 208, 96), (1, 128, 104, 192), (1, 64, 52, 384), (1, 32, 26, 768)),
+}
+STAGE_BLOCKS = (3, 3, 9, 3)
 # Kernel-name patterns of each wrapper's launches.
 NECK_KERNELS = ("step1_kernel", "step2_kernel")
 HEADS_KERNELS = ("heads_kernel",)
 BLOCK_KERNELS = ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel")
+# The bf16 block's launches, whatever its design names them.
+BLOCK_BF16_KERNELS = ("dw_ln_", "gemm_", "mlp_", "reduce_bf16_kernel")
 
 
 def randn(gen: torch.Generator, *shape, scale=1.0, shift=0.0):
@@ -127,28 +154,31 @@ def short_name(key: str) -> str:
     return found.group(0) if found else key
 
 
-def device_ms(fn, reps: int, patterns):
+def device_ms(fn, reps: int, patterns, tries: int = 3):
     """(kernel ms, kernel ms by name, everything else) per call, device time
-    from a trace of ``reps`` warm calls."""
+    from a trace of ``reps`` warm calls; a trace that comes back without
+    the kernels (the profiler drops a cycle's events now and then) is taken
+    again, up to ``tries`` times."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name, other = {}, 0.0
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
-            continue
-        ms = event.device_time_total / 1e3 / reps
-        if any(p in event.key for p in patterns):
-            name = short_name(event.key)
-            by_name[name] = by_name.get(name, 0.0) + ms
-        else:
-            other += ms
-    if not by_name:
-        raise AssertionError(f"no launch matching {patterns} in the trace")
-    return sum(by_name.values()), by_name, other
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name, other = {}, 0.0
+        for event in prof.key_averages():
+            if event.device_type != DeviceType.CUDA:
+                continue
+            ms = event.device_time_total / 1e3 / reps
+            if any(p in event.key for p in patterns):
+                name = short_name(event.key)
+                by_name[name] = by_name.get(name, 0.0) + ms
+            else:
+                other += ms
+        if by_name:
+            return sum(by_name.values()), by_name, other
+    raise AssertionError(f"no launch matching {patterns} in {tries} traces")
 
 
 def main() -> None:
@@ -157,7 +187,7 @@ def main() -> None:
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--only", choices=("neck", "heads", "block"))
+    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ms: no CUDA device")
@@ -173,7 +203,7 @@ def main() -> None:
     ).stdout.strip()
     print(card, flush=True)
     gen = torch.Generator().manual_seed(args.seed)
-    wanted = {args.only} if args.only else {"neck", "heads", "block"}
+    wanted = {args.only} if args.only else {"neck", "heads", "block", "block_bf16"}
     cases = []
     if "block" in wanted:
         for shape in BLOCK_SHAPES:
@@ -208,6 +238,62 @@ def main() -> None:
             "other_device_ms": other,
             "card": card,
         }), flush=True)
+    if "block_bf16" in wanted:
+        block_bf16(convnext_block, gen, args, card)
+
+
+def block_bf16(convnext_block, gen: torch.Generator, args, card: str) -> None:
+    """The bf16 block in both modes at both passes' stage shapes, each launch
+    by name, summed per pass and over both; the cuBLAS yardstick beside each
+    shape."""
+    totals = {}
+    for which, shapes in BLOCK_BF16_SHAPES.items():
+        for shape, blocks in zip(shapes, STAGE_BLOCKS):
+            b, h, w, c = shape
+            p, x32 = block_params(c, gen), randn(gen, *shape)
+            for mode in ("pallas", "module"):
+                x = x32 if mode == "module" else x32.to(torch.bfloat16)
+                fn = lambda x=x, p=p: convnext_block.convnext_block(x, p, torch.bfloat16)  # noqa: E731
+                kernel, launches, other = device_ms(fn, args.reps, BLOCK_BF16_KERNELS)
+                line = {"label": args.label, "kernel": "convnext_block_bf16", "mode": mode, "pass": which,
+                        "shape": list(shape), "blocks": blocks, "call_ms": call_ms(fn, args.reps),
+                        "kernel_ms": kernel, "launches_ms": launches, "other_device_ms": other, "card": card}
+                print(json.dumps(line), flush=True)
+                for key in ((mode, which), (mode, "both")):
+                    t = totals.setdefault(key, {"kernel_ms": 0.0, "call_ms": 0.0, "launches_ms": {}})
+                    t["kernel_ms"] += blocks * kernel
+                    t["call_ms"] += blocks * line["call_ms"]
+                    for name, ms in launches.items():
+                        t["launches_ms"][name] = t["launches_ms"].get(name, 0.0) + blocks * ms
+            m = b * h * w
+            hb = randn(gen, m, c).to(torch.bfloat16)
+            ub = randn(gen, m, 4 * c).to(torch.bfloat16)
+            w1t = randn(gen, c, 4 * c, scale=c ** -0.5).to(torch.bfloat16)
+            w2t = randn(gen, 4 * c, c, scale=(4 * c) ** -0.5).to(torch.bfloat16)
+            print(json.dumps({
+                "label": args.label, "yardstick": "cublas_bf16_matmul", "pass": which, "shape": list(shape),
+                "cublas_gemm1_ms": call_ms(lambda: torch.matmul(hb, w1t), args.reps),
+                "cublas_gemm2_ms": call_ms(lambda: torch.matmul(ub, w2t), args.reps), "card": card,
+            }), flush=True)
+    # The wrapper's host time a call: back-to-back calls on a shape whose
+    # device work is far shorter, the wall clock over the calls.
+    shape = (1, 8, 8, 384)
+    p, x32 = block_params(shape[-1], gen), randn(gen, *shape)
+    for mode in ("pallas", "module"):
+        x = x32 if mode == "module" else x32.to(torch.bfloat16)
+        for _ in range(20):
+            convnext_block.convnext_block(x, p, torch.bfloat16)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            convnext_block.convnext_block(x, p, torch.bfloat16)
+        host_us = (time.perf_counter() - start) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "mode": mode,
+                          "host_us_per_call": host_us, "shape": list(shape), "card": card}), flush=True)
+    for (mode, which), t in totals.items():
+        print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "mode": mode, "pass": which,
+                          "blocks": 36 if which == "both" else 18, **t, "card": card}), flush=True)
 
 
 if __name__ == "__main__":
