@@ -50,7 +50,6 @@ PyTorch headers, so a build takes seconds.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Dict
 
 import torch
@@ -104,6 +103,15 @@ def build_bf16(module: bool) -> ctypes.CDLL:
     lib.convnext_block_bf16_workspace.restype = ctypes.c_longlong
     lib.convnext_block_bf16_fused_width.argtypes = [ctypes.c_int]
     lib.convnext_block_bf16_fused_width.restype = ctypes.c_int
+    lib.convnext_block_bf16_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    layout = (ctypes.c_int * 4)()
+    lib.convnext_block_bf16_layout(layout)
+    want = (packing.BLOCK_FUSED_MAX_C, packing.BLOCK_HIDDEN_CHUNK, *packing.BLOCK_TILE)
+    if tuple(layout) != want:
+        raise RuntimeError(
+            f"convnext_block_bf16: the library's widest fused C, hidden chunk and tile {tuple(layout)} "
+            f"are not the packing's {want}"
+        )
     for c in range(8, MAX_CHANNELS + 1, 8):
         if lib.convnext_block_bf16_fused_width(c) != packing.block_fused_width(c):
             raise RuntimeError(f"convnext_block_bf16: the library's layout for C = {c} is not the packing's")
@@ -111,16 +119,15 @@ def build_bf16(module: bool) -> ctypes.CDLL:
 
 
 # The loaded bf16 libraries by mode; the module mode's GELU table by card;
-# the bf16 launch's per-parameter-set arguments (_bf16_params), by the id of
-# the set's first tensor and dropped with it; multiprocessors by card and
-# workspace sizes by shape.
+# a bf16 launch's multiprocessors and workspace floats by card and shape
+# (asking for them took 2-4 us of a call's host time beside an H100,
+# tools/kernel_ms.py --only block_bf16_host).
 _BF16_LIBS: Dict[bool, ctypes.CDLL] = {}
 _GELU_TABLES: Dict[int, torch.Tensor] = {}
-_BF16_PARAMS: Dict[int, tuple] = {}
-_SMS: Dict[int, int] = {}
-_BF16_WORKSPACE: Dict[tuple, int] = {}
-# The current stream's handle without building a Stream object (CUDA builds
-# of PyTorch have it; its compiler's generated launchers use it), else None.
+_BF16_SHAPES: Dict[tuple, tuple] = {}
+# The current stream's handle without building a Stream object (3-6 us a
+# call less beside an H100, the same tool; CUDA builds of PyTorch have it),
+# else None.
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
@@ -228,21 +235,6 @@ class TrainableBlock(torch.autograd.Function):
             return torch.autograd.grad(out, inputs, grad)
 
 
-def bf16_weights(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """W1 and W2 packed for the bf16 kernel (``packing.pack_block_bf16``) and
-    the depthwise taps tap-major, (49, C) f32 (``dw_w``: a warp reads a tap
-    of neighbouring channels as one run), once per parameter set
-    (``packing.cached``)."""
-    up, down, dw = p["mlp_up.weight"], p["mlp_down.weight"], p["dwconv.weight"]
-
-    def pack():
-        packed = packing.pack_block_bf16(up.detach(), down.detach())
-        packed["dw_w"] = dw.detach().reshape(dw.shape[0], 49).t().contiguous()
-        return packed
-
-    return packing.cached([up, down, dw], "block_bf16", pack)
-
-
 def _param_shapes(c: int) -> Dict[str, tuple]:
     return {
         "dwconv.weight": (c, 1, 7, 7),
@@ -257,38 +249,28 @@ def _param_shapes(c: int) -> Dict[str, tuple]:
     }
 
 
-def _bf16_params(p: Dict[str, torch.Tensor], c: int, device: torch.device) -> tuple:
-    """The bf16 launch's parameter pointers, in the kernel's order (dw_w,
-    dw_b, ln_g, ln_b, w1, b1, w2, b2, scale; the taps, W1 and W2 packed),
-    checked and packed once per parameter set: reused while every tensor of
-    the set is the same object with the same version and storage, on the
-    same device. A serving call then spends a few microseconds here, not
-    the checks' tens. Returns (pointers, tensors they point into that the
-    set does not hold)."""
+# The bf16 launch's parameters, in the kernel's argument order.
+BF16_ARGS = ("dw_w", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "scale")
+
+
+def bf16_weights(p: Dict[str, torch.Tensor], c: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The bf16 launch's parameters by ``BF16_ARGS``, in its order: checked
+    against C's shapes on ``device``, the depthwise taps tap-major, (49, C)
+    f32 (a warp reads a tap of neighbouring channels as one run), W1 and W2
+    packed by ``packing.pack_block_bf16``, the vectors contiguous. Checked
+    and built once per parameter set, C and device (``packing.cached``), so
+    that a serving call skips the checks."""
     ts = [p[name] for name in PARAM_NAMES]
-    try:
-        state = (device, c, *[t._version for t in ts], *[t.data_ptr() for t in ts])
-    except RuntimeError:  # inference tensors carry no version counter: no reuse
-        state = None
-    key = id(ts[0])
-    entry = _BF16_PARAMS.get(key) if state is not None else None
-    if entry is not None and entry[1] == state and all(r() is t for r, t in zip(entry[0], ts)):
-        return entry[2]
-    for name, shape in _param_shapes(c).items():
-        _nvcc.check_param(name, p[name], shape, device)
-    q = {name: p[name].contiguous() for name in PARAM_NAMES}
-    wb = bf16_weights(p)
-    ptrs = tuple(
-        wb[name].data_ptr() if name in wb else q[key_].data_ptr()
-        for name, key_ in zip(("dw_w", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "scale"), PARAM_NAMES)
-    )
-    value = (ptrs, [wb] + [q[name] for name in PARAM_NAMES if q[name] is not p[name]])
-    if state is not None:
-        # Dropped with the set's first tensor.
-        refs = [weakref.ref(ts[0], lambda _, key=key: _BF16_PARAMS.pop(key, None))]
-        refs += [weakref.ref(t) for t in ts[1:]]
-        _BF16_PARAMS[key] = (refs, state, value)
-    return value
+
+    def pack():
+        for name, shape in _param_shapes(c).items():
+            _nvcc.check_param(name, p[name], shape, device)
+        args = dict(zip(BF16_ARGS, (t.detach().contiguous() for t in ts)))
+        args["dw_w"] = p["dwconv.weight"].detach().reshape(c, 49).t().contiguous()
+        args.update(packing.pack_block_bf16(p["mlp_up.weight"].detach(), p["mlp_down.weight"].detach()))
+        return args
+
+    return packing.cached(ts, ("block_bf16", c, device), pack)
 
 
 def gelu_table(lib: ctypes.CDLL, index: int) -> torch.Tensor:
@@ -321,28 +303,29 @@ def _launch_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool) -> t
         "convnext_block x", x, x.device, (torch.float32 if module else torch.bfloat16,)
     )
     b, h, w, c = x.shape
-    if c > MAX_CHANNELS or h > 65535 or b > 65535:
-        raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
+    if c % 8 or c > MAX_CHANNELS or h > 65535 or b > 65535:
+        raise ValueError(
+            f"convnext_block: unsupported shape {tuple(x.shape)} in bf16 (want C % 8 == 0, C <= {MAX_CHANNELS})"
+        )
     lib = build_bf16(module)
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(index)
-    if sms is None:
-        sms = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    ptrs, _keep = _bf16_params(p, c, x.device)
-    key = (b, h, w, c, sms)
-    floats = _BF16_WORKSPACE.get(key)
-    if floats is None:
-        floats = _BF16_WORKSPACE[key] = lib.convnext_block_bf16_workspace(b, h, w, c, sms)
+    args = bf16_weights(p, c, x.device)
+    index = x.device.index
+    key = (index, b, h, w, c)
+    if key not in _BF16_SHAPES:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _BF16_SHAPES[key] = (sms, lib.convnext_block_bf16_workspace(b, h, w, c, sms))
+    sms, floats = _BF16_SHAPES[key]
     table = gelu_table(lib, index).data_ptr() if module else 0
     workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     stream = _raw_stream(index) if _raw_stream else torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), *ptrs[:9], table, workspace.data_ptr(), out.data_ptr(), b, h, w, c, sms, stream)
+    launch = (x.data_ptr(), *(t.data_ptr() for t in args.values()), table, workspace.data_ptr(),
+              out.data_ptr(), b, h, w, c, sms, stream)
     if index == torch.cuda.current_device():
-        rc = lib.convnext_block_bf16(*args)
+        rc = lib.convnext_block_bf16(*launch)
     else:
         with torch.cuda.device(index):
-            rc = lib.convnext_block_bf16(*args)
+            rc = lib.convnext_block_bf16(*launch)
     if rc != 0:
         raise RuntimeError(f"convnext_block_bf16 launch failed: CUDA error {rc}")
     LAUNCHES_BF16 += 1

@@ -67,8 +67,6 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include <mutex>
-
 #include "conv_gemm.cuh"
 
 namespace block_bf16 {
@@ -1038,29 +1036,6 @@ inline cudaError_t make_tmap(CUtensorMap* map, const bf16* A, long long M, int K
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// make_tmap through a few recent maps (an encode is a host API call, and a
-// serving run asks again and again for the same workspaces and shapes).
-inline cudaError_t cached_tmap(CUtensorMap* map, const bf16* A, long long M, int K) {
-  struct Entry {
-    const bf16* a;
-    long long m;
-    int k;
-    CUtensorMap map;
-  };
-  static Entry entries[16];
-  static int next;
-  static std::mutex lock;
-  std::lock_guard<std::mutex> guard(lock);
-  for (const Entry& entry : entries)
-    if (entry.a == A && entry.m == M && entry.k == K) {
-      *map = entry.map;
-      return cudaSuccess;
-    }
-  const cudaError_t e = make_tmap(map, A, M, K);
-  if (e == cudaSuccess) entries[next++ % 16] = {A, M, K, *map};
-  return e;
-}
-
 template <int EPI, bool MODULE, typename XT>
 cudaError_t launch_gemm(const bf16* A, const bf16* Bp, long long M, int N, int K, int splits,
                         int span, const float* bias, const XT* x, const float* scale, void* out,
@@ -1069,7 +1044,7 @@ cudaError_t launch_gemm(const bf16* A, const bf16* Bp, long long M, int N, int K
   cudaError_t e = launch_prepare<gemm_wgmma_kernel<EPI, MODULE, XT>>(GemmRing::SMEM);
   if (e != cudaSuccess) return e;
   CUtensorMap map;
-  e = cached_tmap(&map, A, M, K);
+  e = make_tmap(&map, A, M, K);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)cdiv(N, kBN), (unsigned)cdiv(M, kBM), splits);
   kernel<<<grid, kConsumers, GemmRing::SMEM, stream>>>(map, Bp, M, N, K, span, bias, x, scale,

@@ -631,6 +631,17 @@ extern "C" int convnext_block_bf16_fused_width(int C) {
   return C <= block_bf16::kFusedMaxC ? block_bf16::fused_width(C) : 0;
 }
 
+// The rest of that layout, which kernels/convnext_block.py::build_bf16
+// holds against packing.py at load: the fused form's widest C and hidden
+// units a chunk, then the two-GEMM form's tile (output columns by K), into
+// out[0..3].
+extern "C" void convnext_block_bf16_layout(int* out) {
+  out[0] = block_bf16::kFusedMaxC;
+  out[1] = block_bf16::kNH;
+  out[2] = block_bf16::kBN;
+  out[3] = block_bf16::kBK;
+}
+
 // Fills the module mode's GELU table (convnext_block_bf16_gelu_entries()
 // bf16 values at table) on stream and adds to *bad (device memory) the
 // bf16 values whose lookup differs from the GELU it stands for; the caller

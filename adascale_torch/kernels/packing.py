@@ -21,7 +21,6 @@ import weakref
 from typing import Callable, Dict, Hashable, Sequence
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 # The packed layout's constants, as csrc/conv_gemm.cuh reads them: input
 # channels a kernel stage (kKC), and the channel each wgmma K slot of a group
@@ -29,9 +28,10 @@ from torch.utils.weak import WeakIdKeyDictionary
 # and t + 4, with one 8-byte read). The CPU tests import both from here.
 KC = 32
 KSLOT = (0, 2, 4, 6, 1, 3, 5, 7)
-# One pack per first tensor of its parameter set, held weakly: it goes with
-# the model. The entry's guards name every tensor it was packed from.
-_PACKED = WeakIdKeyDictionary()
+# One pack per first tensor of its parameter set, by that tensor's id and
+# dropped with it: (weak references to every tensor it was packed from,
+# tag, their states, the pack).
+_PACKED: Dict[int, tuple] = {}
 # Packs built (calls of a ``pack``), so that a run can show that warm calls
 # build none.
 PACKS = 0
@@ -158,23 +158,23 @@ def cached(
     lives, and reused for the same ``tag`` while every tensor is the same
     object with the same ``_version`` (an in-place update repacks), storage
     (``param.data = new`` repacks), device and shape. Inference tensors
-    carry no version counter and are packed every call."""
+    carry no version counter and are packed every call. A reuse costs a
+    few microseconds of host time (``tools/kernel_ms.py --only
+    block_bf16_host``)."""
     global PACKS
-    if any(t.is_inference() for t in tensors):
+    try:
+        state = [(t._version, t.data_ptr(), t.get_device(), t.shape) for t in tensors]
+    except RuntimeError:  # an inference tensor
         PACKS += 1
         return pack()
-
-    def state(t):
-        return t._version, t.data_ptr(), t.device, tuple(t.shape)
-
-    entry = _PACKED.get(tensors[0])
+    key = id(tensors[0])
+    entry = _PACKED.get(key)
     if entry is not None:
-        saved_tag, guards, packed = entry
-        if saved_tag == tag and len(guards) == len(tensors) and all(
-            ref() is t and saved == state(t) for (ref, saved), t in zip(guards, tensors)
-        ):
+        refs, saved_tag, saved, packed = entry
+        if saved_tag == tag and saved == state and all(r() is t for r, t in zip(refs, tensors)):
             return packed
     PACKS += 1
     packed = pack()
-    _PACKED[tensors[0]] = (tag, [(weakref.ref(t), state(t)) for t in tensors], packed)
+    refs = [weakref.ref(tensors[0], lambda _, key=key: _PACKED.pop(key, None))]
+    _PACKED[key] = (refs + [weakref.ref(t) for t in tensors[1:]], tag, state, packed)
     return packed

@@ -481,27 +481,39 @@ def check_kernel(label: str, kernel, plain, args, exact_args, work, reps: int = 
             "rel64": rel64}
 
 
-def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False):
+def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int = 3):
     """Device ms per call of each kernel that ``fn`` runs on the card, by its
-    name in a torch.profiler trace of ``reps`` warm calls. ``once_a_call``:
-    each kernel launches once a call, so its mean launch is its ms a call,
-    which a trace that lost some of its events does not bias (late in a
-    run of every phase the profiler lost about half of phase bf16's)."""
+    name in a torch.profiler trace of ``reps`` warm calls. The profiler
+    loses launches now and then (a run of every phase lost about half of
+    phase bf16's; a trace may keep none), and this reads a trace as
+    ``tools/kernel_ms.py`` does: ``once_a_call``, each kernel launches once
+    a call, so its mean launch is its ms a call, which a partial loss does
+    not bias; a trace that kept no launch is taken again, up to ``tries``
+    times. A kernel whose launches in the trace are not a whole multiple
+    of ``reps`` is printed, so that every loss shows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # Host-side entries carry their kernels' time too: device ones only.
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        print(f"torch.profiler kept no launch of {reps} calls; tracing again", flush=True)
     ms = {}
-    for event in prof.key_averages():
-        if event.device_type == DeviceType.CUDA:  # host-side entries carry their kernels' time too
-            calls = event.count if once_a_call else reps
-            ms[event.key] = ms.get(event.key, 0.0) + event.device_time_total / 1e3 / calls
+    for event in events:
+        if event.count % reps or (once_a_call and event.count > reps):
+            print(f"torch.profiler kept {event.count} launches of {event.key[:80]} over {reps} calls",
+                  flush=True)
+        calls = event.count if once_a_call else reps
+        ms[event.key] = ms.get(event.key, 0.0) + event.device_time_total / 1e3 / calls
     return ms
 
 
@@ -647,7 +659,7 @@ def neck_launch_ms(f0, u, p):
     from adascale_torch.kernels import fpn_neck
 
     parts = {"step1": 0.0, "step2": 0.0}
-    for key, ms in kernel_device_ms(lambda: fpn_neck.fused_neck_l0(f0, u, p)).items():
+    for key, ms in kernel_device_ms(lambda: fpn_neck.fused_neck_l0(f0, u, p), once_a_call=True).items():
         for part in parts:
             if f"neck_{part}_kernel" in key:
                 parts[part] += ms
@@ -1875,8 +1887,6 @@ def check_bf16_kernels(gen, device) -> dict:
         rows[False], module_mode_ms=module["ms"], module_mode_plain_ms=module["plain_ms"],
         module_mode_max_abs_err=module["max_abs_err"], module_mode_bound_ms=module["bound_ms"],
         launches_ms=split[False], module_mode_launches_ms=split[True],
-        before_redesign_ms=BF16_BLOCK_BEFORE_MS["pallas"],
-        module_mode_before_redesign_ms=BF16_BLOCK_BEFORE_MS["module"],
         cublas_yardstick_ms={"gemm1": cublas[0], "gemm2": cublas[1]},
     )
     check_bf16_block_invariance(gen, device)
@@ -2488,7 +2498,7 @@ def main() -> None:
         "precise_heads": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_fused"),
         "convnext_block_trainable": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:340", "train_step"),
         # The bf16 kernels, on the fused bf16 detect() (Pallas-mode blocks).
-        "convnext_block_bf16": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:290", "detect_bf16_fpn_fused"),
+        "convnext_block_bf16": ("block_bf16.cuh", "adascale/ops/pallas/convnext_block.py:290", "detect_bf16_fpn_fused"),
         "fpn_neck_l0_bf16": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_bf16_fpn_fused"),
         "fpn_heads_bf16": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_bf16_fpn_fused"),
         "precise_heads_bf16": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_bf16_fpn_fused"),

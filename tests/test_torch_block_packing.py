@@ -137,7 +137,7 @@ def test_form_and_width_by_channels():
 
 def test_depthwise_taps_are_packed_tap_major():
     p = _block_params(96)
-    packed = K.bf16_weights(p)["dw_w"]
+    packed = K.bf16_weights(p, 96, torch.device("cpu"))["dw_w"]
     assert packed.shape == (49, 96) and packed.is_contiguous()
     for t in (0, 17, 48):
         torch.testing.assert_close(packed[t], p["dwconv.weight"][:, 0, t // 7, t % 7], rtol=0, atol=0)
@@ -181,22 +181,23 @@ def _block_params(c, seed=0):
 
 def test_launch_arguments_are_reused_per_parameter_set_and_rebuilt_on_change():
     """The bf16 launch checks and packs a parameter set once: the same
-    tensors at the same versions give the same pointers without a new pack;
-    an in-place update, or another tensor, rebuilds them."""
+    tensors at the same versions give the same arguments without a new
+    pack; an in-place update, or another tensor, rebuilds them; a tensor of
+    the wrong shape is refused."""
     p = _block_params(96)
     dev = torch.device("cpu")
     packs = packing.PACKS
-    ptrs, _ = K._bf16_params(p, 96, dev)
-    assert packing.PACKS == packs + 1
-    again, _ = K._bf16_params(p, 96, dev)
-    assert again == ptrs and packing.PACKS == packs + 1
+    args = K.bf16_weights(p, 96, dev)
+    assert list(args) == list(K.BF16_ARGS) and packing.PACKS == packs + 1
+    assert K.bf16_weights(p, 96, dev) is args and packing.PACKS == packs + 1
     with torch.no_grad():
         p["mlp_up.weight"].mul_(2.0)
-    changed, keep = K._bf16_params(p, 96, dev)
+    changed = K.bf16_weights(p, 96, dev)
     assert packing.PACKS == packs + 2
-    assert changed[4] == keep[0]["w1"].data_ptr() != ptrs[4]
+    assert changed["w1"].data_ptr() != args["w1"].data_ptr()
+    torch.testing.assert_close(changed["w1"], pack_block_bf16(p["mlp_up.weight"], p["mlp_down.weight"])["w1"])
     p["ln.weight"] = p["ln.weight"].clone()
-    moved, _ = K._bf16_params(p, 96, dev)
-    assert moved[2] == p["ln.weight"].data_ptr()
+    moved = K.bf16_weights(p, 96, dev)
+    assert moved["ln_g"].data_ptr() == p["ln.weight"].data_ptr()
     with pytest.raises(ValueError, match="ln.bias"):
-        K._bf16_params(dict(p, **{"ln.bias": torch.zeros(95)}), 96, dev)
+        K.bf16_weights(dict(p, **{"ln.bias": torch.zeros(95)}), 96, dev)

@@ -18,7 +18,7 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   (1, 256, 208, 384).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16]
+        [--only neck|heads|block|block_bf16|block_bf16_host]
 
 For each case it prints one JSON line with:
 
@@ -27,8 +27,8 @@ For each case it prints one JSON line with:
   (such as packing the weights) counts where it outlasts the device work;
 - ``kernel_ms``: the device time of the kernel's launches per call, from a
   ``torch.profiler`` trace of warm calls (``key_averages()``, kernels whose
-  name holds one of the case's patterns), and ``launches_ms``: the same by
-  kernel name (the neck's two launches apart);
+  name holds one of the case's patterns, each one's mean launch), and
+  ``launches_ms``: the same by kernel name (the neck's two launches apart);
 - ``other_device_ms``: the device time of everything else the call ran on
   the card (copies and fills, for a wrapper that packs per call).
 
@@ -40,6 +40,12 @@ events, warm); a ``host_us_per_call`` line a mode gives the wrapper's host
 time a call (the wall clock over back-to-back calls on a 8x8x384 block,
 whose device work is shorter), which bounds a call from below where the
 device work is shorter still.
+
+``--only block_bf16_host`` prints one line instead: the bf16 block
+wrapper's host time a call on an 8x8x384 block, whole and step by step
+(each per-call step beside a dict lookup that would cache it, and the
+checks that the per-parameter-set pack cache skips), each the median of
+five runs of back-to-back calls on the wall clock.
 
 Every checkout's wrappers take the same arguments, so two of them (each
 unpacked from ``git archive``) can be compared in one run on one card:
@@ -156,9 +162,13 @@ def short_name(key: str) -> str:
 
 def device_ms(fn, reps: int, patterns, tries: int = 3):
     """(kernel ms, kernel ms by name, everything else) per call, device time
-    from a trace of ``reps`` warm calls; a trace that comes back without
-    the kernels (the profiler drops a cycle's events now and then) is taken
-    again, up to ``tries`` times."""
+    from a trace of ``reps`` warm calls. The profiler loses launches now
+    and then, and this reads a trace as ``chip_smoke.py::kernel_device_ms``
+    does: each kernel of a case launches once a call, so its mean launch is
+    its ms a call, which a partial loss does not bias; a trace that kept
+    none of the case's kernels is taken again, up to ``tries`` times. A
+    kernel whose launches in the trace are not ``reps`` is printed, so that
+    every loss shows."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -166,19 +176,23 @@ def device_ms(fn, reps: int, patterns, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name, other = {}, 0.0
-        for event in prof.key_averages():
-            if event.device_type != DeviceType.CUDA:
-                continue
-            ms = event.device_time_total / 1e3 / reps
-            if any(p in event.key for p in patterns):
-                name = short_name(event.key)
-                by_name[name] = by_name.get(name, 0.0) + ms
-            else:
-                other += ms
-        if by_name:
-            return sum(by_name.values()), by_name, other
-    raise AssertionError(f"no launch matching {patterns} in {tries} traces")
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any(p in e.key for e in events for p in patterns):
+            break
+        print(f"torch.profiler kept no launch matching {patterns}; tracing again", file=sys.stderr, flush=True)
+    else:
+        raise AssertionError(f"no launch matching {patterns} in {tries} traces")
+    by_name, other = {}, 0.0
+    for event in events:
+        if any(p in event.key for p in patterns):
+            if event.count != reps:
+                print(f"torch.profiler kept {event.count} launches of {event.key[:80]} over {reps} calls",
+                      file=sys.stderr, flush=True)
+            name = short_name(event.key)
+            by_name[name] = by_name.get(name, 0.0) + event.device_time_total / 1e3 / event.count
+        else:
+            other += event.device_time_total / 1e3 / reps
+    return sum(by_name.values()), by_name, other
 
 
 def main() -> None:
@@ -187,7 +201,7 @@ def main() -> None:
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16"))
+    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ms: no CUDA device")
@@ -203,6 +217,9 @@ def main() -> None:
     ).stdout.strip()
     print(card, flush=True)
     gen = torch.Generator().manual_seed(args.seed)
+    if args.only == "block_bf16_host":
+        block_bf16_host(convnext_block, gen, args, card)
+        return
     wanted = {args.only} if args.only else {"neck", "heads", "block", "block_bf16"}
     cases = []
     if "block" in wanted:
@@ -294,6 +311,68 @@ def block_bf16(convnext_block, gen: torch.Generator, args, card: str) -> None:
     for (mode, which), t in totals.items():
         print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "mode": mode, "pass": which,
                           "blocks": 36 if which == "both" else 18, **t, "card": card}), flush=True)
+
+
+def host_us(fn, n: int = 5000) -> float:
+    """Microseconds of host time a call of ``fn``: the median of five runs
+    of ``n`` back-to-back calls on the wall clock."""
+    for _ in range(100):
+        fn()
+    runs = []
+    for _ in range(5):
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - start) / n * 1e6)
+    return sorted(runs)[2]
+
+
+def block_bf16_host(convnext_block, gen: torch.Generator, args, card: str) -> None:
+    """The bf16 block wrapper's host time a call, whole and by step, on
+    this checkout's wrapper (``--root`` is not read): each step that the
+    wrapper does per call beside what a cache of it would cost instead (a
+    dict lookup; ``raw_stream`` for ``current_stream``), and the checks
+    that the per-parameter-set cache skips. One JSON line."""
+    from adascale_torch.kernels import _nvcc, packing
+
+    shape = (1, 8, 8, 384)
+    b, h, w, c = shape
+    p, x32 = block_params(c, gen), randn(gen, *shape)
+    dev = x32.device
+    index = dev.index
+    lib = convnext_block.build_bf16(False)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    cache = {index: sms}
+    xb = x32.to(torch.bfloat16)
+    steps = {
+        "wrapper_pallas": lambda: convnext_block.convnext_block(xb, p, torch.bfloat16),
+        "wrapper_module": lambda: convnext_block.convnext_block(x32, p, torch.bfloat16),
+        "parameter_set_cache_hit": lambda: convnext_block.bf16_weights(p, c, dev),
+        "parameter_checks_skipped": lambda: [
+            _nvcc.check_param(name, p[name], s, dev) for name, s in convnext_block._param_shapes(c).items()
+        ],
+        "device_properties": lambda: torch.cuda.get_device_properties(index).multi_processor_count,
+        "dict_lookup": lambda: cache.get(index),
+        "workspace_size": lambda: lib.convnext_block_bf16_workspace(b, h, w, c, sms),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "device_guard": lambda: _guard(index),
+        "check_activation": lambda: _nvcc.check_activation("x", xb, dev, (torch.bfloat16,)),
+        "two_empties": lambda: (torch.empty(4096, dtype=torch.float32, device=dev), torch.empty_like(xb)),
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        steps["raw_stream"] = lambda: raw(index)
+    packs = packing.PACKS
+    result = {name: host_us(fn, 1000 if name.startswith("wrapper") else 5000) for name, fn in steps.items()}
+    torch.cuda.synchronize()
+    print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "shape": list(shape),
+                      "host_us": result, "packs_during_timing": packing.PACKS - packs, "card": card}),
+          flush=True)
+
+
+def _guard(index: int) -> None:
+    with torch.cuda.device(index):
+        pass
 
 
 if __name__ == "__main__":
