@@ -64,15 +64,21 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "conv_gemm.cuh"
+#include "conv_tma.cuh"
 
 namespace block_bf16 {
 
 using conv_gemm::bf16;
 using conv_gemm::round_bf16;
+using conv_tma::bulk_copy;
+using conv_tma::desc_sw128;
+using conv_tma::encode_tiled;
+using conv_tma::keep_regs;
+using conv_tma::kK16Sw128;
+using conv_tma::mbar_arrive;
+using conv_tma::mbar_expect;
+using conv_tma::tma_load_2d;
 
 constexpr int kBM = 128;                        // pixel rows a block: two warpgroups of 64
 constexpr int kConsumers = 256;                 // the two consumer warpgroups
@@ -119,10 +125,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t saddr, uint32_t sbo) {
 }
 constexpr uint64_t kK16 = 256 >> 4;
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // An f32 pair read once: the empty asm stands for a change of the value, so
 // the compiler keeps it in registers instead of reading it again for each
 // use (left to itself it re-read the depthwise taps for every product).
@@ -135,14 +137,6 @@ __device__ __forceinline__ float2 load_once(const float* p) {
 // Barrier `id` (1 + warpgroup) over one warpgroup's 128 threads.
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// Keeps registers that an in-flight wgmma reads alive, and untouched, up to
-// this point.
-template <int K>
-__device__ __forceinline__ void keep_regs(uint32_t (&r)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // wgmma.mma_async m64nNk16 bf16 with f32 sums; d's register order is the one of
@@ -798,38 +792,6 @@ struct GemmRing {
   static_assert(kStages - kAhead >= 1, "ring: a stage is reloaded after its products are done");
 };
 
-// Descriptor of a K-major bf16 tile that TMA wrote with the 128-byte
-// swizzle: rows of 64 K (128 bytes), the 16-byte pieces of row r XORed with
-// r % 8, the next 8 rows 1024 bytes on. Adding 2 moves it 16 K (32 bytes)
-// on within the row, as the swizzle is applied to the final address.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)(((saddr & 0x3ffffu) >> 4) | (1u << 16)) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-constexpr uint64_t kK16Sw128 = 32 >> 4;
-
-// One TMA copy of the (64 K x 128 rows) box at (k0, m0) of the tensor map
-// into shared memory at dst, completing on bar; rows and K past the tensor
-// arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int k0, int m0,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
-      "%3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(m0), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // C[M, N] = A[M, K] . B[N, K]^T, bf16 operands, f32 sums, and the epilogue:
 //   kGelu:     out (bf16)[m, n] = gelu_up(acc, bias[n])
 //   kResidual: out (XT)[m, n] = residual_pair(acc)
@@ -991,7 +953,6 @@ inline long long workspace_floats(long long M, int C, const Plan& p) {
   return M * C * 2 + (p.splits > 1 ? M * C * p.splits : 0);
 }
 
-
 template <int CP, bool MODULE, typename XT>
 cudaError_t launch_fused(const bf16* h, const bf16* wpack, const float* b1, const float* b2,
                          const float* scale, const XT* x, XT* out, long long M, int C,
@@ -1003,21 +964,6 @@ cudaError_t launch_fused(const bf16* h, const bf16* wpack, const float* b1, cons
                                                                              scale, x, out, M, C,
                                                                              gtab);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, found once through the runtime's entry-point
-// lookup (the library links no libcuda).
-inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
 }
 
 // The tensor map of a row-major (M, K) bf16 matrix in boxes of 64 K x 128

@@ -44,8 +44,9 @@
 //     the ring, then ln_stats a row at a time), so their GELUs do not need
 //     the accumulators' registers.
 //
-// The bf16 main loop (mainloop_bf16) computes the same sums from bf16
-// operands, one wgmma.m64nNk16.f32.bf16.bf16 a 16-deep step (no split: a
+// The bf16 main loop (mainloop_bf16; the wide neck and heads, whose
+// features run in slices over chunks of flattened pixels; conv_tma.cuh has
+// the one-pass kernels' loop) computes the same sums from bf16 operands, one wgmma.m64nNk16.f32.bf16.bf16 a 16-deep step (no split: a
 // bf16 product is exact in f32). Its stage holds B (NB x 32, packed by the
 // wrapper in the same core-matrix order, 8 bf16 a core-matrix row, K in its
 // natural order) and A (BM x 32) laid out in core matrices too: one 16-byte

@@ -51,12 +51,14 @@
 //
 // bf16 (the JAX package's compute_dtype="bfloat16"): x and the collapsed
 // taps in bf16 (collapsed in f32, then rounded, as the Pallas kernel packs
-// them), products accumulated in f32 (conv_gemm.cuh's mainloop_bf16), the
-// bias, LayerNorm, GELU and projection in f32, as the Pallas kernels keep
-// them; the precise heads (ROUND_Y) round the GELU output to bf16 before
-// their projection, whose weights the wrapper rounds to bf16, as the Pallas
-// precise-heads kernel does (the rough heads' projection stays f32 there).
-// The outputs are f32 either way.
+// them), products accumulated in f32, the bias, LayerNorm, GELU and
+// projection in f32, as the Pallas kernels keep them; the precise heads
+// (ROUND_Y) round the GELU output to bf16 before their projection, whose
+// weights the wrapper rounds to bf16, as the Pallas precise-heads kernel
+// does (the rough heads' projection stays f32 there). The outputs are f32
+// either way. Heads that fit the tile run heads_tma_kernel (below) on
+// conv_tma.cuh's persistent, TMA-fed loop; wider ones the two passes above
+// on conv_gemm.cuh's mainloop_bf16.
 
 #pragma once
 
@@ -66,6 +68,7 @@
 #include <algorithm>
 
 #include "conv_gemm.cuh"
+#include "conv_tma.cuh"
 
 namespace fpn_head {
 
@@ -322,6 +325,185 @@ int launch_heads(const T* x, const T* w, const float* vec, const float* w2, cons
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// bf16, one pass (F <= N): on conv_tma.cuh's loop.
+//
+// A unit is one (head, phase) of a 128-pixel tile (8 rows x 16 columns of
+// one image): each consumer warpgroup takes 4 of the rows by all N features
+// (N0 + N1 wgmma widths), over ceil(C / 64) chunks of the phase's 2x2
+// window, one 9 x 17 halo box a chunk serving its 4 taps. The epilogue runs
+// on the accumulators' registers: bias, LayerNorm over the head's F
+// features (a row's features lie in its quad), GELU (rounded to bf16 where
+// ROUND_Y), the projection to M <= 4 outputs, and the interleaved write;
+// the producer meanwhile loads the next unit. Every head's vectors sit in
+// shared memory for the block's life.
+
+template <int N>
+using HeadsLoop =
+    conv_tma::Loop<8, 2, 2, N, Layout<bf16, N>::N0, Layout<bf16, N>::N1, false, 2, 6>;
+
+template <int N>
+constexpr int heads_tma_smem() {
+  return HeadsLoop<N>::HEAD + kMaxHeads * (3 + kMaxOut) * N * 4;
+}
+
+// x through xmap (B, H, W, C as conv_tma::make_map, boxes of HeadsLoop's
+// halo); w (heads, 4 phases, 4 taps, ceil(C/64) chunks, N/8, 8 rows, 128
+// bytes of K in the 128-byte swizzle); vec, w2, b2 and out as
+// heads_kernel's.
+template <int N, bool ROUND_Y>
+__global__ void __launch_bounds__(conv_tma::kThreads, 1)
+heads_tma_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ w,
+                 const float* __restrict__ vec, const float* __restrict__ w2,
+                 const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes,
+                 conv_tma::Geo g, int heads, int Mtot) {
+  using L = HeadsLoop<N>;
+  constexpr int N0 = L::N0, N1 = L::N1, kV = (3 + kMaxOut) * N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
+  // Each head's bias, LN scale, LN bias (N each), then its projection
+  // (kMaxOut x N).
+  float* sv = conv_tma::after_ring<L>(smem, ring);
+  for (int i = tid; i < heads * kV; i += conv_tma::kThreads) {
+    const int h = i / kV, j = i - h * kV;
+    sv[i] = j < 3 * N ? vec[h * 3 * N + j] : w2[h * kMaxOut * N + j - 3 * N];
+  }
+  conv_tma::init_bars<L>(bars);
+  __syncthreads();
+  const int units = g.tiles * g.sets;
+  if (tid >= conv_tma::kConsumers) {
+    conv_tma::producer_regs();
+    auto taps_of = [](int set) {
+      const int phase = set % 4;
+      return Taps{4, 2, phase / 2 - 1, phase % 2 - 1};
+    };
+    if (tid == conv_tma::kConsumers) conv_tma::produce<L>(&xmap, w, g, taps_of, ring, bars);
+    return;
+  }
+  conv_tma::consumer_regs();
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32, t4 = lane % 4;
+  const int row0 = 64 * wg + 16 * warp + lane / 4;  // the tile row of this thread's first
+  float acc0[N0 / 2], acc1[N1 / 2];
+  conv_tma::Cursor cur;
+  for (int un = blockIdx.x; un < units; un += gridDim.x) {
+    const conv_tma::Unit u = conv_tma::unit_of<8>(g, un);
+    conv_tma::consume<L>(ring, bars, g.chunks, cur, 4 * wg, 0, acc0, acc1);
+    const int head = u.set / 4, phase = u.set % 4, pa = phase / 2, pb = phase % 2;
+    int F, M, moff;
+    head_sizes(sizes, head, F, M, moff);
+    const float* hv = sv + head * kV;
+    // z = acc + bias; register i holds feature n0 + 8 (i / 4) + 2 t4 + i % 2
+    // of row (i / 2) % 2.
+    float sum[2] = {0.0f, 0.0f};
+    auto add_bias = [&](auto& a, int n0) {
+#pragma unroll
+      for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+        const float2 bias = *reinterpret_cast<const float2*>(hv + n0 + 8 * (i / 4) + 2 * t4);
+        a[i] += bias.x;
+        a[i + 1] += bias.y;
+        sum[(i >> 1) & 1] += a[i] + a[i + 1];
+      }
+    };
+    add_bias(acc0, 0);
+    add_bias(acc1, N0);
+    const float inv_f = 1.0f / F;
+    float mean[2], rstd[2], sq[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mean[r] = conv_gemm::quad_sum(sum[r]) * inv_f;
+    auto square = [&](auto& a, int n0) {
+#pragma unroll
+      for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+        const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+        const float d0 = a[i] - mean[r], d1 = a[i + 1] - mean[r];
+        sq[r] = fmaf(d0, n < F ? d0 : 0.0f, sq[r]);
+        sq[r] = fmaf(d1, n + 1 < F ? d1 : 0.0f, sq[r]);
+      }
+    };
+    square(acc0, 0);
+    square(acc1, N0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rstd[r] = rsqrtf(conv_gemm::quad_sum(sq[r]) * inv_f + conv_gemm::kEps);
+    // GELU and the projection in one pass; the LN scale and bias and the
+    // projection are zero past F, the projection and b2 past M.
+    float dot[2][kMaxOut] = {};
+    auto project = [&](auto& a, int n0) {
+#pragma unroll
+      for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+        const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+        const float2 ga = *reinterpret_cast<const float2*>(hv + N + n);
+        const float2 be = *reinterpret_cast<const float2*>(hv + 2 * N + n);
+        float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x);
+        float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
+        if constexpr (ROUND_Y) {
+          y0 = round_bf16(y0);
+          y1 = round_bf16(y1);
+        }
+#pragma unroll
+        for (int o = 0; o < kMaxOut; ++o) {
+          const float2 p = *reinterpret_cast<const float2*>(hv + (3 + o) * N + n);
+          dot[r][o] = fmaf(y1, p.y, fmaf(y0, p.x, dot[r][o]));
+        }
+      }
+    };
+    project(acc0, 0);
+    project(acc1, N0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mine = 0.0f;  // thread t4 keeps output channel t4
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        const float v = conv_gemm::quad_sum(dot[r][o]);
+        if (t4 == o) mine = v + __ldg(b2 + head * kMaxOut + o);
+      }
+      const int row = row0 + 8 * r;
+      const int h = u.h0 + row / conv_tma::kBW, x = u.w0 + row % conv_tma::kBW;
+      if (u.b < g.B && h < g.H && x < g.W && t4 < M)
+        out[(((long long)u.b * 2 * g.H + 2 * h + pa) * 2 * g.W + 2 * x + pb) * Mtot + moff + t4] =
+            mine;
+    }
+  }
+}
+
+// The bf16 C entry points' body: the one-pass heads on conv_tma.cuh's loop;
+// heads wider than the tile through launch_heads' two passes.
+template <int N, bool ROUND_Y>
+int launch_heads_bf16(const bf16* x, const bf16* w, const float* vec, const float* w2,
+                      const float* b2, float* out, float* ws, int chunk, const int* F,
+                      const int* M, int heads, int slices, int B, int H, int W, int C,
+                      cudaStream_t stream) {
+  if (slices != 1)
+    return launch_heads<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads, slices, B,
+                                          H, W, C, stream);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || heads <= 0 || heads > kMaxHeads)
+    return (int)cudaErrorInvalidValue;
+  HeadSizes sizes{};
+  int mtot = 0;
+  for (int h = 0; h < heads; ++h) {
+    if (F[h] <= 0 || F[h] > N || M[h] <= 0 || M[h] > kMaxOut) return (int)cudaErrorInvalidValue;
+    sizes.F[h] = F[h];
+    sizes.M[h] = M[h];
+    sizes.moff[h] = mtot;
+    mtot += M[h];
+  }
+  using L = HeadsLoop<N>;
+  constexpr int smem = heads_tma_smem<N>();
+  static_assert(smem <= conv_tma::kSmemLimit, "shared memory");
+  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 4 * heads);
+  if ((long long)g.tiles * g.sets >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t e = conv_tma::persistent_grid<heads_tma_kernel<N, ROUND_Y>>(
+      smem, (long long)g.tiles * g.sets, &grid);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map;
+  e = conv_tma::make_map<L>(&map, x, B, H, W, C);
+  if (e != cudaSuccess) return (int)e;
+  heads_tma_kernel<N, ROUND_Y><<<grid, conv_tma::kThreads, smem, stream>>>(
+      map, w, vec, w2, b2, out, sizes, g, heads, mtot);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fpn_head

@@ -18,7 +18,8 @@
 // pixel, 4.72 MFLOP at the flagship's C = 384, F = 192; at 240x192 that is
 // 217.6 GFLOP. In f32 three TF32 products each: 1.32 ms at the H100 SXM's
 // 495 TFLOP/s dense TF32 (700 W); in bf16 one product each: 0.22 ms at 989
-// TFLOP/s dense bf16; against well under 0.1 ms for its bytes.
+// TFLOP/s dense bf16; against well under 0.1 ms for its bytes. The bf16
+// body is fpn_head.cuh's heads_tma_kernel on conv_tma.cuh's loop.
 
 #include "fpn_head.cuh"
 
@@ -44,11 +45,12 @@ extern "C" int fpn_heads_f32(const float* x, const float* w, const float* vec, c
                                                   slices, B, H, W, C, stream);
 }
 
-// As fpn_heads_f32 with x and w in bf16 (C % 8 == 0).
+// As fpn_heads_f32 with x and w in bf16 (C % 8 == 0); with one slice, w
+// as fpn_head::heads_tma_kernel takes it (packing.pack_sw128's chunks).
 extern "C" int fpn_heads_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* vec,
                               const float* w2, const float* b2, float* out, float* ws, int chunk,
                               const int* F, const int* M, int heads, int slices, int B, int H,
                               int W, int C, cudaStream_t stream) {
-  return fpn_head::launch_heads<__nv_bfloat16, kN, false>(x, w, vec, w2, b2, out, ws, chunk, F, M,
-                                                          heads, slices, B, H, W, C, stream);
+  return fpn_head::launch_heads_bf16<kN, false>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads,
+                                                slices, B, H, W, C, stream);
 }

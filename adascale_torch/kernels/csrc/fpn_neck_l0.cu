@@ -51,13 +51,17 @@
 //
 // bf16 (the JAX package's compute_dtype="bfloat16", as the Pallas kernel
 // computes it): f0, u and the packed W1, W2 in bf16, products accumulated
-// in f32 (conv_gemm.cuh's mainloop_bf16), bias, LayerNorm, GELU and + u in
-// f32; t rounded to bf16 before the 3x3 (fpn_neck.py:98), z0 written in
-// bf16. One bf16 product a product: 0.069 ms at 240x192 at 989 TFLOP/s.
+// in f32, bias, LayerNorm, GELU and + u in f32; t rounded to bf16 before
+// the 3x3 (fpn_neck.py:98), z0 written in bf16. A step whose features fit
+// its tile runs on conv_tma.cuh's persistent, TMA-fed loop (below); a
+// wider one the split form on conv_gemm.cuh's mainloop_bf16. One bf16
+// product a product: 0.034 ms at 240x192 (0.040 ms at 256x208) at 989
+// TFLOP/s dense bf16.
 
 #include <cuda_runtime.h>
 
 #include "conv_gemm.cuh"
+#include "conv_tma.cuh"
 
 namespace {
 
@@ -287,6 +291,257 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, one pass (Cm <= kMid, Co <= kNB): both steps on conv_tma.cuh's loop,
+// persistent, t through device memory.
+//   * step1: a unit is a 64-pixel tile (4 rows x 16 columns); both consumer
+//     warpgroups hold its 64 rows, each half of the kMid features. W1 (at
+//     most kMaxC0 input channels, ceil(C0 / 64) chunks of kMid x 64) is
+//     brought once and stays in shared memory; the A ring streams the
+//     tile's chunks. The unit's u is read into registers before its
+//     products, so its latency hides behind them. The epilogue on the
+//     registers: bias, the LayerNorm's two sums over a row (each
+//     warpgroup's half through shared memory), GELU, + u -> t.
+//   * step2: a unit is a 128-pixel tile (8 rows x 16 columns), a warpgroup
+//     each 64 rows by all kNB features, K = ceil(Cm / 64) chunks of the
+//     3x3, one 10 x 18 halo box a chunk serving its 9 taps, W2 through a
+//     ring of 8 stages; the epilogue: bias, LayerNorm, GELU -> out.
+
+constexpr int kMaxC0 = 192;  // step1's widest input held in shared memory
+using Neck1Loop = conv_tma::Loop<4, 1, 1, kMid, 96, 96, true, 4, 2, kMaxC0 / conv_tma::kKC>;
+using Neck2Loop = conv_tma::Loop<8, 3, 3, kNB, kNB, 0, false, 2, 8>;
+constexpr int kNeck1Smem = Neck1Loop::HEAD + 3 * kMid * 4 + 2 * 2 * 64 * 4;
+constexpr int kNeck2Smem = Neck2Loop::HEAD + 3 * kNB * 4;
+static_assert(kNeck1Smem <= conv_tma::kSmemLimit && kNeck2Smem <= conv_tma::kSmemLimit,
+              "shared memory");
+
+// The flattened pixel of tile row `row` of unit u, or -1 past the map.
+__device__ __forceinline__ long long tile_pixel(const conv_tma::Geo& g, const conv_tma::Unit& u,
+                                                int row) {
+  const int h = u.h0 + row / conv_tma::kBW, x = u.w0 + row % conv_tma::kBW;
+  if (u.b >= g.B || h >= g.H || x >= g.W) return -1;
+  return ((long long)u.b * g.H + h) * g.W + x;
+}
+
+// f0 through fmap (B, H, W, C0, boxes of 16 x 4); w1 (1 tap, ceil(C0/64)
+// chunks, kMid/8, 8 rows, 128 bytes of K in the 128-byte swizzle); vec1 (3,
+// kMid); u and t (B, H, W, Cm).
+__global__ void __launch_bounds__(conv_tma::kThreads, 1)
+neck_step1_tma_kernel(const __grid_constant__ CUtensorMap fmap, const bf16* __restrict__ w1,
+                      const float* __restrict__ vec1, const bf16* __restrict__ u,
+                      bf16* __restrict__ t, int Cm, conv_tma::Geo g) {
+  using L = Neck1Loop;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
+  float* sv = conv_tma::after_ring<L>(smem, ring);
+  float* red = sv + 3 * kMid;  // (2 sums, 2 warpgroups, 64 rows)
+  for (int i = tid; i < 3 * kMid; i += conv_tma::kThreads) sv[i] = vec1[i];
+  conv_tma::init_bars<L>(bars);
+  __syncthreads();
+  if (tid >= conv_tma::kConsumers) {
+    conv_tma::producer_regs();
+    if (tid == conv_tma::kConsumers)
+      conv_tma::produce<L>(&fmap, w1, g, [](int) { return Taps{1, 1, 0, 0}; }, ring, bars);
+    return;
+  }
+  conv_tma::consumer_regs();
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32, t4 = lane % 4;
+  const int nb0 = (kMid / 2) * wg, row0 = 16 * warp + lane / 4;
+  const float inv_f = 1.0f / Cm;
+  float acc0[48], acc1[48];
+  uint32_t uv[2][24];  // the unit's u, as bf16 pairs in the accumulators' order
+  conv_tma::Cursor cur;
+  mbar_wait(L::resident(bars), 0);
+  for (int un = blockIdx.x; un < g.tiles; un += gridDim.x) {
+    const conv_tma::Unit tile = conv_tma::unit_of<4>(g, un);
+    const long long pix[2] = {tile_pixel(g, tile, row0), tile_pixel(g, tile, row0 + 8)};
+    // u of rows past the map and features past Cm: any valid pair, unused.
+#pragma unroll
+    for (int i = 0; i < 96; i += 2) {
+      const int n = nb0 + 96 * (i / 48) + 8 * (i % 48 / 4) + 2 * t4, r = (i >> 1) & 1;
+      const long long at = (pix[r] < 0 ? 0 : pix[r]) * Cm + (n < Cm ? n : 0);
+      uv[i / 48][i % 48 / 2] = __ldg(reinterpret_cast<const unsigned*>(u + at));
+    }
+    conv_tma::consume<L>(ring, bars, g.chunks, cur, 0, nb0, acc0, acc1);
+    float part[2] = {0.0f, 0.0f};
+    auto add_bias = [&](float(&a)[48], int n0) {
+#pragma unroll
+      for (int i = 0; i < 48; i += 2) {
+        const float2 bias = *reinterpret_cast<const float2*>(sv + n0 + 8 * (i / 4) + 2 * t4);
+        a[i] += bias.x;
+        a[i + 1] += bias.y;
+        part[(i >> 1) & 1] += a[i] + a[i + 1];
+      }
+    };
+    add_bias(acc0, nb0);
+    add_bias(acc1, nb0 + 96);
+    // A row's sums: its quad's, then the two warpgroups' halves in order.
+    auto row_sums = [&](int which, float(&v)[2]) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float q = quad_sum(v[r]);
+        if (t4 == 0) red[(which * 2 + wg) * 64 + row0 + 8 * r] = q;
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(conv_tma::kConsumers) : "memory");
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        v[r] = red[(which * 2) * 64 + row0 + 8 * r] + red[(which * 2 + 1) * 64 + row0 + 8 * r];
+    };
+    row_sums(0, part);
+    float mean[2] = {part[0] * inv_f, part[1] * inv_f}, sq[2] = {0.0f, 0.0f};
+    auto square = [&](float(&a)[48], int n0) {
+#pragma unroll
+      for (int i = 0; i < 48; i += 2) {
+        const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+        const float d0 = a[i] - mean[r], d1 = a[i + 1] - mean[r];
+        sq[r] = fmaf(d0, n < Cm ? d0 : 0.0f, sq[r]);
+        sq[r] = fmaf(d1, n + 1 < Cm ? d1 : 0.0f, sq[r]);
+      }
+    };
+    square(acc0, nb0);
+    square(acc1, nb0 + 96);
+    row_sums(1, sq);
+    const float rstd[2] = {rsqrtf(sq[0] * inv_f + kEps), rsqrtf(sq[1] * inv_f + kEps)};
+    auto store = [&](float(&a)[48], const uint32_t(&ua)[24], int n0) {
+#pragma unroll
+      for (int i = 0; i < 48; i += 2) {
+        const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+        const float2 ga = *reinterpret_cast<const float2*>(sv + kMid + n);
+        const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kMid + n);
+        const float2 up = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ua[i / 2]));
+        const float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x) + up.x;
+        const float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y) + up.y;
+        // Cm % 8 == 0: a pair is all in or all out.
+        if (pix[r] >= 0 && n < Cm) store_pair(t + pix[r] * Cm + n, y0, y1);
+      }
+    };
+    store(acc0, uv[0], nb0);
+    store(acc1, uv[1], nb0 + 96);
+  }
+}
+
+// t through tmap (B, H, W, Cm, boxes of 18 x 10); w2 (9 taps, ceil(Cm/64)
+// chunks, kNB/8, 8 rows, 128 bytes of K in the 128-byte swizzle); vec2 (3,
+// kNB); out (B, H, W, Co).
+__global__ void __launch_bounds__(conv_tma::kThreads, 1)
+neck_step2_tma_kernel(const __grid_constant__ CUtensorMap tmap, const bf16* __restrict__ w2,
+                      const float* __restrict__ vec2, bf16* __restrict__ out, int Co,
+                      conv_tma::Geo g) {
+  using L = Neck2Loop;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
+  float* sv = conv_tma::after_ring<L>(smem, ring);
+  for (int i = tid; i < 3 * kNB; i += conv_tma::kThreads) sv[i] = vec2[i];
+  conv_tma::init_bars<L>(bars);
+  __syncthreads();
+  if (tid >= conv_tma::kConsumers) {
+    conv_tma::producer_regs();
+    if (tid == conv_tma::kConsumers)
+      conv_tma::produce<L>(&tmap, w2, g, [](int) { return Taps{9, 3, -1, -1}; }, ring, bars);
+    return;
+  }
+  conv_tma::consumer_regs();
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32, t4 = lane % 4;
+  const int row0 = 64 * wg + 16 * warp + lane / 4;
+  const float inv_f = 1.0f / Co;
+  float acc[kNB / 2], none[1];
+  conv_tma::Cursor cur;
+  for (int un = blockIdx.x; un < g.tiles; un += gridDim.x) {
+    const conv_tma::Unit tile = conv_tma::unit_of<8>(g, un);
+    conv_tma::consume<L>(ring, bars, g.chunks, cur, 4 * wg, 0, acc, none);
+    float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < kNB / 2; i += 2) {
+      const float2 bias = *reinterpret_cast<const float2*>(sv + 8 * (i / 4) + 2 * t4);
+      acc[i] += bias.x;
+      acc[i + 1] += bias.y;
+      sum[(i >> 1) & 1] += acc[i] + acc[i + 1];
+    }
+    const float mean[2] = {quad_sum(sum[0]) * inv_f, quad_sum(sum[1]) * inv_f};
+#pragma unroll
+    for (int i = 0; i < kNB / 2; i += 2) {
+      const int n = 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+      const float d0 = acc[i] - mean[r], d1 = acc[i + 1] - mean[r];
+      sq[r] = fmaf(d0, n < Co ? d0 : 0.0f, sq[r]);
+      sq[r] = fmaf(d1, n + 1 < Co ? d1 : 0.0f, sq[r]);
+    }
+    const float rstd[2] = {rsqrtf(quad_sum(sq[0]) * inv_f + kEps),
+                           rsqrtf(quad_sum(sq[1]) * inv_f + kEps)};
+    const long long pix[2] = {tile_pixel(g, tile, row0), tile_pixel(g, tile, row0 + 8)};
+#pragma unroll
+    for (int i = 0; i < kNB / 2; i += 2) {
+      const int n = 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+      const float2 ga = *reinterpret_cast<const float2*>(sv + kNB + n);
+      const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kNB + n);
+      const float y0 = gelu_exact((acc[i] - mean[r]) * rstd[r] * ga.x + be.x);
+      const float y1 = gelu_exact((acc[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
+      // Co % 4 == 0: a pair is all in or all out.
+      if (pix[r] >= 0 && n < Co) store_pair(out + pix[r] * Co + n, y0, y1);
+    }
+  }
+}
+
+// Launches a persistent one-pass step on x (B, H, W, C) through its loop's
+// tensor map.
+template <class L, auto kernel, typename... Args>
+cudaError_t launch_step(const bf16* x, int B, int H, int W, int C, int smem, cudaStream_t stream,
+                        Args... args) {
+  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 1);
+  int grid = 0;
+  cudaError_t e = conv_tma::persistent_grid<kernel>(smem, g.tiles, &grid);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map;
+  e = conv_tma::make_map<L>(&map, x, B, H, W, C);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, conv_tma::kThreads, smem, stream>>>(map, args..., g);
+  return cudaGetLastError();
+}
+
+// The bf16 entry's body: each step on conv_tma.cuh's loop where its
+// features fit one tile, else run_neck's split form with ln_gelu_rows.
+int run_neck_bf16(const bf16* f0, const bf16* u, const bf16* w1, const float* vec1,
+                  const bf16* w2, const float* vec2, bf16* t, bf16* out, float* ws, int B, int H,
+                  int W, int C0, int Cm, int Co, cudaStream_t stream) {
+  const int s1 = (Cm + kMid - 1) / kMid, s2 = (Co + kNB - 1) / kNB;
+  if (B <= 0 || H <= 0 || W <= 0 || C0 <= 0 || Cm <= 0 || Co <= 0 || C0 % 8 || Cm % 8 || Co % 4 ||
+      s1 > kMaxSlices || s2 > kMaxSlices || H > 32767 || W > 32767 ||
+      ((s1 > 1 || s2 > 1) && ws == nullptr) || (s1 == 1 && C0 > kMaxC0))
+    return (int)cudaErrorInvalidValue;
+  const long long npix = (long long)B * H * W;
+  if (npix > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const unsigned rows = (unsigned)((npix + kThreads / 32 - 1) / (kThreads / 32));
+  cudaError_t e;
+  if (s1 == 1) {
+    e = launch_step<Neck1Loop, neck_step1_tma_kernel>(f0, B, H, W, C0, kNeck1Smem, stream, w1, vec1,
+                                                      u, t, Cm);
+  } else {
+    constexpr size_t smem1 = kSmem1<bf16>;
+    e = allow_smem(neck_step1_kernel<bf16, true>, smem1);
+    if (e != cudaSuccess) return (int)e;
+    neck_step1_kernel<bf16, true><<<dim3((unsigned)((npix + kBM1 - 1) / kBM1), s1), kThreads, smem1,
+                                    stream>>>(f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    ln_gelu_rows<bf16><<<rows, kThreads, 0, stream>>>(ws, vec1, u, t, (int)npix, Cm, s1 * kMid);
+    e = cudaGetLastError();
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (s2 == 1)
+    return (int)launch_step<Neck2Loop, neck_step2_tma_kernel>(t, B, H, W, Cm, kNeck2Smem, stream,
+                                                              w2, vec2, out, Co);
+  constexpr size_t smem2 = kSmem2<bf16>;
+  e = allow_smem(neck_step2_kernel<bf16, true>, smem2);
+  if (e != cudaSuccess) return (int)e;
+  neck_step2_kernel<bf16, true><<<dim3((unsigned)((npix + kBM2 - 1) / kBM2), s2), kThreads, smem2,
+                                  stream>>>(t, w2, vec2, out, ws, (int)npix, H, W, Cm, Co);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ln_gelu_rows<bf16><<<rows, kThreads, 0, stream>>>(ws, vec2, nullptr, out, (int)npix, Co, s2 * kNB);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The slice widths, and the widest Cm and Co (kMaxSlices slices).
@@ -317,6 +572,9 @@ extern "C" int fpn_neck_l0_bf16(const __nv_bfloat16* f0, const __nv_bfloat16* u,
                                 const __nv_bfloat16* w2, const float* vec2, __nv_bfloat16* t,
                                 __nv_bfloat16* out, float* ws, int B, int H, int W, int C0,
                                 int Cm, int Co, cudaStream_t stream) {
-  return run_neck<__nv_bfloat16>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co,
-                                 stream);
+  return run_neck_bf16(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
 }
+
+// The widest C0 of the bf16 one-pass step1 (its W1 stays in shared memory).
+extern "C" int fpn_neck_l0_bf16_max_c0() { return kMaxC0; }
+

@@ -21,7 +21,8 @@
 // pixel, 9.50 MFLOP at the flagship's C = 384; at 256x208 that is 506.7
 // GFLOP. In f32 three TF32 products each: 3.07 ms at the H100 SXM's 495
 // TFLOP/s dense TF32 (700 W); in bf16 one each: 0.51 ms at 989 TFLOP/s.
-// Widths of 192..194 run in 200-wide tiles (3 % idle products).
+// Widths of 192..194 run in 200-wide tiles (3 % idle products). The bf16
+// body is fpn_head.cuh's heads_tma_kernel on conv_tma.cuh's loop.
 
 #include "fpn_head.cuh"
 
@@ -41,12 +42,13 @@ extern "C" int precise_heads_f32(const float* x, const float* w, const float* ve
                                                   slices, B, H, W, C, stream);
 }
 
-// As precise_heads_f32 with x and w in bf16 (C % 8 == 0), the GELU output
-// rounded to bf16 before the projection (w2 holds bf16 values).
+// As precise_heads_f32 with x and w in bf16 (C % 8 == 0; with one slice, w
+// as fpn_head::heads_tma_kernel takes it), the GELU output rounded to bf16
+// before the projection (w2 holds bf16 values).
 extern "C" int precise_heads_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                   const float* vec, const float* w2, const float* b2, float* out,
                                   float* ws, int chunk, const int* F, const int* M, int heads,
                                   int slices, int B, int H, int W, int C, cudaStream_t stream) {
-  return fpn_head::launch_heads<__nv_bfloat16, kN, true>(x, w, vec, w2, b2, out, ws, chunk, F, M,
-                                                         heads, slices, B, H, W, C, stream);
+  return fpn_head::launch_heads_bf16<kN, true>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads,
+                                                slices, B, H, W, C, stream);
 }

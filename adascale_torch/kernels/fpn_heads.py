@@ -22,7 +22,10 @@ H100 SXM (495 TFLOP/s dense TF32, 700 W).
 
 A bf16 ``x`` (the JAX package's ``compute_dtype="bfloat16"``) launches the
 bf16 entry: bf16 collapsed taps and products, f32 sums, LN, GELU and
-projection, f32 out (one bf16 product a product: 0.22 ms at 989 TFLOP/s);
+projection, f32 out (one bf16 product a product: 0.22 ms at 989 TFLOP/s),
+on the persistent, TMA-fed loop of ``csrc/conv_tma.cuh``
+(``fpn_head.cuh::heads_tma_kernel``, the taps packed by
+``packing.pack_sw128``);
 its plain twin is ``heads_phase_form(..., kernel=True)``. Heads wider than
 the kernel's tile (192 features; the base and large backbones' 256 and 384)
 run split into slices of the tile (``csrc/fpn_head.cuh``).
@@ -105,18 +108,21 @@ def pack_heads(
       ``hi`` and ``lo`` of each 32-channel chunk (2, n/8, 8, 8, 4), for bf16
       ``packing.pack_kmajor_bf16``'s one bf16 tile (n/8, 4, 8, 8), in wgmma's
       K-major core-matrix order; one slice (its axis dropped) is the
-      one-pass kernel's layout;
+      one-pass kernel's layout, which in bf16 is ``packing.pack_sw128``'s
+      instead: (heads, 4 phases, 4 taps, ceil(C/64) chunks, n/8, 8, 8, 8);
     - ``vec`` (heads, 3, fp): smoothing bias, LN scale, LN bias;
     - ``w2`` (heads, MAX_OUT, fp), rounded to bf16 values where ``round_w2``
       (the precise heads in bf16), and ``b2`` (heads, MAX_OUT)."""
     ref = heads[0]["step1.conv.weight"]
     c, nh = ref.shape[1], len(heads)
-    chunks = -(-c // KC)
+    one_pass = slices == 1
+    kc = packing.KC_TMA if one_pass and dtype == torch.bfloat16 else KC
+    chunks = -(-c // kc)
     fp = slices * n
     if n % 8:
         raise ValueError(f"pack_heads: width {n} is not a multiple of 8")
     with torch.no_grad():
-        taps = ref.new_zeros(nh, 4, 4, chunks * KC, fp)
+        taps = ref.new_zeros(nh, 4, 4, chunks * kc, fp)
         vec = ref.new_zeros(nh, 3, fp)
         w2 = ref.new_zeros(nh, MAX_OUT, fp)
         b2 = ref.new_zeros(nh, MAX_OUT)
@@ -132,8 +138,8 @@ def pack_heads(
             b2[k, :m] = p["step2.bias"]
         if round_w2:
             w2 = w2.to(torch.bfloat16).float()
-        w = packing.pack_for(packing.split_slices(taps, slices, 1), dtype)
-        if slices == 1:
+        w = packing.pack_for(packing.split_slices(taps, slices, 1), dtype, one_pass)
+        if one_pass:
             w = w.squeeze(1)
     return {"w": w, "vec": vec, "w2": w2, "b2": b2}
 

@@ -20,7 +20,9 @@ SXM (495 TFLOP/s dense TF32, 700 W). On a CPU tensor it runs
 A bf16 ``f0`` and ``u`` (the JAX package's ``compute_dtype="bfloat16"``)
 launch the bf16 entry: bf16 operands, f32 sums, LN, GELU and ``+ u``, ``t``
 rounded to bf16 before the 3x3 and a bf16 output, as the Pallas kernel
-computes it (0.069 ms at 240x192 at 989 TFLOP/s dense bf16). Widths past
+computes it (0.034 ms at 240x192, 0.040 ms at 256x208, at 989 TFLOP/s
+dense bf16), each step on the persistent TMA-fed loop of
+``csrc/conv_tma.cuh`` (step1's W1, C0 <= 192, held in shared memory). Widths past
 the kernel's tiles (Cm 384, Co 96: the base and large backbones' 512 / 128
 and 768 / 192) run each step split into slices of its tile, with a second
 pass for the LayerNorm (``csrc/fpn_neck_l0.cu``).
@@ -82,6 +84,8 @@ def build() -> ctypes.CDLL:
         widths.append(getattr(lib, f"fpn_neck_l0_{name}")())
     if tuple(widths[:2]) != (MID_WIDTH, OUT_WIDTH):
         raise RuntimeError(f"fpn_neck_l0: library tiles {widths[:2]} != {(MID_WIDTH, OUT_WIDTH)}")
+    lib.fpn_neck_l0_bf16_max_c0.argtypes = []
+    lib.fpn_neck_l0_bf16_max_c0.restype = ctypes.c_int
     return lib
 
 
@@ -126,7 +130,9 @@ def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) ->
       where s1 = 1): W1 as (C0, s1 MID_WIDTH) cut into slices of MID_WIDTH, each chunk for f32
       ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` (2, MID_WIDTH/8, 8,
       8, 4), for bf16 ``packing.pack_kmajor_bf16``'s tile (MID_WIDTH/8, 4,
-      8, 8), in wgmma's K-major core-matrix order;
+      8, 8), in wgmma's K-major core-matrix order; in bf16 with one slice
+      (the one-pass kernel) ``packing.pack_sw128``'s 64-channel chunks
+      (MID_WIDTH/8, 8, 8, 8) instead;
     - ``w2`` (s2 slices, 9 taps, ceil(Cm/32) chunks, ...; likewise): the 3x3, tap
       3 ky + kx as (Cm, s2 OUT_WIDTH), the same way;
     - ``vec1`` (3, s1 MID_WIDTH) and ``vec2`` (3, s2 OUT_WIDTH): conv bias,
@@ -138,11 +144,15 @@ def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) ->
         raise ValueError(
             f"pack_neck: widths {cm}/{co}; the layout takes {MAX_SLICES * MID_WIDTH}/{MAX_SLICES * OUT_WIDTH}"
         )
-    kc = packing.KC
+    bf16 = dtype == torch.bfloat16
+    # A step that fits one tile runs its bf16 one-pass kernel, whose chunks
+    # are 64 channels deep.
+    kc1 = packing.KC_TMA if bf16 and s1 == 1 else packing.KC
+    kc2 = packing.KC_TMA if bf16 and s2 == 1 else packing.KC
     with torch.no_grad():
-        taps1 = w1.new_zeros(1, -(-c0 // kc) * kc, s1 * MID_WIDTH)
+        taps1 = w1.new_zeros(1, -(-c0 // kc1) * kc1, s1 * MID_WIDTH)
         taps1[0, :c0, :cm] = w1.t()
-        taps2 = w2.new_zeros(9, -(-cm // kc) * kc, s2 * OUT_WIDTH)
+        taps2 = w2.new_zeros(9, -(-cm // kc2) * kc2, s2 * OUT_WIDTH)
         taps2[:, :cm, :co] = w2.permute(2, 3, 1, 0).reshape(9, cm, co)
         vec1 = w1.new_zeros(3, s1 * MID_WIDTH)
         vec2 = w2.new_zeros(3, s2 * OUT_WIDTH)
@@ -150,8 +160,8 @@ def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) ->
             vec1[k, :cm] = p[f"step1_0.{part}"]
             vec2[k, :co] = p[f"step2_0.{part}"]
         # One slice (its axis dropped) is the one-pass kernels' layout.
-        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype)
-        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype)
+        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype, s1 == 1)
+        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype, s2 == 1)
         return {
             "w1": w1p.squeeze(0) if s1 == 1 else w1p, "vec1": vec1,
             "w2": w2p.squeeze(0) if s2 == 1 else w2p, "vec2": vec2,
@@ -192,6 +202,8 @@ def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor])
     max_mid, max_out = lib.fpn_neck_l0_max_mid(), lib.fpn_neck_l0_max_out()
     if cm > max_mid or co > max_out or co % 4:
         raise ValueError(f"fused_neck_l0: widths {cm}/{co}; the kernel takes {max_mid}/{max_out}, Co % 4 == 0")
+    if f0.dtype == torch.bfloat16 and cm <= MID_WIDTH and c0 > lib.fpn_neck_l0_bf16_max_c0():
+        raise ValueError(f"fused_neck_l0: bf16 C0={c0}; the one-pass kernel takes C0 <= {lib.fpn_neck_l0_bf16_max_c0()}")
     packed = packed_neck(p, f0.dtype)
     s1, s2 = slices(cm, co)
     t = torch.empty_like(u)

@@ -4,10 +4,13 @@ and the cache that packs them once per parameter set.
 ``pack_kmajor(taps)`` lays a (..., K, n) weight operand out as the kernels'
 f32 B: per 32-deep K chunk a TF32 ``hi`` and ``lo = tf32(w - hi)``, each in
 wgmma's no-swizzle K-major core-matrix order; ``pack_kmajor_bf16(taps)`` as
-their bf16 B, one bf16 tile a chunk in the same order (8 bf16 a core-matrix
-row, K in its natural order). ``split_slices(taps, slices)`` cuts the output
+the bf16 B of the wide (sliced) neck and heads, one bf16 tile a chunk in the
+same order (8 bf16 a core-matrix row, K in its natural order);
+``pack_sw128(taps)`` as the bf16 B of their one-pass kernels
+(``csrc/conv_tma.cuh``), per 64-deep chunk n rows of 128 bytes in the
+128-byte swizzle. ``split_slices(taps, slices)`` cuts the output
 features into the slices a wide kernel launches one block each for, before
-either packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
+packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
 for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and
 ``pack_block_bf16(w1, w2)`` packs that block's two projections in the form
 its kernel takes for their width. ``cached(tensors, tag, pack)``
@@ -28,6 +31,9 @@ import torch
 # and t + 4, with one 8-byte read). The CPU tests import both from here.
 KC = 32
 KSLOT = (0, 2, 4, 6, 1, 3, 5, 7)
+# Input channels a stage of the bf16 one-pass neck and heads
+# (csrc/conv_tma.cuh kKC): one 128-byte row of bf16.
+KC_TMA = 64
 # One pack per first tensor of its parameter set, by that tensor's id and
 # dropped with it: (weak references to every tensor it was packed from,
 # tag, their states, the pack).
@@ -72,6 +78,24 @@ def pack_kmajor_bf16(taps: torch.Tensor) -> torch.Tensor:
     t = taps.reshape(*lead, k // KC, KC // 8, 8, n // 8, 8)
     t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
     return t.to(torch.bfloat16).contiguous()
+
+
+def pack_sw128(taps: torch.Tensor) -> torch.Tensor:
+    """``taps`` (..., K, n), K a multiple of 64 (zero past the real
+    channels) and n of 8, as bf16 (..., K/64 chunks, n/8, 8, 8, 8): each
+    chunk's n rows of 64 K (128 bytes), 8 rows to a 1024-byte group, the
+    16-byte piece j of row r holding K 8 (j ^ r) .. 8 (j ^ r) + 7, the
+    layout TMA's 128-byte swizzle gives a box of 64 channels. Element (k, n)
+    of chunk k // 64 sits at [n // 8, n % 8, ((k % 64) // 8) ^ (n % 8),
+    k % 8]."""
+    *lead, k, n = taps.shape
+    if k % KC_TMA or n % 8:
+        raise ValueError(f"pack_sw128: K={k}, n={n}; want K % {KC_TMA} == 0 and n % 8 == 0")
+    nl = len(lead)
+    t = taps.reshape(*lead, k // KC_TMA, 8, 8, n // 8, 8)  # (chunk, K group, K, row group, row)
+    t = t.permute(*range(nl + 1), nl + 3, nl + 4, nl + 1, nl + 2)  # (chunk, row group, row, K group, K)
+    rows = torch.arange(8)
+    return t[..., rows[:, None], rows[:, None] ^ rows[None, :], :].to(torch.bfloat16).contiguous()
 
 
 # The bf16 block's forms (csrc/block_bf16.cuh): the fused form's widest C,
@@ -130,11 +154,12 @@ def pack_block_bf16(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tenso
             "w2": pack_core_kmajor(w2, *BLOCK_TILE).reshape(-1)}
 
 
-def pack_for(taps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``pack_kmajor`` (f32) or ``pack_kmajor_bf16`` by the kernel's operand
-    type."""
+def pack_for(taps: torch.Tensor, dtype: torch.dtype, one_pass: bool = False) -> torch.Tensor:
+    """``pack_kmajor`` (f32), or for bf16 ``pack_sw128`` (the one-pass
+    kernels; K padded to 64) or ``pack_kmajor_bf16`` (the sliced ones), by
+    the kernel's operand type."""
     if dtype == torch.bfloat16:
-        return pack_kmajor_bf16(taps)
+        return pack_sw128(taps) if one_pass else pack_kmajor_bf16(taps)
     if dtype == torch.float32:
         return pack_kmajor(taps)
     raise ValueError(f"no packed layout for {dtype}")

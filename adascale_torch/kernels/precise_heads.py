@@ -14,7 +14,8 @@ heads kernel of ``csrc/fpn_head.cuh`` in 200-wide tiles for inner widths of
 three TF32 products each, 3.07 ms on an H100 SXM (495 TFLOP/s dense TF32,
 700 W). A bf16 ``x`` launches the bf16 entry (as the rough heads', with the
 GELU output and projection rounded to bf16 before the projection, as the
-Pallas kernel's compute-dtype projection; 0.51 ms at 989 TFLOP/s); heads
+Pallas kernel's compute-dtype projection; 0.51 ms at 989 TFLOP/s; on the
+TMA-fed loop of ``csrc/conv_tma.cuh``, ``fpn_head.cuh::heads_tma_kernel``); heads
 wider than the 200-wide tile (base 256-258, large 384-386) run split into
 slices of it.
 """

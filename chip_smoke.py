@@ -107,7 +107,9 @@ that reads it. Phases, each announced with its elapsed seconds:
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
      and its module mode, f32 in and out, and at BF16_EXTRA_BLOCK_SHAPES,
-     a ragged one and C = 1536; the neck and heads at the flagship's), the
+     a ragged one and C = 1536; the neck and heads at the flagship's, with
+     their launches by kernel name, and at BF16_CONV_INVARIANCE_CASES'
+     batches equal bit for bit to their images run alone), the
      largest difference <= BF16_TOL of the largest plain value, max and
      median errors and each one's and the twin's error against f64 on the
      bf16-rounded operands printed, kernel, plain and bound ms (operations
@@ -248,6 +250,10 @@ BF16_EXTRA_BLOCK_SHAPES = [RAGGED_SHAPE, (16, 12, 1536)]
 BF16_INVARIANCE_CASES = [(4, shape) for shape, _ in STAGE_SHAPES] + [
     (6, (192 >> k, 192 >> k, 96 << k)) for k in range(4)
 ]
+# The bf16 neck and heads at a batch, against each image run alone, bit for
+# bit: B = 4 at the rough pass's level 0 and B = 16 at the precise pass's
+# (detect_many's batches).
+BF16_CONV_INVARIANCE_CASES = [(4, (240, 192)), (16, (256, 208))]
 # The bf16 block's time on an NVIDIA H100 80GB HBM3 at 700 W before its
 # Hopper redesign (the mma.sync design, both passes, 36 blocks, CUDA events
 # of wrapper calls; PERF.md, Findings): printed beside the new one.
@@ -655,13 +661,14 @@ def pack_ms(pack) -> float:
 
 def neck_launch_ms(f0, u, p):
     """Device ms per call of the neck kernel's two launches (step1: the 1x1
-    + LN + GELU + u; step2: the 3x3 + LN + GELU), from a trace of 10 calls."""
+    + LN + GELU + u; step2: the 3x3 + LN + GELU; f32 or bf16), from a trace
+    of 10 calls."""
     from adascale_torch.kernels import fpn_neck
 
     parts = {"step1": 0.0, "step2": 0.0}
     for key, ms in kernel_device_ms(lambda: fpn_neck.fused_neck_l0(f0, u, p), once_a_call=True).items():
         for part in parts:
-            if f"neck_{part}_kernel" in key:
+            if f"neck_{part}_" in key:
                 parts[part] += ms
     if not all(parts.values()):
         raise AssertionError(f"neck launches missing from the trace: {parts}")
@@ -805,8 +812,8 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
 
 # Kernel-name patterns of the port's kernels in a profiler trace.
 KERNEL_GROUPS = {
-    "heads": ("heads_kernel",),
-    "neck_l0": ("neck_step1_kernel", "neck_step2_kernel"),
+    "heads": ("heads_kernel", "heads_tma_kernel"),
+    "neck_l0": ("neck_step1_", "neck_step2_"),
     "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel"),
 }
 
@@ -1895,20 +1902,27 @@ def check_bf16_kernels(gen, device) -> dict:
         return {k: bf16_values(v) if k in names else v.double() for k, v in params.items()}
 
     rows = []
+    neck_split = {"step1": 0.0, "step2": 0.0}
     for (h, w, c0, cm, co), calls in NECK_SHAPES[:2]:
         p = random_neck_params(c0, cm, co, gen, device)
         f0 = torch.randn(1, h, w, c0, generator=gen).to(device).to(torch.bfloat16)
         u = torch.randn(1, h, w, cm, generator=gen).to(device).to(torch.bfloat16)
         flops, _ = neck_work(1, h, w, c0, cm, co)
         nbytes = 2 * (h * w * (c0 + cm + co) + c0 * cm + 9 * cm * co) + 4 * 3 * (cm + co)
+        label = f"fpn_neck_l0 {h}x{w} {c0}->{cm}->{co}"
         r = check_bf16_kernel(
-            f"fpn_neck_l0 {h}x{w} {c0}->{cm}->{co}", fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain,
+            label, fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain,
             lambda f0=f0, u=u, p=p: fpn_neck.fused_neck_l0_plain(
                 f0.double(), u.double(), rounded(p, ("step1_0.conv.weight", "step2_0.conv.weight"))),
             (f0, u, p), (flops, 0, nbytes),
         )
+        parts = neck_launch_ms(f0, u, p)
+        print(f"{label} bf16 launches (device ms a call, torch.profiler): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in parts.items()), flush=True)
+        for k, v in parts.items():
+            neck_split[k] += calls * v
         rows.append((r, calls))
-    out["fpn_neck_l0_bf16"] = total(rows)
+    out["fpn_neck_l0_bf16"] = total(rows, launches_ms=neck_split)
 
     from adascale_torch.ops.fused_upsample import heads_phase_form
 
@@ -1932,8 +1946,57 @@ def check_bf16_kernels(gen, device) -> dict:
             kernel, plain = precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain
             args = (x, heads)
         r = check_bf16_kernel(f"{name} {h}x{w}x{c}", kernel, plain, exact, args, (flops, 0, nbytes))
-        out[f"{name}_bf16"] = total([(r, calls)])
+        split = {}
+        for key, v in kernel_device_ms(lambda: kernel(*args), once_a_call=True).items():
+            if "heads_" in key:
+                split[short_kernel_name(key)] = split.get(short_kernel_name(key), 0.0) + calls * v
+        print(f"{name} {h}x{w}x{c} bf16 launches (device ms a call, torch.profiler): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in split.items()), flush=True)
+        if not split:
+            raise AssertionError(f"{name} bf16 launches missing from the trace")
+        out[f"{name}_bf16"] = total([(r, calls)], launches_ms=split)
+    check_bf16_conv_invariance(gen, device)
     return out
+
+
+def check_bf16_conv_invariance(gen, device) -> None:
+    """The bf16 neck and heads at BF16_CONV_INVARIANCE_CASES' batches equal
+    bit for bit to their images run one at a time: a pixel's sums run over
+    its taps and chunks in one order wherever its tile falls."""
+    import torch
+
+    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
+
+    def differ(batched, alone):
+        return sum(
+            int((g.contiguous().view(torch.int32 if g.dtype == torch.float32 else torch.int16)
+                 != a.contiguous().view(torch.int32 if a.dtype == torch.float32 else torch.int16)).sum())
+            for g, a in zip(batched, alone))
+
+    # The batches' inputs are drawn on the card (B = 16 at 256x208 is ~0.9 G
+    # values, seconds on the host).
+    dgen = torch.Generator(device=device).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    for b, (h, w) in BF16_CONV_INVARIANCE_CASES:
+        p = random_neck_params(96, 384, 96, gen, device)
+        f0, u, x = (torch.randn(b, h, w, c, generator=dgen, device=device).to(torch.bfloat16) for c in (96, 384, 384))
+        cases = [
+            ("fpn_neck_l0", lambda i, j: [fpn_neck.fused_neck_l0(f0[i:j], u[i:j], p)]),
+        ]
+        for name, module, outs in (("fpn_heads", fpn_heads, (1, 1)), ("precise_heads", precise_heads, PRECISE_OUT)):
+            heads = [random_head_params(384, m, gen, device) for m in outs]
+            if module is fpn_heads:
+                cases.append((name, lambda i, j, heads=heads: list(fpn_heads.fused_rough_heads(x[i:j], *heads))))
+            else:
+                cases.append((name, lambda i, j, heads=heads: precise_heads.fused_precise_heads(x[i:j], heads)))
+        for name, run in cases:
+            batched = run(0, b)
+            alone = [torch.cat(parts) for parts in zip(*(run(i, i + 1) for i in range(b)))]
+            torch.cuda.synchronize()
+            n = differ(batched, alone)
+            print(f"{name} bf16, B={b} {h}x{w}: {n} of {sum(t.numel() for t in batched)} values differ bit "
+                  "for bit from the images run alone", flush=True)
+            if n:
+                raise AssertionError(f"{name} bf16 at B={b} {h}x{w} is not batch-invariant: {n} differ")
 
 
 def bf16_engines(params):
@@ -2500,8 +2563,8 @@ def main() -> None:
         # The bf16 kernels, on the fused bf16 detect() (Pallas-mode blocks).
         "convnext_block_bf16": ("block_bf16.cuh", "adascale/ops/pallas/convnext_block.py:290", "detect_bf16_fpn_fused"),
         "fpn_neck_l0_bf16": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_bf16_fpn_fused"),
-        "fpn_heads_bf16": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_bf16_fpn_fused"),
-        "precise_heads_bf16": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_bf16_fpn_fused"),
+        "fpn_heads_bf16": ("fpn_head.cuh", "adascale/ops/pallas/fpn_heads.py:200", "detect_bf16_fpn_fused"),
+        "precise_heads_bf16": ("fpn_head.cuh", "adascale/ops/pallas/precise_heads.py:144", "detect_bf16_fpn_fused"),
     }
     kernels = []
     for kernel, (source, replaces, main_path) in sources.items():

@@ -19,6 +19,7 @@ import torch
 
 from adascale_torch.kernels import fpn_heads as K
 from adascale_torch.kernels import fpn_neck
+from adascale_torch.kernels import packing
 from adascale_torch.kernels.packing import KC, KSLOT, tf32_round
 from adascale_torch.models.fpn import FpnHead, FpnNeck
 from adascale_torch.ops.fused_upsample import heads_phase_form, phase_tap_weights
@@ -207,3 +208,134 @@ def test_pack_cache_lets_the_pack_go_with_the_model(which):
     del case
     gc.collect()
     assert all(r() is None for r in refs)
+
+
+# The bf16 one-pass kernel (csrc/conv_tma.cuh, fpn_head.cuh heads_tma_kernel):
+# B in 64-channel chunks of 128-byte swizzled rows; A as one TMA halo box
+# of 17 columns by 9 rows of one image a chunk at the phase's window origin,
+# zero past the map's edges, each of the 4 taps reading its shifted 16 x 8
+# rows of it; units walked (head, phase) fastest, then tiles.
+BF16_C = 72  # two 64-channel chunks, the second one partly past C
+
+
+def _unswizzle(w):
+    """(..., chunks, n/8, 8 rows, 8 pieces, 8) in the 128-byte swizzle ->
+    (..., chunks * 64, n) f32: piece j of row r holds K group j ^ r."""
+    *lead, chunks, nb = w.shape[:-3]
+    rows = torch.arange(8)
+    t = w[..., rows[:, None], rows[:, None] ^ rows[None, :], :]  # (.., row, K group, K)
+    nl = len(lead)
+    t = t.permute(*range(nl), nl, nl + 3, nl + 4, nl + 1, nl + 2)
+    return t.reshape(*lead, chunks * 64, nb * 8).float()
+
+
+def _box(x, b, y0, x0, c0, rows, cols):
+    """The TMA box of 64 channels by ``cols`` columns by ``rows`` rows of
+    image b of x (B, H, W, C) at (c0, x0, y0), zero past the map's edges."""
+    _, h, w, c = x.shape
+    out = torch.zeros(rows, cols, 64)
+    ys, xs = slice(max(y0, 0), min(y0 + rows, h)), slice(max(x0, 0), min(x0 + cols, w))
+    if b < x.shape[0] and ys.start < ys.stop and xs.start < xs.stop and c0 < c:
+        part = x[b, ys, xs, c0 : min(c0 + 64, c)]
+        out[ys.start - y0 : ys.stop - y0, xs.start - x0 : xs.stop - x0, : part.shape[-1]] = part
+    return out
+
+
+def _emulate_tma(x, heads, n, round_y):
+    """Each head's (B, 2H, 2W, M) output from the bf16 one-pass packing, as
+    the kernel walks it: unit u is (head, phase) u % sets of tile u // sets
+    (8 x 16 pixels, image by image, row by row); per 64-channel chunk one
+    halo box, each tap's rows of it times that tap's unswizzled B, f32
+    sums; then bias, LN, GELU (rounded to bf16 where round_y), the
+    projection, the interleaved write."""
+    packed = K.pack_heads(heads, n, dtype=torch.bfloat16, round_w2=round_y)
+    bt = _unswizzle(packed["w"])
+    b, h, wd, c = x.shape
+    sets, chunks = 4 * len(heads), packed["w"].shape[3]
+    tiles_h, tiles_w = -(-h // 8), -(-wd // 16)
+    outs = [p["step2.weight"].shape[0] for p in heads]
+    out = torch.zeros(b, 2 * h, 2 * wd, sum(outs))
+    xf = x.float()
+    for un in range(b * tiles_h * tiles_w * sets):
+        s, tile = un % sets, un // sets
+        bb, rem = divmod(tile, tiles_h * tiles_w)
+        h0, w0 = 8 * (rem // tiles_w), 16 * (rem % tiles_w)
+        head, phase = divmod(s, 4)
+        pa, pb = divmod(phase, 2)
+        acc = torch.zeros(128, n)
+        for ch in range(chunks):
+            box = _box(xf, bb, h0 + pa - 1, w0 + pb - 1, 64 * ch, 9, 17)
+            for tap in range(4):
+                dy, dx = divmod(tap, 2)
+                acc += box[dy : dy + 8, dx : dx + 16].reshape(128, 64) @ bt[head, phase, tap, 64 * ch : 64 * ch + 64]
+        m, f = heads[head]["step2.weight"].shape
+        vec, w2 = packed["vec"][head], packed["w2"][head]
+        z = acc[:, :f] + vec[0, :f]
+        z = torch.nn.functional.layer_norm(z, (f,), vec[1, :f], vec[2, :f], eps=1e-6)
+        y = torch.nn.functional.gelu(z)
+        if round_y:
+            y = y.to(torch.bfloat16).float()
+        proj = y @ w2[:m, :f].T + packed["b2"][head, :m]
+        moff = sum(outs[:head])
+        for r in range(128):
+            i, j = h0 + r // 16, w0 + r % 16
+            if i < h and j < wd:
+                out[bb, 2 * i + pa, 2 * j + pb, moff : moff + m] = proj[r]
+    return list(out.split(outs, dim=-1))
+
+
+def test_sw128_pack_unpacks_to_phase_taps():
+    """The bf16 one-pass pack: per (head, phase, tap) ceil(C / 64) chunks of
+    n rows in the 128-byte swizzle, unswizzling to the bf16 collapsed taps,
+    zero past C and past each head's F."""
+    heads = _heads(5)
+    c = heads[0]["step1.conv.weight"].shape[1]
+    w = K.pack_heads(heads, WIDTH, dtype=torch.bfloat16)["w"]
+    assert w.dtype == torch.bfloat16 and w.shape == (4, 4, 4, 1, WIDTH // 8, 8, 8, 8)
+    got = _unswizzle(w)
+    for k, p in enumerate(heads):
+        f = p["step1.conv.weight"].shape[0]
+        want = phase_tap_weights(p["step1.conv.weight"]).to(torch.bfloat16).float()
+        assert torch.equal(got[k, :, :, :c, :f], want)
+        assert not got[k, :, :, c:].any() and not got[k, :, :, :, f:].any()
+    # Element (k, n) of a chunk: row group n // 8, row n % 8, piece (k // 8) ^ (n % 8).
+    taps = torch.arange(128 * 16, dtype=torch.float32).reshape(128, 16)
+    packed = packing.pack_sw128(taps)
+    for k, n in [(0, 0), (9, 3), (63, 15), (64, 8), (127, 7), (77, 13)]:
+        assert packed[k // 64, n // 8, n % 8, ((k % 64) // 8) ^ (n % 8), k % 8] == taps[k, n].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "which,shape", [("precise", (2, 11, 21)), ("precise", (1, 8, 16)), ("rough", (2, 11, 21)), ("rough", (1, 9, 33))]
+)
+def test_emulated_tma_tile_walk_matches_plain(which, shape):
+    """The kernel's walk over 2-D tiles (ragged maps: tiles past the right and
+    bottom edges; one exact tile; C = 72: a partial second chunk), its halo
+    boxes with TMA's zero fill and each tap's shifted rows, and its swizzled
+    B reproduce the plain bf16 phase form (``heads_phase_form(...,
+    kernel=True)``) within 1e-5 of the largest value (the f32 sums run in
+    another order), 2e-3 in the precise heads (where that can flip a bf16
+    rounding of the GELU output)."""
+    rng = np.random.default_rng(9)
+    outs = OUTS if which == "precise" else (1, 1)
+    n = WIDTH if which == "precise" else 192
+    heads = []
+    for m in outs:
+        f = (BF16_C + m) // 2
+        heads.append({
+            "step1.conv.weight": torch.from_numpy(rng.standard_normal((f, BF16_C, 3, 3)).astype(np.float32) / 25),
+            "step1.conv.bias": torch.from_numpy(rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step1.ln.weight": torch.from_numpy(1 + rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step1.ln.bias": torch.from_numpy(rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step2.weight": torch.from_numpy(rng.standard_normal((m, f)).astype(np.float32) / f ** 0.5),
+            "step2.bias": torch.from_numpy(rng.standard_normal(m).astype(np.float32) * 0.1),
+        })
+    x = torch.from_numpy(rng.standard_normal((*shape, BF16_C)).astype(np.float32)).to(torch.bfloat16)
+    round_y = which == "precise"
+    with torch.no_grad():
+        got = _emulate_tma(x, heads, n, round_y)
+        want = heads_phase_form(x, heads, kernel=True, round_y=round_y)
+    for g, wt in zip(got, want):
+        assert g.shape == tuple(wt.shape)
+        rel = float((g - wt).abs().max()) / float(wt.abs().max())
+        assert rel <= (2e-3 if round_y else 1e-5), rel

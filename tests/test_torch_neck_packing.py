@@ -152,3 +152,123 @@ def test_emulated_3xtf32_matches_plain(shape):
     assert got.shape == want.shape == (1, h, w, co)
     rel = float(np.abs(got - want).max()) / float(np.abs(want).max())
     assert rel <= REL_TOL, rel
+
+
+# The bf16 one-pass kernels (csrc/conv_tma.cuh, fpn_neck_l0.cu): W1 and the
+# 3x3's taps in 64-channel chunks of 128-byte swizzled rows (W1 held whole
+# by each block); A as one TMA box a chunk of 16 columns by 4 rows (step1)
+# or a halo of 18 by 10 (step2, each tap reading its shifted 16 x 8 rows),
+# zero past the map's edges.
+BF16_SHAPES = [(2, 11, 21, 72, 384, 96), (1, 13, 19, 8, 32, 8)]
+
+
+def _unswizzle(w):
+    """(..., chunks, n/8, 8 rows, 8 pieces, 8) in the 128-byte swizzle ->
+    (..., chunks * 64, n) f32: piece j of row r holds K group j ^ r."""
+    *lead, chunks, nb = w.shape[:-3]
+    rows = torch.arange(8)
+    t = w[..., rows[:, None], rows[:, None] ^ rows[None, :], :]
+    nl = len(lead)
+    t = t.permute(*range(nl), nl, nl + 3, nl + 4, nl + 1, nl + 2)
+    return t.reshape(*lead, chunks * 64, nb * 8).float()
+
+
+def _box(x, b, y0, x0, c0, rows, cols):
+    """The TMA box of 64 channels by ``cols`` columns by ``rows`` rows of
+    image b of x (B, H, W, C) at (c0, x0, y0), zero past the map's edges."""
+    _, h, w, c = x.shape
+    out = torch.zeros(rows, cols, 64)
+    ys, xs = slice(max(y0, 0), min(y0 + rows, h)), slice(max(x0, 0), min(x0 + cols, w))
+    if ys.start < ys.stop and xs.start < xs.stop and c0 < c:
+        part = x[b, ys, xs, c0 : min(c0 + 64, c)]
+        out[ys.start - y0 : ys.stop - y0, xs.start - x0 : xs.stop - x0, : part.shape[-1]] = part
+    return out
+
+
+def _tiles(b, h, w, rows):
+    """The kernels' tiles in walk order: image, then tile row, then column."""
+    return [(bb, y, x) for bb in range(b) for y in range(0, h, rows) for x in range(0, w, 16)]
+
+
+def _ln_gelu_rows(z, width, vec):
+    z = z[:, :width] + vec[0, :width]
+    return F.gelu(F.layer_norm(z, (width,), vec[1, :width], vec[2, :width], eps=1e-6))
+
+
+def _emulate_bf16(f0, u, p):
+    """The bf16 kernels' two launches from the packed operands: step1 over
+    64-pixel tiles (4 x 16), K = ceil(C0 / 64) chunks of W1, + LN + GELU + u
+    -> t rounded to bf16; step2 over 128-pixel tiles (8 x 16), per chunk
+    one 18 x 10 halo box of t whose shifted rows feed the nine taps, + LN +
+    GELU -> bf16."""
+    packed = K.pack_neck(p, torch.bfloat16)
+    w1, w2 = _unswizzle(packed["w1"])[0], _unswizzle(packed["w2"])
+    b, h, w, _ = f0.shape
+    cm, co = u.shape[-1], p["step2_0.conv.weight"].shape[0]
+    t = torch.zeros(b, h, w, cm)
+    for bb, y0, x0 in _tiles(b, h, w, 4):
+        acc = torch.zeros(64, w1.shape[1])
+        for ch in range(packed["w1"].shape[1]):
+            acc += _box(f0.float(), bb, y0, x0, 64 * ch, 4, 16).reshape(64, 64) @ w1[64 * ch : 64 * ch + 64]
+        y = _ln_gelu_rows(acc, cm, packed["vec1"])
+        for r in range(64):
+            i, j = y0 + r // 16, x0 + r % 16
+            if i < h and j < w:
+                t[bb, i, j] = y[r] + u[bb, i, j].float()
+    t = t.to(torch.bfloat16).float()
+    out = torch.zeros(b, h, w, co)
+    chunks = packed["w2"].shape[1]
+    for bb, y0, x0 in _tiles(b, h, w, 8):
+        acc = torch.zeros(128, w2.shape[-1])
+        for ch in range(chunks):
+            box = _box(t, bb, y0 - 1, x0 - 1, 64 * ch, 10, 18)
+            for tap in range(9):
+                ky, kx = divmod(tap, 3)
+                acc += box[ky : ky + 8, kx : kx + 16].reshape(128, 64) @ w2[tap, 64 * ch : 64 * ch + 64]
+        y = _ln_gelu_rows(acc, co, packed["vec2"])
+        for r in range(128):
+            i, j = y0 + r // 16, x0 + r % 16
+            if i < h and j < w:
+                out[bb, i, j] = y[r]
+    return out.to(torch.bfloat16)
+
+
+def test_bf16_pack_unswizzles_to_w1_and_taps():
+    """The bf16 one-pass pack: W1 (one tap) as ceil(C0 / 64) chunks of 384 rows and the
+    3x3's nine taps as ceil(Cm / 64) chunks of 96 rows, each in the 128-byte
+    swizzle, unswizzling to the bf16 weights, zero past C0, Cm and Co."""
+    c0, cm, co = 72, 32, 8
+    p = _params(c0, cm, co, seed=3)
+    packed = K.pack_neck(p, torch.bfloat16)
+    assert packed["w1"].shape == (1, 2, K.MID_WIDTH // 8, 8, 8, 8)
+    assert packed["w2"].shape == (9, 1, K.OUT_WIDTH // 8, 8, 8, 8)
+    w1 = _unswizzle(packed["w1"])[0]
+    w2 = _unswizzle(packed["w2"])
+    assert torch.equal(w1[:c0, :cm], p["step1_0.conv.weight"].t().to(torch.bfloat16).float())
+    assert not w1[c0:].any() and not w1[:, cm:].any()
+    taps = p["step2_0.conv.weight"].permute(2, 3, 1, 0).reshape(9, cm, co)
+    assert torch.equal(w2[:, :cm, :co], taps.to(torch.bfloat16).float())
+    assert not w2[:, cm:].any() and not w2[:, :, co:].any()
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=["flagship_widths", "micro"])
+def test_emulated_bf16_tile_walk_matches_plain(shape):
+    """The bf16 kernels' walk over 2-D tiles of a ragged batch (tiles past the
+    right and bottom edges), their boxes with TMA's zero fill (the 3x3's
+    padding, channels past C0 in a partial chunk) and the swizzled weights
+    reproduce ``fused_neck_l0_plain`` on bf16 inputs: within one bf16
+    rounding of the output (8e-3 of the largest value; the f32 sums run in
+    another order, which can flip a rounding of t or of the output), and
+    equal on at least 99 % of the values."""
+    b, h, w, c0, cm, co = shape
+    p = _params(c0, cm, co, seed=4)
+    rng = np.random.default_rng(5)
+    f0 = torch.from_numpy(rng.standard_normal((b, h, w, c0)).astype(np.float32)).to(torch.bfloat16)
+    u = torch.from_numpy(rng.standard_normal((b, h, w, cm)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = K.fused_neck_l0_plain(f0, u, p).float()
+        got = _emulate_bf16(f0, u, p).float()
+    assert got.shape == want.shape == (b, h, w, co)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    assert rel <= 8e-3, rel
+    assert float((got == want).float().mean()) >= 0.99

@@ -26,6 +26,7 @@ from adascale_torch.kernels import packing
 from adascale_torch.kernels import precise_heads as KP
 from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
 from adascale_torch.models.fpn import FpnHead, FpnNeck
+from adascale_torch.ops.fused_upsample import phase_tap_weights
 from adascale_torch.utils.params import state_dict_from_jax
 
 TOL = 1e-3
@@ -134,7 +135,10 @@ def test_forward_from_features_fused_matches_flax(size, which):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sliced_heads_pack_is_the_one_pass_pack_of_each_slice(dtype):
     """Heads of F = 258 in two slices of 200: slice s of the packed operand
-    is the one-pass pack of features 200 s .. 200 s + 199 (zero past F)."""
+    is the one-pass pack of features 200 s .. 200 s + 199 (zero past F); in
+    bf16, where the one-pass kernel reads 64-channel swizzled chunks
+    (``packing.pack_sw128``), the K-major pack of that slice's collapsed
+    taps that the sliced kernel reads (``packing.pack_kmajor_bf16``)."""
     rng = np.random.default_rng(8)
     c, f, m = 32, 258, 4
     p = {
@@ -151,8 +155,13 @@ def test_sliced_heads_pack_is_the_one_pass_pack_of_each_slice(dtype):
         for name in ("step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias"):
             part[name] = p[name][lo:hi]
         part["step2.weight"] = p["step2.weight"][:, lo:hi]
-        one = KH.pack_heads([part], 200, slices=1, dtype=dtype)
-        assert torch.equal(packed["w"][:, s], one["w"])
+        if dtype == torch.float32:
+            one = KH.pack_heads([part], 200, slices=1, dtype=dtype)["w"]
+        else:
+            taps = torch.zeros(1, 4, 4, c, 200)
+            taps[0, ..., : hi - lo] = phase_tap_weights(part["step1.conv.weight"])
+            one = packing.pack_kmajor_bf16(taps)
+        assert torch.equal(packed["w"][:, s], one)
     assert packed["vec"].shape == (1, 3, 400) and packed["w2"].shape == (1, KH.MAX_OUT, 400)
     assert torch.equal(packed["vec"][0, 0, :f], p["step1.conv.bias"])
 

@@ -15,10 +15,35 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   (1, H, W, 384), 384 -> 96, at the rough pass's 240x192 and the precise
   pass's 256x208;
 - the rough heads over (1, 240, 192, 384) and the precise heads over
-  (1, 256, 208, 384).
+  (1, 256, 208, 384);
+- in bf16 (``--only heads_bf16`` and ``--only neck_bf16``; the
+  ``compute_dtype="bfloat16"`` entries, rows 2b, 4b and 3b of PERF.md) the
+  same heads and neck cases on bf16 inputs, each launch by name, with the
+  wrapper's host time a call (``host_us_per_call``, the wall clock over
+  back-to-back calls on a 1x8x16 map, whose device work is shorter) and
+  the bytes the checkout's design reads through L2 a call
+  (``l2_read_bytes``, counted from its tiles: the TMA-fed design's halo
+  boxes and B stages where the checkout packs ``pack_sw128``, else the
+  shared-memory-ring design's shifted A rows and B a block) over the
+  kernel's device time; beside them, as a yardstick that is on no path of the port, one
+  cuBLAS bf16 ``torch.matmul`` of each kernel's product shape: for each
+  head (4 phases x pixels) x 4C . 4C x F, and the neck's pixels x C0 .
+  C0 x Cm and pixels x 9Cm . 9Cm x Co;
+- ``--only forwards_bf16``: the flagship's fused bf16 forwards
+  (``compute_dtype="bfloat16"``, the Pallas backbone, the fused neck and
+  heads; weights from ``--weights``) on random inputs of page_0's rough
+  (1, 960, 768, 3) and precise (1, 1024, 832, 3) shapes, at B = 1 and per
+  page at B = 16;
+- ``--only l2``: the read rate the card gives from L2 and from device
+  memory: a copy kernel written for this (``L2_READ_SOURCE``, on no path
+  of the port; built by ``nvcc`` into ``tools/_build/``) reads a buffer of
+  8, 16 or 24 MB (which stays in the 50 MB L2) 64 times, 16 bytes a
+  thread a load cached in L2 only, and a 1 GB buffer once (CUDA events
+  over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host]
+        [--only neck|heads|block|block_bf16|block_bf16_host|heads_bf16|neck_bf16|forwards_bf16|l2]
+        [--weights NPZ]
 
 For each case it prints one JSON line with:
 
@@ -81,9 +106,9 @@ BLOCK_BF16_SHAPES = {
     "precise": ((1, 256, 208, 96), (1, 128, 104, 192), (1, 64, 52, 384), (1, 32, 26, 768)),
 }
 STAGE_BLOCKS = (3, 3, 9, 3)
-# Kernel-name patterns of each wrapper's launches.
-NECK_KERNELS = ("step1_kernel", "step2_kernel")
-HEADS_KERNELS = ("heads_kernel",)
+# Kernel-name patterns of each wrapper's launches (each design's names).
+NECK_KERNELS = ("neck_step1_", "neck_step2_")
+HEADS_KERNELS = ("heads_",)
 BLOCK_KERNELS = ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel")
 # The bf16 block's launches, whatever its design names them.
 BLOCK_BF16_KERNELS = ("dw_ln_", "gemm_", "mlp_", "reduce_bf16_kernel")
@@ -201,7 +226,11 @@ def main() -> None:
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host"))
+    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
+                                           "heads_bf16", "neck_bf16", "forwards_bf16", "l2"))
+    parser.add_argument("--weights", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "examples/flagship_training/flagship_fpn_params.f16.npz"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ms: no CUDA device")
@@ -219,6 +248,15 @@ def main() -> None:
     gen = torch.Generator().manual_seed(args.seed)
     if args.only == "block_bf16_host":
         block_bf16_host(convnext_block, gen, args, card)
+        return
+    if args.only == "l2":
+        l2_rate(args, card)
+        return
+    if args.only == "forwards_bf16":
+        forwards_bf16(gen, args, card)
+        return
+    if args.only in ("heads_bf16", "neck_bf16"):
+        conv_bf16(args.only, fpn_heads, precise_heads, fpn_neck, gen, args, card)
         return
     wanted = {args.only} if args.only else {"neck", "heads", "block", "block_bf16"}
     cases = []
@@ -311,6 +349,180 @@ def block_bf16(convnext_block, gen: torch.Generator, args, card: str) -> None:
     for (mode, which), t in totals.items():
         print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "mode": mode, "pass": which,
                           "blocks": 36 if which == "both" else 18, **t, "card": card}), flush=True)
+
+
+def wrapper_host_us(fn, n: int = 200) -> float:
+    """Host microseconds a wrapper call: the wall clock over ``n``
+    back-to-back calls (whose device work is shorter), then a synchronise
+    outside the clock."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - start) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def l2_bytes(tma: bool, kind: str, b: int, h: int, w: int, c, widths) -> int:
+    """Bytes a bf16 call reads through L2, from its tiles. The TMA-fed
+    design (``csrc/conv_tma.cuh``): per tile and 64-channel chunk one halo
+    box (16 + KW - 1 columns by BH + KH - 1 rows) and each tap's B (the
+    neck's 1x1 B once a block, 132 blocks). The design before it
+    (``conv_gemm.cuh::mainloop_bf16``): every block of 128 pixels (the
+    neck's 1x1: 64) reads its shifted A rows and all of its B."""
+    npix = b * h * w
+    if kind == "heads":
+        if tma:
+            tiles, chunks = b * -(-h // 8) * -(-w // 16), -(-c // 64)
+            return sum(tiles * 4 * chunks * (9 * 17 * 128 + 4 * n * 128) for n in widths)
+        tiles = -(-npix // 128)
+        return sum(tiles * 4 * (128 * 4 * c * 2 + 4 * c * n * 2) for n in widths)
+    c0, cm, co = c
+    if tma:
+        k0, k1 = -(-c0 // 64), -(-cm // 64)
+        return (b * -(-h // 4) * -(-w // 16) * k0 * 64 * 128 + 132 * k0 * 384 * 128
+                + b * -(-h // 8) * -(-w // 16) * k1 * (10 * 18 * 128 + 9 * 96 * 128))
+    return (-(-npix // 64) * (64 * c0 * 2 + c0 * 384 * 2)
+            + -(-npix // 128) * (128 * 9 * cm * 2 + 9 * cm * 96 * 2))
+
+
+def conv_bf16(which: str, fpn_heads, precise_heads, fpn_neck, gen: torch.Generator, args, card: str) -> None:
+    """Rows 2b and 4b (``heads_bf16``) or 3b (``neck_bf16``): the bf16 heads
+    or neck at the flagship's shapes, each launch by name, host time a
+    call, the L2 read rate, and the cuBLAS yardstick of each product."""
+    from adascale_torch.kernels import packing
+
+    tma = hasattr(packing, "pack_sw128")
+    cases = []
+    if which == "heads_bf16":
+        for name, module, shape, outs, wrapper in (
+            ("fpn_heads", fpn_heads, ROUGH_SHAPE, ROUGH_OUT, lambda x, heads: fpn_heads.fused_rough_heads(x, *heads)),
+            ("precise_heads", precise_heads, PRECISE_SHAPE, PRECISE_OUT, precise_heads.fused_precise_heads),
+        ):
+            b, h, w, c = shape
+            heads = [head_params(c, m, gen) for m in outs]
+            x = randn(gen, *shape).to(torch.bfloat16)
+            small = randn(gen, 1, 8, 16, c).to(torch.bfloat16)
+            tile = 200 if name == "precise_heads" else 192
+            nbytes = l2_bytes(tma, "heads", b, h, w, c, [tile] * len(heads))
+            products = [(4 * b * h * w, 4 * c, p["step1.conv.weight"].shape[0]) for p in heads]
+            cases.append((name, list(shape), HEADS_KERNELS, lambda x=x, heads=heads, wr=wrapper: wr(x, heads),
+                          lambda small=small, heads=heads, wr=wrapper: wr(small, heads), nbytes, products))
+    else:
+        c0, cm, co = NECK_WIDTHS
+        for shape in NECK_SHAPES:
+            b, h, w = shape
+            p = neck_params(c0, cm, co, gen)
+            f0, u = randn(gen, *shape, c0).to(torch.bfloat16), randn(gen, *shape, cm).to(torch.bfloat16)
+            sf0, su = f0[:, :8, :16].contiguous(), u[:, :8, :16].contiguous()
+            nbytes = l2_bytes(tma, "neck", b, h, w, (c0, cm, co), ())
+            products = [(b * h * w, c0, cm), (b * h * w, 9 * cm, co)]
+            cases.append(("fpn_neck_l0", [*shape, c0, cm, co], NECK_KERNELS,
+                          lambda f0=f0, u=u, p=p: fpn_neck.fused_neck_l0(f0, u, p),
+                          lambda f0=sf0, u=su, p=p: fpn_neck.fused_neck_l0(f0, u, p), nbytes, products))
+    for name, shape, patterns, fn, small, nbytes, products in cases:
+        kernel, launches, other = device_ms(fn, args.reps, patterns)
+        print(json.dumps({
+            "label": args.label, "kernel": f"{name}_bf16", "shape": shape,
+            "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel, "launches_ms": launches,
+            "other_device_ms": other, "host_us_per_call": wrapper_host_us(small),
+            "l2_read_bytes": nbytes, "l2_read_tb_per_s": nbytes / (kernel * 1e-3) / 1e12, "card": card,
+        }), flush=True)
+        yard = []
+        for m, k, n in products:
+            a = randn(gen, m, k).to(torch.bfloat16)
+            bm = randn(gen, k, n, scale=k ** -0.5).to(torch.bfloat16)
+            yard.append({"m": m, "k": k, "n": n, "ms": call_ms(lambda a=a, bm=bm: torch.matmul(a, bm), args.reps)})
+            del a, bm
+        print(json.dumps({"label": args.label, "yardstick": "cublas_bf16_matmul", "kernel": f"{name}_bf16",
+                          "shape": shape, "products": yard, "sum_ms": sum(y["ms"] for y in yard), "card": card}),
+              flush=True)
+
+
+def forwards_bf16(gen: torch.Generator, args, card: str) -> None:
+    """The flagship's fused bf16 rough and precise forwards (the engine's
+    ``_forward``, as ``chip_smoke.py`` times them) at B = 1 and B = 16, on
+    random inputs of page_0's shapes: CUDA events, warm, the median of
+    three runs."""
+    from adascale_torch import AdaptiveScalingConfig, AdaptiveScalingInference, AdaptiveScalingInferenceConfig
+    from adascale_torch.utils.params import load_npz
+
+    cfg = AdaptiveScalingInferenceConfig(
+        model=AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"), compute_dtype="bfloat16",
+        use_pallas_backbone=True, use_pallas_neck_heads=True, device="cuda",
+    )
+    engine = AdaptiveScalingInference(cfg, params=load_npz(args.weights))
+    with torch.inference_mode():
+        for which, shape in (("rough", (1, 960, 768, 3)), ("precise", (1, 1024, 832, 3))):
+            x = randn(gen, *shape)
+            xb = x.expand(16, *shape[1:]).contiguous()
+            one = call_ms(lambda: engine._forward(x, which), args.reps)
+            many = call_ms(lambda: engine._forward(xb, which), 2) / 16
+            print(json.dumps({"label": args.label, "forward": f"{which}_bf16_fused", "shape": list(shape),
+                              "b1_ms": one, "b16_ms_per_page": many, "card": card}), flush=True)
+
+
+# The L2 read-rate probe: every thread XORs the 16-byte words it reads
+# (ld.global.cg: cached in L2, not in L1), `reps` passes over the buffer.
+L2_READ_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void l2_read_kernel(const uint4* __restrict__ p, long long n, int reps, unsigned* out) {
+  unsigned acc = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int r = 0; r < reps; ++r)
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += stride) {
+      const uint4 v = __ldcg(p + i);
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+  if (acc == 0x9e3779b9u) out[0] = acc;
+}
+extern "C" int l2_read(const void* p, long long n, int reps, unsigned* out, int blocks, cudaStream_t s) {
+  l2_read_kernel<<<blocks, 512, 0, s>>>(static_cast<const uint4*>(p), n, reps, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def l2_rate(args, card: str) -> None:
+    """The read rate from L2 and from device memory: L2_READ_SOURCE over a
+    buffer that stays in the 50 MB L2, 64 passes a call, and over a 1 GB
+    buffer, one pass; CUDA events over back-to-back warm calls; bytes read
+    a second."""
+    import ctypes
+    import shutil
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib_path = os.path.join(out_dir, "l2_read.cu"), os.path.join(out_dir, "libl2_read.so")
+    with open(src, "w") as f:
+        f.write(L2_READ_SOURCE)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", lib_path, src], check=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.l2_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_void_p]
+    lib.l2_read.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for mb in (8, 16, 24, 1024):
+        buf = torch.randint(0, 1 << 30, (mb * (1 << 20) // 4,), dtype=torch.int32, device="cuda")
+        reps = 1 if mb > 48 else 64
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run():
+            rc = lib.l2_read(buf.data_ptr(), buf.numel() // 4, reps, out.data_ptr(), blocks, stream)
+            if rc:
+                raise RuntimeError(f"l2_read: CUDA error {rc}")
+
+        ms = call_ms(run, 20)
+        print(json.dumps({"label": args.label, "buffer_mb": mb, "reads": reps, "ms": ms,
+                          "read_tb_per_s": reps * buf.numel() * 4 / (ms * 1e-3) / 1e12, "card": card}),
+              flush=True)
+        del buf
 
 
 def host_us(fn, n: int = 5000) -> float:
