@@ -1,0 +1,138 @@
+"""Command line: ``python -m adascale_torch <command> ...``.
+
+One-to-one with ``adascale/cli.py``:
+
+  detect   AdaptiveScalingInference.detect -> char polygons JSON
+  pt2      inference.export.export_program (the counterpart of ``stablehlo``)
+  train    not ported yet: the training loop, ROADMAP Queue 1 item 9.2
+  export   not ported yet: training checkpoints, ROADMAP Queue 1 items 9.2-9.3
+  demo     not ported yet: the painter and its Hershey text, ROADMAP Queue 1
+           items 12 and 9.1
+
+``detect`` reads PNG or an ``.npz`` page (``utils/png.py``) and runs on the
+card unless ``--device cpu`` asks for the plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _cmd_train(args):
+    raise NotImplementedError("train: the training loop is not ported yet (ROADMAP Queue 1 item 9.2)")
+
+
+def _cmd_export(args):
+    raise NotImplementedError(
+        "export: training checkpoints are not ported yet (ROADMAP Queue 1 items 9.2-9.3); "
+        "`pt2` exports the model from a .npz or a reference state dict"
+    )
+
+
+def _cmd_demo(args):
+    raise NotImplementedError(
+        "demo: the painter and its Hershey text renderer are not ported yet (ROADMAP Queue 1 items 12 and 9.1)"
+    )
+
+
+def _cmd_detect(args):
+    from .inference.engine import AdaptiveScalingInference, AdaptiveScalingInferenceConfig
+    from .models.adaptive_scaling import AdaptiveScalingConfig
+    from .utils.config import load_config
+    from .utils.png import read_image
+
+    engine = AdaptiveScalingInference(
+        AdaptiveScalingInferenceConfig(
+            checkpoint=args.checkpoint,
+            model=load_config(args.model_config, AdaptiveScalingConfig),
+            compute_dtype=args.dtype,
+            use_pallas_backbone=args.pallas,
+            device=args.device,
+        )
+    )
+    # Tri-state: --tiled forces tiling on, --no-tiled off, neither lets
+    # config.tiled_rough_long_side_min decide.
+    result = engine.detect(read_image(args.image), tiled=args.tiled)
+    polygons = [p.points.tolist() for p in result["char_polygons"]]
+    out = json.dumps({"num_chars": len(polygons), "char_polygons": polygons})
+    if args.output:
+        with open(args.output, "w") as fout:
+            fout.write(out)
+    else:
+        print(out)
+
+
+def _cmd_pt2(args):
+    from .inference.export import export_program
+    from .models.adaptive_scaling import AdaptiveScalingConfig
+    from .utils.config import load_config
+    from .utils.params import load_params
+
+    model_config = load_config(args.model_config, AdaptiveScalingConfig)
+    params = load_params(args.checkpoint, model_config)
+    manifest = export_program(params, model_config, args.output, device=args.device)
+    print(json.dumps(manifest))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="adascale_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="run the training loop (not ported yet)")
+    p.add_argument("--dataset-config", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--epoch-config")
+    p.add_argument("--model-config")
+    p.add_argument("--optimizer-config")
+    p.add_argument("--rough-loss-config")
+    p.add_argument("--precise-loss-config")
+    p.add_argument("--restore")
+    p.add_argument("--reset-output", action="store_true")
+    p.add_argument("--mesh", action="store_true", help="data-parallel over all devices")
+    p.set_defaults(fn=_cmd_train)
+
+    p = sub.add_parser("export", help="checkpoint -> inference artifact (not ported yet)")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--model-config")
+    p.set_defaults(fn=_cmd_export)
+
+    p = sub.add_parser("demo", help="two-stage inference + visualization images (not ported yet)")
+    p.add_argument("--config", required=True)
+    p.add_argument("--image", required=True)
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=_cmd_demo)
+
+    p = sub.add_parser("detect", help="page image (PNG or .npz) -> char polygons JSON")
+    p.add_argument("--checkpoint", required=True, help=".npz or reference state-dict file")
+    p.add_argument("--image", required=True)
+    p.add_argument("--model-config")
+    p.add_argument("--output")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument(
+        "--pallas", action="store_true",
+        help="use_pallas_backbone: in bf16 the Pallas backbone's rounding; the backbone runs the block kernel either way",
+    )
+    p.add_argument(
+        "--tiled",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="force tiling on (--tiled) or off (--no-tiled); default auto-decides from config",
+    )
+    p.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
+    p.set_defaults(fn=_cmd_detect)
+
+    p = sub.add_parser("pt2", help="checkpoint -> torch.export programs (.pt2) and manifest")
+    p.add_argument("--checkpoint", required=True, help=".npz or reference state-dict file")
+    p.add_argument("--output", required=True)
+    p.add_argument("--model-config")
+    p.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
+    p.set_defaults(fn=_cmd_pt2)
+
+    args = parser.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -52,7 +52,8 @@ from ..data.geometry import (
 from ..kernels.fpn_heads import forward_rough_from_features_fused
 from ..kernels.precise_heads import forward_precise_from_features_fused
 from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
-from ..utils.params import load_npz, state_dict_from_jax
+from ..utils.params import load_params, state_dict_from_jax
+from ..utils.precision import pin_full_f32
 from .eval import polygon_iou
 from .flatten import (
     FlattenedTextRegion,
@@ -190,7 +191,8 @@ class AdaptiveScalingInference:
         params: Optional[Mapping[str, Any]] = None,
     ):
         """``params``: the JAX package's nested parameter tree (numpy
-        leaves); else ``config.checkpoint`` names a flat ``.npz``."""
+        leaves); else ``config.checkpoint`` names a flat ``.npz`` or a
+        reference state-dict file (``utils.params.load_params``)."""
         _check_supported(config)
         self.config = config
         self.device = torch.device(config.device)
@@ -199,18 +201,11 @@ class AdaptiveScalingInference:
                 f"device {config.device!r} requested but torch.cuda.is_available() is "
                 "False; pass device='cpu' to run the plain versions on the CPU"
             )
-        # cuDNN runs f32 convolutions in TF32 by default; the reference runs
-        # at "highest", so the stem, downsample and FPN convolutions (library
-        # calls) need full f32. Matmuls are set likewise.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        # bf16 products sum in f32 and round once, as XLA's do; cuBLAS may
-        # otherwise reduce split-K partial sums in bf16.
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        pin_full_f32()
         if params is None:
             if config.checkpoint is None:
                 raise ValueError("need params or config.checkpoint")
-            params = load_npz(config.checkpoint)
+            params = load_params(config.checkpoint, config.model)
         self.dtype = COMPUTE_DTYPES[config.compute_dtype]
         pallas_residual = self.dtype == torch.bfloat16 and config.use_pallas_backbone
         model = AdaptiveScaling(

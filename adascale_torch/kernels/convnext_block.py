@@ -46,6 +46,19 @@ PyTorch headers, so a build takes seconds.
 ``dwconv.bias``, ``ln.weight``, ``ln.bias``, ``mlp_up.weight`` (4C, C),
 ``mlp_up.bias``, ``mlp_down.weight`` (C, 4C), ``mlp_down.bias`` and
 ``block_scale`` (C,). The kernel reads them in these layouts.
+
+The three inference entries are also one registered operator,
+``torch.ops.adascale_torch.convnext_block(x, *params, mode)`` (``x``, the
+nine parameters in ``PARAM_NAMES`` order, and ``MODE_F32``, ``MODE_BF16`` or
+``MODE_BF16_MODULE``), so that ``torch.export`` and ``torch.compile`` can
+trace a model through its blocks: its CUDA implementation is ``_launch`` /
+``_launch_bf16``, its CPU implementation the plain twins, and its fake
+implementation gives the output's shape and dtype. A traced call
+(``torch.compiler.is_compiling()``, which ``torch.export`` sets) goes through
+the operator; an eager call dispatches on the device itself and goes straight
+to the same functions: on an H100 the operator's dispatch made the
+host-paced bf16 forwards at B = 1 12-20 % slower, timed alternately in one
+process (``tools/kernel_ms.py --only forwards``, PERF.md).
 """
 from __future__ import annotations
 
@@ -200,15 +213,53 @@ def convnext_block(
     if compute_dtype == torch.bfloat16:
         if wants_grad:
             raise NotImplementedError("convnext_block: no gradient in bf16 (training runs in f32)")
-        module = x.dtype == torch.float32
-        if x.device.type == "cpu":
-            return convnext_block_plain_bf16(x, p, module)
-        return _launch_bf16(x, p, module)
-    if wants_grad:
+        mode = MODE_BF16_MODULE if x.dtype == torch.float32 else MODE_BF16
+    elif wants_grad:
         return TrainableBlock.apply(x, *(p[name] for name in PARAM_NAMES))
+    else:
+        mode = MODE_F32
+    if torch.compiler.is_compiling():
+        return torch.ops.adascale_torch.convnext_block(x, *(p[name] for name in PARAM_NAMES), mode)
+    return _block(x, p, mode)
+
+
+# The operator's modes: f32; bf16 in the Pallas mode (bf16 x and out) and in
+# the module mode (f32 x and out).
+MODE_F32, MODE_BF16, MODE_BF16_MODULE = 0, 1, 2
+
+
+def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], mode: int) -> torch.Tensor:
+    """One block in ``mode``: the plain twin on a CPU tensor, the kernel on a
+    CUDA one (which raises on what it does not take)."""
+    if mode not in (MODE_F32, MODE_BF16, MODE_BF16_MODULE):
+        raise ValueError(f"convnext_block: unknown mode {mode}")
     if x.device.type == "cpu":
-        return convnext_block_plain(x, p)
-    return _launch(x, p)
+        if mode == MODE_F32:
+            return convnext_block_plain(x, p)
+        return convnext_block_plain_bf16(x, p, mode == MODE_BF16_MODULE)
+    if mode == MODE_F32:
+        return _launch(x, p)
+    return _launch_bf16(x, p, mode == MODE_BF16_MODULE)
+
+
+def _op_impl(x: torch.Tensor, *rest) -> torch.Tensor:
+    *params, mode = rest
+    return _block(x, dict(zip(PARAM_NAMES, params)), mode)
+
+
+OP_SCHEMA = (
+    "(Tensor x, Tensor dw_w, Tensor dw_b, Tensor ln_g, Tensor ln_b, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, Tensor scale, int mode) -> Tensor"
+)
+convnext_block_op = torch.library.custom_op(
+    "adascale_torch::convnext_block", _op_impl, mutates_args=(), device_types="cpu", schema=OP_SCHEMA
+)
+convnext_block_op.register_kernel("cuda", _op_impl)
+
+
+@convnext_block_op.register_fake
+def _(x: torch.Tensor, *rest) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 class TrainableBlock(torch.autograd.Function):

@@ -25,18 +25,30 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Nearest resize of NHWC: ``out[i] = in[floor(i * in / out)]`` per axis."""
-    h, w = x.shape[1], x.shape[2]
+    """Nearest resize of NHWC: ``out[i] = in[floor(i * in / out)]`` per axis,
+    with ``in / out`` a float64, as the JAX package computes it. An
+    integer upsampling factor on both axes (every resize of the FPN and its
+    heads) repeats each pixel by ``expand`` and ``reshape``, which keeps
+    symbolic sizes symbolic under ``torch.export`` (``floor(i / k)`` equals
+    ``floor(i * (1 / k))`` in float64 there); other ratios gather rows and
+    columns whose indices are built on the device from the tensor's sizes."""
+    b, h, w, c = x.shape
     oh, ow = out_hw
-    if (oh, ow) == (h, w):
+    if statically_known_true(oh == h) and statically_known_true(ow == w):
         return x
-    rows = torch.from_numpy(np.floor(np.arange(oh) * (h / oh)).astype(np.int64))
-    cols = torch.from_numpy(np.floor(np.arange(ow) * (w / ow)).astype(np.int64))
-    x = x.index_select(1, rows.to(x.device))
-    return x.index_select(2, cols.to(x.device))
+    if oh % h == 0 and ow % w == 0:
+        fh, fw = oh // h, ow // w
+        return x[:, :, None, :, None, :].expand(b, h, fh, w, fw, c).reshape(b, oh, ow, c)
+
+    def source(n_out: int, n_in: int) -> torch.Tensor:
+        i = torch.arange(n_out, dtype=torch.float64, device=x.device)
+        return torch.floor(i * (n_in / n_out)).long()
+
+    return x.index_select(1, source(oh, h)).index_select(2, source(ow, w))
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -44,7 +56,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     The JAX package computes the same weights as two dense products; here
     PyTorch's own kernel runs on a channels-last NCHW view. In f32 for any
     input, cast back to its dtype, as the JAX package's bf16 path does."""
-    if (out_hw[0], out_hw[1]) == (x.shape[1], x.shape[2]):
+    if statically_known_true(out_hw[0] == x.shape[1]) and statically_known_true(out_hw[1] == x.shape[2]):
         return x
     y = F.interpolate(
         x.float().permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False

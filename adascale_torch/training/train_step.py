@@ -33,6 +33,7 @@ from ..losses import (
     precise_loss,
     rough_loss,
 )
+from ..utils.precision import pin_full_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +58,8 @@ class TrainStepConfig:
 
 def resolve_device(device: str) -> torch.device:
     """The device to train on; raises for a card that is not there. On the
-    card, TF32 is turned off for cuDNN and cuBLAS, as the engine does: the
-    reference computes in full f32."""
+    card, TF32 is turned off for cuDNN and cuBLAS (``pin_full_f32``), as the
+    engine does: the reference computes in full f32."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -66,8 +67,7 @@ def resolve_device(device: str) -> torch.device:
                 f"device {device!r} requested but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the plain versions on the CPU"
             )
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        pin_full_f32()
     return dev
 
 

@@ -5,6 +5,9 @@ The committed weight files (``examples/flagship_training/*.f16.npz``,
 leaf of the Flax parameter tree, with f16 leaves for the large files.
 ``load_npz`` reads that format back into a nested dict of f32 numpy arrays;
 ``state_dict_from_jax`` turns the nested tree into the port's ``state_dict``.
+``load_params`` (the counterpart of ``adascale/inference/engine.py::
+load_params``) reads that format or a reference PyTorch state-dict file,
+which ``utils/torch_port.py`` maps to the same nested tree.
 
 The port's submodules carry the Flax tree's own names
 (``backbone.stage0.layer0.dwconv``, ``rough_neck.step1_0.conv``, ...). The
@@ -24,10 +27,14 @@ elements, small enough to store as a reference.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from .config import expand_path
+from .torch_port import adaptive_scaling_params_from_torch
 
 
 def load_npz(path: str) -> Dict[str, Any]:
@@ -44,6 +51,32 @@ def load_npz(path: str) -> Dict[str, Any]:
                 leaf = leaf.astype(np.float32)
             node[parts[-1]] = leaf
     return params
+
+
+def load_params(checkpoint: str, model_config: Any) -> Dict[str, Any]:
+    """The nested parameter tree (numpy leaves) of ``checkpoint``: a flat
+    ``.npz`` (``load_npz``), or a reference ``AdaptiveScaling`` state-dict
+    file (``torch.load`` on the CPU, unwrapped from ``model_jit_state_dict``
+    where a training state wraps it), mapped for ``model_config``'s neck type
+    and precise char-mask head. A directory (an orbax checkpoint) raises:
+    reading one needs checkpoints without orbax, ROADMAP Queue 1 item 9.3.
+    The state-dict file is unpickled, so load only files you trust."""
+    path = expand_path(checkpoint)
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{checkpoint}: orbax checkpoint directories are not read by the port "
+            "(ROADMAP Queue 1 item 9.3, checkpoints without orbax); pass a .npz or a state-dict file"
+        )
+    if path.endswith(".npz"):
+        return load_npz(path)
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(payload, Mapping) and "model_jit_state_dict" in payload:
+        payload = payload["model_jit_state_dict"]
+    return adaptive_scaling_params_from_torch(
+        payload,
+        neck_head_type=str(getattr(model_config.neck_head_type, "value", model_config.neck_head_type)),
+        precise_enable_char_mask_head=model_config.precise_enable_char_mask_head,
+    )
 
 
 def _leaf_to_torch(name: str, leaf: np.ndarray):

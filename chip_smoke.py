@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,bf16,widths]
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,bf16,widths]
 
 With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
 those listed. A missing weight file or reference is an error in any phase
@@ -103,6 +103,32 @@ that reads it. Phases, each announced with its elapsed seconds:
      path's (<= 1e-4, as in phase 5);
  12. the three fused wrappers (neck level 0, rough heads, precise heads)
      raise on the card, launching nothing, where a gradient is wanted;
+ export. the block's registered operator (``torch.ops.adascale_torch.
+     convnext_block``) in its three modes against the plain twins at the
+     stage shapes of both passes (f32 at REL_TOL, the two bf16 modes at
+     BF16_TOL; ms through the operator); the tiny/FPN flagship's module
+     model exported by ``inference.export.export_program`` on the card
+     with b, h and w symbolic (both passes; the manifest must say "b,h,w",
+     each graph must call the operator once a block), saved, loaded back
+     with ``load_program`` and run at page_0's rough input (1 x 960 x 768)
+     and precise stack (1 x 1024 x 832) and at EXPORT_SECOND_SHAPE:
+     exactly 18 block launches a pass, none of the neck and heads kernels,
+     each output within EXPORT_REL_TOL of the eager model's largest value
+     (bit-equality printed); the loaded programs against the eager
+     forwards (CUDA events, warm) and no weight pack built; the same two
+     programs loaded and run in a fresh interpreter (FRESH_PROGRAM_SCRIPT,
+     no precision flag set before ``load_program``) at page_0's inputs,
+     held against the eager outputs at EXPORT_REL_TOL, with the error that
+     the same program shows once TF32 is let back into cuDNN printed
+     beside; the tiny/UPerNeXt flagship exported, loaded and held likewise
+     (its bilinear resizes and adaptive pools under symbolic H and W) at
+     page_0's rough input, its own precise stack and EXPORT_SECOND_SHAPE;
+     a one-block bf16 program run six times packs its weights once; then
+     ``python -m adascale_torch detect`` (run in this process by
+     ``runpy``) on page_0 written as a PNG by ``utils/png.py`` with the
+     flagship's .npz and examples/flagship_training/model.json, held
+     against the JAX reference as phase 4 holds detect() (its JSON's
+     polygons too), 36 block launches; the phase's seconds;
  bf16. serving at compute_dtype="bfloat16": each kernel's bf16 entry
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
@@ -145,8 +171,10 @@ Each run counts every kernel's launches from 0 just before a path and reads
 them just after; a kernel that a path runs and that was not launched fails
 the run. The kernels line gives each kernel's count on its main path
 (``launches``: the default detect() for the block kernel, the fused one for
-the neck and heads, the train step for the trainable block, the fused bf16
-detect() for the bf16 entries, listed as "<name>_bf16") and on every path
+the neck and heads, the train step for the trainable block, the loaded
+programs of phase export for the block's registered operator,
+"convnext_block_op", the fused bf16 detect() for the bf16 entries, listed
+as "<name>_bf16") and on every path
 (``launches_by_path``).
 
 The second-to-last line is a JSON object describing each kernel, the last
@@ -233,7 +261,7 @@ MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "preci
 # Batched against single-page detect(): the same polygons, points within
 # this (tests/test_batch_inference.py's bar).
 MANY_POINT_TOL = 1e-3
-PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "bf16", "widths")
+PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "bf16", "widths")
 KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # bf16 serving (phase bf16): the dense bf16 tensor-core peak (H100 SXM, 700 W);
 # each bf16 kernel against its bf16 plain twin, the largest difference over
@@ -2337,6 +2365,357 @@ def check_grad_refusal(gen, device) -> None:
             needs_grad.requires_grad_(False)
 
 
+# Phase export: the flagship's module model through torch.export with b, h
+# and w symbolic (an example of 2 x 640 x 640), saved, loaded back from disk
+# and run at page_0's rough input and precise stack and at
+# EXPORT_SECOND_SHAPE, each output within EXPORT_REL_TOL of the eager
+# model's largest value (cuDNN may pick other algorithms inside the program);
+# then `python -m adascale_torch detect` on page_0 written as a PNG.
+EXPORT_EXAMPLE_HW = (640, 640)
+EXPORT_SECOND_SHAPE = (2, 512, 704, 3)
+EXPORT_REL_TOL = 1e-5
+MODEL_JSON = os.path.join(ROOT, "examples/flagship_training/model.json")
+
+
+def check_block_op(gen, device) -> dict:
+    """The block's registered operator (``torch.ops.adascale_torch.
+    convnext_block``), which every block calls, eager or in an exported
+    program, in its three modes against the plain twins at the stage shapes
+    of both passes: f32 against ``convnext_block_plain`` at REL_TOL; the
+    bf16 Pallas mode (bf16 in and out) and module mode (f32 in and out)
+    against ``convnext_block_plain_bf16`` at BF16_TOL, phase bf16's bar.
+    ms through the operator, plain ms and the bound (bf16: products at the
+    bf16 rate), summed over the 36 blocks of a one-chunk page. Returns the
+    kernels-line entry: f32's numbers, the bf16 modes' beside them."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    op = torch.ops.adascale_torch.convnext_block
+    modes = {"f32": K.MODE_F32, "bf16": K.MODE_BF16, "bf16_module": K.MODE_BF16_MODULE}
+    totals = {label: dict.fromkeys(("ms", "plain_ms", "t_ops", "t_bytes", "max_abs_err"), 0.0) for label in modes}
+    for (h, w, c), blocks in STAGE_SHAPES + PRECISE_STAGE_SHAPES:
+        p = random_block_params(c, gen, device)
+        params = [p[name] for name in K.PARAM_NAMES]
+        x32 = torch.randn(1, h, w, c, generator=gen).to(device)
+        for label, mode in modes.items():
+            x = x32.to(torch.bfloat16) if mode == K.MODE_BF16 else x32
+            if mode == K.MODE_F32:
+                tol, (t_ops, t_bytes, _) = REL_TOL, block_bound_ms(h * w, c)
+
+                def plain(x=x, p=p):
+                    return K.convnext_block_plain(x, p)
+            else:
+                flops16, flops32, nbytes = block_work_bf16(h * w, c, 4 if mode == K.MODE_BF16_MODULE else 2)
+                tol = BF16_TOL
+                t_ops = (flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_F32_FLOPS) * 1e3
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+
+                def plain(x=x, p=p, module=mode == K.MODE_BF16_MODULE):
+                    return K.convnext_block_plain_bf16(x, p, module)
+
+            def kernel(x=x, mode=mode):
+                return op(x, *params, mode)
+
+            with torch.inference_mode():
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                err = float((got.float() - want.float()).abs().max())
+                rel = err / float(want.float().abs().max())
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            print(
+                f"convnext_block operator {label} {h}x{w}x{c}: max_abs_err={err:.3e} rel={rel:.3e} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f}",
+                flush=True,
+            )
+            if got.dtype != x.dtype or not rel <= tol:
+                raise AssertionError(
+                    f"convnext_block operator {label} {h}x{w}x{c}: {got.dtype}, relative error {rel} > {tol}")
+            total = totals[label]
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("t_ops", t_ops), ("t_bytes", t_bytes)):
+                total[key] += blocks * v
+    rows = {
+        label: {
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t["t_ops"], t["t_bytes"]),
+            "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
+        }
+        for label, t in totals.items()
+    }
+    return {**rows["f32"], "modes": {label: rows[label] for label in ("bf16", "bf16_module")}}
+
+
+def check_bf16_program_packs(params, device) -> None:
+    """A loaded program that calls the block operator in bf16 (the Pallas
+    mode; one flagship block, exported with static shapes) over and over
+    packs the block's weights once, in and out of inference mode, and
+    equals the eager block bit for bit."""
+    import tempfile
+
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.kernels import packing
+    from adascale_torch.models.convnext import ConvNeXtBlock
+    from adascale_torch.utils.params import state_dict_from_jax
+
+    block = ConvNeXtBlock(96, 0.0, torch.bfloat16, torch.bfloat16)
+    sd = state_dict_from_jax(params["backbone"]["stage0"]["layer0"])
+    block.load_state_dict(sd)
+    block = block.to(device).eval()
+    x = (torch.randn(1, 240, 192, 96, generator=torch.Generator().manual_seed(2)) * 0.5).to(device, torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix=".export-", dir=ROOT) as out:
+        with torch.no_grad():
+            program = torch.export.export(block, (x,))
+        torch.export.save(program, os.path.join(out, "block.pt2"))
+        loaded = torch.export.load(os.path.join(out, "block.pt2")).module()
+    packs, launches = packing.PACKS, K.LAUNCHES_BF16
+    outs = [loaded(x) for _ in range(3)]
+    with torch.inference_mode():
+        outs += [loaded(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    built, ran = packing.PACKS - packs, K.LAUNCHES_BF16 - launches
+    with torch.no_grad():  # the eager block's own parameters: a pack of its own
+        want = block(x)
+    equal = all(torch.equal(o, want) for o in outs)
+    print(f"bf16 block program: 6 calls, {ran} bf16 launches, {built} weight packs, equal to eager: {equal}",
+          flush=True)
+    if built != 1 or ran != 6 or not equal:
+        raise AssertionError(f"bf16 block program: packs {built} (want 1), launches {ran} (want 6), equal {equal}")
+
+
+# Run by check_export in a fresh interpreter from the checkout's root:
+# loads the FPN programs in FOLDER (argv[1]) with nothing set beforehand,
+# runs each at the input saved beside it, and saves the outputs, the block
+# launches, the precision flags before and after load_program, and the
+# rough program's outputs with TF32 let back into cuDNN.
+FRESH_PROGRAM_SCRIPT = r"""
+import sys
+
+import torch
+
+flags_before = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+from adascale_torch.inference.export import load_program
+from adascale_torch.kernels import convnext_block as K
+
+folder, outputs, launches = sys.argv[1], {}, {}
+for which in ("rough", "precise"):
+    module = load_program(f"{folder}/forward_{which}.pt2").module()
+    x = torch.load(f"{folder}/x_{which}.pt")
+    count = K.LAUNCHES
+    with torch.inference_mode():
+        outputs[which] = [t.cpu() for t in module(x)]
+    launches[which] = K.LAUNCHES - count
+    if which == "rough":
+        rough, x_rough = module, x
+flags_after = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+torch.backends.cudnn.allow_tf32 = True
+with torch.inference_mode():
+    outputs["rough_tf32"] = [t.cpu() for t in rough(x_rough)]
+torch.save({"outputs": outputs, "launches": launches, "flags_before": flags_before,
+            "flags_after": flags_after}, f"{folder}/fresh.pt")
+"""
+
+
+def export_checked(label: str, params, engine, inputs, out_dir: str) -> dict:
+    """``export_program`` of ``engine``'s model (its config, ``params``) on
+    the card into ``out_dir``, each pass loaded back and run on each
+    ``(which, x)`` of ``inputs`` against the eager model: b,h,w in the
+    manifest, one operator call a block in each graph, exactly one block
+    launch a block and no neck or heads launch a run, each output within
+    EXPORT_REL_TOL. Returns the loaded modules, the seconds, the launches by
+    run, those of the B = 1 runs summed, and the eager outputs by run."""
+    import torch
+
+    from adascale_torch.inference.export import export_program, load_program
+
+    blocks_per_pass = sum(n for _, n in engine.config.model.backbone_spec())
+    t = time.perf_counter()
+    manifest = export_program(params, engine.config.model, out_dir, example_hw=EXPORT_EXAMPLE_HW,
+                              device=str(engine.device))
+    export_s = time.perf_counter() - t
+    sizes = {k: os.path.getsize(os.path.join(out_dir, v["path"])) for k, v in manifest.items()}
+    print(f"{label} export_program: {export_s:.2f} s; manifest {json.dumps(manifest)}; bytes {sizes}", flush=True)
+    if any(v["symbolic_axes"] != "b,h,w" for v in manifest.values()):
+        raise AssertionError(f"{label} export: not b,h,w: {manifest}")
+    t = time.perf_counter()
+    programs = {
+        which: load_program(os.path.join(out_dir, manifest[f"forward_{which}"]["path"]))
+        for which in ("rough", "precise")
+    }
+    modules = {which: program.module() for which, program in programs.items()}
+    load_s = time.perf_counter() - t
+    ops = {
+        which: sum(n.target == torch.ops.adascale_torch.convnext_block.default for n in program.graph.nodes)
+        for which, program in programs.items()
+    }
+    print(f"{label} load_program: {load_s:.2f} s for both; block operator calls in the graphs {ops}", flush=True)
+    if set(ops.values()) != {blocks_per_pass}:
+        raise AssertionError(f"{label} export: block operator calls {ops}, want {blocks_per_pass} a pass")
+    launches, program_launches, eager = {}, 0, {}
+    want_counts = {k: blocks_per_pass if k == "convnext_block" else 0 for k in KERNEL_NAMES}
+    with torch.inference_mode():
+        for which, x in inputs:
+            run = f"{which} {tuple(x.shape)}"
+            got, counts = counted(lambda: modules[which](x))
+            want = getattr(engine.model, f"forward_{which}")(x)
+            rels = [rel_err(g, w_) for g, w_ in zip(got, want)]
+            equal = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+            print(
+                f"{label} loaded program {run}: rel err vs eager per output "
+                + " ".join(f"{r:.3e}" for r in rels) + f" (bit-equal: {equal}); launches {counts}",
+                flush=True,
+            )
+            if counts != want_counts:
+                raise AssertionError(f"{label} loaded program {run}: launches {counts} != {want_counts}")
+            if not max(rels) <= EXPORT_REL_TOL:
+                raise AssertionError(f"{label} loaded program {run}: rel err {max(rels)} > {EXPORT_REL_TOL}")
+            launches[run], eager[run] = counts["convnext_block"], want
+            if x.shape[0] == 1:
+                program_launches += counts["convnext_block"]
+    return {"modules": modules, "export_s": export_s, "load_s": load_s, "launches": launches,
+            "program_launches": program_launches, "eager": eager}
+
+
+def check_fresh_process(folder: str, x_rough, x_precise, eager, blocks_per_pass: int) -> dict:
+    """The FPN programs in ``folder`` loaded and run in a fresh interpreter
+    (FRESH_PROGRAM_SCRIPT) at page_0's rough input and precise stack: each
+    output within EXPORT_REL_TOL of ``eager``'s (by run, as
+    ``export_checked`` keys them), ``blocks_per_pass`` launches a pass, TF32
+    off after ``load_program``. Returns the errors, with TF32's beside."""
+    import sys
+
+    import torch
+
+    inputs = {"rough": x_rough, "precise": x_precise}
+    for which, x in inputs.items():  # loaded back onto the card
+        torch.save(x, os.path.join(folder, f"x_{which}.pt"))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_PROGRAM_SCRIPT, folder], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t
+    if proc.returncode:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+        raise AssertionError(f"fresh interpreter: exit code {proc.returncode}")
+    fresh = torch.load(os.path.join(folder, "fresh.pt"))
+    rels = {}
+    for which, x in inputs.items():
+        want = eager[f"{which} {tuple(x.shape)}"]
+        rels[which] = [rel_err(g.to(w_.device), w_) for g, w_ in zip(fresh["outputs"][which], want)]
+    tf32 = [rel_err(g.to(w_.device), w_)
+            for g, w_ in zip(fresh["outputs"]["rough_tf32"], eager[f"rough {tuple(x_rough.shape)}"])]
+    print(
+        f"fresh interpreter ({seconds:.2f} s): flags (cudnn, matmul allow_tf32) before load_program "
+        f"{fresh['flags_before']}, after {fresh['flags_after']}; block launches {fresh['launches']}; rel err vs "
+        "eager per output " + "; ".join(f"{k} " + " ".join(f"{r:.3e}" for r in v) for k, v in rels.items())
+        + "; rough with TF32 let back into cuDNN " + " ".join(f"{r:.3e}" for r in tf32),
+        flush=True,
+    )
+    if any(fresh["flags_after"]):
+        raise AssertionError(f"fresh interpreter: TF32 still allowed after load_program {fresh['flags_after']}")
+    if set(fresh["launches"].values()) != {blocks_per_pass}:
+        raise AssertionError(f"fresh interpreter: block launches {fresh['launches']}, want {blocks_per_pass} a pass")
+    worst = max(max(v) for v in rels.values())
+    if not worst <= EXPORT_REL_TOL:
+        raise AssertionError(f"fresh interpreter: rel err {worst} > {EXPORT_REL_TOL}")
+    return {"seconds": seconds, "rel_err": rels, "rel_err_tf32": tf32}
+
+
+def check_export(params, image, ref, device) -> dict:
+    """Phase export (module docstring). Returns the block operator's
+    launches through the loaded FPN programs on page_0 (both passes), the
+    CLI's launches, and the times."""
+    import runpy
+    import shutil
+    import sys
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from adascale_torch import AdaptiveScalingInference
+    from adascale_torch.data.geometry import Polygon
+    from adascale_torch.inference.eval import match_polygons
+    from adascale_torch.kernels import packing
+    from adascale_torch.utils.params import load_npz
+    from adascale_torch.utils.png import write_png
+
+    engine = engine_for(params)
+    blocks_per_pass = sum(n for _, n in engine.config.model.backbone_spec())
+    out_dir = tempfile.mkdtemp(prefix=".export-", dir=ROOT)
+    try:
+        result = engine.detect(image)
+        x_rough, x_precise = forward_inputs(image, result, device)
+        x2 = (torch.rand(EXPORT_SECOND_SHAPE, generator=torch.Generator().manual_seed(1)) * 255).to(device)
+        packs = packing.PACKS
+        fpn_dir = os.path.join(out_dir, "fpn")
+        fpn = export_checked("FPN", params, engine, [
+            ("rough", x_rough), ("precise", x_precise), ("rough", x2), ("precise", x2)], fpn_dir)
+        modules = fpn["modules"]
+        times = {}
+        with torch.inference_mode():
+            for which, x in (("rough", x_rough), ("precise", x_precise)):
+                eager = getattr(engine.model, f"forward_{which}")
+                times[which] = {"eager_ms": cuda_ms(lambda: eager(x), reps=5),
+                                "program_ms": cuda_ms(lambda: modules[which](x), reps=5)}
+        print(f"forward ms, eager module model against the loaded program (CUDA events, warm): {json.dumps(times)}",
+              flush=True)
+        if packing.PACKS != packs:
+            raise AssertionError(f"the f32 programs built {packing.PACKS - packs} weight packs")
+        fresh = check_fresh_process(fpn_dir, x_rough, x_precise, fpn["eager"], blocks_per_pass)
+        out = {k: fpn[k] for k in ("program_launches", "launches", "export_s", "load_s")}
+        del fpn, modules
+        shutil.rmtree(fpn_dir)
+        check_bf16_program_packs(params, device)
+
+        stamp("export: the UPerNeXt flagship")
+        upernext = engine_for(load_npz(UPERNEXT_WEIGHTS), neck_head_type="upernext")
+        _, x_precise_u = forward_inputs(image, upernext.detect(image), device)
+        up = export_checked("UPerNeXt", load_npz(UPERNEXT_WEIGHTS), upernext, [
+            ("rough", x_rough), ("precise", x_precise_u), ("rough", x2), ("precise", x2)],
+            os.path.join(out_dir, "upernext"))
+        out["upernext"] = {k: up[k] for k in ("program_launches", "launches", "export_s", "load_s")}
+        del upernext, up
+
+        stamp("export: python -m adascale_torch detect on page_0 as a PNG")
+        png, out_json = os.path.join(out_dir, "page_0.png"), os.path.join(out_dir, "detect.json")
+        write_png(png, image)
+        captured = []
+        detect = AdaptiveScalingInference.detect
+
+        def recording(self, *args, **kwargs):
+            captured.append(detect(self, *args, **kwargs))
+            return captured[-1]
+
+        argv = sys.argv
+        sys.argv = ["adascale_torch", "detect", "--checkpoint", WEIGHTS, "--image", png,
+                    "--model-config", MODEL_JSON, "--output", out_json]
+        AdaptiveScalingInference.detect = recording
+        try:
+            t = time.perf_counter()
+            _, cli_launches = counted(lambda: runpy.run_module("adascale_torch", run_name="__main__"))
+            cli_s = time.perf_counter() - t
+        finally:
+            AdaptiveScalingInference.detect, sys.argv = detect, argv
+        with open(out_json) as fin:
+            written = json.load(fin)
+        print(f"detect CLI: {cli_s:.2f} s, {written['num_chars']} chars, launches {cli_launches}", flush=True)
+        check_against_reference(captured[0], ref, f"CLI LAUNCHES={cli_launches}")
+        polygons = [Polygon(np.asarray(p)) for p in written["char_polygons"]]
+        theirs = [Polygon(p) for p in ref["char_polygons"]]
+        matched = len(match_polygons(polygons, theirs, 0.5))
+        if written["num_chars"] != len(polygons) or min(matched / len(theirs), matched / len(polygons)) < 0.95:
+            raise AssertionError(f"detect CLI JSON: {matched} of {len(polygons)} / {len(theirs)} polygons matched")
+        want = {k: 2 * blocks_per_pass if k == "convnext_block" else 0 for k in KERNEL_NAMES}
+        if cli_launches != want:
+            raise AssertionError(f"detect CLI: launches {cli_launches} != {want}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {**out, "cli_launches": cli_launches, "cli_s": cli_s, "times": times, "fresh": fresh}
+
+
 def parse_phases(argv=None):
     """The phases to run: all of them, or those ``--phases`` lists (phases 1
     and 2, the device and the build, always run)."""
@@ -2368,9 +2747,9 @@ def main() -> None:
     smi = smi_line()
     print(f"device: {name} count={count}", flush=True)
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from adascale_torch.utils.precision import pin_full_f32
+
+    pin_full_f32()
     device = torch.device("cuda", 0)
 
     from adascale_torch.utils.params import load_npz
@@ -2524,6 +2903,16 @@ def main() -> None:
         stamp("phase 12: the fused wrappers refuse a gradient on the card")
         check_grad_refusal(gen, device)
 
+    if "export" in phases:
+        stamp("phase export: torch.export of the flagship, loaded back, and the detect CLI")
+        phase_t = time.perf_counter()
+        rows["convnext_block_op"] = check_block_op(gen, device)
+        exported = check_export(params, image, ref, device)
+        by_path["exported_program"] = {"convnext_block": exported["program_launches"]}
+        by_path["exported_program_upernext"] = {"convnext_block": exported["upernext"]["program_launches"]}
+        by_path["detect_cli"] = exported["cli_launches"]
+        print(f"phase export: {time.perf_counter() - phase_t:.2f} s", flush=True)
+
     if "bf16" in phases:
         stamp("phase bf16: bf16 serving (compute_dtype='bfloat16')")
         bf16_rows, bf16_paths = check_bf16(params, image, gen, device)
@@ -2540,6 +2929,8 @@ def main() -> None:
     bf16_names = [f"{k}_bf16" for k in KERNEL_NAMES]
     path_kernels = {
         "detect": ["convnext_block"], "upernext_detect": ["convnext_block"],
+        "exported_program": ["convnext_block"], "exported_program_upernext": ["convnext_block"],
+        "detect_cli": ["convnext_block"],
         "train_step": ["convnext_block"],
         "detect_bf16_fpn_module": ["convnext_block_bf16"],
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
@@ -2560,6 +2951,8 @@ def main() -> None:
         "fpn_heads": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_fused"),
         "precise_heads": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_fused"),
         "convnext_block_trainable": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:340", "train_step"),
+        # The block's registered operator, on the programs of phase export.
+        "convnext_block_op": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:290", "exported_program"),
         # The bf16 kernels, on the fused bf16 detect() (Pallas-mode blocks).
         "convnext_block_bf16": ("block_bf16.cuh", "adascale/ops/pallas/convnext_block.py:290", "detect_bf16_fpn_fused"),
         "fpn_neck_l0_bf16": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_bf16_fpn_fused"),
@@ -2568,7 +2961,7 @@ def main() -> None:
     }
     kernels = []
     for kernel, (source, replaces, main_path) in sources.items():
-        kernel_name = "convnext_block" if kernel == "convnext_block_trainable" else kernel
+        kernel_name = "convnext_block" if kernel in ("convnext_block_trainable", "convnext_block_op") else kernel
         entry = {
             "name": kernel,
             "route": "cuda",

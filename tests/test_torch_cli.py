@@ -1,0 +1,75 @@
+"""The port's command line (``python -m adascale_torch``) against the JAX
+package's (``adascale/cli.py``), on the CPU.
+
+``detect`` on the overfit micro fixture and page [42, 0] of the
+detection-quality spec, written as a PNG by OpenCV: the port's JSON against
+the JAX CLI's on the same ``.npz`` and PNG, char polygons matched one to one
+at IoU >= 0.5, >= 95 % both ways (the port's engine bar; the two engines
+compute the same function in f32, so the measured share is printed).
+``train``, ``export`` and ``demo`` exist and raise, naming their ROADMAP
+items.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from test_detection_quality import FIXTURE, MODEL_SPEC, PAGE_SPEC  # noqa: E402
+
+from adascale.cli import main as jax_cli_main  # noqa: E402
+from adascale.data.synth import generate_page  # noqa: E402
+from adascale.utils.config import config_to_dict as jax_config_to_dict  # noqa: E402
+from adascale_torch.cli import main as cli_main  # noqa: E402
+from adascale_torch.data.geometry import Polygon  # noqa: E402
+from adascale_torch.inference.eval import match_polygons  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+POLYGON_BAR = 0.95
+
+
+def test_detect_cli_matches_the_jax_cli(tmp_path):
+    page = generate_page(PAGE_SPEC, np.random.default_rng([42, 0]))
+    image_path = str(tmp_path / "page.png")
+    assert cv2.imwrite(image_path, page.image[:, :, ::-1])
+    model_json = tmp_path / "model.json"
+    model_json.write_text(json.dumps(jax_config_to_dict(MODEL_SPEC)))
+    args = ["detect", "--checkpoint", FIXTURE, "--image", image_path, "--model-config", str(model_json)]
+
+    jax_json = str(tmp_path / "jax.json")
+    jax_cli_main(args + ["--output", jax_json])
+    port_json = str(tmp_path / "port.json")
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "adascale_torch", *args, "--output", port_json, "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+    want, got = (json.loads(open(p).read()) for p in (jax_json, port_json))
+    assert set(got) == {"num_chars", "char_polygons"} and got["num_chars"] == len(got["char_polygons"])
+    theirs = [Polygon(np.asarray(p)) for p in want["char_polygons"]]
+    ours = [Polygon(np.asarray(p)) for p in got["char_polygons"]]
+    matched = len(match_polygons(ours, theirs, 0.5))
+    print(f"detect CLI: port {len(ours)}, JAX {len(theirs)}, matched@0.5 {matched}")
+    assert len(theirs) > 50
+    assert matched >= POLYGON_BAR * len(theirs) and matched >= POLYGON_BAR * len(ours)
+
+
+@pytest.mark.parametrize(
+    "argv,item",
+    [
+        (["train", "--dataset-config", "d.json", "--output", "out"], "item 9.2"),
+        (["export", "--checkpoint", "state", "--output", "out"], "items 9.2-9.3"),
+        (["demo", "--config", "c.json", "--image", "page.png", "--output", "out"], "items 12 and 9.1"),
+    ],
+    ids=["train", "export", "demo"],
+)
+def test_unported_commands_raise_naming_their_item(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli_main(argv)

@@ -34,6 +34,17 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   heads; weights from ``--weights``) on random inputs of page_0's rough
   (1, 960, 768, 3) and precise (1, 1024, 832, 3) shapes, at B = 1 and per
   page at B = 16;
+- ``--only forwards``: the flagship's eager rough and precise forwards
+  (the engine's ``_forward``) in f32 and bf16, module path and fused
+  (bf16 with the Pallas backbone, as the fused bf16 engine needs), on
+  random inputs of page_0's shapes at B = 1 and per page at B = 16, and
+  the block's host time a call on a 1x8x8x96 block (f32, bf16 in both
+  modes). Each is timed with the blocks through the checkout's wrapper
+  (eager: straight to the launch) and, where the checkout registers the
+  block operator (``torch.ops.adascale_torch.convnext_block``, which
+  traced calls reach), also through the operator, the two alternately in
+  one process (``FORWARD_ROUNDS`` rounds each, the median), so that the
+  operator's dispatch cost shows beside the same process's direct calls;
 - ``--only l2``: the read rate the card gives from L2 and from device
   memory: a copy kernel written for this (``L2_READ_SOURCE``, on no path
   of the port; built by ``nvcc`` into ``tools/_build/``) reads a buffer of
@@ -42,7 +53,7 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host|heads_bf16|neck_bf16|forwards_bf16|l2]
+        [--only neck|heads|block|block_bf16|block_bf16_host|heads_bf16|neck_bf16|forwards_bf16|forwards|l2]
         [--weights NPZ]
 
 For each case it prints one JSON line with:
@@ -84,6 +95,7 @@ import argparse
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -227,7 +239,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
-                                           "heads_bf16", "neck_bf16", "forwards_bf16", "l2"))
+                                           "heads_bf16", "neck_bf16", "forwards_bf16", "forwards", "l2"))
     parser.add_argument("--weights", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "examples/flagship_training/flagship_fpn_params.f16.npz"))
@@ -254,6 +266,9 @@ def main() -> None:
         return
     if args.only == "forwards_bf16":
         forwards_bf16(gen, args, card)
+        return
+    if args.only == "forwards":
+        forwards(convnext_block, gen, args, card)
         return
     if args.only in ("heads_bf16", "neck_bf16"):
         conv_bf16(args.only, fpn_heads, precise_heads, fpn_neck, gen, args, card)
@@ -463,6 +478,83 @@ def forwards_bf16(gen: torch.Generator, args, card: str) -> None:
             many = call_ms(lambda: engine._forward(xb, which), 2) / 16
             print(json.dumps({"label": args.label, "forward": f"{which}_bf16_fused", "shape": list(shape),
                               "b1_ms": one, "b16_ms_per_page": many, "card": card}), flush=True)
+
+
+# --only forwards: rounds of each route, alternately; the median is kept.
+FORWARD_ROUNDS = 5
+
+
+def forwards(convnext_block, gen: torch.Generator, args, card: str) -> None:
+    """The flagship's eager forwards in four configurations at B = 1 and 16
+    (CUDA events, warm, the median of ``FORWARD_ROUNDS`` rounds of
+    ``call_ms``) and the block's host time a call, each as one JSON line
+    with a value a route: ``wrapper`` (the checkout's ``convnext_block``)
+    and, on a checkout with the block operator, ``operator`` (the mode
+    chosen as the wrapper chooses it, then the operator, without the
+    wrapper's checks)."""
+    from adascale_torch import AdaptiveScalingConfig, AdaptiveScalingInference, AdaptiveScalingInferenceConfig
+    from adascale_torch.models import convnext
+    from adascale_torch.utils.params import load_npz
+
+    routes = {"wrapper": convnext_block.convnext_block}
+    if hasattr(torch.ops.adascale_torch, "convnext_block"):
+        op, names = torch.ops.adascale_torch.convnext_block, convnext_block.PARAM_NAMES
+
+        def operator(x, p, compute_dtype=torch.float32):
+            if compute_dtype == torch.float32:
+                mode = convnext_block.MODE_F32
+            else:
+                mode = convnext_block.MODE_BF16_MODULE if x.dtype == torch.float32 else convnext_block.MODE_BF16
+            return op(x, *(p[n] for n in names), mode)
+
+        routes["operator"] = operator
+
+    def by_route(fn, reps):
+        runs = {route: [] for route in routes}
+        for _ in range(FORWARD_ROUNDS):
+            for route, block in routes.items():
+                convnext.convnext_block = block
+                runs[route].append(call_ms(fn, reps))
+        convnext.convnext_block = routes["wrapper"]
+        return {route: statistics.median(v) for route, v in runs.items()}
+
+    params = load_npz(args.weights)
+    model = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
+    inputs = {which: randn(gen, *shape, scale=60.0, shift=128.0)
+              for which, shape in (("rough", (1, 960, 768, 3)), ("precise", (1, 1024, 832, 3)))}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (False, True):
+            engine = AdaptiveScalingInference(AdaptiveScalingInferenceConfig(
+                model=model, compute_dtype=dtype, use_pallas_backbone=True, use_pallas_neck_heads=fused,
+                device="cuda"), params=params)
+            with torch.inference_mode():
+                for which, x in inputs.items():
+                    xb = x.expand(16, *x.shape[1:]).contiguous()
+                    launches = convnext_block.LAUNCHES + convnext_block.LAUNCHES_BF16
+                    engine._forward(x, which)
+                    ran = convnext_block.LAUNCHES + convnext_block.LAUNCHES_BF16 - launches
+                    one = by_route(lambda: engine._forward(x, which), args.reps)
+                    many = by_route(lambda: engine._forward(xb, which), 1)
+                    print(json.dumps({
+                        "label": args.label,
+                        "forward": f"{which}_{'bf16' if dtype == 'bfloat16' else 'f32'}_{'fused' if fused else 'module'}",
+                        "shape": list(x.shape), "b1_ms": one,
+                        "b16_ms_per_page": {route: v / 16 for route, v in many.items()},
+                        "block_launches": ran, "card": card}), flush=True)
+            del engine
+    p, x32 = block_params(96, gen), randn(gen, 1, 8, 8, 96)
+    xb16 = x32.to(torch.bfloat16)
+    host = {}
+    with torch.inference_mode():
+        for route, block in routes.items():
+            host[route] = {
+                "f32": host_us(lambda: block(x32, p), 2000),
+                "bf16_pallas": host_us(lambda: block(xb16, p, torch.bfloat16), 2000),
+                "bf16_module": host_us(lambda: block(x32, p, torch.bfloat16), 2000),
+            }
+    torch.cuda.synchronize()
+    print(json.dumps({"label": args.label, "block_host_us_per_call": host,
+                      "shape": [1, 8, 8, 96], "card": card}), flush=True)
 
 
 # The L2 read-rate probe: every thread XORs the 16-byte words it reads
