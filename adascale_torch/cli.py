@@ -2,15 +2,17 @@
 
 One-to-one with ``adascale/cli.py``:
 
+  train    training.loop.train (``--mesh`` raises: ROADMAP Queue 1 item 10)
+  export   training.loop.export_inference_artifact (a checkpoint of the port
+           -> ``params.npz`` + ``model_config.json``, which ``detect`` serves)
   detect   AdaptiveScalingInference.detect -> char polygons JSON
   pt2      inference.export.export_program (the counterpart of ``stablehlo``)
-  train    not ported yet: the training loop, ROADMAP Queue 1 item 9.2
-  export   not ported yet: training checkpoints, ROADMAP Queue 1 items 9.2-9.3
   demo     not ported yet: the painter and its Hershey text, ROADMAP Queue 1
-           items 12 and 9.1
+           item 12
 
-``detect`` reads PNG or an ``.npz`` page (``utils/png.py``) and runs on the
-card unless ``--device cpu`` asks for the plain versions.
+``detect`` reads PNG or an ``.npz`` page (``utils/png.py``). ``train`` and
+``detect`` run on the card unless ``--device cpu`` asks for the plain
+versions.
 """
 from __future__ import annotations
 
@@ -20,19 +22,33 @@ import sys
 
 
 def _cmd_train(args):
-    raise NotImplementedError("train: the training loop is not ported yet (ROADMAP Queue 1 item 9.2)")
+    from .training.loop import train
+
+    metrics = train(
+        dataset_config_json=args.dataset_config,
+        output_folder=args.output,
+        reset_output_folder=args.reset_output,
+        epoch_config_json=args.epoch_config,
+        model_config_json=args.model_config,
+        optimizer_config_json=args.optimizer_config,
+        rough_loss_config_json=args.rough_loss_config,
+        precise_loss_config_json=args.precise_loss_config,
+        restore_state_path=args.restore,
+        use_mesh=args.mesh,
+        device=args.device,
+    )
+    print(json.dumps(metrics))
 
 
 def _cmd_export(args):
-    raise NotImplementedError(
-        "export: training checkpoints are not ported yet (ROADMAP Queue 1 items 9.2-9.3); "
-        "`pt2` exports the model from a .npz or a reference state dict"
-    )
+    from .training.loop import export_inference_artifact
+
+    print(export_inference_artifact(args.checkpoint, args.output, args.model_config))
 
 
 def _cmd_demo(args):
     raise NotImplementedError(
-        "demo: the painter and its Hershey text renderer are not ported yet (ROADMAP Queue 1 items 12 and 9.1)"
+        "demo: the painter and its Hershey text renderer are not ported yet (ROADMAP Queue 1 item 12)"
     )
 
 
@@ -79,7 +95,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="adascale_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("train", help="run the training loop (not ported yet)")
+    p = sub.add_parser("train", help="run the training loop")
     p.add_argument("--dataset-config", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--epoch-config")
@@ -89,11 +105,12 @@ def main(argv=None):
     p.add_argument("--precise-loss-config")
     p.add_argument("--restore")
     p.add_argument("--reset-output", action="store_true")
-    p.add_argument("--mesh", action="store_true", help="data-parallel over all devices")
+    p.add_argument("--mesh", action="store_true", help="data-parallel over all devices (not ported yet)")
+    p.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
     p.set_defaults(fn=_cmd_train)
 
-    p = sub.add_parser("export", help="checkpoint -> inference artifact (not ported yet)")
-    p.add_argument("--checkpoint", required=True)
+    p = sub.add_parser("export", help="checkpoint -> inference artifact (params.npz, model_config.json)")
+    p.add_argument("--checkpoint", required=True, help="a training checkpoint of the port (state_<epoch>)")
     p.add_argument("--output", required=True)
     p.add_argument("--model-config")
     p.set_defaults(fn=_cmd_export)

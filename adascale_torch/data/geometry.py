@@ -16,7 +16,19 @@ Counterpart of ``adascale/data/geometry.py`` without OpenCV:
   * ``rotate_trans_mat`` builds ``cv2.getRotationMatrix2D`` in closed form;
   * ``distance_transform_l2_3x3`` follows ``cv2.distanceTransform(m,
     cv2.DIST_L2, 3)``: OpenCV's two-pass 3x3 chamfer in f32 (a step costs
-    0.955 straight and 1.3693 diagonal; no zero pixel gives FLT_MAX).
+    0.955 straight and 1.3693 diagonal; no zero pixel gives FLT_MAX);
+  * ``get_perspective_transform`` and ``perspective_transform`` follow
+    OpenCV 5.0's ``getPerspectiveTransform`` (its f32 products, its LU
+    solve in f64) and ``perspectiveTransform`` (f64) bit for bit;
+    ``warp_perspective`` follows ``warpPerspective`` (INTER_LINEAR,
+    BORDER_CONSTANT: the closed-form f64 inverse, source positions and
+    bilinear weights in f32 with fused multiply-adds where its vector code
+    fuses them), bit for bit on every column its vector loop covers: all of
+    them when the width is a multiple of 32 (the flagship's 768-pixel
+    pages); the last ``width % 32`` columns come from its scalar tail, whose
+    order is not found yet (within 1 gray level, ROADMAP Queue 3 item 7);
+    ``draw_axis_line`` is ``cv2.line`` at thickness 1 for a horizontal or
+    vertical segment.
 
 Conventions: images are (H, W, ...) arrays; polygon points are float32
 (N, 2) in (x, y) order; boxes are inclusive (slice up:down+1, left:right+1).
@@ -388,3 +400,174 @@ def distance_transform_l2_3x3(mask: np.ndarray) -> np.ndarray:
     init = np.where(mask == 0, np.float32(0.0), np.finfo(np.float32).max).astype(np.float32)
     forward = _chamfer_pass(init)
     return np.ascontiguousarray(_chamfer_pass(forward[::-1, ::-1].copy())[::-1, ::-1])
+
+
+# ------------------------------------------------------------ perspective
+
+def _solve_lu(a: List[List[float]], b: List[float]) -> List[float]:
+    """``a x = b`` by OpenCV's ``hal::LU64f``: Gaussian elimination with
+    partial pivoting on Python floats (f64, no fused multiply-add)."""
+    m = len(b)
+    a, b = [row[:] for row in a], b[:]
+    for i in range(m):
+        k = max(range(i, m), key=lambda j: (abs(a[j][i]), -j))
+        if abs(a[k][i]) < 2.220446049250313e-16 * 10:
+            raise ValueError("singular perspective system")
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for c in range(i + 1, m):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s = b[i]
+        for c in range(i + 1, m):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return b
+
+
+def get_perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``cv2.getPerspectiveTransform(src, dst)``: the (3, 3) f64 homography
+    taking the four f32 points ``src`` onto ``dst``. OpenCV forms the
+    products ``src * dst`` in f32 before the f64 solve."""
+    src = np.asarray(src, np.float32).reshape(4, 2)
+    dst = np.asarray(dst, np.float32).reshape(4, 2)
+    a = [[0.0] * 8 for _ in range(8)]
+    b = [0.0] * 8
+    for i in range(4):
+        (sx, sy), (dx, dy) = src[i], dst[i]
+        a[i][0] = a[i + 4][3] = float(sx)
+        a[i][1] = a[i + 4][4] = float(sy)
+        a[i][2] = a[i + 4][5] = 1.0
+        a[i][6] = float(-(sx * dx))
+        a[i][7] = float(-(sy * dx))
+        a[i + 4][6] = float(-(sx * dy))
+        a[i + 4][7] = float(-(sy * dy))
+        b[i], b[i + 4] = float(dx), float(dy)
+    return np.asarray(_solve_lu(a, b) + [1.0], np.float64).reshape(3, 3)
+
+
+def perspective_transform(points: np.ndarray, mat: np.ndarray) -> np.ndarray:
+    """``cv2.perspectiveTransform`` of f32 (N, 2) points: f64 arithmetic,
+    the division as a product with ``1 / w``, f32 out."""
+    p = np.asarray(points, np.float32).reshape(-1, 2).astype(np.float64)
+    m = np.asarray(mat, np.float64).reshape(-1)
+    x, y = p[:, 0], p[:, 1]
+    inv_w = 1.0 / (x * m[6] + y * m[7] + m[8])
+    out = np.stack([(x * m[0] + y * m[1] + m[2]) * inv_w, (x * m[3] + y * m[4] + m[5]) * inv_w], axis=1)
+    return out.astype(np.float32)
+
+
+def _invert3(mat: np.ndarray) -> np.ndarray:
+    """``cv2.invert`` of a 3x3 f64 matrix (DECOMP_LU): OpenCV's closed form,
+    the adjugate times ``1 / det``."""
+    m = [[float(v) for v in row] for row in np.asarray(mat, np.float64)]
+    det = (
+        m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[2][1])
+        - m[0][1] * (m[1][0] * m[2][2] - m[1][2] * m[2][0])
+        + m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0])
+    )
+    if det == 0.0:
+        raise ValueError("singular homography")
+    d = 1.0 / det
+    return np.asarray(
+        [
+            (m[1][1] * m[2][2] - m[1][2] * m[2][1]) * d,
+            (m[0][2] * m[2][1] - m[0][1] * m[2][2]) * d,
+            (m[0][1] * m[1][2] - m[0][2] * m[1][1]) * d,
+            (m[1][2] * m[2][0] - m[1][0] * m[2][2]) * d,
+            (m[0][0] * m[2][2] - m[0][2] * m[2][0]) * d,
+            (m[0][2] * m[1][0] - m[0][0] * m[1][2]) * d,
+            (m[1][0] * m[2][1] - m[1][1] * m[2][0]) * d,
+            (m[0][1] * m[2][0] - m[0][0] * m[2][1]) * d,
+            (m[0][0] * m[1][1] - m[0][1] * m[1][0]) * d,
+        ],
+        np.float64,
+    ).reshape(3, 3)
+
+
+def fma_f32(a, b, c) -> np.ndarray:
+    """``a * b + c`` on f32 operands with one rounding to f32, as a fused
+    multiply-add gives it. The product of two f32 values is exact in f64, so
+    rounding the f64 sum again to f32 is right except where that sum lands
+    exactly halfway between two f32 values (its 29 low fraction bits
+    ``1 << 28``) and was itself rounded: there the sum's rounding error
+    (TwoSum) picks the neighbour."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c)))
+    shape = a.shape
+    p = (a * b).reshape(-1)
+    c = c.reshape(-1)
+    s = p + c
+    r = s.astype(np.float32)
+    halfway = np.nonzero((s.view(np.uint64) & np.uint64((1 << 29) - 1)) == np.uint64(1 << 28))[0]
+    if halfway.size:
+        pi, ci, si = p[halfway], c[halfway], s[halfway]
+        bb = si - pi
+        err = (pi - (si - bb)) + (ci - bb)
+        down, up = np.nextafter(si, -np.inf).astype(np.float32), np.nextafter(si, np.inf).astype(np.float32)
+        r[halfway] = np.where(err > 0, up, np.where(err < 0, down, r[halfway]))
+    return r.reshape(shape)
+
+
+def warp_perspective(
+    img: np.ndarray, mat: np.ndarray, out_wh: Tuple[int, int], border_value: int = 0
+) -> np.ndarray:
+    """``cv2.warpPerspective(img, mat, out_wh, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=(v, v, v))`` on uint8 (H, W) or
+    (H, W, C), bit for bit with OpenCV 5.0.
+
+    ``mat`` maps source to destination; it is inverted in f64 and rounded to
+    f32. For destination pixel (x, y) the source position is
+    ``fma(M0, x, y*M1 + M2) / fma(M6, x, y*M7 + M8)`` in f32 (likewise
+    y); the four taps (the border value outside the image) are blended as
+    ``fma(a, p01 - p00, p00)``, ``fma(a, p11 - p10, p10)``, then
+    ``fma(b, v1 - v0, v0)``, and rounded half to even. That is OpenCV's
+    vector loop; on its scalar tail, the last ``width % 32`` columns of a
+    width that is not a multiple of 32, a pixel may differ by 1."""
+    m = _invert3(mat).astype(np.float32).reshape(-1)
+    ow, oh = out_wh
+    xs = np.arange(ow, dtype=np.float32)[None, :]
+    ys = np.arange(oh, dtype=np.float32)[:, None]
+    row_x, row_y, row_w = ys * m[1] + m[2], ys * m[4] + m[5], ys * m[7] + m[8]
+    w = fma_f32(m[6], xs, row_w)
+    sx = fma_f32(m[0], xs, row_x) / w
+    sy = fma_f32(m[3], xs, row_y) / w
+    fx, fy = np.floor(sx), np.floor(sy)
+    a, b = (sx - fx)[..., None], (sy - fy)[..., None]
+    ix, iy = fx.astype(np.int64), fy.astype(np.int64)
+
+    h, wi = img.shape[:2]
+    src = img.reshape(h, wi, -1).astype(np.float32)
+    border = np.float32(border_value)
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < wi)
+        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, wi - 1)]
+        return np.where(inside[..., None], v, border)
+
+    p00, p01 = tap(iy, ix), tap(iy, ix + 1)
+    p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
+    v0 = fma_f32(a, p01 - p00, p00)
+    v1 = fma_f32(a, p11 - p10, p10)
+    v = fma_f32(b, v1 - v0, v0)
+    out = np.clip(np.rint(v), 0, 255).astype(np.uint8)
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
+def draw_axis_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value) -> None:
+    """``cv2.line(image, p0, p1, value, 1)`` for a horizontal or vertical
+    segment of integer (x, y) ends: every pixel between the ends, both
+    included, clipped to the image."""
+    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
+    if x0 != x1 and y0 != y1:
+        raise ValueError(f"not a horizontal or vertical segment: {p0} -> {p1}")
+    h, w = image.shape[:2]
+    xa, xb = sorted((x0, x1))
+    ya, yb = sorted((y0, y1))
+    xa, ya, xb, yb = max(xa, 0), max(ya, 0), min(xb, w - 1), min(yb, h - 1)
+    if xa <= xb and ya <= yb:
+        image[ya : yb + 1, xa : xb + 1] = value

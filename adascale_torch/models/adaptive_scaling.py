@@ -143,3 +143,29 @@ class AdaptiveScaling(nn.Module):
         angle_logits = self.precise_char_corner_angle_head(neck)
         distance = F.softplus(self.precise_char_corner_distance_head(neck).float())
         return mask_logits, prob_logits, offset, angle_logits, distance
+
+
+
+@torch.no_grad()
+def init_like_flax_(model: AdaptiveScaling, generator: torch.Generator) -> AdaptiveScaling:
+    """Draw ``model``'s parameters from the distributions the JAX package's
+    ``model.init`` draws them from (not the same numbers): every Conv and
+    Dense kernel of the backbone and the UPerNeXt neck and heads from
+    ``truncated_normal(0.02)`` (a standard normal cut at +-2, times 0.02),
+    of the FPN neck and heads from
+    ``variance_scaling(2.0, "fan_in", "normal")``; biases 0 but the rough
+    height head's output bias (``rough_init_char_height_output_bias``);
+    LayerNorm 1 and 0, layer scale 1e-6. In place; returns ``model``."""
+    kaiming = model.config.neck_head_type == "fpn"
+    height_bias = model.rough_char_height_head.step2.bias.clone()
+    for name, p in model.named_parameters():
+        if p.dim() >= 2:
+            if kaiming and not name.startswith("backbone."):
+                fan_in = p[0].numel()
+                p.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+            else:
+                torch.nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(0.02)
+        elif name.endswith(".bias"):
+            p.zero_()
+    model.rough_char_height_head.step2.bias.copy_(height_bias)
+    return model

@@ -1,8 +1,9 @@
 """Write a model's parameters as one compact flat ``.npz``.
 
 Counterpart of ``adascale/tools/export_params.py``. It reads any source that
-``utils.params.load_params`` reads (a flat ``.npz`` or a reference PyTorch
-state-dict file; an orbax directory raises, ROADMAP Queue 1 item 9.3),
+``utils.params.load_params`` reads (a flat ``.npz``, a training checkpoint
+of the port or a reference PyTorch state-dict file; an orbax directory
+raises, ROADMAP Queue 1 item 9.3),
 flattens the nested tree to ``"a/b/c"`` keys and writes f16 (half the bytes;
 ``load_params`` casts back to f32) or f32 leaves, the format of
 ``examples/flagship_training/*.f16.npz`` and

@@ -17,3 +17,8 @@ def setup_seeds(
         torch.Generator(device=device).manual_seed(torch_seed),
         np.random.default_rng(numpy_seed),
     )
+
+
+def calculate_iterable_dataset_num_samples(batch_size: int, num_batches: int) -> int:
+    """Pairs an epoch of ``num_batches`` batches of ``batch_size`` takes."""
+    return batch_size * num_batches

@@ -84,6 +84,60 @@ def upcast_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, to
     return out
 
 
+def _run(fwd, image, remat: bool):
+    return checkpoint(fwd, image, use_reentrant=False) if remat else fwd(image)
+
+
+def rough_task_loss(
+    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None
+) -> torch.Tensor:
+    """``rough_loss / 2`` of the rough pass on an up-cast batch."""
+
+    def fwd(image):
+        return model.forward_rough(image, deterministic, drop_masks=drop_masks)
+
+    mask_feat, height_feat = (t.float() for t in _run(fwd, batch["image"], config.remat))
+    return rough_loss(
+        mask_feat,
+        height_feat,
+        batch["downsampled_mask"],
+        batch["downsampled_score_map"],
+        config.rough_core_box,
+        config.rough_loss,
+    ) / 2.0
+
+
+def precise_task_loss(
+    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None
+) -> torch.Tensor:
+    """``precise_loss / 2`` of the precise pass on an up-cast batch (with
+    the char-mask head's term where the model has that head)."""
+    mask_head = model.config.precise_enable_char_mask_head
+    forward = model.forward_precise_with_mask if mask_head else model.forward_precise
+
+    def fwd(image):
+        return forward(image, deterministic, drop_masks=drop_masks)
+
+    out = tuple(t.float() for t in _run(fwd, batch["image"], config.remat))
+    prob, offset, angle, distance = out[-4:]
+    return precise_loss(
+        prob,
+        offset,
+        angle,
+        distance,
+        batch["downsampled_score_map"],
+        batch["downsampled_mask"],
+        config.precise_core_box,
+        batch["downsampled_label_point_y"],
+        batch["downsampled_label_point_x"],
+        batch["up_left_offsets"],
+        batch["corner_angles"],
+        batch["corner_distances"],
+        config.precise_loss,
+        precise_char_mask_feature=out[0] if mask_head else None,
+    ) / 2.0
+
+
 def two_task_loss(
     model,
     rough_batch: Mapping[str, torch.Tensor],
@@ -102,50 +156,8 @@ def two_task_loss(
             raise ValueError("deterministic=False needs a generator")
         rough_masks = model.backbone.draw_drop_masks(rough_batch["image"].shape[0], generator)
         precise_masks = model.backbone.draw_drop_masks(precise_batch["image"].shape[0], generator)
-
-    def rough_fwd(image):
-        return model.forward_rough(image, deterministic, drop_masks=rough_masks)
-
-    mask_head = model.config.precise_enable_char_mask_head
-    precise_forward = model.forward_precise_with_mask if mask_head else model.forward_precise
-
-    def precise_fwd(image):
-        return precise_forward(image, deterministic, drop_masks=precise_masks)
-
-    def run(fwd, image):
-        if config.remat:
-            return checkpoint(fwd, image, use_reentrant=False)
-        return fwd(image)
-
-    mask_feat, height_feat = (t.float() for t in run(rough_fwd, rough_batch["image"]))
-    r_loss = rough_loss(
-        mask_feat,
-        height_feat,
-        rough_batch["downsampled_mask"],
-        rough_batch["downsampled_score_map"],
-        config.rough_core_box,
-        config.rough_loss,
-    ) / 2.0
-
-    precise_out = tuple(t.float() for t in run(precise_fwd, precise_batch["image"]))
-    precise_mask_logits = precise_out[0] if mask_head else None
-    prob, offset, angle, distance = precise_out[-4:]
-    p_loss = precise_loss(
-        prob,
-        offset,
-        angle,
-        distance,
-        precise_batch["downsampled_score_map"],
-        precise_batch["downsampled_mask"],
-        config.precise_core_box,
-        precise_batch["downsampled_label_point_y"],
-        precise_batch["downsampled_label_point_x"],
-        precise_batch["up_left_offsets"],
-        precise_batch["corner_angles"],
-        precise_batch["corner_distances"],
-        config.precise_loss,
-        precise_char_mask_feature=precise_mask_logits,
-    ) / 2.0
+    r_loss = rough_task_loss(model, rough_batch, config, deterministic, rough_masks)
+    p_loss = precise_task_loss(model, precise_batch, config, deterministic, precise_masks)
     return r_loss + p_loss, (r_loss, p_loss)
 
 
@@ -193,6 +205,42 @@ def make_eval_step(
         return {"rough_loss": r_loss, "precise_loss": p_loss}
 
     return step
+
+
+def make_grad_inspection_fn(
+    model, config: TrainStepConfig, per_parameter: bool = False, device: str = "cuda"
+) -> Callable[..., Dict[str, float]]:
+    """Multitask gradient inspection (counterpart of the JAX package's
+    ``make_grad_inspection_fn``): ``inspect(rough_batch, precise_batch)``
+    takes each task's gradient alone (deterministic, each loss divided by 2)
+    over the parameters both tasks share, the backbone, and returns the mean
+    and standard deviation of their magnitudes (``rough_abs_grads_mean``,
+    ``..._std``, ``precise_...``). ``per_parameter`` adds each shared
+    parameter's ``"<name>:rough_abs_mean"`` and ``"<name>:precise_abs_mean"``.
+    Leaves ``.grad`` untouched."""
+    dev = resolve_device(device)
+    shared = [(n, p) for n, p in model.named_parameters() if n.startswith("backbone.")]
+    names, params = [n for n, _ in shared], [p for _, p in shared]
+
+    def task_grads(loss: torch.Tensor):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    def inspect(rough_batch, precise_batch) -> Dict[str, float]:
+        rough = task_grads(rough_task_loss(model, upcast_batch(rough_batch, dev), config, True))
+        precise = task_grads(precise_task_loss(model, upcast_batch(precise_batch, dev), config, True))
+        out = {}
+        for task, grads in (("rough", rough), ("precise", precise)):
+            flat = torch.cat([g.abs().reshape(-1) for g in grads])
+            out[f"{task}_abs_grads_mean"] = float(flat.mean())
+            out[f"{task}_abs_grads_std"] = float(flat.std(unbiased=False))
+        if per_parameter:
+            for name, gr, gp in zip(names, rough, precise):
+                out[f"{name}:rough_abs_mean"] = float(gr.abs().mean())
+                out[f"{name}:precise_abs_mean"] = float(gp.abs().mean())
+        return out
+
+    return inspect
 
 
 def seeded_batches(

@@ -55,21 +55,25 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 def load_params(checkpoint: str, model_config: Any) -> Dict[str, Any]:
     """The nested parameter tree (numpy leaves) of ``checkpoint``: a flat
-    ``.npz`` (``load_npz``), or a reference ``AdaptiveScaling`` state-dict
-    file (``torch.load`` on the CPU, unwrapped from ``model_jit_state_dict``
-    where a training state wraps it), mapped for ``model_config``'s neck type
-    and precise char-mask head. A directory (an orbax checkpoint) raises:
-    reading one needs checkpoints without orbax, ROADMAP Queue 1 item 9.3.
-    The state-dict file is unpickled, so load only files you trust."""
+    ``.npz`` (``load_npz``), a training checkpoint of the port
+    (``training/checkpoint.py``: its ``params``, the port's state dict), or a
+    reference ``AdaptiveScaling`` state-dict file (``torch.load`` on the CPU,
+    unwrapped from ``model_jit_state_dict`` where a training state wraps it),
+    mapped for ``model_config``'s neck type and precise char-mask head. A
+    directory (an orbax checkpoint of the JAX package) raises: the port reads
+    its own checkpoint files (ROADMAP Queue 1 item 9.3). The state-dict file
+    is unpickled, so load only files you trust."""
     path = expand_path(checkpoint)
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{checkpoint}: orbax checkpoint directories are not read by the port "
-            "(ROADMAP Queue 1 item 9.3, checkpoints without orbax); pass a .npz or a state-dict file"
+            f"{checkpoint}: orbax checkpoint directories are not read by the port, which has checkpoint "
+            "files of its own (ROADMAP Queue 1 item 9.3); pass a .npz, a checkpoint of the port or a state-dict file"
         )
     if path.endswith(".npz"):
         return load_npz(path)
     payload = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(payload, Mapping) and {"epoch_idx", "params", "opt_state"} <= set(payload):
+        return jax_from_state_dict(payload["params"])
     if isinstance(payload, Mapping) and "model_jit_state_dict" in payload:
         payload = payload["model_jit_state_dict"]
     return adaptive_scaling_params_from_torch(

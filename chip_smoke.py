@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,bf16,widths]
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,bf16,widths]
 
 With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
 those listed. A missing weight file or reference is an error in any phase
@@ -129,6 +129,23 @@ that reads it. Phases, each announced with its elapsed seconds:
      flagship's .npz and examples/flagship_training/model.json, held
      against the JAX reference as phase 4 holds detect() (its JSON's
      polygons too), 36 block launches; the phase's seconds;
+ loop. the training loop (``training.loop.train``) with the flagship's own
+     configs (examples/flagship_training/{dataset,epoch,model,steps}.json:
+     tiny/FPN at full width, B = 6, 512x512 rough and 320x320 precise crops
+     of 768x768 native-rendered pages, 4 spawned generator processes,
+     prefetch depth 3, sample reuse 2) from flagship_fpn_params.f16.npz
+     through ``init_params_path``, cut to f32, LOOP_EPOCHS epochs of
+     LOOP_BATCHES batches and LOOP_DEV_BATCHES dev batches: the renderer's
+     g++ build seconds, a warm 4-process pool's pages/s, each epoch's step
+     ms (CUDA events), wall, prefetcher stall and losses, peak memory; every
+     loss finite, exactly 36 block launches a step and a dev batch, the
+     checkpoints state_0 and state_1[_not_best]; the last one restored into
+     a new model and optimizer equal bit for bit to the file (parameters,
+     both moments), its step count and lr the run's; exported by
+     ``export_inference_artifact`` and served by ``python -m adascale_torch
+     detect`` on page_0 (36 launches, the polygons equal to those of an
+     engine built in-process from the checkpoint's params); the phase's
+     seconds;
  bf16. serving at compute_dtype="bfloat16": each kernel's bf16 entry
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
@@ -171,7 +188,9 @@ Each run counts every kernel's launches from 0 just before a path and reads
 them just after; a kernel that a path runs and that was not launched fails
 the run. The kernels line gives each kernel's count on its main path
 (``launches``: the default detect() for the block kernel, the fused one for
-the neck and heads, the train step for the trainable block, the loaded
+the neck and heads, the train step for the trainable block (the loop's
+steps, "train_loop_steps", beside it; its dev batches, "train_loop_dev",
+and its detect CLI beside the block kernel's), the loaded
 programs of phase export for the block's registered operator,
 "convnext_block_op", the fused bf16 detect() for the bf16 entries, listed
 as "<name>_bf16") and on every path
@@ -188,6 +207,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import json
+import math
 import os
 import re
 import statistics
@@ -261,7 +281,7 @@ MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "preci
 # Batched against single-page detect(): the same polygons, points within
 # this (tests/test_batch_inference.py's bar).
 MANY_POINT_TOL = 1e-3
-PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "bf16", "widths")
+PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "loop", "bf16", "widths")
 KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # bf16 serving (phase bf16): the dense bf16 tensor-core peak (H100 SXM, 700 W);
 # each bf16 kernel against its bf16 plain twin, the largest difference over
@@ -2716,6 +2736,176 @@ def check_export(params, image, ref, device) -> dict:
     return {**out, "cli_launches": cli_launches, "cli_s": cli_s, "times": times, "fresh": fresh}
 
 
+FLAGSHIP_DIR = os.path.join(ROOT, "examples/flagship_training")
+# Phase loop's cuts of the flagship's epoch.json: f32 (bf16 training is not
+# ported), LOOP_EPOCHS epochs of LOOP_BATCHES batches, LOOP_DEV_BATCHES dev
+# batches; everything else as the file has it.
+LOOP_EPOCHS, LOOP_BATCHES, LOOP_DEV_BATCHES = 2, 6, 1
+LOOP_POOL_RUNS = 24  # pages timed through a warm 4-process pool
+LOOP_CHECKPOINT = re.compile(r"state_(\d+)(_not_best)?")
+# Paths whose block launches are the trainable block's (row 1').
+TRAIN_PATHS = ("train_step", "train_loop_steps")
+
+
+def check_loop(image, device) -> dict:
+    """Phase loop (module docstring): ``training.loop.train`` on the
+    flagship's configs from its weights, the checkpoints, a restore, the
+    export and ``python -m adascale_torch detect`` on the artifact."""
+    import runpy
+    import shutil
+    import sys
+    import tempfile
+
+    import torch
+
+    from adascale_torch import AdaptiveScalingInference, AdaptiveScalingInferenceConfig, native
+    from adascale_torch.data.dataset import GeneratorPool, SynthPipelineConfig
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
+    from adascale_torch.training import OptimizerConfig, build_optimizer
+    from adascale_torch.training.checkpoint import latest_checkpoint_path, restore_checkpoint
+    from adascale_torch.training.loop import export_inference_artifact, train
+    from adascale_torch.utils.config import load_config
+    from adascale_torch.utils.params import load_params
+    from adascale_torch.utils.png import write_png
+
+    smi = smi_line()
+    phase_t = time.perf_counter()
+    cached = os.path.exists(native.library_path())
+    t = time.perf_counter()
+    native.load_library()
+    print(f"loop: native renderer build {time.perf_counter() - t:.2f} s (g++; cached {cached}) ({smi})", flush=True)
+
+    def flagship_json(name):
+        with open(os.path.join(FLAGSHIP_DIR, name)) as fin:
+            return json.load(fin)
+
+    out_dir = tempfile.mkdtemp(prefix=".loop-", dir=ROOT)
+    try:
+        steps_path = os.path.join(FLAGSHIP_DIR, "steps.json")
+        dataset = flagship_json("dataset.json")
+        dataset["train_adaptive_scaling_dataset_steps_jsons"] = [steps_path]
+        dataset["dev_adaptive_scaling_dataset_steps_json"] = steps_path
+        epoch = dict(flagship_json("epoch.json"), compute_dtype="float32", num_epochs=LOOP_EPOCHS,
+                     train_num_batches=LOOP_BATCHES, dev_num_batches=LOOP_DEV_BATCHES)
+        model_json = os.path.join(FLAGSHIP_DIR, "model.json")
+        model_config = load_config(model_json, AdaptiveScalingConfig)
+        batch = epoch["train_batch_size"]
+        print(f"loop: epoch config {json.dumps(epoch)}", flush=True)
+
+        pipeline = load_config(steps_path, SynthPipelineConfig)
+        pool = GeneratorPool(pipeline, rng_seed=1, num_processes=epoch["train_num_processes"])
+        try:
+            t = time.perf_counter()
+            pool.run()
+            first_s = time.perf_counter() - t
+            t = time.perf_counter()
+            for _ in range(LOOP_POOL_RUNS):
+                pool.run()
+            pages_per_s = LOOP_POOL_RUNS / (time.perf_counter() - t)
+        finally:
+            pool.cleanup()
+        print(f"loop: generator pool ({epoch['train_num_processes']} spawned processes, "
+              f"{pipeline.page.page_height}x{pipeline.page.page_width} pages): "
+              f"first page {first_s:.2f} s (start included), then {pages_per_s:.2f} pages/s over "
+              f"{LOOP_POOL_RUNS} pages ({smi})", flush=True)
+
+        run_dir = os.path.join(out_dir, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES = 0
+        t = time.perf_counter()
+        metrics = train(json.dumps(dataset), run_dir, epoch_config_json=json.dumps(epoch),
+                        model_config_json=model_json, init_params_path=WEIGHTS, device=str(device))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = K.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        epochs = metrics["epochs"]
+        step_launches = [n for e in epochs for n in e["step_launches"]]
+        dev_launches = [n for e in epochs for n in e["dev_launches"]]
+        blocks = 2 * sum(n for _, n in model_config.backbone_spec())
+        for e in epochs:
+            print(f"loop: epoch {e['epoch']}: wall {e['wall_s']:.2f} s, data stall {e['data_stall_s']:.3f} s "
+                  f"({100 * e['data_stall_s'] / e['wall_s']:.1f} %), step ms (CUDA events) "
+                  + ", ".join(f"{v:.1f}" for v in e["step_ms"])
+                  + f"; train losses (window means) rough {e['train_rough_loss']:.5f} precise "
+                  f"{e['train_precise_loss']:.5f}; checkpoint {e['checkpoint'] and os.path.basename(e['checkpoint'])}",
+                  flush=True)
+        warm = epochs[-1]
+        step_ms = statistics.median(warm["step_ms"])
+        stall = warm["data_stall_s"] / warm["wall_s"]
+        print(f"loop: train() {train_s:.2f} s; warm step (epoch {warm['epoch']}, median of {len(warm['step_ms'])}, "
+              f"CUDA events) {step_ms:.3f} ms, {batch / step_ms * 1e3:.2f} samples/s; epoch wall "
+              f"{warm['wall_s']:.3f} s = {batch * LOOP_BATCHES / warm['wall_s']:.2f} samples/s end to end; "
+              f"prefetcher stall share {100 * stall:.2f} %; peak memory {peak / 2**30:.3f} GiB; "
+              f"dev losses rough {metrics['dev_rough_loss']:.5f} precise {metrics['dev_precise_loss']:.5f}; "
+              f"block launches a step {sorted(set(step_launches))}, a dev batch {sorted(set(dev_launches))}, "
+              f"{launches} in all ({smi})", flush=True)
+
+        losses = [metrics["dev_rough_loss"], metrics["dev_precise_loss"]] + [
+            v for e in epochs for v in (e["train_rough_loss"], e["train_precise_loss"])]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"a loss is not finite: {losses}")
+        if step_launches != [blocks] * (LOOP_EPOCHS * LOOP_BATCHES) or dev_launches != [blocks] * (
+                LOOP_EPOCHS * LOOP_DEV_BATCHES) or launches != sum(step_launches) + sum(dev_launches):
+            raise AssertionError(f"block launches: steps {step_launches}, dev {dev_launches}, all {launches}")
+        names = sorted(n for n in os.listdir(run_dir) if LOOP_CHECKPOINT.fullmatch(n))
+        written = [os.path.basename(e["checkpoint"]) for e in epochs if e["checkpoint"]]
+        last = latest_checkpoint_path(run_dir)
+        if (names != sorted(written) or names[0] != "state_0" or len(names) != LOOP_EPOCHS
+                or os.path.basename(last) not in (f"state_{LOOP_EPOCHS - 1}", f"state_{LOOP_EPOCHS - 1}_not_best")):
+            raise AssertionError(f"checkpoints {os.listdir(run_dir)}, written {written}, latest {last}")
+
+        stamp("loop: restore the last checkpoint")
+        payload = torch.load(last, map_location="cpu", weights_only=True)
+        model = AdaptiveScaling(model_config).to(device)
+        optimizer, schedule = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), LOOP_BATCHES)
+        restored = restore_checkpoint(last, model, optimizer)
+        differ = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), payload["params"][k])]
+        differ += [f"{w}:{k}" for w in ("mu", "nu") for k, v in getattr(optimizer, w).items()
+                   if not torch.equal(v.cpu(), payload["opt_state"][w][k])]
+        lr = schedule(optimizer.count)
+        print(f"loop: restored {os.path.basename(last)}: epoch {restored['epoch_idx']}, step count "
+              f"{optimizer.count}, lr {lr:.6e} (the run's next {warm['lr_next_step']:.6e}), "
+              f"{len(payload['params'])} parameters and {2 * len(optimizer.mu)} moments, {len(differ)} differ",
+              flush=True)
+        if (differ or restored["epoch_idx"] != LOOP_EPOCHS - 1 or optimizer.count != LOOP_EPOCHS * LOOP_BATCHES
+                or lr != warm["lr_next_step"]):
+            raise AssertionError(f"restore: {differ[:5]}, epoch {restored['epoch_idx']}, count {optimizer.count}, lr {lr}")
+        del model, optimizer
+
+        stamp("loop: export the checkpoint and serve it with python -m adascale_torch detect")
+        artifact = export_inference_artifact(last, os.path.join(out_dir, "artifact"), model_json)
+        png, out_json = os.path.join(out_dir, "page_0.png"), os.path.join(out_dir, "detect.json")
+        write_png(png, image)
+        argv = sys.argv
+        sys.argv = ["adascale_torch", "detect", "--checkpoint", os.path.join(artifact, "params.npz"), "--image",
+                    png, "--model-config", os.path.join(artifact, "model_config.json"), "--output", out_json,
+                    "--device", device.type]
+        try:
+            _, cli_launches = counted(lambda: runpy.run_module("adascale_torch", run_name="__main__"))
+        finally:
+            sys.argv = argv
+        with open(out_json) as fin:
+            served = json.load(fin)["char_polygons"]
+        engine = AdaptiveScalingInference(AdaptiveScalingInferenceConfig(model=model_config, device=device.type),
+                                          params=load_params(last, model_config))
+        direct = [p.points.tolist() for p in engine.detect(image)["char_polygons"]]
+        print(f"loop: detect CLI on the exported artifact: {len(served)} polygons, launches {cli_launches}; "
+              f"an engine from the checkpoint's params: {len(direct)} polygons, equal {served == direct}",
+              flush=True)
+        want = {k: blocks if k == "convnext_block" else 0 for k in KERNEL_NAMES}
+        if cli_launches != want or served != direct:
+            raise AssertionError(f"exported artifact: launches {cli_launches} != {want} or polygons differ "
+                                 f"({len(served)} / {len(direct)})")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase loop: {time.perf_counter() - phase_t:.2f} s", flush=True)
+    return {"step_launches": sum(step_launches), "dev_launches": sum(dev_launches), "cli_launches": cli_launches,
+            "step_ms": step_ms, "stall_share": stall, "pages_per_s": pages_per_s, "peak_bytes": peak}
+
+
 def parse_phases(argv=None):
     """The phases to run: all of them, or those ``--phases`` lists (phases 1
     and 2, the device and the build, always run)."""
@@ -2913,6 +3103,13 @@ def main() -> None:
         by_path["detect_cli"] = exported["cli_launches"]
         print(f"phase export: {time.perf_counter() - phase_t:.2f} s", flush=True)
 
+    if "loop" in phases:
+        stamp("phase loop: the training loop with the flagship's configs")
+        looped = check_loop(image, device)
+        by_path["train_loop_steps"] = {"convnext_block": looped["step_launches"]}
+        by_path["train_loop_dev"] = {"convnext_block": looped["dev_launches"]}
+        by_path["train_loop_detect_cli"] = looped["cli_launches"]
+
     if "bf16" in phases:
         stamp("phase bf16: bf16 serving (compute_dtype='bfloat16')")
         bf16_rows, bf16_paths = check_bf16(params, image, gen, device)
@@ -2932,6 +3129,8 @@ def main() -> None:
         "exported_program": ["convnext_block"], "exported_program_upernext": ["convnext_block"],
         "detect_cli": ["convnext_block"],
         "train_step": ["convnext_block"],
+        "train_loop_steps": ["convnext_block"], "train_loop_dev": ["convnext_block"],
+        "train_loop_detect_cli": ["convnext_block"],
         "detect_bf16_fpn_module": ["convnext_block_bf16"],
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
         "detect_bf16_fpn_fused": bf16_names, "detect_many_bf16": bf16_names,
@@ -2971,7 +3170,7 @@ def main() -> None:
             "launches": by_path.get(main_path, {}).get(kernel_name),
             "launches_by_path": {
                 path: c[kernel_name] for path, c in by_path.items()
-                if kernel_name in c and (path == "train_step") == (main_path == "train_step")
+                if kernel_name in c and (path in TRAIN_PATHS) == (main_path in TRAIN_PATHS)
             },
             **rows.get(kernel, {}),
             "library_ms": None,
