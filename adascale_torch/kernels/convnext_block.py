@@ -33,8 +33,12 @@ module's (f32 residual in and out, bf16 rounding inside); both launch
 depthwise + LN, then the MLP on bf16 ``wgmma``, the 4C hidden kept on chip
 for C <= 192; W1 and W2 packed once per parameter set by
 ``packing.pack_block_bf16``) and have the plain twin
-``convnext_block_plain_bf16``. bf16 has no gradient path (the JAX package
-trains in f32).
+``convnext_block_plain_bf16``. The module mode has a gradient path,
+``TrainableBlockBF16`` (the bf16 kernel's module mode forward, the same
+recompute backward through ``convnext_block_plain_bf16(module=True)``): the
+counterpart of Flax's ``ConvNeXtBlockLayer`` at dtype=bfloat16 under
+autodiff, what the JAX package's bf16 training runs. The Pallas mode has
+none, as the JAX package's Pallas training backbone is f32 only.
 
 The kernels are built on first use by ``_nvcc.build`` (``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``; ``build``:
@@ -68,7 +72,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..ops.bf16 import gelu, round_bf16
+from ..ops.bf16 import gelu, layer_norm, round_bf16, round_grad_bf16
 from . import _nvcc, packing
 
 # Number of kernel launches, counted once per call (the call's three or four
@@ -157,12 +161,15 @@ def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.T
 
 
 def convnext_block_plain_bf16(
-    x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool
+    x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool, bf16_input: bool = False
 ) -> torch.Tensor:
     """Eager PyTorch twin of the bf16 kernel, in f32 on bf16 values, rounded
     where the kernel rounds (``csrc/convnext_block.cu``): ``module=False``
     the Pallas mode (bf16 ``x``, bf16 out), ``module=True`` the Flax
-    module's (f32 ``x``, f32 out)."""
+    module's (f32 ``x``, f32 out). ``bf16_input`` (module mode): ``x`` holds
+    a bf16 value, which Flax casts to f32 for the residual apart from the
+    branch's cast, so the residual's cotangent is rounded to bf16 on its
+    own (the values are the same either way)."""
     r = round_bf16
     c = x.shape[-1]
     xf = x.float()
@@ -170,10 +177,10 @@ def convnext_block_plain_bf16(
     if module:
         y = F.conv2d(r(xf).permute(0, 3, 1, 2), r(p["dwconv.weight"]), padding=3, groups=c)
         y = r(r(y.permute(0, 2, 3, 1)) + r(p["dwconv.bias"]))
-        h = r(F.layer_norm(y, (c,), p["ln.weight"], p["ln.bias"], eps=EPS))
+        h = r(layer_norm(y, p["ln.weight"], p["ln.bias"], EPS))
         u = gelu(r(r(F.linear(h, w1)) + r(p["mlp_up.bias"])), torch.bfloat16).float()
         y = r(r(F.linear(u, w2)) + r(p["mlp_down.bias"]))
-        return xf + y * p["block_scale"]
+        return (round_grad_bf16(xf) if bf16_input else xf) + y * p["block_scale"]
     y = F.conv2d(
         xf.permute(0, 3, 1, 2), p["dwconv.weight"], p["dwconv.bias"], padding=3, groups=c
     ).permute(0, 2, 3, 1)
@@ -190,15 +197,19 @@ PARAM_NAMES = (
 
 
 def convnext_block(
-    x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype: torch.dtype = torch.float32
+    x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype: torch.dtype = torch.float32,
+    bf16_input: bool = False,
 ) -> torch.Tensor:
     """One ConvNeXt block on an NHWC tensor: the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor. ``compute_dtype`` f32 takes
     an f32 ``x``; bf16 takes a bf16 ``x`` (the Pallas mode, bf16 out) or an
-    f32 one (the module mode, f32 out). In f32, where grad is enabled and
-    ``x`` or a parameter requires grad, the call goes through
-    ``TrainableBlock``, so that the result carries its gradient; bf16 has no
-    gradient path and raises there."""
+    f32 one (the module mode, f32 out). Where grad is enabled and ``x`` or a
+    parameter requires grad, the call goes through ``TrainableBlock`` (f32)
+    or ``TrainableBlockBF16`` (the module mode), so that the result carries
+    its gradient; the Pallas mode has no gradient path and raises there.
+    ``bf16_input`` (module mode, with a gradient): ``x`` is a bf16 value cast
+    up, as the first block of a Flax stage receives it, and the gradient
+    rounds as Flax's two casts of it do (``convnext_block_plain_bf16``)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"convnext_block: unsupported device {x.device}")
     if (
@@ -211,8 +222,13 @@ def convnext_block(
         x.requires_grad or any(p[name].requires_grad for name in PARAM_NAMES)
     )
     if compute_dtype == torch.bfloat16:
+        if x.dtype == torch.bfloat16 and wants_grad:
+            raise NotImplementedError(
+                "convnext_block: no gradient through the bf16 Pallas mode (a bf16 x; the JAX package's "
+                "Pallas training backbone is f32 only): train in bf16 with an f32 x, the module mode"
+            )
         if wants_grad:
-            raise NotImplementedError("convnext_block: no gradient in bf16 (training runs in f32)")
+            return TrainableBlockBF16.apply(x, *(p[name] for name in PARAM_NAMES), bf16_input)
         mode = MODE_BF16_MODULE if x.dtype == torch.float32 else MODE_BF16
     elif wants_grad:
         return TrainableBlock.apply(x, *(p[name] for name in PARAM_NAMES))
@@ -280,10 +296,49 @@ class TrainableBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        with torch.profiler.record_function("convnext_block.backward"), torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = convnext_block_plain(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])))
-            return torch.autograd.grad(out, inputs, grad)
+        return _recompute_backward(ctx, grad, convnext_block_plain)
+
+
+class TrainableBlockBF16(torch.autograd.Function):
+    """The module-mode bf16 block with a gradient (f32 ``x`` and out, bf16
+    rounding inside): the bf16 kernel's module mode forward (the plain twin
+    on the CPU), saving only the inputs; the backward recomputes
+    ``convnext_block_plain_bf16(module=True)`` and differentiates it. Each
+    rounding there is ``t.to(bf16).float()``, whose backward rounds the
+    cotangent to bf16 at that point, as XLA's bf16 cotangents are rounded
+    under ``jax.vjp`` of Flax's block at dtype=bfloat16; a product's input
+    gradient is summed in f32 and rounded once there, as XLA's transposed
+    bf16 product is. Autograd of the twin alone would still differ in two
+    places, which ``ops/bf16.py`` gives JAX's own derivatives: the GELU
+    (XLA differentiates it in bf16, its -2/sqrt(pi) rounded to -1.125) and
+    the LayerNorm of a bf16 input (two casts, two roundings). What remains
+    is the order of f32 sums, which flips a bf16 rounding here and there
+    (``tests/test_torch_train_bf16.py``). Arguments as ``TrainableBlock``'s,
+    then ``bf16_input`` (``convnext_block_plain_bf16``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, *rest) -> torch.Tensor:
+        *params, ctx.bf16_input = rest
+        ctx.save_for_backward(x, *params)
+        p = dict(zip(PARAM_NAMES, params))
+        if x.device.type == "cpu":
+            return convnext_block_plain_bf16(x, p, True)
+        return _launch_bf16(x, p, True)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        plain = lambda x, p: convnext_block_plain_bf16(x, p, True, ctx.bf16_input)  # noqa: E731
+        return _recompute_backward(ctx, grad, plain) + (None,)
+
+
+def _recompute_backward(ctx, grad: torch.Tensor, plain):
+    """The gradients of ``x`` and the nine parameters: ``plain`` run again
+    on the saved inputs and differentiated, under a
+    ``convnext_block.backward`` profiler range."""
+    with torch.profiler.record_function("convnext_block.backward"), torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        out = plain(inputs[0], dict(zip(PARAM_NAMES, inputs[1:])))
+        return torch.autograd.grad(out, inputs, grad)
 
 
 def _param_shapes(c: int) -> Dict[str, tuple]:

@@ -4,7 +4,8 @@ Counterpart of ``adascale/models/convnext.py``. The patchify stem, the
 stage LayerNorms and the 2x2 downsamples are library ops; every residual
 block goes through ``adascale_torch.kernels.convnext_block`` (the CUDA kernel
 on the card, its plain twin on the CPU; with a gradient, through
-``TrainableBlock``). The residual stream is f32.
+``TrainableBlock``, at bf16 ``TrainableBlockBF16``). The residual stream is
+f32.
 
 ``dtype=torch.bfloat16`` (the JAX package's ``compute_dtype="bfloat16"``)
 runs the stem and the downsamples in bf16 and rounds every LayerNorm's
@@ -12,7 +13,10 @@ output to bf16, as Flax's modules at that dtype do; ``residual_dtype`` picks
 which of the JAX package's two backbones the blocks follow: f32 (the Flax
 module path, whose blocks keep an f32 residual and round inside) or bf16
 (``convnext_forward_pallas``, whose blocks take and return bf16). Parameters
-stay f32 and are cast where they are used.
+stay f32 and are cast where they are used. Training at bf16 takes the f32
+residual (the JAX package trains the module path); a stage's first block
+then receives the bf16 downsample (or stem LN) output, whose gradient it
+rounds as Flax's two casts of it do (``convnext_block``'s ``bf16_input``).
 
 Stochastic depth (``deterministic=False``) is applied outside the block, as
 ``convnext_forward_pallas_train`` does: ``x + mask * ((block(x) - x) /
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.convnext_block import convnext_block
+from ..ops.bf16 import layer_norm as layer_norm_bf16
 
 EPS = 1e-6
 
@@ -47,8 +52,12 @@ def per_image(fn, x: torch.Tensor) -> torch.Tensor:
     the batch too, and a bf16 output rounds the sum: on an H100 the same
     page came out of a batch of 4 one bf16 ulp apart in a third of stage 2's
     features, and its polygons moved. One image a call keeps a page's
-    numbers the same alone and in a batch (``detect_many``)."""
-    if x.shape[0] == 1:
+    numbers the same alone and in a batch (``detect_many``). Where grad is
+    enabled (training, which has no batch invariance to keep, and whose
+    JAX counterpart convolves the batch in one call) the batch goes in one
+    call: one image a call cost the flagship's B = 6 bf16 step forward 204
+    ms against 63 on an H100 (``chip_smoke.py`` phase 8c)."""
+    if x.shape[0] == 1 or torch.is_grad_enabled():
         return fn(x)
     return torch.cat([fn(x[i : i + 1]) for i in range(x.shape[0])])
 
@@ -70,7 +79,10 @@ def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype = torch.flo
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """LayerNorm over the channel (last) axis in f32, eps 1e-6, rounded to
-    ``dtype``."""
+    ``dtype``; of a bf16 ``x`` differentiated as JAX differentiates Flax's
+    LayerNorm of a bf16 input (``ops/bf16.py::layer_norm``)."""
+    if x.dtype == torch.bfloat16:
+        return layer_norm_bf16(x, ln.weight, ln.bias, EPS).to(dtype)
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, eps=EPS).to(dtype)
 
 
@@ -116,8 +128,9 @@ class ConvNeXtBlock(nn.Module):
             "mlp_down.bias": self.mlp_down.bias,
             "block_scale": self.block_scale,
         }
+        bf16_input = x.dtype == torch.bfloat16 and self.residual_dtype == torch.float32
         x = x.to(self.residual_dtype).contiguous()
-        out = convnext_block(x, p) if self.dtype == torch.float32 else convnext_block(x, p, self.dtype)
+        out = convnext_block(x, p) if self.dtype == torch.float32 else convnext_block(x, p, self.dtype, bf16_input)
         if drop_mask is None or self.prob_bypass == 0.0:
             return out
         return drop_path(x, out, drop_mask, 1.0 - self.prob_bypass)

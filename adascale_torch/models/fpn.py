@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bf16 import gelu
-from ..ops.fused_upsample import heads_phase_form
+from ..ops.fused_upsample import heads_phase_form, module_head_bf16
 from ..ops.resize import resize_nearest
 from .convnext import EPS, conv2d_nhwc, layer_norm, per_image
 
@@ -114,6 +114,9 @@ class FpnHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.upsampling_factor
         x = x.to(self.dtype)
+        if f == 2 and self.dtype == torch.bfloat16:
+            params = dict(self.named_parameters())
+            return per_image(lambda xi: module_head_bf16(xi, params), x)
         if f == 2:
             return heads_phase_form(x, [dict(self.named_parameters())])[0]
         if f > 1:

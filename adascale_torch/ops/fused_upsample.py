@@ -12,16 +12,19 @@ differently: the collapsed taps (k0+k1, k1+k2) make even and odd output
 columns of a flat map differ by an ulp, and the precise pass's 5x5 peak pick
 breaks its ties on exactly that, so the port computes what Flax computes.
 The module-path ``FpnHead`` and the plain twins of the fused heads kernels
-both call ``heads_phase_form``.
+both call ``heads_phase_form``; the module path in bf16 calls
+``module_head_bf16``.
 
 In bf16 the two round at different points, as the JAX package's two paths
-do: the module form (Flax ``_PhaseFusedSmooth`` at dtype=bfloat16) casts
-the 3x3 to bf16 before collapsing its taps, so each collapsed tap is a bf16
-sum, and runs every product, bias add, LN, GELU and the projection in bf16;
-the fused kernels' form (``kernel=True``; the Pallas heads kernels) collapses
-in f32 and rounds the collapsed taps once, keeps the sums, bias, LN, GELU
-and projection in f32 and returns f32, the precise heads (``round_y``)
-rounding the GELU output and the projection's weights to bf16 first.
+do: the module form (``module_head_bf16``, Flax ``_PhaseFusedSmooth`` at
+dtype=bfloat16) casts the 3x3 to bf16 before collapsing its taps, so each
+collapsed tap is a bf16 sum, and runs every product, bias add, LN, GELU and
+the projection in bf16, one 2x2 convolution a phase as Flax does, so that
+autodiff rounds its gradient where JAX's does; the fused kernels' form
+(``kernel=True``; the Pallas heads kernels) collapses in f32 and rounds the
+collapsed taps once, keeps the sums, bias, LN, GELU and projection in f32
+and returns f32, the precise heads (``round_y``) rounding the GELU output
+and the projection's weights to bf16 first.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 
-from .bf16 import gelu, round_bf16
+from .bf16 import gelu, layer_norm, round_bf16
 
 EPS = 1e-6
 
@@ -67,9 +70,12 @@ def heads_phase_form(
     ``step1.ln.weight``, ``step1.ln.bias``, ``step2.weight`` (M, F),
     ``step2.bias``).
 
-    The module form computes in ``x``'s dtype (LN and GELU in f32, rounded
-    to it); ``kernel=True`` is the fused kernels' bf16 form for a bf16 ``x``
-    (f32 out), with ``round_y`` for the precise heads (module docstring)."""
+    The module form computes in ``x``'s dtype, f32 or f64 (a bf16 ``x``:
+    ``module_head_bf16``); ``kernel=True`` is the fused kernels' bf16 form
+    for a bf16 ``x`` (f32 out), with ``round_y`` for the precise heads
+    (module docstring)."""
+    if x.dtype == torch.bfloat16 and not kernel:
+        raise ValueError("heads_phase_form: the bf16 module form is module_head_bf16")
     b, h, w, c = x.shape
     if kernel:  # f32 arithmetic (f64 for an f64 x: an exact evaluation)
         dt = torch.float64 if x.dtype == torch.float64 else torch.float32
@@ -92,11 +98,7 @@ def heads_phase_form(
                 [xp[:, a + dy : a + dy + h, bb + dx : bb + dx + w] for dy in (0, 1) for dx in (0, 1)],
                 dim=-1,
             )
-            wp = wk[2 * a + bb].reshape(4 * c, -1)
-            if dt == torch.bfloat16:  # one image a product, as models/convnext.py::per_image
-                acc = torch.cat([ci.reshape(-1, 4 * c) @ wp for ci in cols.split(1)])
-            else:
-                acc = cols.reshape(-1, 4 * c) @ wp
+            acc = cols.reshape(-1, 4 * c) @ wk[2 * a + bb].reshape(4 * c, -1)
             for out, p, z in zip(outs, heads, acc.split(widths, dim=-1)):
                 z = z + p["step1.conv.bias"].to(dt)
                 z = F.layer_norm(
@@ -107,9 +109,35 @@ def heads_phase_form(
                 w2 = p["step2.weight"]
                 if round_y:
                     g, w2 = round_bf16(g), round_bf16(w2)
-                if kernel or dt == torch.float32:
-                    y = F.linear(g.to(dt), w2.to(dt), p["step2.bias"].to(dt))
-                else:  # the module form: product and bias add each rounded
-                    y = F.linear(g, w2.to(dt)) + p["step2.bias"].to(dt)
+                y = F.linear(g.to(dt), w2.to(dt), p["step2.bias"].to(dt))
                 out[:, a::2, bb::2] = y.reshape(b, h, w, -1)
     return outs
+
+
+def _collapse(k: torch.Tensor, axis: int, parity: int) -> torch.Tensor:
+    """Of an OIHW 3x3 kernel, the 2 taps along ``axis`` (2: rows, 3:
+    columns) that output parity ``parity`` touches."""
+    k0, k1, k2 = k.split(1, dim=axis)
+    return torch.cat([k0, k1 + k2] if parity == 0 else [k0 + k1, k2], dim=axis)
+
+
+def module_head_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One FpnHead at factor 2 on a bf16 ``x``, as Flax's
+    ``_PhaseFusedSmooth`` and ``FpnHead`` build it at dtype=bfloat16: the 3x3
+    cast to bf16, collapsed by rows, then by columns (bf16 sums), one 2x2
+    convolution a phase over the padded input, then the bias, LN, GELU, the
+    projection and its bias, each rounded to bf16 (``p`` as in
+    ``heads_phase_form``)."""
+    bf16 = torch.bfloat16
+    b, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
+    k = p["step1.conv.weight"].to(bf16)
+    out = x.new_empty(b, 2 * h, 2 * w, p["step2.weight"].shape[0])
+    for a in (0, 1):
+        ka = _collapse(k, 2, a)
+        for bb in (0, 1):
+            y = F.conv2d(xp, _collapse(ka, 3, bb))[:, :, a : a + h, bb : bb + w].permute(0, 2, 3, 1)
+            z = layer_norm(y + p["step1.conv.bias"].to(bf16), p["step1.ln.weight"], p["step1.ln.bias"], EPS)
+            g = gelu(z.to(bf16), bf16)
+            out[:, a::2, bb::2] = F.linear(g, p["step2.weight"].to(bf16)) + p["step2.bias"].to(bf16)
+    return out

@@ -34,14 +34,20 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     integer upsampling factor on both axes (every resize of the FPN and its
     heads) repeats each pixel by ``expand`` and ``reshape``, which keeps
     symbolic sizes symbolic under ``torch.export`` (``floor(i / k)`` equals
-    ``floor(i * (1 / k))`` in float64 there); other ratios gather rows and
-    columns whose indices are built on the device from the tensor's sizes."""
+    ``floor(i * (1 / k))`` in float64 there); an ``x`` that requires grad
+    repeats rows, then columns, as the JAX package's two ``jnp.repeat`` do,
+    so that a bf16 gradient is summed one axis at a time, as JAX sums it
+    (the same values; a second copy). Other ratios gather rows and columns
+    whose indices are built on the device from the tensor's sizes."""
     b, h, w, c = x.shape
     oh, ow = out_hw
     if statically_known_true(oh == h) and statically_known_true(ow == w):
         return x
     if oh % h == 0 and ow % w == 0:
         fh, fw = oh // h, ow // w
+        if x.requires_grad:
+            x = x[:, :, None].expand(b, h, fh, w, c).reshape(b, oh, w, c)
+            return x[:, :, :, None].expand(b, oh, w, fw, c).reshape(b, oh, ow, c)
         return x[:, :, None, :, None, :].expand(b, h, fh, w, fw, c).reshape(b, oh, ow, c)
 
     def source(n_out: int, n_in: int) -> torch.Tensor:

@@ -14,10 +14,16 @@ background thread pulls and collates batch N+1, copies it from pinned
 memory on a side stream and records an event; the step waits on that event
 while the card runs step N.
 
+``compute_dtype="bfloat16"`` (the flagships' own setting) builds the model
+at bf16 as the JAX loop does (``AdaptiveScaling(config, torch.bfloat16)``,
+the module path with its f32 residual stream); parameters, optimizer
+moments, losses and checkpoints stay f32, so an exported checkpoint is f32
+at either dtype. Every step and dev batch then runs the blocks through the
+bf16 kernel's module mode.
+
 Not ported, each raising and naming its ROADMAP item: the mesh
-(``use_mesh=True``, Queue 1 item 10), bf16 training
-(``compute_dtype="bfloat16"``, item 9.4) and the ``"python"`` render
-backend (item 9.6).
+(``use_mesh=True``, Queue 1 item 10) and the ``"python"`` render backend
+(item 9.6).
 
 Entry points run on the card unless ``device="cpu"``; they raise when no
 card is there.
@@ -63,7 +69,6 @@ from .train_step import (
 logger = logging.getLogger(__name__)
 
 MESH_ITEM = "ROADMAP Queue 1 item 10"
-BF16_TRAINING_ITEM = "ROADMAP Queue 1 item 9.4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +103,8 @@ class EpochConfig:
     # Batches prepared ahead on a background thread; 0 prepares each one
     # inline.
     prefetch_depth: int = 2
-    # Only "float32" is ported (bf16 training: ROADMAP Queue 1 item 9.4).
+    # The model's dtype, "float32" or "bfloat16"; parameters, optimizer
+    # state and losses stay f32.
     compute_dtype: str = "float32"
     # Yield each generated train pair this many times (data/dataset.py
     # sample_reuse). 1 = off.
@@ -189,13 +195,20 @@ class _DeviceBatches:
                 t.record_stream(current)
 
 
-def _new_model(model_config: AdaptiveScalingConfig, seed: int) -> AdaptiveScaling:
-    """The model with its parameters drawn from ``seed`` as the JAX
-    package's ``model.init`` draws them (``init_like_flax_``); the global
-    torch random state is left as it was."""
+def _new_model(model_config: AdaptiveScalingConfig, seed: int, dtype: torch.dtype) -> AdaptiveScaling:
+    """The model at ``dtype`` (f32 parameters) with its parameters drawn
+    from ``seed`` as the JAX package's ``model.init`` draws them
+    (``init_like_flax_``); the global torch random state is left as it
+    was."""
     with torch.random.fork_rng(devices=[]):
-        model = AdaptiveScaling(model_config)
+        model = AdaptiveScaling(model_config, dtype)
     return init_like_flax_(model, torch.Generator().manual_seed(seed))
+
+
+def block_launches() -> int:
+    """The block kernel's launches so far, f32 and bf16 together (a step
+    runs one dtype)."""
+    return block_kernel.LAUNCHES + block_kernel.LAUNCHES_BF16
 
 
 def train(
@@ -266,10 +279,7 @@ def _train(
     ]:
         logger.info("%s: %s", name, config_to_dict(cfg))
         dump_config(cfg, os.path.join(out_fd, f"{name}.json"))
-    if epoch_config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {epoch_config.compute_dtype!r}: bf16 training is not ported yet ({BF16_TRAINING_ITEM})"
-        )
+    step_dtype = TrainStepConfig(compute_dtype=epoch_config.compute_dtype).dtype
 
     train_bs, dev_bs = epoch_config.train_batch_size, epoch_config.dev_batch_size
     train_num_samples = calculate_iterable_dataset_num_samples(train_bs, epoch_config.train_num_batches)
@@ -336,7 +346,7 @@ def _train(
     )
     prefetcher = None
     try:
-        model = _new_model(model_config, epoch_config.jax_seed)
+        model = _new_model(model_config, epoch_config.jax_seed, step_dtype)
         if init_params_path:
             # Params-only continuation: the weights of a .npz, a reference
             # state dict or a checkpoint of the port, with fresh optimizer
@@ -357,6 +367,7 @@ def _train(
             rough_core_box=rough_core,
             precise_core_box=precise_core,
             remat=epoch_config.remat,
+            compute_dtype=epoch_config.compute_dtype,
         )
         train_step = make_train_step(model, optimizer, step_config, device=str(dev))
         eval_step = make_eval_step(model, step_config, device=str(dev))
@@ -449,7 +460,7 @@ def _train(
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
                     profiler = torch.profiler.profile(activities=activities)
                     profiler.start()
-                launches0 = block_kernel.LAUNCHES
+                launches0 = block_launches()
                 if on_card:
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     start.record()
@@ -462,7 +473,7 @@ def _train(
                     step_times.append((start, end))
                 else:
                     step_times.append((time.perf_counter() - start) * 1e3)
-                step_launches.append(block_kernel.LAUNCHES - launches0)
+                step_launches.append(block_launches() - launches0)
                 if profiler is not None and batch_idx == min(
                     epoch_config.profile_num_batches, epoch_config.train_num_batches
                 ):
@@ -534,11 +545,11 @@ def _train(
                 for _ in range(epoch_config.dev_num_batches):
                     pairs, dev_iter = _pull_pairs(dev_dataset, dev_iter, dev_bs)
                     batch = collate_samples(pairs)
-                    launches0 = block_kernel.LAUNCHES
+                    launches0 = block_launches()
                     em = eval_step(_clean_batch(batch["rough"]), _clean_batch(batch["precise"]))
                     dev_rough_losses.append(float(em["rough_loss"]))
                     dev_precise_losses.append(float(em["precise_loss"]))
-                    record["dev_launches"].append(block_kernel.LAUNCHES - launches0)
+                    record["dev_launches"].append(block_launches() - launches0)
                 dev_rough = statistics.mean(dev_rough_losses)
                 dev_precise = statistics.mean(dev_precise_losses)
                 dev_loss = dev_rough + dev_precise

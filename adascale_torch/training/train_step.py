@@ -4,9 +4,13 @@ Counterpart of ``adascale/training/train_step.py``. One backward of
 ``rough_loss / 2 + precise_loss / 2`` accumulates both tasks' gradients
 before one clipped AdamW step (``optimizer.ClippedAdamW``). Batches may come
 compact (uint8 images and masks); they are moved as they are and up-cast to
-f32 on the device, the label-point indices staying integers. The losses are
-f32, and so is the model: ``compute_dtype`` other than "float32" is refused
-until the kernels have bf16 variants.
+f32 on the device, the label-point indices staying integers. The losses and
+the parameters are f32. ``compute_dtype="bfloat16"`` (the flagships' own
+setting) runs the model at bf16 as the JAX package's bf16 training does:
+the Flax module path (f32 residual stream, every block through the bf16
+kernel's module mode with a recompute backward, ``TrainableBlockBF16``),
+the heads' outputs cast to f32 before the losses; the step expects a model
+built at that dtype (``AdaptiveScaling(config, torch.bfloat16)``).
 
 With ``remat`` each pass's forward runs under ``torch.utils.checkpoint``:
 its activations are recomputed in the backward instead of kept, so the block
@@ -47,13 +51,30 @@ class TrainStepConfig:
     # Recompute each pass's forward in the backward instead of keeping its
     # activations.
     remat: bool = False
+    # "float32" or "bfloat16": the model's dtype (parameters stay f32).
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: only 'float32' is ported"
+                f"compute_dtype {self.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}"
             )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return COMPUTE_DTYPES[self.compute_dtype]
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_model_dtype(model, config: TrainStepConfig) -> None:
+    """Raises unless ``model`` computes at ``config.compute_dtype``."""
+    if model.dtype != config.dtype:
+        raise ValueError(
+            f"the model computes in {model.dtype}, the step config asks {config.compute_dtype!r}: "
+            f"build it as AdaptiveScaling(config, {config.dtype})"
+        )
 
 
 def resolve_device(device: str) -> torch.device:
@@ -170,6 +191,7 @@ def make_train_step(
     metrics (``rough_loss``, ``precise_loss``, ``grad_norm``, the global norm
     before clipping) stay on the device."""
     dev = resolve_device(device)
+    check_model_dtype(model, config)
 
     def step(rough_batch, precise_batch, generator: torch.Generator):
         optimizer.zero_grad()
@@ -196,6 +218,7 @@ def make_eval_step(
     deterministic, without a gradient (each loss divided by 2, as in
     training)."""
     dev = resolve_device(device)
+    check_model_dtype(model, config)
 
     @torch.no_grad()
     def step(rough_batch, precise_batch):
@@ -219,6 +242,7 @@ def make_grad_inspection_fn(
     parameter's ``"<name>:rough_abs_mean"`` and ``"<name>:precise_abs_mean"``.
     Leaves ``.grad`` untouched."""
     dev = resolve_device(device)
+    check_model_dtype(model, config)
     shared = [(n, p) for n, p in model.named_parameters() if n.startswith("backbone.")]
     names, params = [n for n, _ in shared], [p for _, p in shared]
 

@@ -49,15 +49,22 @@ that reads it. Phases, each announced with its elapsed seconds:
      same number of chunks; launches exactly 18 x (1 + chunks) blocks);
   7. blank page: the fused configuration on a page with no text against its
      JAX reference (no char polygons; the same stacked shape and chunks);
-  8. training, the two-task train step with the flagship (f32, B = 6 at the
+  8. training, the two-task train step with the flagship (B = 6 at the
      training shapes: 512x512 rough crops, 320x320 precise crops, 200 label
-     points):
+     points), f32 and bf16 (the flagships' own compute_dtype):
      8a. the trainable block (``TrainableBlock``: kernel forward, backward
          by recompute and autograd of the plain version) against autograd
          through the plain version at the 8 training stage shapes: forward
          and the gradients of x and the 9 parameters within 1e-5 relative;
          forward, plain forward and backward ms from CUDA events; a raw
-         ``convnext_block`` call that needs a gradient goes through it;
+         ``convnext_block`` call that needs a gradient goes through it; then
+         the trainable bf16 block (``convnext_block(x, p, bfloat16)`` with
+         an f32 x: ``TrainableBlockBF16``, the module-mode kernel forward,
+         the recompute backward through the bf16 plain twin) against
+         autograd through that twin at the same shapes and B: forward and
+         the 10 gradients within BF16_TOL of the largest value; kernel, plain and bound ms of the forward and
+         the backward (the bound at the dense bf16 rate, the backward 3x
+         the forward's operations);
      8b. the flagship's two-task loss, gradients and one optimizer step at
          B = 2, deterministic, against the JAX package's stored step
          (tests/fixtures/torch_port/flagship_fpn_train_reference.npz, the
@@ -65,17 +72,29 @@ that reads it. Phases, each announced with its elapsed seconds:
          gradient norm within 1e-4 relative, each leaf's gradient norm and
          projection within 1e-3 of its norm and 64 strided elements of it
          within 1e-3 of its largest magnitude; the update's norm and
-         projection within 1e-3 of its norm (its elements printed);
-     8c. 3 warm-up and 5 timed ``train_step`` calls with drop path on from a
-         seeded generator: finite losses, every parameter moved, exactly 36
-         block-kernel launches a step; ms per step, samples/s, peak memory;
-         one step's device time by part from a torch.profiler trace, which
+         projection within 1e-3 of its norm (its elements printed); then
+         the same step at bf16 against the JAX package's bf16 step run
+         eagerly (TRAIN_BF16_REFERENCE): losses and the global gradient norm
+         within TRAIN_BF16_TOL relative and each nearer it than the f32
+         step just taken, each leaf's gradient norm within
+         TRAIN_BF16_LEAF_NORM_TOL; projections, elements and updates
+         printed;
+     8c. for f32, then bf16: 3 warm-up and 5 timed ``train_step`` calls with
+         drop path on from a seeded generator: finite losses, every
+         parameter moved, exactly 36 block-kernel launches a step (all of
+         the step's dtype: the module-mode bf16 kernel at bf16); ms per
+         step, samples/s, peak memory; one step's device time by part from
+         a torch.profiler trace (cuDNN's FFT convolutions apart), which
          also shows that every depthwise convolution of the plain version
          ran inside the blocks' backward, and the plain version's block
-         forwards traced in the same place (the kernels line's times); the fused forwards of the trained
-         model against its module path (1e-4; the weight packs rebuilt);
-         one step with remat against one without (losses within 1e-6,
-         72 launches).
+         forwards traced in the same place (the kernels line's times); the
+         two-task forward as the step runs it, the library ops taking the
+         batch in one call (``per_image`` under grad), against the same
+         with one image a call; the rough neck's level-0 3x3 alone at
+         the step's shape, its cuDNN kernels named and FFT marked; one step
+         with remat against one without (losses within 1e-6, 72 launches);
+         f32 only: the fused forwards of the trained model against its
+         module path (1e-4; the weight packs rebuilt).
   9. UPerNeXt: the tiny/UPerNeXt flagship's detect() on the same page with
      ``use_pallas_neck_heads=True`` (the JAX engine's routing: the block
      kernel in the backbone, the module neck and heads) against its JAX
@@ -129,23 +148,26 @@ that reads it. Phases, each announced with its elapsed seconds:
      flagship's .npz and examples/flagship_training/model.json, held
      against the JAX reference as phase 4 holds detect() (its JSON's
      polygons too), 36 block launches; the phase's seconds;
- loop. the training loop (``training.loop.train``) with the flagship's own
-     configs (examples/flagship_training/{dataset,epoch,model,steps}.json:
-     tiny/FPN at full width, B = 6, 512x512 rough and 320x320 precise crops
-     of 768x768 native-rendered pages, 4 spawned generator processes,
-     prefetch depth 3, sample reuse 2) from flagship_fpn_params.f16.npz
-     through ``init_params_path``, cut to f32, LOOP_EPOCHS epochs of
-     LOOP_BATCHES batches and LOOP_DEV_BATCHES dev batches: the renderer's
-     g++ build seconds, a warm 4-process pool's pages/s, each epoch's step
-     ms (CUDA events), wall, prefetcher stall and losses, peak memory; every
-     loss finite, exactly 36 block launches a step and a dev batch, the
-     checkpoints state_0 and state_1[_not_best]; the last one restored into
-     a new model and optimizer equal bit for bit to the file (parameters,
-     both moments), its step count and lr the run's; exported by
-     ``export_inference_artifact`` and served by ``python -m adascale_torch
-     detect`` on page_0 (36 launches, the polygons equal to those of an
-     engine built in-process from the checkpoint's params); the phase's
-     seconds;
+ loop. the training loop (``training.loop.train``) with each flagship's own
+     configs (examples/flagship_{training,upernext}/{dataset,epoch,model,
+     steps}.json: tiny at full width, B = 6, 512x512 rough and 320x320
+     precise crops of 768x768 native-rendered pages, 4 spawned generator
+     processes, prefetch depth 3, sample reuse 2, compute_dtype bfloat16)
+     from its weights through ``init_params_path``, as LOOP_RUNS cuts them:
+     the FPN flagship at bf16 (2 epochs of 6 batches, 1 dev batch), the
+     UPerNeXt flagship at bf16 (1 epoch of 3, 1 dev batch) and the FPN
+     flagship cut to f32 (1 epoch of 2, 1 dev batch): the renderer's g++
+     build seconds, a warm 4-process pool's pages/s; for each run each
+     epoch's step ms (CUDA events), wall, prefetcher stall and losses, peak
+     memory; every loss finite, exactly 36 block launches a step and a dev
+     batch, all of the run's dtype (the module-mode bf16 kernel at bf16),
+     a checkpoint an epoch; the last one restored into a new model and
+     optimizer equal bit for bit to the file (parameters, all f32, and
+     both moments), its step count and lr the run's; the first run's
+     exported by ``export_inference_artifact`` (f32) and served by
+     ``python -m adascale_torch detect`` on page_0 (36 f32 launches, the
+     polygons equal to those of an engine built in-process from the
+     checkpoint's params); the phase's seconds;
  bf16. serving at compute_dtype="bfloat16": each kernel's bf16 entry
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
@@ -190,7 +212,9 @@ the run. The kernels line gives each kernel's count on its main path
 (``launches``: the default detect() for the block kernel, the fused one for
 the neck and heads, the train step for the trainable block (the loop's
 steps, "train_loop_steps", beside it; its dev batches, "train_loop_dev",
-and its detect CLI beside the block kernel's), the loaded
+and its detect CLI beside the block kernel's), the bf16 train step for the
+trainable bf16 block, "convnext_block_trainable_bf16" (the bf16 loops'
+steps and dev batches beside it), the loaded
 programs of phase export for the block's registered operator,
 "convnext_block_op", the fused bf16 detect() for the bf16 entries, listed
 as "<name>_bf16") and on every path
@@ -268,6 +292,21 @@ TRAIN_STAGE_SHAPES = [
 TRAIN_LOSS_TOL = 1e-4
 LEAF_TOL = 1e-3
 REMAT_TOL = 1e-6
+# bf16 training (the flagships' own compute_dtype): the flagship step at
+# B = 2 against the JAX package's bf16 step run eagerly (phase 8b;
+# tests/fixtures/torch_port/make_reference.py train_bf16): losses and the
+# global gradient norm within TRAIN_BF16_TOL relative, each nearer that
+# reference than the port's f32 step is, each leaf's gradient norm within
+# TRAIN_BF16_LEAF_NORM_TOL. Measured on an H100: the losses and grad norm
+# 7.3e-5 at most (the f32 step 2.1e-3, 1.2e-4, 1.7e-4), the worst leaf norm
+# 3.7e-3; with the FPN heads' gradient through the product form in place of
+# Flax's per-phase convolutions, the grad norm 7.1e-4.
+TRAIN_BF16_REFERENCE = os.path.join(FIXTURES, "flagship_fpn_train_bf16_reference.npz")
+TRAIN_BF16_TOL = 1e-3
+TRAIN_BF16_LEAF_NORM_TOL = 2e-2
+# The neck's level-0 3x3 of the rough pass in a B = 6 step: input channels,
+# output channels, height and width.
+ROUGH_NECK_L0_CONV = (384, 96, 128, 128)
 WARMUP_STEPS, TIMED_STEPS = 3, 5
 # detect_many (phase 11): the three shift pages and a blank page; the
 # forwards timed per page at B = 1 and at this batch.
@@ -862,7 +901,8 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
 KERNEL_GROUPS = {
     "heads": ("heads_kernel", "heads_tma_kernel"),
     "neck_l0": ("neck_step1_", "neck_step2_"),
-    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel"),
+    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel", "dw_ln_pairs_kernel", "mlp_fused_kernel",
+               "gemm_wgmma_kernel", "reduce_bf16_kernel"),
 }
 
 
@@ -1004,20 +1044,117 @@ def check_trainable_block(gen, device):
     }
 
 
-def flagship_model(params, device):
+def block_bf16_backward_work(npix: int, c: int):
+    """(bf16 flops, f32 flops, bytes) of one trainable bf16 block's backward
+    (``TrainableBlockBF16.backward``: the forward recomputed, then both
+    gradients of each projection and of the depthwise: three times the
+    forward's operations, the projections at the bf16 rate): x, the
+    parameters and the output's gradient read once, x's and the
+    parameters' gradients written once, in f32."""
+    mlp, dw, _ = block_work_bf16(npix, c, 4)
+    params = 4 * (49 * c + 8 * c * c + 10 * c)
+    return 3 * mlp, 3 * dw, 4 * 3 * npix * c + 2 * params
+
+
+def bound_of(work) -> tuple:
+    """(ops ms, bytes ms) of (bf16 flops, f32 flops, bytes) at the card's
+    bf16 and f32 peaks and memory rate."""
+    flops16, flops32, nbytes = work
+    return (flops16 / PEAK_BF16_FLOPS + flops32 / PEAK_F32_FLOPS) * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def check_trainable_block_bf16(gen, device):
+    """Phase 8a, bf16: the trainable bf16 block (``convnext_block(x, p,
+    bfloat16)`` with an f32 x that needs a gradient: ``TrainableBlockBF16``,
+    the module-mode kernel forward, the recompute backward) against autograd
+    through its bf16 plain twin at the training stage shapes at B =
+    TRAIN_BATCH, as the bf16 step launches it: the forward and the gradients
+    of x and the 9 parameters within BF16_TOL of the largest value; kernel,
+    plain and bound ms for the forward and the backward (CUDA events).
+    Returns the kernels line's errors and bound (summed over one step's 36
+    blocks; its times come from phase 8c's bf16 step)."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+
+    bf16 = torch.bfloat16
+    names = ("x",) + K.PARAM_NAMES
+    step = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    worst, max_abs = (0.0, ""), 0.0
+    for (h, w, c), blocks in TRAIN_STAGE_SHAPES:
+        p = {k: v.requires_grad_() for k, v in random_block_params(c, gen, device).items()}
+        x = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to(device).requires_grad_()
+        g = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to(device)
+        inputs = [x] + [p[k] for k in K.PARAM_NAMES]
+        before = K.LAUNCHES_BF16
+        out = K.convnext_block(x, p, bf16)
+        if "TrainableBlockBF16" not in type(out.grad_fn).__name__ or K.LAUNCHES_BF16 != before + 1:
+            raise AssertionError(f"bf16 block with a gradient: grad_fn={out.grad_fn}, "
+                                 f"{K.LAUNCHES_BF16 - before} launches")
+        want = K.convnext_block_plain_bf16(x, p, True)
+        errs = {"forward": rel_err(out.detach(), want.detach())}
+        max_abs = max(max_abs, float((out - want).detach().abs().max()))
+        got_grads = torch.autograd.grad(out, inputs, g, retain_graph=True)
+        want_grads = torch.autograd.grad(want, inputs, g, retain_graph=True)
+        errs.update({f"d{n}": rel_err(a, b) for n, a, b in zip(names, got_grads, want_grads)})
+        bad = {k: v for k, v in errs.items() if not v <= BF16_TOL}
+        if bad:
+            raise AssertionError(f"trainable bf16 block {h}x{w}x{c}: relative errors {bad} > {BF16_TOL}")
+        xd, pd = x.detach(), {k: v.detach() for k, v in p.items()}
+        ms = cuda_ms(lambda: K.convnext_block(xd, pd, bf16))
+        plain_ms = cuda_ms(lambda: K.convnext_block_plain_bf16(xd, pd, True))
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, g, retain_graph=True))
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(want, inputs, g, retain_graph=True))
+        npix = TRAIN_BATCH * h * w
+        fwd, bwd = bound_of(block_work_bf16(npix, c, 4)), bound_of(block_bf16_backward_work(npix, c))
+        for key, (t_ops, t_bytes) in (("fwd", fwd), ("bwd", bwd)):
+            step[key][0] += blocks * t_ops
+            step[key][1] += blocks * t_bytes
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        worst = max(worst, (err, f"{h}x{w}x{c} {name}"))
+        grads_only = {k: v for k, v in errs.items() if k != "forward"}
+        print(
+            f"trainable bf16 block B={TRAIN_BATCH} {h}x{w}x{c}: rel err forward={errs['forward']:.3e} "
+            f"worst grad {max(grads_only, key=grads_only.get)}={max(grads_only.values()):.3e}; "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(fwd):.4f} ({'operations' if fwd[0] >= fwd[1] else 'bytes'}, bf16); "
+            f"backward_ms={bwd_ms:.4f} (recompute + autograd of the bf16 plain twin) plain_backward_ms={plain_bwd_ms:.4f} "
+            f"backward_bound_ms={max(bwd):.4f}; blocks_per_step={blocks}",
+            flush=True,
+        )
+        del out, want, got_grads, want_grads
+    print(
+        f"trainable bf16 block, one B={TRAIN_BATCH} train step's 36 blocks: forward bound_ms="
+        f"{max(step['fwd']):.4f}; backward bound_ms={max(step['bwd']):.4f}; worst rel err {worst[0]:.3e} ({worst[1]})",
+        flush=True,
+    )
+    return {
+        "max_abs_err": max_abs,
+        "max_rel_err": worst[0],
+        "bound_ms": max(step["fwd"]),
+        "bound_by": "operations" if step["fwd"][0] >= step["fwd"][1] else "bytes",
+        "bound_rate": "forward only: projections at the dense bf16 rate, 989 TFLOP/s; depthwise at 67 TFLOP/s f32",
+        "backward_bound_ms": max(step["bwd"]),
+        "backward_bound_by": "operations" if step["bwd"][0] >= step["bwd"][1] else "bytes",
+    }
+
+
+def flagship_model(params, device, dtype=None):
     import torch
 
     from adascale_torch import AdaptiveScaling, AdaptiveScalingConfig
     from adascale_torch.utils.params import state_dict_from_jax
 
-    model = AdaptiveScaling(AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"))
+    model = AdaptiveScaling(AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"), dtype or torch.float32)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model.to(device)
 
 
-def check_train_reference(params, device) -> dict:
+def check_train_reference(params, device, compute_dtype: str = "float32", f32=None) -> dict:
     """Phase 8b: the flagship's two-task loss, gradients and one optimizer
-    step against the JAX package's stored step."""
+    step against the JAX package's stored step; at ``compute_dtype=
+    "bfloat16"`` against its bf16 step (TRAIN_BF16_REFERENCE), at the bf16
+    bars, ``f32`` being this phase's f32 result (the port's f32 step must
+    lie farther from the bf16 reference than its bf16 step does)."""
     import numpy as np
     import torch
 
@@ -1028,13 +1165,16 @@ def check_train_reference(params, device) -> dict:
     from adascale_torch.training.optimizer import global_norm
     from adascale_torch.utils.params import leaf_fingerprints, leaf_sample
 
-    ref = np.load(TRAIN_REFERENCE)
+    bf16 = compute_dtype == "bfloat16"
+    ref = np.load(TRAIN_BF16_REFERENCE if bf16 else TRAIN_REFERENCE)
+    if (str(ref["compute_dtype"]) if "compute_dtype" in ref else "float32") != compute_dtype:
+        raise AssertionError(f"the reference is not a {compute_dtype} step")
     rough, precise, rough_box, precise_box = seeded_batches(int(ref["seed"]), int(ref["batch_size"]))
     checksum = batch_checksum(rough, precise)
     if checksum != str(ref["checksum"]):
         raise AssertionError(f"the regenerated batch differs from the reference's ({checksum})")
-    model = flagship_model(params, device)
-    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box)
+    model = flagship_model(params, device, torch.bfloat16 if bf16 else torch.float32)
+    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box, compute_dtype=compute_dtype)
     total, (r_loss, p_loss) = two_task_loss(
         model, upcast_batch(rough, device), upcast_batch(precise, device), cfg, True
     )
@@ -1086,6 +1226,10 @@ def check_train_reference(params, device) -> dict:
     }
     worst_grad = max(grad_errs, key=grad_errs.get)
     worst_update = max(update_errs, key=update_errs.get)
+    values = {"rough_loss": r_loss.item(), "precise_loss": p_loss.item(), "grad_norm": norm,
+              "leaf_norms": {k: float(v.double().norm()) for k, v in grads.items()}}
+    if bf16:
+        return check_bf16_step(ref, names, values, loss_errs, grad_prints, grad_elements, update_errs, f32)
     print(
         f"flagship two-task step vs JAX (B={int(ref['batch_size'])}, deterministic): "
         f"rough_loss={r_loss.item():.7f} (jax {float(ref['rough_loss']):.7f}) "
@@ -1106,7 +1250,49 @@ def check_train_reference(params, device) -> dict:
     if not update_errs[worst_update] <= LEAF_TOL:
         raise AssertionError(f"leaf update {worst_update}: {update_errs[worst_update]} > {LEAF_TOL}")
     return {"losses": loss_errs, "worst_leaf_grad": grad_errs[worst_grad], "worst_leaf_update": update_errs[worst_update],
-            "worst_update_element": update_elements[worst_update_element]}
+            "worst_update_element": update_elements[worst_update_element], "values": values}
+
+
+def check_bf16_step(ref, names, values, loss_errs, grad_prints, grad_elements, update_errs, f32) -> dict:
+    """Phase 8b's bf16 bars (TRAIN_BF16_*): the losses and the global
+    gradient norm near the JAX bf16 step and nearer it than the port's f32
+    step; each leaf's gradient norm; the leaves' projections, sampled
+    elements and updates printed."""
+    f32_errs = {k: abs(f32["values"][k] - float(ref[k])) / abs(float(ref[k])) for k in loss_errs}
+    leaf_norm = {k: abs(values["leaf_norms"][k] - n) / max(float(n), 1e-30)
+                 for k, n in zip(names, ref["grad_norms"])}
+    f32_leaf = {k: abs(f32["values"]["leaf_norms"][k] - n) / max(float(n), 1e-30)
+                for k, n in zip(names, ref["grad_norms"])}
+    worst = max(leaf_norm, key=leaf_norm.get)
+    nearer = sum(leaf_norm[k] < f32_leaf[k] for k in names)
+    worst_print = max(grad_prints, key=grad_prints.get)
+    worst_element = max(grad_elements, key=grad_elements.get)
+    worst_update = max(update_errs, key=update_errs.get)
+    print(
+        f"flagship two-task step at bf16 vs JAX bf16 (eager; B={int(ref['batch_size'])}, deterministic): "
+        f"rough_loss={values['rough_loss']:.7f} (jax {float(ref['rough_loss']):.7f}) precise_loss="
+        f"{values['precise_loss']:.7f} (jax {float(ref['precise_loss']):.7f}) grad_norm={values['grad_norm']:.6f} "
+        f"(jax {float(ref['grad_norm']):.6f}); rel errs "
+        + " ".join(f"{k}={v:.3e}" for k, v in loss_errs.items())
+        + "; the port's f32 step against the same reference: "
+        + " ".join(f"{k}={v:.3e}" for k, v in f32_errs.items())
+        + f"; worst leaf gradient norm {worst} {leaf_norm[worst]:.3e} (f32 step {f32_leaf[worst]:.3e}); "
+        f"{nearer} of {len(names)} leaf norms nearer than the f32 step's; no bar: the worst norm or projection "
+        f"{worst_print} {grad_prints[worst_print]:.3e} of its norm, the worst sampled element {worst_element} "
+        f"{grad_elements[worst_element]:.3e} of its "
+        f"largest magnitude, the worst update {worst_update} {update_errs[worst_update]:.3e} of its norm",
+        flush=True,
+    )
+    if not max(loss_errs.values()) <= TRAIN_BF16_TOL:
+        raise AssertionError(f"bf16 losses / grad norm vs JAX bf16: {loss_errs} > {TRAIN_BF16_TOL}")
+    farther = [k for k in loss_errs if not loss_errs[k] < f32_errs[k]]
+    if farther:
+        raise AssertionError(f"bf16 step not nearer the JAX bf16 step than the f32 step in {farther}: "
+                             f"{loss_errs} vs {f32_errs}")
+    if not leaf_norm[worst] <= TRAIN_BF16_LEAF_NORM_TOL:
+        raise AssertionError(f"bf16 leaf gradient norm {worst}: {leaf_norm[worst]} > {TRAIN_BF16_LEAF_NORM_TOL}")
+    return {"losses": loss_errs, "f32_losses": f32_errs, "worst_leaf_norm": leaf_norm[worst],
+            "leaf_norms_nearer": nearer, "values": values}
 
 
 def range_device_ms(events, name: str) -> float:
@@ -1122,19 +1308,24 @@ def range_device_ms(events, name: str) -> float:
 def plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step: int) -> float:
     """Device ms of the plain version's block forwards in one traced two-task
     forward and backward at the step's shapes: ``TrainableBlock`` runs
-    ``convnext_block_plain`` in place of the kernel, under a range, for this
-    one measurement (no kernel launch, nothing counted, no update)."""
+    ``convnext_block_plain`` (``TrainableBlockBF16`` its bf16 twin) in place
+    of the kernel, under a range, for this one measurement (no kernel
+    launch, nothing counted, no update)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from adascale_torch.kernels import convnext_block as K
     from adascale_torch.training import two_task_loss, upcast_batch
 
-    def plain(x, p):
-        with torch.profiler.record_function("convnext_block.plain_forward"):
-            return K.convnext_block_plain(x, p)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    name = "_launch_bf16" if bf16 else "_launch"
 
-    launch, K._launch = K._launch, plain
+    def plain(x, p, *module):
+        with torch.profiler.record_function("convnext_block.plain_forward"):
+            return K.convnext_block_plain_bf16(x, p, *module) if bf16 else K.convnext_block_plain(x, p)
+
+    launch = getattr(K, name)
+    setattr(K, name, plain)
     try:
         model.zero_grad()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1145,7 +1336,7 @@ def plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step:
             total.backward()
             torch.cuda.synchronize()
     finally:
-        K._launch = launch
+        setattr(K, name, launch)
     model.zero_grad()
     from torch.autograd import DeviceType
 
@@ -1158,13 +1349,20 @@ def plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step:
     return range_device_ms(events, "convnext_block.plain_forward")
 
 
+def is_fft_kernel(name: str) -> bool:
+    """A kernel of cuDNN's FFT convolution: an FFT, or the complex GEMM
+    between the transforms (``..._cf32cf32_...``)."""
+    return "fft" in name.lower() or "cf32" in name
+
+
 def step_device_split(prof) -> dict:
     """One train step's device ms by part, from a torch.profiler trace: the
     block kernel's forwards (by kernel name), the blocks' backward (the
     kernels under ``convnext_block.backward``: recompute and autograd of the
     plain version), the optimizer (under ``optimizer.step``), the rest
     (stem, stage LNs, downsamples, neck and heads forward and backward
-    through cuDNN and cuBLAS, losses) and the whole. Also checks that every
+    through cuDNN and cuBLAS, losses) and the whole; of the rest, cuDNN's
+    FFT convolutions apart (``fft``: ``is_fft_kernel``). Also checks that every
     depthwise 7x7 convolution (the plain version's) ran inside the blocks'
     backward, and returns how many ran."""
     from torch.autograd import DeviceType
@@ -1214,13 +1412,19 @@ def step_device_split(prof) -> dict:
         "rest": total - blocks_fwd - backward - optimizer,
         "device": total,
         "depthwise_in_backward": len(depthwise),
-        "dw_ln_launches": sum(1 for e in kernels if "dw_ln_kernel" in e.name),
+        "dw_ln_launches": sum(1 for e in kernels if "dw_ln_kernel" in e.name or "dw_ln_pairs_kernel" in e.name),
+        # cuDNN's FFT convolutions: its FFT kernels and the complex GEMMs
+        # between them (kernel names with "fft" or "cf32").
+        "fft": sum(e.device_time_total for e in kernels if is_fft_kernel(e.name)) / 1e3,
     }
 
 
-def train_steps(params, device) -> dict:
+def train_steps(params, device, compute_dtype: str = "float32") -> dict:
     """Phase 8c: warm-up and timed train steps with drop path; the launch
-    count, a traced step, the fused forwards after training and remat."""
+    count, a traced step, the fused forwards after training (f32) and remat.
+    At bf16 also what one image a library call would cost the step
+    (``per_image``) and whether the rough neck's level-0 3x3 runs on cuDNN's
+    FFT path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1233,10 +1437,19 @@ def train_steps(params, device) -> dict:
         two_task_loss, upcast_batch,
     )
 
-    model = flagship_model(params, device)
+    bf16 = compute_dtype == "bfloat16"
+    model = flagship_model(params, device, torch.bfloat16 if bf16 else torch.float32)
     rough, precise, rough_box, precise_box = seeded_batches(1, TRAIN_BATCH)
-    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box)
+    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box, compute_dtype=compute_dtype)
     blocks_per_step = 2 * len(model.backbone.blocks())
+    label = f"train step ({compute_dtype})"
+
+    def block_launches():
+        """This dtype's block launches; the other dtype's must be none."""
+        mine, other = (K.LAUNCHES_BF16, K.LAUNCHES) if bf16 else (K.LAUNCHES, K.LAUNCHES_BF16)
+        if other:
+            raise AssertionError(f"{label}: {other} block launches of the other dtype")
+        return mine
     x_rough = upcast_batch(rough, device)["image"]
     x_precise = upcast_batch(precise, device)["image"]
 
@@ -1247,7 +1460,8 @@ def train_steps(params, device) -> dict:
                 forward_precise_from_features_fused(model, model.backbone(x_precise)),
             )
 
-    fused_forwards()  # weight packs for the weights before training
+    if not bf16:
+        fused_forwards()  # weight packs for the weights before training
     opt, _ = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), steps_per_epoch=1000)
     step = make_train_step(model, opt, cfg, device=str(device))
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1257,9 +1471,9 @@ def train_steps(params, device) -> dict:
     metrics, launches = [], []
 
     def counted_step():
-        K.LAUNCHES = 0
+        K.LAUNCHES = K.LAUNCHES_BF16 = 0
         metrics.append(step(rough, precise, gen))
-        launches.append(K.LAUNCHES)
+        launches.append(block_launches())
 
     for _ in range(WARMUP_STEPS):
         counted_step()
@@ -1276,7 +1490,7 @@ def train_steps(params, device) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = [(float(m["rough_loss"]), float(m["precise_loss"]), float(m["grad_norm"])) for m in metrics]
     print(
-        f"train steps (B={TRAIN_BATCH}, drop path on): losses (rough, precise, grad norm) "
+        f"{label}, warm-up and timed steps (B={TRAIN_BATCH}, drop path on): losses (rough, precise, grad norm) "
         + "; ".join(f"{r:.5f}, {p:.5f}, {n:.3f}" for r, p, n in losses)
         + f"; block launches per step {launches}",
         flush=True,
@@ -1289,7 +1503,7 @@ def train_steps(params, device) -> dict:
     if unmoved:
         raise AssertionError(f"{len(unmoved)} parameters did not move, e.g. {unmoved[:5]}")
     print(
-        f"train step: {step_ms:.3f} ms a step (CUDA events over {TIMED_STEPS} steps, warm; host wall "
+        f"{label}: {step_ms:.3f} ms a step (CUDA events over {TIMED_STEPS} steps, warm; host wall "
         f"{wall_ms:.3f} ms), {TRAIN_BATCH / step_ms * 1e3:.2f} samples/s (a sample: one rough and one "
         f"precise crop), peak memory {peak / 2**30:.3f} GiB (max_memory_allocated); every one of "
         f"{len(before)} parameters moved",
@@ -1307,13 +1521,19 @@ def train_steps(params, device) -> dict:
         raise AssertionError(f"traced step: {launches[-1]} launches, {split['dw_ln_launches']} traced "
                              f"dw_ln_kernel launches, {split['depthwise_in_backward']} depthwise "
                              f"convolutions in the backward; want {blocks_per_step}")
-    print("train step, device ms by part (torch.profiler, one step): "
+    print(f"{label}, device ms by part (torch.profiler, one step): "
           + ", ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in split.items()),
           flush=True)
     plain_ms = plain_forward_device_ms(model, rough, precise, cfg, device, blocks_per_step)
-    print(f"train step, the blocks' forwards by the plain version instead (torch.profiler, one "
+    print(f"{label}, the blocks' forwards by the plain version instead (torch.profiler, one "
           f"forward and backward): {plain_ms:.3f} device ms against the kernel's "
           f"{split['blocks_forward_kernel']:.3f}", flush=True)
+    out = {"step_ms": step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_bytes": peak,
+           "launches": launches[-1], "split": split, "plain_forward_ms": plain_ms}
+    out.update(step_conv_costs(model, rough, precise, cfg, device, model.dtype))
+    out["remat"] = check_remat(model, rough, precise, cfg, device, blocks_per_step, block_launches)
+    if bf16:
+        return out
 
     # AdamW updated the parameters in place: the fused forwards must build
     # new weight packs and agree with the module path.
@@ -1327,26 +1547,105 @@ def train_steps(params, device) -> dict:
           f"weight packs rebuilt {rebuilt}", flush=True)
     if not max(errs) <= FORWARD_REL_TOL or rebuilt < 1:
         raise AssertionError(f"fused after training: errs {errs}, packs rebuilt {rebuilt}")
+    return out
 
-    # remat: the same losses, twice the block forwards.
+
+def check_remat(model, rough, precise, cfg, device, blocks_per_step: int, block_launches) -> float:
+    """remat against no remat on one step's loss: the same losses
+    (REMAT_TOL), twice the block forwards. Returns the relative error."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.training import two_task_loss, upcast_batch
+
     remat_losses = []
     for remat in (False, True):
         model.zero_grad()
-        K.LAUNCHES = 0
+        K.LAUNCHES = K.LAUNCHES_BF16 = 0
         total, (r_loss, p_loss) = two_task_loss(
             model, upcast_batch(rough, device), upcast_batch(precise, device),
             dataclasses.replace(cfg, remat=remat), False, torch.Generator(device=device).manual_seed(5),
         )
         total.backward()
-        remat_losses.append((float(r_loss.detach()), float(p_loss.detach()), K.LAUNCHES))
+        remat_losses.append((float(r_loss.detach()), float(p_loss.detach()), block_launches()))
+    model.zero_grad()
     (r0, p0, n0), (r1, p1, n1) = remat_losses
     remat_err = max(abs(r1 - r0) / abs(r0), abs(p1 - p0) / abs(p0))
-    print(f"remat: losses {r1:.7f}, {p1:.7f} vs {r0:.7f}, {p0:.7f} (rel err {remat_err:.3e}); "
-          f"block launches {n1} vs {n0}", flush=True)
+    print(f"remat ({cfg.compute_dtype}): losses {r1:.7f}, {p1:.7f} vs {r0:.7f}, {p0:.7f} (rel err "
+          f"{remat_err:.3e}); block launches {n1} vs {n0}", flush=True)
     if not remat_err <= REMAT_TOL or n1 != 2 * blocks_per_step or n0 != blocks_per_step:
         raise AssertionError(f"remat: rel err {remat_err}, launches {n1} / {n0}")
-    return {"step_ms": step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_bytes": peak,
-            "launches": launches[-1], "split": split, "plain_forward_ms": plain_ms}
+    return remat_err
+
+
+@contextlib.contextmanager
+def library_ops_one_image_a_call():
+    """Within: the models' library ops take one image a call with grad
+    enabled too (``per_image`` as serving runs it), to time what that would
+    cost the step."""
+    import torch
+
+    from adascale_torch.models import convnext, fpn
+
+    saved = convnext.per_image, fpn.per_image
+    convnext.per_image = fpn.per_image = lambda fn, x: torch.cat([fn(x[i : i + 1]) for i in range(x.shape[0])])
+    try:
+        yield
+    finally:
+        convnext.per_image, fpn.per_image = saved
+
+
+def step_conv_costs(model, rough, precise, cfg, device, dtype) -> dict:
+    """What the step's library convolutions cost, in ``dtype``: the two-task
+    forward at the step's batch, grad enabled, as it runs (the batch in one
+    library call, ``models/convnext.py::per_image`` under grad) against the
+    same with one image a call (``library_ops_one_image_a_call``), CUDA
+    events, warm; and the kernels that cuDNN runs for the rough neck's
+    level-0 3x3 (ROUGH_NECK_L0_CONV at B = TRAIN_BATCH) forward and backward
+    alone, from a torch.profiler trace, FFT ones marked."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from adascale_torch.training import two_task_loss, upcast_batch
+
+    r, q = upcast_batch(rough, device), upcast_batch(precise, device)
+
+    def forward():
+        model.zero_grad()
+        return two_task_loss(model, r, q, cfg, True)[0]
+
+    batched_ms = cuda_ms(forward, reps=3)
+    with library_ops_one_image_a_call():
+        per_image_ms = cuda_ms(forward, reps=3)
+    model.zero_grad()
+    cin, cout, h, w = ROUGH_NECK_L0_CONV
+    x = torch.randn(TRAIN_BATCH, cin, h, w, device=device, dtype=dtype).to(
+        memory_format=torch.channels_last).requires_grad_()
+    weight = (torch.randn(cout, cin, 3, 3, device=device) * cin ** -0.5).to(dtype).requires_grad_()
+    y = F.conv2d(x, weight, padding=1)
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        y = F.conv2d(x, weight, padding=1)
+        y.backward(torch.ones_like(y))
+        torch.cuda.synchronize()
+    conv_kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            conv_kernels[e.name] = conv_kernels.get(e.name, 0.0) + e.device_time_total / 1e3
+    fft = {k: v for k, v in conv_kernels.items() if is_fft_kernel(k)}
+    print(f"train step ({cfg.compute_dtype}) forward at B={TRAIN_BATCH}, library ops one image a call (per_image, "
+          f"as serving runs them): {per_image_ms:.3f} ms against the batch in one call (as the step runs): "
+          f"{batched_ms:.3f} ms (CUDA events, warm); the rough neck's level-0 3x3 "
+          f"({TRAIN_BATCH}x{cin}x{h}x{w} -> {cout}) forward and backward alone: "
+          f"{sum(conv_kernels.values()):.3f} device ms, cuDNN's FFT path {'taken' if fft else 'not taken'} "
+          f"(FFT kernels {sum(fft.values()):.3f} ms); its kernels: "
+          + "; ".join(f"{k[:80]}={v:.3f}" for k, v in sorted(conv_kernels.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
+    return {"per_image_forward_ms": per_image_ms, "batched_forward_ms": batched_ms,
+            "neck_l0_conv_ms": sum(conv_kernels.values()), "neck_l0_conv_fft_ms": sum(fft.values())}
 
 
 def kernel_modules():
@@ -2737,34 +3036,152 @@ def check_export(params, image, ref, device) -> dict:
 
 
 FLAGSHIP_DIR = os.path.join(ROOT, "examples/flagship_training")
-# Phase loop's cuts of the flagship's epoch.json: f32 (bf16 training is not
-# ported), LOOP_EPOCHS epochs of LOOP_BATCHES batches, LOOP_DEV_BATCHES dev
-# batches; everything else as the file has it.
-LOOP_EPOCHS, LOOP_BATCHES, LOOP_DEV_BATCHES = 2, 6, 1
+UPERNEXT_DIR = os.path.join(ROOT, "examples/flagship_upernext")
+# Phase loop's runs of each flagship's own {dataset,epoch,model,steps}.json
+# from its weights: (label, folder, weights, epochs, train batches, dev
+# batches, compute dtype). Cuts: the depth (the files: 40 epochs of 1000
+# batches, 8 dev batches); the last run's dtype (the files ask bf16: the f32
+# loop stays a path). The first run is the main one (restore, export and
+# the detect CLI on its checkpoint); every run restores its last checkpoint.
+LOOP_RUNS = (
+    ("fpn_bf16", FLAGSHIP_DIR, WEIGHTS, 2, 6, 1, None),
+    ("upernext_bf16", UPERNEXT_DIR, UPERNEXT_WEIGHTS, 1, 3, 1, None),
+    ("fpn_f32", FLAGSHIP_DIR, WEIGHTS, 1, 2, 1, "float32"),
+)
+# Each run's launch paths: its steps' and its dev batches'.
+LOOP_PATHS = {
+    "fpn_bf16": ("train_loop_steps_bf16", "train_loop_dev_bf16"),
+    "upernext_bf16": ("train_loop_upernext_bf16", "train_loop_upernext_dev_bf16"),
+    "fpn_f32": ("train_loop_steps", "train_loop_dev"),
+}
 LOOP_POOL_RUNS = 24  # pages timed through a warm 4-process pool
 LOOP_CHECKPOINT = re.compile(r"state_(\d+)(_not_best)?")
-# Paths whose block launches are the trainable block's (row 1').
-TRAIN_PATHS = ("train_step", "train_loop_steps")
+# Paths whose block launches are the trainable blocks' (rows 1' and 1b').
+TRAIN_PATHS = ("train_step", "train_step_bf16") + tuple(p for pair in LOOP_PATHS.values() for p in pair)
+
+
+def loop_run(label: str, folder: str, weights: str, epochs: int, batches: int, dev_batches: int, dtype,
+             out_dir: str, device) -> dict:
+    """One ``training.loop.train`` of a flagship's own configs (LOOP_RUNS),
+    cut to ``epochs`` x ``batches`` and ``dev_batches``: every loss finite,
+    exactly one block launch a block in every step and dev batch, all of
+    the run's dtype (the module-mode bf16 kernel at bf16), the checkpoints
+    one an epoch; the last one restored into a new model and optimizer
+    equal bit for bit to the file, its step count and lr the run's."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
+    from adascale_torch.training import OptimizerConfig, build_optimizer
+    from adascale_torch.training.checkpoint import latest_checkpoint_path, restore_checkpoint
+    from adascale_torch.training.loop import train
+    from adascale_torch.utils.config import load_config
+
+    def config_json(name):
+        with open(os.path.join(folder, name)) as fin:
+            return json.load(fin)
+
+    smi = smi_line()
+    steps_path = os.path.join(folder, "steps.json")
+    dataset = config_json("dataset.json")
+    dataset["train_adaptive_scaling_dataset_steps_jsons"] = [steps_path]
+    dataset["dev_adaptive_scaling_dataset_steps_json"] = steps_path
+    epoch = dict(config_json("epoch.json"), num_epochs=epochs, train_num_batches=batches,
+                 dev_num_batches=dev_batches)
+    if dtype:
+        epoch["compute_dtype"] = dtype
+    bf16 = epoch["compute_dtype"] == "bfloat16"
+    model_json = os.path.join(folder, "model.json")
+    model_config = load_config(model_json, AdaptiveScalingConfig)
+    batch = epoch["train_batch_size"]
+    print(f"loop {label}: epoch config {json.dumps(epoch)}", flush=True)
+
+    run_dir = os.path.join(out_dir, label)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES = K.LAUNCHES_BF16 = 0
+    t = time.perf_counter()
+    metrics = train(json.dumps(dataset), run_dir, epoch_config_json=json.dumps(epoch),
+                    model_config_json=model_json, init_params_path=weights, device=str(device))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches, other = (K.LAUNCHES_BF16, K.LAUNCHES) if bf16 else (K.LAUNCHES, K.LAUNCHES_BF16)
+    peak = torch.cuda.max_memory_allocated()
+    epochs_out = metrics["epochs"]
+    step_launches = [n for e in epochs_out for n in e["step_launches"]]
+    dev_launches = [n for e in epochs_out for n in e["dev_launches"]]
+    blocks = 2 * sum(n for _, n in model_config.backbone_spec())
+    for e in epochs_out:
+        print(f"loop {label}: epoch {e['epoch']}: wall {e['wall_s']:.2f} s, data stall {e['data_stall_s']:.3f} s "
+              f"({100 * e['data_stall_s'] / e['wall_s']:.1f} %), step ms (CUDA events) "
+              + ", ".join(f"{v:.1f}" for v in e["step_ms"])
+              + f"; train losses (window means) rough {e['train_rough_loss']:.5f} precise "
+              f"{e['train_precise_loss']:.5f}; checkpoint {e['checkpoint'] and os.path.basename(e['checkpoint'])}",
+              flush=True)
+    warm = epochs_out[-1]
+    step_ms = statistics.median(warm["step_ms"][1:] if epochs == 1 else warm["step_ms"])
+    stall = warm["data_stall_s"] / warm["wall_s"]
+    print(f"loop {label}: train() {train_s:.2f} s; step (epoch {warm['epoch']}, median"
+          f"{' but the first' if epochs == 1 else ''}, CUDA events) {step_ms:.3f} ms, "
+          f"{batch / step_ms * 1e3:.2f} samples/s; epoch wall {warm['wall_s']:.3f} s = "
+          f"{batch * batches / warm['wall_s']:.2f} samples/s end to end; prefetcher stall share "
+          f"{100 * stall:.2f} %; peak memory {peak / 2**30:.3f} GiB; dev losses rough "
+          f"{metrics['dev_rough_loss']:.5f} precise {metrics['dev_precise_loss']:.5f}; "
+          f"{'bf16 module-mode' if bf16 else 'f32'} block launches a step {sorted(set(step_launches))}, "
+          f"a dev batch {sorted(set(dev_launches))}, {launches} in all ({smi})", flush=True)
+
+    losses = [metrics["dev_rough_loss"], metrics["dev_precise_loss"]] + [
+        v for e in epochs_out for v in (e["train_rough_loss"], e["train_precise_loss"])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"loop {label}: a loss is not finite: {losses}")
+    if (step_launches != [blocks] * (epochs * batches) or dev_launches != [blocks] * (epochs * dev_batches)
+            or launches != sum(step_launches) + sum(dev_launches) or other):
+        raise AssertionError(f"loop {label}: block launches: steps {step_launches}, dev {dev_launches}, "
+                             f"all {launches}, of the other dtype {other}")
+    names = sorted(n for n in os.listdir(run_dir) if LOOP_CHECKPOINT.fullmatch(n))
+    written = [os.path.basename(e["checkpoint"]) for e in epochs_out if e["checkpoint"]]
+    last = latest_checkpoint_path(run_dir)
+    if (names != sorted(written) or names[0] != "state_0" or len(names) != epochs
+            or os.path.basename(last) not in (f"state_{epochs - 1}", f"state_{epochs - 1}_not_best")):
+        raise AssertionError(f"loop {label}: checkpoints {os.listdir(run_dir)}, written {written}, latest {last}")
+
+    payload = torch.load(last, map_location="cpu", weights_only=True)
+    model = AdaptiveScaling(model_config).to(device)
+    optimizer, schedule = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), batches)
+    restored = restore_checkpoint(last, model, optimizer)
+    differ = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), payload["params"][k])]
+    differ += [f"{w}:{k}" for w in ("mu", "nu") for k, v in getattr(optimizer, w).items()
+               if not torch.equal(v.cpu(), payload["opt_state"][w][k])]
+    not_f32 = [k for k, v in payload["params"].items() if v.dtype != torch.float32]
+    lr = schedule(optimizer.count)
+    print(f"loop {label}: restored {os.path.basename(last)}: epoch {restored['epoch_idx']}, step count "
+          f"{optimizer.count}, lr {lr:.6e} (the run's next {warm['lr_next_step']:.6e}), "
+          f"{len(payload['params'])} parameters (not f32: {len(not_f32)}) and {2 * len(optimizer.mu)} moments, "
+          f"{len(differ)} differ", flush=True)
+    if (differ or not_f32 or restored["epoch_idx"] != epochs - 1 or optimizer.count != epochs * batches
+            or lr != warm["lr_next_step"]):
+        raise AssertionError(f"loop {label}: restore: {differ[:5]}, not f32 {not_f32[:5]}, epoch "
+                             f"{restored['epoch_idx']}, count {optimizer.count}, lr {lr}")
+    steps_path_name, dev_path_name = LOOP_PATHS[label]
+    kernel = "convnext_block_bf16" if bf16 else "convnext_block"
+    return {"paths": {steps_path_name: {kernel: sum(step_launches)}, dev_path_name: {kernel: sum(dev_launches)}},
+            "step_ms": step_ms, "stall_share": stall, "peak_bytes": peak, "train_s": train_s,
+            "last": last, "model_json": model_json, "model_config": model_config, "blocks": blocks}
 
 
 def check_loop(image, device) -> dict:
-    """Phase loop (module docstring): ``training.loop.train`` on the
-    flagship's configs from its weights, the checkpoints, a restore, the
-    export and ``python -m adascale_torch detect`` on the artifact."""
+    """Phase loop (module docstring): ``training.loop.train`` on each
+    flagship's own configs (LOOP_RUNS), the checkpoints and a restore each;
+    the main run's checkpoint exported and served by ``python -m
+    adascale_torch detect``."""
     import runpy
     import shutil
     import sys
     import tempfile
 
-    import torch
-
     from adascale_torch import AdaptiveScalingInference, AdaptiveScalingInferenceConfig, native
     from adascale_torch.data.dataset import GeneratorPool, SynthPipelineConfig
-    from adascale_torch.kernels import convnext_block as K
-    from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
-    from adascale_torch.training import OptimizerConfig, build_optimizer
-    from adascale_torch.training.checkpoint import latest_checkpoint_path, restore_checkpoint
-    from adascale_torch.training.loop import export_inference_artifact, train
+    from adascale_torch.training.loop import export_inference_artifact
     from adascale_torch.utils.config import load_config
     from adascale_torch.utils.params import load_params
     from adascale_torch.utils.png import write_png
@@ -2776,107 +3193,36 @@ def check_loop(image, device) -> dict:
     native.load_library()
     print(f"loop: native renderer build {time.perf_counter() - t:.2f} s (g++; cached {cached}) ({smi})", flush=True)
 
-    def flagship_json(name):
-        with open(os.path.join(FLAGSHIP_DIR, name)) as fin:
-            return json.load(fin)
+    with open(os.path.join(FLAGSHIP_DIR, "epoch.json")) as fin:
+        processes = json.load(fin)["train_num_processes"]
+    pipeline = load_config(os.path.join(FLAGSHIP_DIR, "steps.json"), SynthPipelineConfig)
+    pool = GeneratorPool(pipeline, rng_seed=1, num_processes=processes)
+    try:
+        t = time.perf_counter()
+        pool.run()
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(LOOP_POOL_RUNS):
+            pool.run()
+        pages_per_s = LOOP_POOL_RUNS / (time.perf_counter() - t)
+    finally:
+        pool.cleanup()
+    print(f"loop: generator pool ({processes} spawned processes, "
+          f"{pipeline.page.page_height}x{pipeline.page.page_width} pages): "
+          f"first page {first_s:.2f} s (start included), then {pages_per_s:.2f} pages/s over "
+          f"{LOOP_POOL_RUNS} pages ({smi})", flush=True)
 
     out_dir = tempfile.mkdtemp(prefix=".loop-", dir=ROOT)
+    paths, runs = {}, {}
     try:
-        steps_path = os.path.join(FLAGSHIP_DIR, "steps.json")
-        dataset = flagship_json("dataset.json")
-        dataset["train_adaptive_scaling_dataset_steps_jsons"] = [steps_path]
-        dataset["dev_adaptive_scaling_dataset_steps_json"] = steps_path
-        epoch = dict(flagship_json("epoch.json"), compute_dtype="float32", num_epochs=LOOP_EPOCHS,
-                     train_num_batches=LOOP_BATCHES, dev_num_batches=LOOP_DEV_BATCHES)
-        model_json = os.path.join(FLAGSHIP_DIR, "model.json")
-        model_config = load_config(model_json, AdaptiveScalingConfig)
-        batch = epoch["train_batch_size"]
-        print(f"loop: epoch config {json.dumps(epoch)}", flush=True)
+        for label, folder, weights, epochs, batches, dev_batches, dtype in LOOP_RUNS:
+            stamp(f"loop: {label}")
+            runs[label] = loop_run(label, folder, weights, epochs, batches, dev_batches, dtype, out_dir, device)
+            paths.update(runs[label]["paths"])
 
-        pipeline = load_config(steps_path, SynthPipelineConfig)
-        pool = GeneratorPool(pipeline, rng_seed=1, num_processes=epoch["train_num_processes"])
-        try:
-            t = time.perf_counter()
-            pool.run()
-            first_s = time.perf_counter() - t
-            t = time.perf_counter()
-            for _ in range(LOOP_POOL_RUNS):
-                pool.run()
-            pages_per_s = LOOP_POOL_RUNS / (time.perf_counter() - t)
-        finally:
-            pool.cleanup()
-        print(f"loop: generator pool ({epoch['train_num_processes']} spawned processes, "
-              f"{pipeline.page.page_height}x{pipeline.page.page_width} pages): "
-              f"first page {first_s:.2f} s (start included), then {pages_per_s:.2f} pages/s over "
-              f"{LOOP_POOL_RUNS} pages ({smi})", flush=True)
-
-        run_dir = os.path.join(out_dir, "run")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.LAUNCHES = 0
-        t = time.perf_counter()
-        metrics = train(json.dumps(dataset), run_dir, epoch_config_json=json.dumps(epoch),
-                        model_config_json=model_json, init_params_path=WEIGHTS, device=str(device))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t
-        launches = K.LAUNCHES
-        peak = torch.cuda.max_memory_allocated()
-        epochs = metrics["epochs"]
-        step_launches = [n for e in epochs for n in e["step_launches"]]
-        dev_launches = [n for e in epochs for n in e["dev_launches"]]
-        blocks = 2 * sum(n for _, n in model_config.backbone_spec())
-        for e in epochs:
-            print(f"loop: epoch {e['epoch']}: wall {e['wall_s']:.2f} s, data stall {e['data_stall_s']:.3f} s "
-                  f"({100 * e['data_stall_s'] / e['wall_s']:.1f} %), step ms (CUDA events) "
-                  + ", ".join(f"{v:.1f}" for v in e["step_ms"])
-                  + f"; train losses (window means) rough {e['train_rough_loss']:.5f} precise "
-                  f"{e['train_precise_loss']:.5f}; checkpoint {e['checkpoint'] and os.path.basename(e['checkpoint'])}",
-                  flush=True)
-        warm = epochs[-1]
-        step_ms = statistics.median(warm["step_ms"])
-        stall = warm["data_stall_s"] / warm["wall_s"]
-        print(f"loop: train() {train_s:.2f} s; warm step (epoch {warm['epoch']}, median of {len(warm['step_ms'])}, "
-              f"CUDA events) {step_ms:.3f} ms, {batch / step_ms * 1e3:.2f} samples/s; epoch wall "
-              f"{warm['wall_s']:.3f} s = {batch * LOOP_BATCHES / warm['wall_s']:.2f} samples/s end to end; "
-              f"prefetcher stall share {100 * stall:.2f} %; peak memory {peak / 2**30:.3f} GiB; "
-              f"dev losses rough {metrics['dev_rough_loss']:.5f} precise {metrics['dev_precise_loss']:.5f}; "
-              f"block launches a step {sorted(set(step_launches))}, a dev batch {sorted(set(dev_launches))}, "
-              f"{launches} in all ({smi})", flush=True)
-
-        losses = [metrics["dev_rough_loss"], metrics["dev_precise_loss"]] + [
-            v for e in epochs for v in (e["train_rough_loss"], e["train_precise_loss"])]
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"a loss is not finite: {losses}")
-        if step_launches != [blocks] * (LOOP_EPOCHS * LOOP_BATCHES) or dev_launches != [blocks] * (
-                LOOP_EPOCHS * LOOP_DEV_BATCHES) or launches != sum(step_launches) + sum(dev_launches):
-            raise AssertionError(f"block launches: steps {step_launches}, dev {dev_launches}, all {launches}")
-        names = sorted(n for n in os.listdir(run_dir) if LOOP_CHECKPOINT.fullmatch(n))
-        written = [os.path.basename(e["checkpoint"]) for e in epochs if e["checkpoint"]]
-        last = latest_checkpoint_path(run_dir)
-        if (names != sorted(written) or names[0] != "state_0" or len(names) != LOOP_EPOCHS
-                or os.path.basename(last) not in (f"state_{LOOP_EPOCHS - 1}", f"state_{LOOP_EPOCHS - 1}_not_best")):
-            raise AssertionError(f"checkpoints {os.listdir(run_dir)}, written {written}, latest {last}")
-
-        stamp("loop: restore the last checkpoint")
-        payload = torch.load(last, map_location="cpu", weights_only=True)
-        model = AdaptiveScaling(model_config).to(device)
-        optimizer, schedule = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), LOOP_BATCHES)
-        restored = restore_checkpoint(last, model, optimizer)
-        differ = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), payload["params"][k])]
-        differ += [f"{w}:{k}" for w in ("mu", "nu") for k, v in getattr(optimizer, w).items()
-                   if not torch.equal(v.cpu(), payload["opt_state"][w][k])]
-        lr = schedule(optimizer.count)
-        print(f"loop: restored {os.path.basename(last)}: epoch {restored['epoch_idx']}, step count "
-              f"{optimizer.count}, lr {lr:.6e} (the run's next {warm['lr_next_step']:.6e}), "
-              f"{len(payload['params'])} parameters and {2 * len(optimizer.mu)} moments, {len(differ)} differ",
-              flush=True)
-        if (differ or restored["epoch_idx"] != LOOP_EPOCHS - 1 or optimizer.count != LOOP_EPOCHS * LOOP_BATCHES
-                or lr != warm["lr_next_step"]):
-            raise AssertionError(f"restore: {differ[:5]}, epoch {restored['epoch_idx']}, count {optimizer.count}, lr {lr}")
-        del model, optimizer
-
-        stamp("loop: export the checkpoint and serve it with python -m adascale_torch detect")
-        artifact = export_inference_artifact(last, os.path.join(out_dir, "artifact"), model_json)
+        main = runs[LOOP_RUNS[0][0]]
+        stamp(f"loop: export {LOOP_RUNS[0][0]}'s checkpoint and serve it with python -m adascale_torch detect")
+        artifact = export_inference_artifact(main["last"], os.path.join(out_dir, "artifact"), main["model_json"])
         png, out_json = os.path.join(out_dir, "page_0.png"), os.path.join(out_dir, "detect.json")
         write_png(png, image)
         argv = sys.argv
@@ -2889,21 +3235,27 @@ def check_loop(image, device) -> dict:
             sys.argv = argv
         with open(out_json) as fin:
             served = json.load(fin)["char_polygons"]
+        model_config = main["model_config"]
+        params = load_params(main["last"], model_config)
         engine = AdaptiveScalingInference(AdaptiveScalingInferenceConfig(model=model_config, device=device.type),
-                                          params=load_params(last, model_config))
+                                          params=params)
         direct = [p.points.tolist() for p in engine.detect(image)["char_polygons"]]
-        print(f"loop: detect CLI on the exported artifact: {len(served)} polygons, launches {cli_launches}; "
-              f"an engine from the checkpoint's params: {len(direct)} polygons, equal {served == direct}",
-              flush=True)
-        want = {k: blocks if k == "convnext_block" else 0 for k in KERNEL_NAMES}
-        if cli_launches != want or served != direct:
-            raise AssertionError(f"exported artifact: launches {cli_launches} != {want} or polygons differ "
-                                 f"({len(served)} / {len(direct)})")
+        import numpy as np
+
+        with np.load(os.path.join(artifact, "params.npz")) as flat:
+            not_f32 = [k for k in flat.files if flat[k].dtype != np.float32]
+        print(f"loop: detect CLI on the exported artifact ({'f32' if not not_f32 else 'NOT f32'}): {len(served)} "
+              f"polygons, launches {cli_launches}; an engine from the checkpoint's params: {len(direct)} polygons, "
+              f"equal {served == direct}", flush=True)
+        want = {k: main["blocks"] if k == "convnext_block" else 0 for k in KERNEL_NAMES}
+        if cli_launches != want or served != direct or not_f32:
+            raise AssertionError(f"exported artifact: launches {cli_launches} != {want}, polygons "
+                                 f"{len(served)} / {len(direct)}, not f32 {not_f32[:5]}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"phase loop: {time.perf_counter() - phase_t:.2f} s", flush=True)
-    return {"step_launches": sum(step_launches), "dev_launches": sum(dev_launches), "cli_launches": cli_launches,
-            "step_ms": step_ms, "stall_share": stall, "pages_per_s": pages_per_s, "peak_bytes": peak}
+    return {"paths": paths, "cli_launches": cli_launches, "pages_per_s": pages_per_s,
+            "runs": {k: {m: v[m] for m in ("step_ms", "stall_share", "peak_bytes", "train_s")} for k, v in runs.items()}}
 
 
 def parse_phases(argv=None):
@@ -3059,23 +3411,32 @@ def main() -> None:
     if "8a" in phases:
         stamp("phase 8a: the trainable block against autograd of the plain version")
         rows["convnext_block_trainable"] = check_trainable_block(gen, device)
+        stamp("phase 8a, bf16: the trainable bf16 block against autograd of its bf16 plain twin")
+        rows["convnext_block_trainable_bf16"] = check_trainable_block_bf16(gen, device)
 
     if "8b" in phases:
         stamp("phase 8b: the flagship's two-task step against the JAX reference")
-        check_train_reference(params, device)
+        step_f32 = check_train_reference(params, device)
+        stamp("phase 8b, bf16: the flagship's two-task step at bf16 against the JAX bf16 reference")
+        check_train_reference(params, device, "bfloat16", step_f32)
 
     if "8c" in phases:
-        stamp("phase 8c: train steps with the flagship")
-        trained = train_steps(params, device)
-        by_path["train_step"] = {"convnext_block": trained["launches"]}
-        rows.setdefault("convnext_block_trainable", {}).update(
-            # Device ms of one traced B = 6 step's 36 block forwards (kernel;
-            # plain version in the same place) and of their backward.
-            launches=trained["launches"],
-            ms=trained["split"]["blocks_forward_kernel"],
-            plain_ms=trained["plain_forward_ms"],
-            backward_ms=trained["split"]["blocks_backward_recompute"],
-        )
+        for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+            stamp(f"phase 8c: train steps with the flagship ({dtype})")
+            phase_t = time.perf_counter()
+            trained = train_steps(params, device, dtype)
+            kernel = "convnext_block" + suffix
+            by_path["train_step" + suffix] = {kernel: trained["launches"]}
+            rows.setdefault("convnext_block_trainable" + suffix, {}).update(
+                # Device ms of one traced B = 6 step's 36 block forwards
+                # (kernel; plain version in the same place) and of their
+                # backward.
+                launches=trained["launches"],
+                ms=trained["split"]["blocks_forward_kernel"],
+                plain_ms=trained["plain_forward_ms"],
+                backward_ms=trained["split"]["blocks_backward_recompute"],
+            )
+            print(f"phase 8c ({dtype}): {time.perf_counter() - phase_t:.2f} s", flush=True)
 
     if "9" in phases:
         stamp("phase 9: detect() with the tiny/UPerNeXt flagship (fused configuration)")
@@ -3104,10 +3465,9 @@ def main() -> None:
         print(f"phase export: {time.perf_counter() - phase_t:.2f} s", flush=True)
 
     if "loop" in phases:
-        stamp("phase loop: the training loop with the flagship's configs")
+        stamp("phase loop: the training loop with the flagships' configs")
         looped = check_loop(image, device)
-        by_path["train_loop_steps"] = {"convnext_block": looped["step_launches"]}
-        by_path["train_loop_dev"] = {"convnext_block": looped["dev_launches"]}
+        by_path.update(looped["paths"])
         by_path["train_loop_detect_cli"] = looped["cli_launches"]
 
     if "bf16" in phases:
@@ -3128,8 +3488,10 @@ def main() -> None:
         "detect": ["convnext_block"], "upernext_detect": ["convnext_block"],
         "exported_program": ["convnext_block"], "exported_program_upernext": ["convnext_block"],
         "detect_cli": ["convnext_block"],
-        "train_step": ["convnext_block"],
+        "train_step": ["convnext_block"], "train_step_bf16": ["convnext_block_bf16"],
         "train_loop_steps": ["convnext_block"], "train_loop_dev": ["convnext_block"],
+        "train_loop_steps_bf16": ["convnext_block_bf16"], "train_loop_dev_bf16": ["convnext_block_bf16"],
+        "train_loop_upernext_bf16": ["convnext_block_bf16"], "train_loop_upernext_dev_bf16": ["convnext_block_bf16"],
         "train_loop_detect_cli": ["convnext_block"],
         "detect_bf16_fpn_module": ["convnext_block_bf16"],
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
@@ -3150,6 +3512,9 @@ def main() -> None:
         "fpn_heads": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_fused"),
         "precise_heads": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_fused"),
         "convnext_block_trainable": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:340", "train_step"),
+        # The trainable bf16 block (module mode), on the bf16 train step.
+        "convnext_block_trainable_bf16": ("block_bf16.cuh", "adascale/ops/pallas/convnext_block.py:340",
+                                          "train_step_bf16"),
         # The block's registered operator, on the programs of phase export.
         "convnext_block_op": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:290", "exported_program"),
         # The bf16 kernels, on the fused bf16 detect() (Pallas-mode blocks).
@@ -3160,7 +3525,8 @@ def main() -> None:
     }
     kernels = []
     for kernel, (source, replaces, main_path) in sources.items():
-        kernel_name = "convnext_block" if kernel in ("convnext_block_trainable", "convnext_block_op") else kernel
+        kernel_name = {"convnext_block_trainable": "convnext_block", "convnext_block_op": "convnext_block",
+                       "convnext_block_trainable_bf16": "convnext_block_bf16"}.get(kernel, kernel)
         entry = {
             "name": kernel,
             "route": "cuda",

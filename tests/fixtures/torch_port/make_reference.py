@@ -27,6 +27,12 @@ weights, f32, one ``.npz`` per case:
     vector (``adascale_torch.utils.params.leaf_fingerprints``), their largest
     magnitude and a strided sample of 64 of their elements
     (``leaf_sample``), not the arrays themselves;
+  * ``flagship_fpn_train_bf16_reference.npz`` (case ``train_bf16``): the same
+    step with the model at ``dtype=bfloat16`` (the flagships' own
+    ``compute_dtype``: the Flax module path, f32 residual stream, f32
+    parameters and losses), run under ``jax.disable_jit()`` as the bf16
+    cases below are, its bf16 sums accumulated in f32 (``jax_bf16.py``
+    says why);
   * ``flagship_fpn_bf16_reference.npz`` (case ``fpn_bf16``): the page case at
     ``compute_dtype="bfloat16"``, the Flax module path (f32 residual stream);
   * ``flagship_fpn_fused_bf16_reference.npz`` (case ``fpn_fused_bf16``): the
@@ -57,8 +63,9 @@ The text page is the first of ``tests/fixtures/shift_pages/page_{0,1,2}.npz``
 on which the engine finds at least 100 char polygons.
 
 Run from the repository root (a few minutes a case on a CPU); with case
-names (``page``, ``multichunk``, ``blank``, ``train``, ``upernext``,
-``tiled_band``, ``fpn_bf16``, ``fpn_fused_bf16``, ``upernext_bf16``) it makes
+names (``page``, ``multichunk``, ``blank``, ``train``, ``train_bf16``,
+``upernext``, ``tiled_band``, ``fpn_bf16``, ``fpn_fused_bf16``,
+``upernext_bf16``) it makes
 only those:
 
     JAX_PLATFORMS=cpu python tests/fixtures/torch_port/make_reference.py [case ...]
@@ -123,7 +130,12 @@ def save(name: str, result, page: str, weights: str = WEIGHTS, **extra) -> None:
           result["num_precise_chunks"], "precise chunks", flush=True)
 
 
-def train_reference() -> None:
+def train_reference(compute_dtype: str = "float32") -> None:
+    """The ``train`` case, or at ``compute_dtype="bfloat16"`` the
+    ``train_bf16`` case: the whole step eager (``jax.disable_jit()``)."""
+    import contextlib
+    import time
+
     import jax.numpy as jnp
     import optax
 
@@ -132,29 +144,37 @@ def train_reference() -> None:
     from adascale.training import OptimizerConfig, TrainStepConfig, build_optimizer
     from adascale.training.train_step import _two_task_loss
 
+    bf16 = compute_dtype == "bfloat16"
     config = AdaptiveScalingConfig(size="tiny", neck_head_type="fpn")
-    model = AdaptiveScaling(config=config)
+    model = AdaptiveScaling(config=config, dtype=jnp.dtype(compute_dtype))
     params = jax.tree_util.tree_map(jnp.asarray, load_params(os.path.join(ROOT, WEIGHTS), config))
     rough, precise, rough_box, precise_box = seeded_batches(TRAIN_SEED, TRAIN_BATCH)
     cfg = TrainStepConfig(rough_core_box=CoreBox(*rough_box), precise_core_box=CoreBox(*precise_box))
-    fn = jax.jit(jax.value_and_grad(
+    fn = jax.value_and_grad(
         lambda p, r, q: _two_task_loss(model, p, r, q, jax.random.PRNGKey(0), cfg, True), has_aux=True
-    ))
-    with jax.default_matmul_precision("highest"):
-        (_, (r_loss, p_loss)), grads = fn(params, rough, precise)
+    )
+    from jax_bf16 import f32_sums
+
+    start = time.perf_counter()
+    with jax.default_matmul_precision("highest"), (jax.disable_jit() if bf16 else contextlib.nullcontext()), (
+            f32_sums() if bf16 else contextlib.nullcontext()):
+        (_, (r_loss, p_loss)), grads = (fn if bf16 else jax.jit(fn))(params, rough, precise)
         tx, _ = build_optimizer(OptimizerConfig(), steps_per_epoch=1000)
-        updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+        updates, _ = (tx.update if bf16 else jax.jit(tx.update))(grads, tx.init(params), params)
         new = optax.apply_updates(params, updates)
+    print("train", compute_dtype, "took", round(time.perf_counter() - start, 1), "s on the CPU", flush=True)
     to_np = lambda tree: state_dict_from_jax(jax.tree_util.tree_map(np.asarray, tree))  # noqa: E731
     old, grads_sd, new = to_np(params), to_np(grads), to_np(new)
     names = sorted(grads_sd)
     updates = {k: new[k] - old[k] for k in names}
     grad_prints = leaf_fingerprints(grads_sd, FINGERPRINT_SEED)
     update_prints = leaf_fingerprints(updates, FINGERPRINT_SEED)
-    out = os.path.join(HERE, "flagship_fpn_train_reference.npz")
+    out = os.path.join(HERE, "flagship_fpn_train_bf16_reference.npz" if bf16 else "flagship_fpn_train_reference.npz")
     np.savez_compressed(
         out,
         weights=np.asarray(WEIGHTS),
+        compute_dtype=np.asarray(compute_dtype),
+        eager=np.asarray(bf16),
         seed=np.asarray(TRAIN_SEED),
         batch_size=np.asarray(TRAIN_BATCH),
         fingerprint_seed=np.asarray(FINGERPRINT_SEED),
@@ -251,6 +271,8 @@ def main(cases) -> None:
             bf16_reference(case)
     if "train" in cases:
         train_reference()
+    if "train_bf16" in cases:
+        train_reference("bfloat16")
     if "upernext" in cases:
         upernext_reference()
     if not {"page", "multichunk", "blank", "tiled_band"} & set(cases):
@@ -289,5 +311,5 @@ def main(cases) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["page", "multichunk", "blank", "train", "upernext", "tiled_band",
+    main(sys.argv[1:] or ["page", "multichunk", "blank", "train", "train_bf16", "upernext", "tiled_band",
                           "fpn_bf16", "fpn_fused_bf16", "upernext_bf16"])

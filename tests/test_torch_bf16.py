@@ -529,7 +529,8 @@ def test_engine_accepts_bfloat16_and_refuses_other_dtypes():
 
 def test_wrappers_refuse_other_dtypes_and_bf16_gradients():
     """A dtype the kernels do not take raises in every wrapper; the bf16
-    block has no gradient path and raises where one is wanted."""
+    block's Pallas mode (a bf16 x) has no gradient path and raises where one
+    is wanted, while its module mode (an f32 x) gives one."""
     layer, params, p, x = _block_case(16, 12)
     xt = torch.from_numpy(x)
     with pytest.raises(ValueError, match="float16"):
@@ -537,8 +538,12 @@ def test_wrappers_refuse_other_dtypes_and_bf16_gradients():
     with pytest.raises(ValueError, match="compute dtype"):
         KB.convnext_block(xt.to(BF16), p)
     p["mlp_up.weight"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        KB.convnext_block(xt, p, BF16)
+    with pytest.raises(NotImplementedError, match="bf16 Pallas mode"):
+        KB.convnext_block(xt.to(BF16), p, BF16)
+    out = KB.convnext_block(xt, p, BF16)
+    assert type(out.grad_fn).__name__.startswith("TrainableBlockBF16")
+    (grad,) = torch.autograd.grad(out.sum(), p["mlp_up.weight"])
+    assert grad.dtype == torch.float32 and grad.abs().max() > 0
     x16 = torch.zeros(1, 4, 4, 32, dtype=torch.float16)
     model, _, _ = micro_models(1)
     heads = [KH.head_params(getattr(model, name)) for name in KP.HEAD_NAMES]

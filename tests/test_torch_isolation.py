@@ -21,7 +21,7 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import adascale_torch.models.upernext, adascale_torch.data.geometry\n"
         "import adascale_torch.kernels._nvcc, adascale_torch.kernels.fpn_neck\n"
         "import adascale_torch.kernels.fpn_heads, adascale_torch.kernels.precise_heads\n"
-        "import adascale_torch.losses, adascale_torch.training\n"
+        "import adascale_torch.losses, adascale_torch.training, adascale_torch.training.opt\n"
         "import adascale_torch.cli, adascale_torch.inference.export, adascale_torch.tools.export_params\n"
         "import adascale_torch.utils.config, adascale_torch.utils.png, adascale_torch.utils.torch_port\n"
         "import adascale_torch.native, adascale_torch.data.synth, adascale_torch.data.dataset\n"

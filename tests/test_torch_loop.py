@@ -21,8 +21,9 @@ native-rendered pages, 96² rough and 64² precise crops (the shapes of
   * a fresh model's parameters follow the distributions of the JAX
     package's ``model.init`` (each leaf's standard deviation within 15 %,
     for FPN and UPerNeXt; biases, LayerNorms and layer scales exact);
-  * the mesh, bf16 training, the ``"python"`` render backend and a missing
-    card each raise.
+  * the mesh, a compute dtype other than f32 and bf16 (float16), the
+    ``"python"`` render backend and a missing card each raise (bf16
+    training: ``tests/test_torch_train_bf16.py``).
 """
 import json
 import os
@@ -325,15 +326,15 @@ def test_grad_inspection_equals_jax(init_npz):
         assert abs(got[k] - v) <= LOSS_TOL * max(abs(v), 1e-12), (k, got[k], v)
 
 
-@pytest.mark.parametrize("what", ["mesh", "bf16", "python_backend", "no_card"])
+@pytest.mark.parametrize("what", ["mesh", "float16", "python_backend", "no_card"])
 def test_unported_paths_raise(tmp_path, what):
     kwargs = _configs(tmp_path)
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             train(output_folder=str(tmp_path / "run"), use_mesh=True, device="cpu", **kwargs)
-    elif what == "bf16":
-        kwargs["epoch_config_json"] = _write(tmp_path, "bf16.json", {**EPOCH, "compute_dtype": "bfloat16"})
-        with pytest.raises(NotImplementedError, match="item 9.4"):
+    elif what == "float16":
+        kwargs["epoch_config_json"] = _write(tmp_path, "f16.json", {**EPOCH, "compute_dtype": "float16"})
+        with pytest.raises(NotImplementedError, match="compute_dtype 'float16'"):
             train(output_folder=str(tmp_path / "run"), device="cpu", **kwargs)
     elif what == "python_backend":
         steps = _write(tmp_path, "py_steps.json", {**STEPS, "page": {**STEPS["page"], "render_backend": "python"}})

@@ -254,7 +254,7 @@ def test_drop_masks_come_from_the_generator():
     assert a[0] is None and all(torch.equal(u, v) for u, v in zip(a[1:], b[1:]))
     assert 0.8 < float(a[-1].mean()) < 1.0  # keep 0.9 over 64 samples
     state = torch.random.get_rng_state()
-    setup_seeds()
+    setup_seeds(device="cpu")
     assert torch.equal(state, torch.random.get_rng_state())
 
 
@@ -486,8 +486,8 @@ def test_eval_step_matches_jax(models):
 
 def test_train_step_defaults_to_cuda_and_refuses_other_dtypes(models):
     tm, _, _ = models
-    with pytest.raises(NotImplementedError):
-        TrainStepConfig(compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="float16"):
+        TrainStepConfig(compute_dtype="float16")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     opt, _ = build_optimizer(dict(tm.named_parameters()), OptimizerConfig(), steps_per_epoch=10)
@@ -495,6 +495,18 @@ def test_train_step_defaults_to_cuda_and_refuses_other_dtypes(models):
         make_train_step(tm, opt, TrainStepConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_eval_step(tm, TrainStepConfig())
+
+
+def test_setup_seeds_defaults_to_cuda():
+    """The masks' generator lands on the card unless the caller asks for
+    the CPU, and raises when no card is there."""
+    gen, rng = setup_seeds(device="cpu")
+    assert gen.device.type == "cpu" and isinstance(rng, np.random.Generator)
+    if torch.cuda.is_available():
+        assert setup_seeds()[0].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_seeds()
 
 
 def test_gradient_and_moment_trees_cross_with_the_parameters(models):
