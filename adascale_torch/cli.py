@@ -2,7 +2,11 @@
 
 One-to-one with ``adascale/cli.py``:
 
-  train    training.loop.train (``--mesh`` raises: ROADMAP Queue 1 item 10)
+  train    training.loop.train; ``--mesh`` trains data-parallel, one process
+           a card under torchrun: ``python -m torch.distributed.run
+           --standalone --nproc_per_node=N -m adascale_torch train --mesh
+           ...`` (``--standalone`` meets on localhost; without torchrun
+           ``--mesh`` runs at world size 1; ``--device cpu`` over gloo)
   export   training.loop.export_inference_artifact (a checkpoint of the port
            -> ``params.npz`` + ``model_config.json``, which ``detect`` serves)
   detect   AdaptiveScalingInference.detect -> char polygons JSON
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -37,7 +42,8 @@ def _cmd_train(args):
         use_mesh=args.mesh,
         device=args.device,
     )
-    print(json.dumps(metrics))
+    if os.environ.get("RANK", "0") == "0":
+        print(json.dumps(metrics))
 
 
 def _cmd_export(args):
@@ -105,7 +111,10 @@ def main(argv=None):
     p.add_argument("--precise-loss-config")
     p.add_argument("--restore")
     p.add_argument("--reset-output", action="store_true")
-    p.add_argument("--mesh", action="store_true", help="data-parallel over all devices (not ported yet)")
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="data-parallel over every rank of the process group (torchrun: one process a card)",
+    )
     p.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (their plain versions)")
     p.set_defaults(fn=_cmd_train)
 

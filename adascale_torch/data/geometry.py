@@ -27,8 +27,12 @@ Counterpart of ``adascale/data/geometry.py`` without OpenCV:
     them when the width is a multiple of 32 (the flagship's 768-pixel
     pages); the last ``width % 32`` columns come from its scalar tail, whose
     order is not found yet (within 1 gray level, ROADMAP Queue 3 item 7);
-    ``draw_axis_line`` is ``cv2.line`` at thickness 1 for a horizontal or
-    vertical segment.
+  * ``draw_line`` follows ``cv2.line`` with ``LINE_8`` bit for bit: at
+    thickness 1 the 8-connected line of ``LineIterator``, clipped to the
+    image; thicker, the segment clipped to the image grown by the thickness
+    on every side, then ``ThickLine``: a convex quadrilateral in 16.16 fixed
+    point (``FillConvexPoly``, its edges drawn by ``Line2``) and a filled
+    circle on each end.
 
 Conventions: images are (H, W, ...) arrays; polygon points are float32
 (N, 2) in (x, y) order; boxes are inclusive (slice up:down+1, left:right+1).
@@ -125,9 +129,9 @@ def _clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
     return (c1 | c2) == 0, x1, y1, x2, y2
 
 
-def _draw_line8(mask: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> None:
+def _draw_line8(mask: np.ndarray, x0: int, y0: int, x1: int, y1: int, value=1) -> None:
     """8-connected Bresenham line as OpenCV's LineIterator draws it."""
-    h, w = mask.shape
+    h, w = mask.shape[:2]
     if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
         ok, x0, y0, x1, y1 = _clip_line(w, h, x0, y0, x1, y1)
         if not ok:
@@ -145,9 +149,9 @@ def _draw_line8(mask: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> None:
     i = np.arange(major + 1, dtype=np.int64)
     m = (2 * minor * i + major - 1) // (2 * major) if major else np.zeros_like(i)
     if vert:
-        mask[y0 + sy * i, x0 + m] = 1
+        mask[y0 + sy * i, x0 + m] = value
     else:
-        mask[y0 + sy * m, x0 + i] = 1
+        mask[y0 + sy * m, x0 + i] = value
 
 
 def fill_poly(mask: np.ndarray, pts: np.ndarray) -> None:
@@ -187,6 +191,139 @@ def fill_poly(mask: np.ndarray, pts: np.ndarray) -> None:
                 if a < w and b >= 0:
                     tmp[y, max(int(a), 0) : min(int(b), w - 1) + 1] = 1
     mask[tmp > 0] = 1
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _line2(image: np.ndarray, x1: int, y1: int, x2: int, y2: int, value) -> None:
+    """OpenCV's ``Line2``: an 8-connected line between 16.16 fixed-point
+    ends, stepped along its major axis, clipped to the image."""
+    h, w = image.shape[:2]
+    ok, x1, y1, x2, y2 = _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, x1, y1, x2, y2)
+    if not ok:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    x_major = abs(dx) > abs(dy)
+    if (dx < 0) if x_major else (dy < 0):
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    if x_major:
+        step = _trunc_div((y2 - y1) << _XY_SHIFT, abs(dx) | 1)
+        count = (x2 - x1) >> _XY_SHIFT
+    else:
+        step = _trunc_div((x2 - x1) << _XY_SHIFT, abs(dy) | 1)
+        count = (y2 - y1) >> _XY_SHIFT
+    half = _XY_ONE >> 1
+    i = np.arange(count + 1, dtype=np.int64)
+    if x_major:
+        xs, ys = ((x1 + half) >> _XY_SHIFT) + i, (y1 + half + i * step) >> _XY_SHIFT
+    else:
+        xs, ys = (x1 + half + i * step) >> _XY_SHIFT, ((y1 + half) >> _XY_SHIFT) + i
+    xs = np.append(xs, (x2 + half) >> _XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> _XY_SHIFT)
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    image[ys[inside], xs[inside]] = value
+
+
+def _fill_convex_poly(image: np.ndarray, pts: Sequence[Tuple[int, int]], value) -> None:
+    """OpenCV's ``FillConvexPoly`` of 16.16 fixed-point vertices with
+    ``LINE_8``: the edges by ``_line2``, then each scanline from the top
+    vertex down between the two edges walked from it, each edge's x stepped
+    by its rounded per-row slope and rounded to a pixel."""
+    h, w = image.shape[:2]
+    n = len(pts)
+    half = _XY_ONE >> 1
+    for k in range(n):
+        _line2(image, *pts[k - 1], *pts[k], value)
+    xs, ys = [p[0] for p in pts], [p[1] for p in pts]
+    top = min(range(n), key=lambda k: (ys[k], k))
+    xmin, xmax = (min(xs) + half) >> _XY_SHIFT, (max(xs) + half) >> _XY_SHIFT
+    ymin, ymax = (ys[top] + half) >> _XY_SHIFT, (max(ys) + half) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    # Each edge: [vertex index, index step, x, dx, last row].
+    edge = [[top, 1, -_XY_ONE, 0, ymin], [top, n - 1, -_XY_ONE, 0, ymin]]
+    edges = n
+    y = ymin
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0 = e[0]
+            idx = (idx0 + e[1]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (ys[idx] + half) >> _XY_SHIFT
+                if ty > y:
+                    e[0], e[2], e[4] = idx, xs[idx0], ty
+                    e[3] = _trunc_div((xs[idx] - xs[idx0]) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                idx0, idx = idx, (idx + e[1]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = sorted((edge[0][2], edge[1][2]))
+            x_a, x_b = (left + half) >> _XY_SHIFT, (right + half) >> _XY_SHIFT
+            if x_b >= 0 and x_a < w:
+                image[y, max(x_a, 0) : min(x_b, w - 1) + 1] = value
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _fill_circle(image: np.ndarray, cx: int, cy: int, radius: int, value) -> None:
+    """OpenCV's ``Circle`` with ``fill``: horizontal spans of the midpoint
+    circle, clipped to the image."""
+    h, w = image.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for y, xa, xb in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
+                          (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy, cx + dy)):
+            if 0 <= y < h and xa < w and xb >= 0:
+                image[y, max(xa, 0) : min(xb, w - 1) + 1] = value
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def draw_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value, thickness: int = 1) -> None:
+    """``cv2.line(image, p0, p1, (v, v, v), thickness)`` (``LINE_8``) for
+    integer (x, y) ends, bit for bit (module docstring)."""
+    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
+    if thickness <= 1:
+        _draw_line8(image, x0, y0, x1, y1, value)
+        return
+    h, w = image.shape[:2]
+    t = thickness
+    ok, x0, y0, x1, y1 = _clip_line(w + 2 * t, h + 2 * t, x0 + t, y0 + t, x1 + t, y1 + t)
+    if not ok:
+        return
+    x0, y0, x1, y1 = (v - t for v in (x0, y0, x1, y1))
+    X0, Y0, X1, Y1 = (v << _XY_SHIFT for v in (x0, y0, x1, y1))
+    dx, dy = (X0 - X1) / _XY_ONE, (Y1 - Y0) / _XY_ONE
+    r = dx * dx + dy * dy
+    half_width = t << (_XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half_width + (t & 1) * _XY_ONE * 0.5) / math.sqrt(r)
+        # cvRound: half to even.
+        px, py = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex_poly(image, [(X0 + px, Y0 + py), (X0 - px, Y0 - py), (X1 - px, Y1 - py), (X1 + px, Y1 + py)],
+                          value)
+    radius = (half_width + (_XY_ONE >> 1)) >> _XY_SHIFT
+    for cx, cy in ((x0, y0), (x1, y1)):
+        _fill_circle(image, cx, cy, radius, value)
 
 
 @dataclasses.dataclass
@@ -556,18 +693,3 @@ def warp_perspective(
     v = fma_f32(b, v1 - v0, v0)
     out = np.clip(np.rint(v), 0, 255).astype(np.uint8)
     return out.reshape((oh, ow) + img.shape[2:])
-
-
-def draw_axis_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value) -> None:
-    """``cv2.line(image, p0, p1, value, 1)`` for a horizontal or vertical
-    segment of integer (x, y) ends: every pixel between the ends, both
-    included, clipped to the image."""
-    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
-    if x0 != x1 and y0 != y1:
-        raise ValueError(f"not a horizontal or vertical segment: {p0} -> {p1}")
-    h, w = image.shape[:2]
-    xa, xb = sorted((x0, x1))
-    ya, yb = sorted((y0, y1))
-    xa, ya, xb, yb = max(xa, 0), max(ya, 0), min(xb, w - 1), min(yb, h - 1)
-    if xa <= xb and ya <= yb:
-        image[ya : yb + 1, xa : xb + 1] = value

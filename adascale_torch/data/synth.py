@@ -16,9 +16,16 @@ the JAX package's ``cv2.putText`` tiles by
 uses the OpenCV twins of ``data/geometry.py``.
 
 ``render_backend``: ``"native"`` and ``"auto"`` draw with the native
-renderer (``"auto"`` never falls back). ``"python"``, the JAX package's
-per-char OpenCV path (``cv2.line`` at thickness 2 and ``warpPerspective``
-of each tile), has no twin here yet and raises.
+renderer (``"auto"`` never falls back). ``"python"`` (the default, as in the
+JAX package) draws in numpy as the JAX package's per-char OpenCV path does:
+strokes by ``geometry.draw_line`` (``cv2.line``'s twin, bit for bit at both
+thicknesses) and each glyph tile warped into its char's box by
+``geometry.warp_perspective`` and blended over the page. The warps are
+mostly narrower than 32 pixels, so most of their columns come from
+``warpPerspective``'s scalar tail, which the twin follows only within one
+gray level (ROADMAP Queue 3 item 7): a page's image may differ from the JAX
+package's by a few gray levels on a small share of its pixels, its labels
+not at all.
 """
 from __future__ import annotations
 
@@ -32,15 +39,12 @@ import numpy as np
 
 from .geometry import (
     Box,
-    draw_axis_line,
+    draw_line,
     fill_poly,
     get_perspective_transform,
     perspective_transform,
     warp_perspective,
 )
-
-PYTHON_BACKEND_ITEM = "ROADMAP Queue 1 item 9.6"
-
 
 @dataclasses.dataclass(frozen=True)
 class SynthPageConfig:
@@ -72,7 +76,8 @@ class SynthPageConfig:
     ruled_line_prob: float = 0.3
     table_prob: float = 0.15
     vignette_prob: float = 0.4
-    # "native" or "auto" (the same here); "python" raises.
+    # "python" (numpy, the JAX package's per-char path), or "native" / "auto"
+    # (the same here: the native renderer).
     render_backend: str = "python"
 
 
@@ -197,15 +202,42 @@ def _raster_commands_native(image: np.ndarray, cmds: list) -> None:
     native.execute_draw_buffer(image, types, aux, inks, geo, atlas.tiles)
 
 
+_TILE = 32  # the atlas's tiles are _TILE x _TILE
+_TILE_CORNERS = np.asarray([[0, 0], [_TILE, 0], [_TILE, _TILE], [0, _TILE]], dtype=np.float32)
+
+
+def _raster_commands_python(image: np.ndarray, cmds: list) -> None:
+    """The JAX package's ``_raster_commands_python`` in numpy: each command
+    in order, a line by ``draw_line``, a glyph tile warped into the ROI of
+    its char's box (clamped to the page; skipped under 2 pixels a side) and
+    blended over it as ``roi * (1 - a) + ink * a`` in f32, clipped and
+    truncated to uint8."""
+    atlas = glyph_atlas()
+    for cmd in cmds:
+        if cmd[0] == "line":
+            _, thickness, p0, p1, ink = cmd
+            draw_line(image, tuple(p0), tuple(p1), ink, thickness)
+            continue
+        _, key, corners, ink = cmd
+        xs, ys = corners[:, 0], corners[:, 1]
+        x0 = max(0, int(math.floor(xs.min())))
+        y0 = max(0, int(math.floor(ys.min())))
+        x1 = min(image.shape[1], int(math.ceil(xs.max())) + 1)
+        y1 = min(image.shape[0], int(math.ceil(ys.max())) + 1)
+        if x1 - x0 < 2 or y1 - y0 < 2:
+            continue
+        dst = (corners - np.asarray([[x0, y0]], dtype=np.float32)).astype(np.float32)
+        mat = get_perspective_transform(_TILE_CORNERS, dst)
+        alpha = warp_perspective(atlas.tiles[atlas.tile_id(*key)], mat, (x1 - x0, y1 - y0)).astype(np.float32) / 255.0
+        roi = image[y0:y1, x0:x1].astype(np.float32)
+        blended = roi * (1.0 - alpha[..., None]) + float(ink) * alpha[..., None]
+        image[y0:y1, x0:x1] = np.clip(blended, 0, 255).astype(np.uint8)
+
+
 def check_backend(backend: str) -> None:
-    """``"native"`` and ``"auto"`` pass; ``"python"`` raises, naming its
-    ROADMAP item; anything else is a ValueError."""
-    if backend == "python":
-        raise NotImplementedError(
-            "render_backend 'python' (per-char cv2.line and warpPerspective of each glyph tile) has no "
-            f"OpenCV-free twin in the port yet ({PYTHON_BACKEND_ITEM}); use 'native' or 'auto'"
-        )
-    if backend not in ("native", "auto"):
+    """``"python"``, ``"native"`` and ``"auto"`` pass; anything else is a
+    ValueError."""
+    if backend not in ("python", "native", "auto"):
         raise ValueError(f"unknown render_backend {backend!r}")
 
 
@@ -226,7 +258,7 @@ def _draw_background_artifacts(image: np.ndarray, config: SynthPageConfig, rng: 
         spacing = int(rng.integers(24, 64))
         offset = int(rng.integers(0, spacing))
         for y in range(offset, h, spacing):
-            draw_axis_line(image, (0, y), (w - 1, y), gray)
+            draw_line(image, (0, y), (w - 1, y), gray)
     if rng.uniform() < config.table_prob:
         gray = int(rng.integers(120, 190))
         x0 = int(rng.integers(0, w // 2))
@@ -237,10 +269,10 @@ def _draw_background_artifacts(image: np.ndarray, config: SynthPageConfig, rng: 
         rows = int(rng.integers(2, 6))
         for i in range(cols + 1):
             x = x0 + (x1 - x0) * i // cols
-            draw_axis_line(image, (x, y0), (x, y1), gray)
+            draw_line(image, (x, y0), (x, y1), gray)
         for j in range(rows + 1):
             y = y0 + (y1 - y0) * j // rows
-            draw_axis_line(image, (x0, y), (x1, y), gray)
+            draw_line(image, (x0, y), (x1, y), gray)
 
 
 def _apply_page_perspective(
@@ -336,7 +368,10 @@ def generate_page(config: SynthPageConfig, rng: np.random.Generator) -> SynthPag
                 break
 
     if draw_buffer:
-        _raster_commands_native(image, draw_buffer)
+        if config.render_backend == "python":
+            _raster_commands_python(image, draw_buffer)
+        else:
+            _raster_commands_native(image, draw_buffer)
 
     if rng.uniform() < config.perspective_prob:
         image = _apply_page_perspective(image, chars, config, rng, bg)

@@ -13,6 +13,13 @@ device peak pick. The per-page polygon build finishes on the host.
 
 A group larger than the kernels take in one launch is split
 (``tiled.max_group_batch``).
+
+With a ``mesh`` (``parallel.create_mesh``; every rank is given every page)
+each group's batch is also a multiple of the mesh's ranks, as the JAX
+package pads it for its sharded forwards; each rank builds and forwards its
+rows of the batch only, and the maps are gathered over the mesh, so that
+every rank returns every page's results, those of the mesh-less
+``detect_many``.
 """
 from __future__ import annotations
 
@@ -21,8 +28,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.resize import area_downsample
+from ..parallel.mesh import all_gather_rows, mesh_rank, mesh_size
 from .engine import AdaptiveScalingInference, RoughInferResult, precise_result
 from .preprocess import compute_padded_shape, compute_rough_shapes
 from .tiled import max_group_batch
@@ -44,17 +53,32 @@ def _groups(shapes: Sequence[Tuple[int, int]]) -> List[Tuple[Tuple[int, int], Li
 class BatchedAdaptiveScalingInference:
     """Wraps an ``AdaptiveScalingInference`` for multi-page throughput."""
 
-    def __init__(self, engine: AdaptiveScalingInference, mesh: Optional[Any] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "detect_many over a mesh of cards is not ported yet (ROADMAP Queue 1 item 10)"
-            )
+    def __init__(self, engine: AdaptiveScalingInference, mesh: Optional[DeviceMesh] = None):
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh: a DeviceMesh (parallel.create_mesh), not {type(mesh).__name__}")
         self.engine = engine
+        self.mesh = mesh
 
     @staticmethod
-    def _pad_batch(n: int) -> int:
-        """A group's batch rounded up to a power of two."""
-        return 1 << (max(n, 1) - 1).bit_length()
+    def _pad_batch(n: int, ranks: int = 1) -> int:
+        """A group's batch rounded up to a power of two, and to a multiple of
+        the mesh's ``ranks``."""
+        pow2 = 1 << (max(n, 1) - 1).bit_length()
+        return math.ceil(pow2 / ranks) * ranks
+
+    def _rows(self, nb: int) -> range:
+        """This rank's rows of a padded batch of ``nb``."""
+        if self.mesh is None:
+            return range(nb)
+        b = nb // mesh_size(self.mesh)
+        r = mesh_rank(self.mesh)
+        return range(r * b, (r + 1) * b)
+
+    def _gather(self, maps):
+        """Each map's rows of every rank, in row order."""
+        if self.mesh is None:
+            return maps
+        return tuple(all_gather_rows(m, self.mesh) for m in maps)
 
     def detect_many(self, images: Sequence[np.ndarray]) -> List[Dict[str, Any]]:
         """Both passes over a list of pages (H, W, 3) uint8; returns one
@@ -67,6 +91,7 @@ class BatchedAdaptiveScalingInference:
             return []
         fdf = 4 // cfg.rough_head_upsampling_factor
         pfdf = 4 // cfg.precise_head_upsampling_factor
+        ranks = 1 if self.mesh is None else mesh_size(self.mesh)
 
         shapes = [
             compute_rough_shapes(
@@ -80,18 +105,22 @@ class BatchedAdaptiveScalingInference:
         ]
         roughs: List[Optional[RoughInferResult]] = [None] * n
         for (ph, pw), idxs in _groups([padded for _, padded in shapes]):
-            nb = self._pad_batch(len(idxs))
+            nb = self._pad_batch(len(idxs), ranks)
+            rows = self._rows(nb)
             valid = [(0, 0)] * nb
+            for j, i in enumerate(idxs):
+                rh, rw = shapes[i][0]
+                valid[j] = (math.ceil(rh / fdf), math.ceil(rw / fdf))
             with torch.inference_mode():
-                batch = torch.zeros(nb, ph, pw, 3, device=device)
+                batch = torch.zeros(len(rows), ph, pw, 3, device=device)
                 for j, i in enumerate(idxs):
-                    rh, rw = shapes[i][0]
-                    page = torch.from_numpy(np.ascontiguousarray(images[i])).to(device)
-                    batch[j, :rh, :rw] = area_downsample(page.float()[None], (rh, rw))[0]
-                    valid[j] = (math.ceil(rh / fdf), math.ceil(rw / fdf))
+                    if j in rows:
+                        rh, rw = shapes[i][0]
+                        page = torch.from_numpy(np.ascontiguousarray(images[i])).to(device)
+                        batch[j - rows.start, :rh, :rw] = area_downsample(page.float()[None], (rh, rw))[0]
                 mask_logits, height = engine._forward(batch, "rough")
-                mask, height = engine.rough_maps(mask_logits[..., 0], height[..., 0], valid)
-                mask, height = mask.cpu().numpy(), height.cpu().numpy()
+                maps = engine.rough_maps(mask_logits[..., 0], height[..., 0], valid[rows.start : rows.stop])
+                mask, height = (m.cpu().numpy() for m in self._gather(maps))
             for j, i in enumerate(idxs):
                 roughs[i] = RoughInferResult(
                     resized_shape=valid[j],
@@ -111,17 +140,21 @@ class BatchedAdaptiveScalingInference:
         ]
         precises: List[Any] = [None] * n
         for (ph, pw), idxs in _groups(precise_shapes):
-            nb = self._pad_batch(len(idxs))
+            nb = self._pad_batch(len(idxs), ranks)
+            rows = self._rows(nb)
             valid = [(0, 0)] * nb
+            for j, i in enumerate(idxs):
+                h, w = stacks[i][0].shape[:2]
+                valid[j] = (math.ceil(h / pfdf), math.ceil(w / pfdf))
             with torch.inference_mode():
-                batch = torch.zeros(nb, ph, pw, 3, device=device)
+                batch = torch.zeros(len(rows), ph, pw, 3, device=device)
                 for j, i in enumerate(idxs):
-                    stacked = stacks[i][0]
-                    h, w = stacked.shape[:2]
-                    batch[j, :h, :w] = torch.from_numpy(np.ascontiguousarray(stacked)).to(device)
-                    valid[j] = (math.ceil(h / pfdf), math.ceil(w / pfdf))
-                maps = engine.precise_maps(engine._forward(batch, "precise"), valid)
-                maps = [m.cpu().numpy() for m in maps]
+                    if j in rows:
+                        stacked = stacks[i][0]
+                        h, w = stacked.shape[:2]
+                        batch[j - rows.start, :h, :w] = torch.from_numpy(np.ascontiguousarray(stacked)).to(device)
+                maps = engine.precise_maps(engine._forward(batch, "precise"), valid[rows.start : rows.stop])
+                maps = [m.cpu().numpy() for m in self._gather(maps)]
             for j, i in enumerate(idxs):
                 precises[i] = precise_result(maps, j, (ph, pw), stacks[i][0].shape[:2])
 

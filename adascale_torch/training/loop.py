@@ -21,9 +21,16 @@ moments, losses and checkpoints stay f32, so an exported checkpoint is f32
 at either dtype. Every step and dev batch then runs the blocks through the
 bf16 kernel's module mode.
 
-Not ported, each raising and naming its ROADMAP item: the mesh
-(``use_mesh=True``, Queue 1 item 10) and the ``"python"`` render backend
-(item 9.6).
+``use_mesh=True`` trains data-parallel over ``parallel.create_mesh``: one
+process a card under ``torchrun`` (``python -m torch.distributed.run
+--standalone --nproc_per_node=N -m adascale_torch train --mesh ...``), or
+world size 1 in this process. As the JAX loop does with processes, each
+rank generates its ``local_batch_size`` rows of every batch with its own
+generator pool from ``per_process_seed(seed)``, and the step and the dev
+batches compute the global batch's losses (``training/train_step.py``).
+Rank 0 alone writes the output folder, ``log.txt`` and the checkpoints; the
+other ranks wait for the folder and each checkpoint. Every rank restores. At world size 1 the data
+and the losses are those of ``use_mesh=False``.
 
 Entry points run on the card unless ``device="cpu"``; they raise when no
 card is there.
@@ -52,6 +59,7 @@ from ..data.prefetch import BatchPrefetcher
 from ..kernels import convnext_block as block_kernel
 from ..losses import AdaptiveScalingPreciseLossConfig, AdaptiveScalingRoughLossConfig, CoreBox
 from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig, init_like_flax_
+from ..parallel.mesh import create_mesh, local_batch_size, mesh_device, per_process_seed, replicate
 from ..utils.config import config_to_dict, dump_config, load_config
 from ..utils.params import load_params, state_dict_from_jax
 from .checkpoint import restore_checkpoint, restore_pytree_numpy, save_checkpoint, set_opt_step
@@ -67,8 +75,6 @@ from .train_step import (
 )
 
 logger = logging.getLogger(__name__)
-
-MESH_ITEM = "ROADMAP Queue 1 item 10"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +101,7 @@ class EpochConfig:
     # per-task gradient magnitude.
     multitask_gradiant_inspection_per_parameter: bool = False
     # > 0 traces that many leading batches of epoch 0 with torch.profiler
-    # into <output_folder>/profile (a Chrome trace).
+    # into <output_folder>/profile (a Chrome trace; rank 0's on a mesh).
     profile_num_batches: int = 0
     # Recompute each pass's forward in the backward (less memory, twice the
     # block launches).
@@ -232,36 +238,54 @@ def train(
     and ``epochs``, one record an epoch: its wall seconds, the seconds the
     loop waited on the prefetcher, each step's ms (CUDA events on the card,
     the host clock on the CPU), the block kernel's launches a step and a dev
-    batch, and the checkpoint written (or None)."""
-    if use_mesh:
-        raise NotImplementedError(f"use_mesh: data-parallel training is not ported yet ({MESH_ITEM})")
+    batch, and the checkpoint written (or None). ``use_mesh`` trains
+    data-parallel over every rank of the process group (module docstring);
+    a group this call makes it also ends."""
     if init_params_path and restore_state_path:
         raise ValueError("init_params_path and restore_state_path are exclusive")
     dev = resolve_device(device)
+    owns_group = use_mesh and not torch.distributed.is_initialized()
+    try:
+        mesh = None
+        if use_mesh:
+            mesh = create_mesh(device)
+            dev = mesh_device(mesh)
+        writer = mesh is None or torch.distributed.get_rank() == 0
+        if writer:
+            if reset_output_folder and os.path.isdir(output_folder):
+                shutil.rmtree(output_folder)
+            os.makedirs(output_folder, exist_ok=True)
+        if mesh is not None:
+            torch.distributed.barrier()
+        return _train_logged(
+            writer, output_folder, dev, mesh, dataset_config_json, epoch_config_json, model_config_json,
+            optimizer_config_json, rough_loss_config_json, precise_loss_config_json, restore_state_path,
+            restore_epoch_idx, reset_epoch_idx_to_value, init_params_path,
+        )
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
 
-    if reset_output_folder and os.path.isdir(output_folder):
-        shutil.rmtree(output_folder)
-    os.makedirs(output_folder, exist_ok=True)
-    out_fd = output_folder
+
+def _train_logged(writer, out_fd, *args) -> Dict[str, Any]:
+    """``_train`` with ``log.txt`` in the run folder, written by one rank."""
+    if not writer:
+        return _train(out_fd, *args, writer=False)
     handler = logging.FileHandler(os.path.join(out_fd, "log.txt"))
     handler.setFormatter(logging.Formatter("%(message)s   [%(asctime)s]"))
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
     try:
-        return _train(
-            out_fd, dev, dataset_config_json, epoch_config_json, model_config_json, optimizer_config_json,
-            rough_loss_config_json, precise_loss_config_json, restore_state_path, restore_epoch_idx,
-            reset_epoch_idx_to_value, init_params_path,
-        )
+        return _train(out_fd, *args)
     finally:
         logger.removeHandler(handler)
         handler.close()
 
 
 def _train(
-    out_fd, dev, dataset_config_json, epoch_config_json, model_config_json, optimizer_config_json,
+    out_fd, dev, mesh, dataset_config_json, epoch_config_json, model_config_json, optimizer_config_json,
     rough_loss_config_json, precise_loss_config_json, restore_state_path, restore_epoch_idx,
-    reset_epoch_idx_to_value, init_params_path,
+    reset_epoch_idx_to_value, init_params_path, writer: bool = True,
 ) -> Dict[str, Any]:
     dataset_config = load_config(dataset_config_json, DatasetConfig)
     epoch_config = load_config(epoch_config_json, EpochConfig)
@@ -277,11 +301,17 @@ def _train(
         ("rough_loss_config", rough_loss_config),
         ("precise_loss_config", precise_loss_config),
     ]:
-        logger.info("%s: %s", name, config_to_dict(cfg))
-        dump_config(cfg, os.path.join(out_fd, f"{name}.json"))
+        if writer:
+            logger.info("%s: %s", name, config_to_dict(cfg))
+            dump_config(cfg, os.path.join(out_fd, f"{name}.json"))
     step_dtype = TrainStepConfig(compute_dtype=epoch_config.compute_dtype).dtype
 
+    # With a mesh each rank makes its own rows of every batch from its own
+    # stream (the JAX loop's per-process input).
     train_bs, dev_bs = epoch_config.train_batch_size, epoch_config.dev_batch_size
+    seed_of = (lambda s: s) if mesh is None else per_process_seed
+    if mesh is not None:
+        train_bs, dev_bs = local_batch_size(train_bs), local_batch_size(dev_bs)
     train_num_samples = calculate_iterable_dataset_num_samples(train_bs, epoch_config.train_num_batches)
     dev_num_samples = calculate_iterable_dataset_num_samples(dev_bs, epoch_config.dev_num_batches)
     labels = epoch_config.num_page_char_regression_labels
@@ -294,7 +324,7 @@ def _train(
                 steps_json=dataset_config.dev_adaptive_scaling_dataset_steps_json,
                 num_page_char_regression_labels=labels,
                 num_samples=dev_num_samples,
-                rng_seed=epoch_config.dev_rng_seed,
+                rng_seed=seed_of(epoch_config.dev_rng_seed),
                 num_processes=epoch_config.dev_num_processes,
                 is_dev=True,
             )
@@ -324,7 +354,7 @@ def _train(
                     num_page_char_regression_labels=labels,
                     num_samples=train_num_samples,
                     num_samples_reset_rng=dev_num_samples,
-                    rng_seed=epoch_config.dev_rng_seed,
+                    rng_seed=seed_of(epoch_config.dev_rng_seed),
                     num_processes=epoch_config.train_num_processes,
                     num_cached_runs=cached_runs,
                 )
@@ -334,7 +364,7 @@ def _train(
                 steps_json=steps_json,
                 num_page_char_regression_labels=labels,
                 num_samples=train_num_samples,
-                rng_seed=rng_seed,
+                rng_seed=seed_of(rng_seed),
                 num_processes=epoch_config.train_num_processes,
                 num_cached_runs=cached_runs,
                 sample_reuse=epoch_config.train_sample_reuse,
@@ -358,6 +388,7 @@ def _train(
         )
         if init_params_path and reset_epoch_idx_to_value:
             set_opt_step(optimizer, reset_epoch_idx_to_value * epoch_config.train_num_batches)
+        # Seeded alike on every rank: each draws the global batch's masks.
         generator = torch.Generator(device=dev).manual_seed(epoch_config.jax_seed)
 
         rough_core, precise_core = _core_boxes_from_pipeline(train_dataset.pipeline)
@@ -369,13 +400,13 @@ def _train(
             remat=epoch_config.remat,
             compute_dtype=epoch_config.compute_dtype,
         )
-        train_step = make_train_step(model, optimizer, step_config, device=str(dev))
-        eval_step = make_eval_step(model, step_config, device=str(dev))
+        train_step = make_train_step(model, optimizer, step_config, device=str(dev), mesh=mesh)
+        eval_step = make_eval_step(model, step_config, device=str(dev), mesh=mesh)
         grad_inspect = None
         if epoch_config.enable_multitask_gradiant_inspection:
             grad_inspect = make_grad_inspection_fn(
                 model, step_config, per_parameter=epoch_config.multitask_gradiant_inspection_per_parameter,
-                device=str(dev),
+                device=str(dev), mesh=mesh,
             )
         metrics = Metrics(
             ["train_rough_loss", "train_precise_loss", "dev_rough_loss", "dev_precise_loss"],
@@ -396,6 +427,9 @@ def _train(
                 epoch_idx = restored["epoch_idx"] + 1
         if reset_epoch_idx_to_value:
             epoch_idx = reset_epoch_idx_to_value
+        if mesh is not None:
+            replicate(model, mesh)
+            replicate([optimizer.mu, optimizer.nu], mesh)
 
         copier = _DeviceBatches(dev)
         # Seconds of batch production by stage (reset each epoch): pulling
@@ -454,7 +488,7 @@ def _train(
             for batch_idx in range(1, epoch_config.train_num_batches + 1):
                 (rough_b, precise_b), event = prefetcher.get() if prefetcher is not None else inline_batch()
                 copier.wait(event, rough_b, precise_b)
-                if epoch_config.profile_num_batches > 0 and epoch_idx == 0 and batch_idx == 1:
+                if writer and epoch_config.profile_num_batches > 0 and epoch_idx == 0 and batch_idx == 1:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if on_card:
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -566,7 +600,13 @@ def _train(
             if is_best or (epoch_idx + 1) in epoch_to_steps_json or epoch_idx + 1 == epoch_config.num_epochs:
                 if is_best:
                     best["dev_loss"] = dev_loss
-                record["checkpoint"] = save_checkpoint(out_fd, model, optimizer, epoch_idx, best=is_best)
+                if writer:
+                    record["checkpoint"] = save_checkpoint(out_fd, model, optimizer, epoch_idx, best=is_best)
+                if mesh is not None:
+                    # The other ranks wait for rank 0's file and take its name.
+                    shared = [record["checkpoint"]]
+                    torch.distributed.broadcast_object_list(shared, src=0)
+                    record["checkpoint"] = shared[0]
                 logger.info("E=%d, checkpoint -> %s", epoch_idx, record["checkpoint"])
             record["lr_next_step"] = schedule(optimizer.count)
             epochs.append(record)

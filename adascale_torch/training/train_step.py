@@ -17,6 +17,21 @@ its activations are recomputed in the backward instead of kept, so the block
 kernel runs twice a pass. Stochastic depth draws its masks for both passes
 before either forward, so a recompute sees the same masks.
 
+With a ``mesh`` (``parallel.create_mesh``) each rank holds its rows of the
+global batch, and the step computes the global batch's loss and its
+gradient, as the JAX package's SPMD step does. The reference losses are not
+means of per-sample terms (masked means over the whole batch, a ratio of
+whole-batch sums, OHEM over the whole batch's negatives), so the mean of
+per-rank losses would be another loss. Each rank gathers the heads' outputs
+(``parallel.gather_rows``, differentiable) and the labels over the mesh and
+computes the unchanged losses on the global tensors; the backward leaves on
+each rank its rows' share of the global gradient, which
+``parallel.reduce_gradients`` sums before ``optimizer.step()``, so the clip
+takes the global norm of the global gradient. Every rank draws the drop-path
+masks of the global batch from its generator (seeded alike on every rank)
+and keeps its own rows. At world size 1 the step is the mesh-less one bit for
+bit.
+
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; they raise when no card is there.
 """
@@ -37,6 +52,7 @@ from ..losses import (
     precise_loss,
     rough_loss,
 )
+from ..parallel.mesh import gather_batch, gather_rows, mesh_rank, mesh_size, reduce_gradients
 from ..utils.precision import pin_full_f32
 
 
@@ -109,15 +125,26 @@ def _run(fwd, image, remat: bool):
     return checkpoint(fwd, image, use_reentrant=False) if remat else fwd(image)
 
 
+def _global(outputs, batch, mesh):
+    """The outputs and labels of the global batch: gathered over ``mesh``
+    (the outputs with a gradient), or as they are without one."""
+    if mesh is None:
+        return outputs, batch
+    return tuple(gather_rows(t, mesh) for t in outputs), gather_batch(batch, mesh)
+
+
 def rough_task_loss(
-    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None
+    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None,
+    mesh=None,
 ) -> torch.Tensor:
-    """``rough_loss / 2`` of the rough pass on an up-cast batch."""
+    """``rough_loss / 2`` of the rough pass on an up-cast batch (with a
+    ``mesh``, this rank's rows; the loss is the global batch's)."""
 
     def fwd(image):
         return model.forward_rough(image, deterministic, drop_masks=drop_masks)
 
-    mask_feat, height_feat = (t.float() for t in _run(fwd, batch["image"], config.remat))
+    outputs = tuple(t.float() for t in _run(fwd, batch["image"], config.remat))
+    (mask_feat, height_feat), batch = _global(outputs, batch, mesh)
     return rough_loss(
         mask_feat,
         height_feat,
@@ -129,17 +156,19 @@ def rough_task_loss(
 
 
 def precise_task_loss(
-    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None
+    model, batch: Mapping[str, torch.Tensor], config: TrainStepConfig, deterministic: bool, drop_masks=None,
+    mesh=None,
 ) -> torch.Tensor:
     """``precise_loss / 2`` of the precise pass on an up-cast batch (with
-    the char-mask head's term where the model has that head)."""
+    the char-mask head's term where the model has that head; with a
+    ``mesh``, this rank's rows and the global batch's loss)."""
     mask_head = model.config.precise_enable_char_mask_head
     forward = model.forward_precise_with_mask if mask_head else model.forward_precise
 
     def fwd(image):
         return forward(image, deterministic, drop_masks=drop_masks)
 
-    out = tuple(t.float() for t in _run(fwd, batch["image"], config.remat))
+    out, batch = _global(tuple(t.float() for t in _run(fwd, batch["image"], config.remat)), batch, mesh)
     prob, offset, angle, distance = out[-4:]
     return precise_loss(
         prob,
@@ -166,32 +195,48 @@ def two_task_loss(
     config: TrainStepConfig,
     deterministic: bool,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """``(r + p, (r, p))`` with ``r = rough_loss / 2`` and ``p =
     precise_loss / 2`` on up-cast batches. With ``deterministic=False`` the
     drop-path masks of the rough and then the precise pass are drawn from
-    ``generator`` before either forward."""
+    ``generator`` before either forward. With a ``mesh`` the batches are this
+    rank's rows, the masks are drawn for the global batch (this rank keeps
+    its rows) and the losses are the global batch's."""
     rough_masks = precise_masks = None
     if not deterministic:
         if generator is None:
             raise ValueError("deterministic=False needs a generator")
-        rough_masks = model.backbone.draw_drop_masks(rough_batch["image"].shape[0], generator)
-        precise_masks = model.backbone.draw_drop_masks(precise_batch["image"].shape[0], generator)
-    r_loss = rough_task_loss(model, rough_batch, config, deterministic, rough_masks)
-    p_loss = precise_task_loss(model, precise_batch, config, deterministic, precise_masks)
+        rough_masks = _drop_masks(model, rough_batch["image"].shape[0], generator, mesh)
+        precise_masks = _drop_masks(model, precise_batch["image"].shape[0], generator, mesh)
+    r_loss = rough_task_loss(model, rough_batch, config, deterministic, rough_masks, mesh)
+    p_loss = precise_task_loss(model, precise_batch, config, deterministic, precise_masks, mesh)
     return r_loss + p_loss, (r_loss, p_loss)
 
 
+def _drop_masks(model, rows: int, generator: torch.Generator, mesh):
+    """The drop-path masks of ``rows`` samples; with a mesh, this rank's rows
+    of the global batch's masks."""
+    if mesh is None:
+        return model.backbone.draw_drop_masks(rows, generator)
+    r = mesh_rank(mesh)
+    masks = model.backbone.draw_drop_masks(rows * mesh_size(mesh), generator)
+    return [None if m is None else m[r * rows : (r + 1) * rows] for m in masks]
+
+
 def make_train_step(
-    model, optimizer, config: TrainStepConfig, device: str = "cuda"
+    model, optimizer, config: TrainStepConfig, device: str = "cuda", mesh=None
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(rough_batch, precise_batch, generator) -> metrics``: the
     two-task loss with stochastic depth drawn from ``generator``, one
     backward, then ``optimizer.step()`` (clip and AdamW, in place). The
     metrics (``rough_loss``, ``precise_loss``, ``grad_norm``, the global norm
-    before clipping) stay on the device."""
+    before clipping) stay on the device. With a ``mesh`` the batches are this
+    rank's rows, and the losses, the gradient and its norm are the global
+    batch's (module docstring); the parameters stay equal on every rank."""
     dev = resolve_device(device)
     check_model_dtype(model, config)
+    params = list(optimizer.params.values())
 
     def step(rough_batch, precise_batch, generator: torch.Generator):
         optimizer.zero_grad()
@@ -202,8 +247,12 @@ def make_train_step(
             config,
             False,
             generator,
+            mesh,
         )
         total.backward()
+        if mesh is not None:
+            with torch.profiler.record_function("reduce_gradients"):
+                reduce_gradients([p.grad for p in params], mesh)
         with torch.profiler.record_function("optimizer.step"):
             grad_norm = optimizer.step()
         return {"rough_loss": r_loss.detach(), "precise_loss": p_loss.detach(), "grad_norm": grad_norm}
@@ -212,18 +261,19 @@ def make_train_step(
 
 
 def make_eval_step(
-    model, config: TrainStepConfig, device: str = "cuda"
+    model, config: TrainStepConfig, device: str = "cuda", mesh=None
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(rough_batch, precise_batch) -> {"rough_loss", "precise_loss"}``,
     deterministic, without a gradient (each loss divided by 2, as in
-    training)."""
+    training). With a ``mesh`` the batches are this rank's rows and the
+    losses the global batch's, the same on every rank."""
     dev = resolve_device(device)
     check_model_dtype(model, config)
 
     @torch.no_grad()
     def step(rough_batch, precise_batch):
         _, (r_loss, p_loss) = two_task_loss(
-            model, upcast_batch(rough_batch, dev), upcast_batch(precise_batch, dev), config, True
+            model, upcast_batch(rough_batch, dev), upcast_batch(precise_batch, dev), config, True, mesh=mesh
         )
         return {"rough_loss": r_loss, "precise_loss": p_loss}
 
@@ -231,7 +281,7 @@ def make_eval_step(
 
 
 def make_grad_inspection_fn(
-    model, config: TrainStepConfig, per_parameter: bool = False, device: str = "cuda"
+    model, config: TrainStepConfig, per_parameter: bool = False, device: str = "cuda", mesh=None
 ) -> Callable[..., Dict[str, float]]:
     """Multitask gradient inspection (counterpart of the JAX package's
     ``make_grad_inspection_fn``): ``inspect(rough_batch, precise_batch)``
@@ -240,7 +290,8 @@ def make_grad_inspection_fn(
     and standard deviation of their magnitudes (``rough_abs_grads_mean``,
     ``..._std``, ``precise_...``). ``per_parameter`` adds each shared
     parameter's ``"<name>:rough_abs_mean"`` and ``"<name>:precise_abs_mean"``.
-    Leaves ``.grad`` untouched."""
+    Leaves ``.grad`` untouched. With a ``mesh`` the gradients are the global
+    batch's."""
     dev = resolve_device(device)
     check_model_dtype(model, config)
     shared = [(n, p) for n, p in model.named_parameters() if n.startswith("backbone.")]
@@ -248,11 +299,14 @@ def make_grad_inspection_fn(
 
     def task_grads(loss: torch.Tensor):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if mesh is not None:
+            reduce_gradients(grads, mesh)
+        return grads
 
     def inspect(rough_batch, precise_batch) -> Dict[str, float]:
-        rough = task_grads(rough_task_loss(model, upcast_batch(rough_batch, dev), config, True))
-        precise = task_grads(precise_task_loss(model, upcast_batch(precise_batch, dev), config, True))
+        rough = task_grads(rough_task_loss(model, upcast_batch(rough_batch, dev), config, True, mesh=mesh))
+        precise = task_grads(precise_task_loss(model, upcast_batch(precise_batch, dev), config, True, mesh=mesh))
         out = {}
         for task, grads in (("rough", rough), ("precise", precise)):
             flat = torch.cat([g.abs().reshape(-1) for g in grads])

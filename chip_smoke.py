@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,bf16,widths]
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,mesh,bf16,widths]
 
 With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
 those listed. A missing weight file or reference is an error in any phase
@@ -139,7 +139,7 @@ that reads it. Phases, each announced with its elapsed seconds:
      no precision flag set before ``load_program``) at page_0's inputs,
      held against the eager outputs at EXPORT_REL_TOL, with the error that
      the same program shows once TF32 is let back into cuDNN printed
-     beside; the tiny/UPerNeXt flagship exported, loaded and held likewise
+     beside (that interpreter runs beside the two checks that follow); the tiny/UPerNeXt flagship exported, loaded and held likewise
      (its bilinear resizes and adaptive pools under symbolic H and W) at
      page_0's rough input, its own precise stack and EXPORT_SECOND_SHAPE;
      a one-block bf16 program run six times packs its weights once; then
@@ -156,7 +156,8 @@ that reads it. Phases, each announced with its elapsed seconds:
      from its weights through ``init_params_path``, as LOOP_RUNS cuts them:
      the FPN flagship at bf16 (2 epochs of 6 batches, 1 dev batch), the
      UPerNeXt flagship at bf16 (1 epoch of 3, 1 dev batch) and the FPN
-     flagship cut to f32 (1 epoch of 2, 1 dev batch): the renderer's g++
+     flagship cut to f32 (1 epoch of 2, 1 dev batch, its pages drawn in
+     the trainer's process): the renderer's g++
      build seconds, a warm 4-process pool's pages/s; for each run each
      epoch's step ms (CUDA events), wall, prefetcher stall and losses, peak
      memory; every loss finite, exactly 36 block launches a step and a dev
@@ -168,6 +169,24 @@ that reads it. Phases, each announced with its elapsed seconds:
      ``python -m adascale_torch detect`` on page_0 (36 f32 launches, the
      polygons equal to those of an engine built in-process from the
      checkpoint's params); the phase's seconds;
+ mesh. data parallelism (``adascale_torch.parallel``) at world size 1, NCCL:
+     a mesh made in this process by ``create_mesh("cuda")``; the FPN
+     flagship's train step at B = 6 on the mesh against the mesh-less step
+     from the same state and generator, f32 then bf16 (the losses, the grad
+     norm and every parameter after one step equal bit for bit, cuDNN held
+     to its deterministic algorithms for the two checked steps; 36 block
+     launches of the step's dtype), then a warm step of each and MESH_STEPS
+     more in turn, their ms from CUDA events; phase 11's detect_many (three shift
+     pages and a blank page, fused f32) on the mesh against the mesh-less
+     run (maps and polygons bit for bit, MANY_LAUNCHES), the steps' and
+     detect_many's times beside
+     ``python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+     adascale_torch train --mesh`` (started at the phase's start) on
+     examples/synthetic_training's configs (the "python" render backend)
+     cut to MESH_CLI_EPOCH: exit 0, finite losses, 36 block launches a
+     step and a dev batch (read from the metrics it prints), its data
+     stall share; the host ms a page of that page config with the
+     "python" and the native render backend; the phase's seconds;
  bf16. serving at compute_dtype="bfloat16": each kernel's bf16 entry
      against its bf16 plain twin at the main path's shapes (the block at
      every stage shape of both passes in its Pallas mode, bf16 in and out,
@@ -214,7 +233,8 @@ the neck and heads, the train step for the trainable block (the loop's
 steps, "train_loop_steps", beside it; its dev batches, "train_loop_dev",
 and its detect CLI beside the block kernel's), the bf16 train step for the
 trainable bf16 block, "convnext_block_trainable_bf16" (the bf16 loops'
-steps and dev batches beside it), the loaded
+steps and dev batches beside it; the mesh steps and the mesh CLI run
+beside the trainable rows), the loaded
 programs of phase export for the block's registered operator,
 "convnext_block_op", the fused bf16 detect() for the bf16 entries, listed
 as "<name>_bf16") and on every path
@@ -320,7 +340,8 @@ MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "preci
 # Batched against single-page detect(): the same polygons, points within
 # this (tests/test_batch_inference.py's bar).
 MANY_POINT_TOL = 1e-3
-PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "loop", "bf16", "widths")
+PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "loop", "mesh", "bf16",
+          "widths")
 KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # bf16 serving (phase bf16): the dense bf16 tensor-core peak (H100 SXM, 700 W);
 # each bf16 kernel against its bf16 plain twin, the largest difference over
@@ -2898,25 +2919,41 @@ def export_checked(label: str, params, engine, inputs, out_dir: str) -> dict:
             "program_launches": program_launches, "eager": eager}
 
 
-def check_fresh_process(folder: str, x_rough, x_precise, eager, blocks_per_pass: int) -> dict:
-    """The FPN programs in ``folder`` loaded and run in a fresh interpreter
-    (FRESH_PROGRAM_SCRIPT) at page_0's rough input and precise stack: each
-    output within EXPORT_REL_TOL of ``eager``'s (by run, as
-    ``export_checked`` keys them), ``blocks_per_pass`` launches a pass, TF32
-    off after ``load_program``. Returns the errors, with TF32's beside."""
+def start_fresh_process(folder: str, x_rough, x_precise):
+    """Starts loading and running the FPN programs in ``folder`` in a fresh
+    interpreter (FRESH_PROGRAM_SCRIPT) at page_0's rough input and precise
+    stack; ``check_fresh_process`` waits for it."""
     import sys
+    import tempfile
 
     import torch
 
-    inputs = {"rough": x_rough, "precise": x_precise}
-    for which, x in inputs.items():  # loaded back onto the card
+    for which, x in (("rough", x_rough), ("precise", x_precise)):  # loaded back onto the card
         torch.save(x, os.path.join(folder, f"x_{which}.pt"))
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", FRESH_PROGRAM_SCRIPT, folder], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+    log = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", FRESH_PROGRAM_SCRIPT, folder], cwd=ROOT,
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter(), log
+
+
+def check_fresh_process(proc, t, log, folder: str, x_rough, x_precise, eager, blocks_per_pass: int) -> dict:
+    """The fresh interpreter of ``start_fresh_process`` ends within 300 s:
+    each output within EXPORT_REL_TOL of ``eager``'s (by run, as
+    ``export_checked`` keys them), ``blocks_per_pass`` launches a pass, TF32
+    off after ``load_program``. Returns the errors, with TF32's beside."""
+    import torch
+
+    inputs = {"rough": x_rough, "precise": x_precise}
+    try:
+        proc.wait(timeout=max(300 - (time.perf_counter() - t), 1.0))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - t
     if proc.returncode:
-        print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
+        log.seek(0)
+        print(log.read()[-8000:], flush=True)
         raise AssertionError(f"fresh interpreter: exit code {proc.returncode}")
     fresh = torch.load(os.path.join(folder, "fresh.pt"))
     rels = {}
@@ -2964,6 +3001,7 @@ def check_export(params, image, ref, device) -> dict:
     engine = engine_for(params)
     blocks_per_pass = sum(n for _, n in engine.config.model.backbone_spec())
     out_dir = tempfile.mkdtemp(prefix=".export-", dir=ROOT)
+    fresh_proc = None
     try:
         result = engine.detect(image)
         x_rough, x_precise = forward_inputs(image, result, device)
@@ -2983,10 +3021,12 @@ def check_export(params, image, ref, device) -> dict:
               flush=True)
         if packing.PACKS != packs:
             raise AssertionError(f"the f32 programs built {packing.PACKS - packs} weight packs")
-        fresh = check_fresh_process(fpn_dir, x_rough, x_precise, fpn["eager"], blocks_per_pass)
+        # The fresh interpreter runs beside the bf16 and UPerNeXt checks
+        # below (none of them timed but their export and load walls).
+        fresh_proc = start_fresh_process(fpn_dir, x_rough, x_precise)
         out = {k: fpn[k] for k in ("program_launches", "launches", "export_s", "load_s")}
+        fpn_eager = fpn["eager"]
         del fpn, modules
-        shutil.rmtree(fpn_dir)
         check_bf16_program_packs(params, device)
 
         stamp("export: the UPerNeXt flagship")
@@ -2997,6 +3037,9 @@ def check_export(params, image, ref, device) -> dict:
             os.path.join(out_dir, "upernext"))
         out["upernext"] = {k: up[k] for k in ("program_launches", "launches", "export_s", "load_s")}
         del upernext, up
+        fresh = check_fresh_process(*fresh_proc, fpn_dir, x_rough, x_precise, fpn_eager, blocks_per_pass)
+        fresh_proc = None
+        shutil.rmtree(fpn_dir)
 
         stamp("export: python -m adascale_torch detect on page_0 as a PNG")
         png, out_json = os.path.join(out_dir, "page_0.png"), os.path.join(out_dir, "detect.json")
@@ -3031,6 +3074,9 @@ def check_export(params, image, ref, device) -> dict:
         if cli_launches != want:
             raise AssertionError(f"detect CLI: launches {cli_launches} != {want}")
     finally:
+        if fresh_proc is not None and fresh_proc[0].poll() is None:
+            fresh_proc[0].kill()
+            fresh_proc[0].wait()
         shutil.rmtree(out_dir, ignore_errors=True)
     return {**out, "cli_launches": cli_launches, "cli_s": cli_s, "times": times, "fresh": fresh}
 
@@ -3039,14 +3085,17 @@ FLAGSHIP_DIR = os.path.join(ROOT, "examples/flagship_training")
 UPERNEXT_DIR = os.path.join(ROOT, "examples/flagship_upernext")
 # Phase loop's runs of each flagship's own {dataset,epoch,model,steps}.json
 # from its weights: (label, folder, weights, epochs, train batches, dev
-# batches, compute dtype). Cuts: the depth (the files: 40 epochs of 1000
-# batches, 8 dev batches); the last run's dtype (the files ask bf16: the f32
-# loop stays a path). The first run is the main one (restore, export and
-# the detect CLI on its checkpoint); every run restores its last checkpoint.
+# batches, epoch config overrides). Cuts: the depth (the files: 40 epochs of
+# 1000 batches, 8 dev batches); the last run's dtype (the files ask bf16: the
+# f32 loop stays a path) and its pages, drawn in the trainer's process (the
+# spawned pools' ~15-20 s start each is paid by the two runs before it). The
+# first run is the main one (restore, export and the detect CLI on its
+# checkpoint); every run restores its last checkpoint.
 LOOP_RUNS = (
-    ("fpn_bf16", FLAGSHIP_DIR, WEIGHTS, 2, 6, 1, None),
-    ("upernext_bf16", UPERNEXT_DIR, UPERNEXT_WEIGHTS, 1, 3, 1, None),
-    ("fpn_f32", FLAGSHIP_DIR, WEIGHTS, 1, 2, 1, "float32"),
+    ("fpn_bf16", FLAGSHIP_DIR, WEIGHTS, 2, 6, 1, {}),
+    ("upernext_bf16", UPERNEXT_DIR, UPERNEXT_WEIGHTS, 1, 3, 1, {}),
+    ("fpn_f32", FLAGSHIP_DIR, WEIGHTS, 1, 2, 1,
+     {"compute_dtype": "float32", "train_num_processes": 0, "dev_num_processes": 0}),
 )
 # Each run's launch paths: its steps' and its dev batches'.
 LOOP_PATHS = {
@@ -3057,11 +3106,12 @@ LOOP_PATHS = {
 LOOP_POOL_RUNS = 24  # pages timed through a warm 4-process pool
 LOOP_CHECKPOINT = re.compile(r"state_(\d+)(_not_best)?")
 # Paths whose block launches are the trainable blocks' (rows 1' and 1b').
-TRAIN_PATHS = ("train_step", "train_step_bf16") + tuple(p for pair in LOOP_PATHS.values() for p in pair)
+TRAIN_PATHS = ("train_step", "train_step_bf16", "mesh_train_step", "mesh_train_step_bf16", "mesh_cli_train") + tuple(
+    p for pair in LOOP_PATHS.values() for p in pair)
 
 
-def loop_run(label: str, folder: str, weights: str, epochs: int, batches: int, dev_batches: int, dtype,
-             out_dir: str, device) -> dict:
+def loop_run(label: str, folder: str, weights: str, epochs: int, batches: int, dev_batches: int,
+             overrides: dict, out_dir: str, device) -> dict:
     """One ``training.loop.train`` of a flagship's own configs (LOOP_RUNS),
     cut to ``epochs`` x ``batches`` and ``dev_batches``: every loss finite,
     exactly one block launch a block in every step and dev batch, all of
@@ -3087,9 +3137,7 @@ def loop_run(label: str, folder: str, weights: str, epochs: int, batches: int, d
     dataset["train_adaptive_scaling_dataset_steps_jsons"] = [steps_path]
     dataset["dev_adaptive_scaling_dataset_steps_json"] = steps_path
     epoch = dict(config_json("epoch.json"), num_epochs=epochs, train_num_batches=batches,
-                 dev_num_batches=dev_batches)
-    if dtype:
-        epoch["compute_dtype"] = dtype
+                 dev_num_batches=dev_batches, **overrides)
     bf16 = epoch["compute_dtype"] == "bfloat16"
     model_json = os.path.join(folder, "model.json")
     model_config = load_config(model_json, AdaptiveScalingConfig)
@@ -3215,9 +3263,10 @@ def check_loop(image, device) -> dict:
     out_dir = tempfile.mkdtemp(prefix=".loop-", dir=ROOT)
     paths, runs = {}, {}
     try:
-        for label, folder, weights, epochs, batches, dev_batches, dtype in LOOP_RUNS:
+        for label, folder, weights, epochs, batches, dev_batches, overrides in LOOP_RUNS:
             stamp(f"loop: {label}")
-            runs[label] = loop_run(label, folder, weights, epochs, batches, dev_batches, dtype, out_dir, device)
+            runs[label] = loop_run(label, folder, weights, epochs, batches, dev_batches, overrides, out_dir,
+                                   device)
             paths.update(runs[label]["paths"])
 
         main = runs[LOOP_RUNS[0][0]]
@@ -3256,6 +3305,254 @@ def check_loop(image, device) -> dict:
     print(f"phase loop: {time.perf_counter() - phase_t:.2f} s", flush=True)
     return {"paths": paths, "cli_launches": cli_launches, "pages_per_s": pages_per_s,
             "runs": {k: {m: v[m] for m in ("step_ms", "stall_share", "peak_bytes", "train_s")} for k, v in runs.items()}}
+
+
+MESH_STEPS = 3  # warm steps timed for each of the plain and the mesh step (after one checked step each)
+SYNTH_DIR = os.path.join(ROOT, "examples/synthetic_training")
+# The CLI run's cut of examples/synthetic_training/epoch.json (3 epochs of
+# 150 batches, 8 dev batches).
+MESH_CLI_EPOCH = {"num_epochs": 1, "train_num_batches": 2, "dev_num_batches": 1}
+MESH_CLI_TIMEOUT_S = 240
+
+
+def mesh_step_checked(params, device, mesh, compute_dtype: str) -> dict:
+    """Phase mesh: the flagship's step at B = TRAIN_BATCH on a world-size-1
+    mesh against the mesh-less step from the same state and generator:
+    losses, grad norm and every parameter after one step equal bit for bit
+    (cuDNN's deterministic algorithms for the two checked steps), one block
+    launch a block of the step's dtype; then warm steps of each, timed with
+    CUDA events in turn."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.training import OptimizerConfig, TrainStepConfig, build_optimizer, make_train_step
+    from adascale_torch.training import seeded_batches
+
+    bf16 = compute_dtype == "bfloat16"
+    rough, precise, rough_box, precise_box = seeded_batches(1, TRAIN_BATCH)
+    cfg = TrainStepConfig(rough_core_box=rough_box, precise_core_box=precise_box, compute_dtype=compute_dtype)
+    runs = {}
+    for label, use in (("plain", None), ("mesh", mesh)):
+        model = flagship_model(params, device, torch.bfloat16 if bf16 else torch.float32)
+        opt, _ = build_optimizer(dict(model.named_parameters()), OptimizerConfig(), steps_per_epoch=1000)
+        runs[label] = (model, make_train_step(model, opt, cfg, device=str(device), mesh=use),
+                       torch.Generator(device=device).manual_seed(0))
+    blocks = 2 * len(runs["plain"][0].backbone.blocks())
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        for label, (model, step, gen) in runs.items():
+            K.LAUNCHES = K.LAUNCHES_BF16 = 0
+            metrics = step(rough, precise, gen)
+            torch.cuda.synchronize()
+            out[label] = ({k: v.clone() for k, v in metrics.items()}, K.LAUNCHES, K.LAUNCHES_BF16)
+    (plain, _, _), (meshed, f32_launches, bf16_launches) = out["plain"], out["mesh"]
+    launches, other = (bf16_launches, f32_launches) if bf16 else (f32_launches, bf16_launches)
+    differ = [k for k, v in runs["plain"][0].state_dict().items() if not torch.equal(v, runs["mesh"][0].state_dict()[k])]
+    unequal = [k for k in plain if not torch.equal(plain[k], meshed[k])]
+    print(f"mesh step ({compute_dtype}, B={TRAIN_BATCH}, world size 1, NCCL): losses (rough, precise, grad norm) "
+          f"mesh {float(meshed['rough_loss']):.7f}, {float(meshed['precise_loss']):.7f}, "
+          f"{float(meshed['grad_norm']):.7f}; plain {float(plain['rough_loss']):.7f}, "
+          f"{float(plain['precise_loss']):.7f}, {float(plain['grad_norm']):.7f}; metrics that differ {unequal}; "
+          f"parameters that differ after the step {len(differ)} of {len(runs['plain'][0].state_dict())}; "
+          f"block launches {launches} (the other dtype's {other})", flush=True)
+    if unequal or differ or launches != blocks or other:
+        raise AssertionError(f"mesh step ({compute_dtype}): metrics {unequal}, parameters {differ[:5]}, "
+                             f"launches {launches} / {blocks}, of the other dtype {other}")
+
+    times = {"plain": [], "mesh": []}
+    for _, step, gen in runs.values():
+        step(rough, precise, gen)  # warm: the first step out of cuDNN's deterministic algorithms
+    for _ in range(MESH_STEPS):
+        for label, (_, step, gen) in runs.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(rough, precise, gen)
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"mesh step ({compute_dtype}): {ms['mesh']:.3f} ms against the plain step's {ms['plain']:.3f} ms "
+          f"(median of {MESH_STEPS} steps each after a warm one, in turn, CUDA events; mesh "
+          + ", ".join(f"{v:.1f}" for v in times["mesh"]) + "; plain "
+          + ", ".join(f"{v:.1f}" for v in times["plain"]) + f") ({smi_line()})", flush=True)
+    kernel = "convnext_block_bf16" if bf16 else "convnext_block"
+    return {"launches": {kernel: launches}, "ms": ms}
+
+
+def mesh_detect_many_checked(params, mesh) -> dict:
+    """Phase mesh: phase 11's detect_many (the three shift pages and a blank
+    page, fused f32) on the world-size-1 mesh against the mesh-less run:
+    every page's maps and polygons equal bit for bit, the launches
+    MANY_LAUNCHES; both runs' wall ms."""
+    import numpy as np
+
+    from adascale_torch import BatchedAdaptiveScalingInference
+
+    pages = [np.load(p)["image"] for p in SHIFT_PAGES] + [np.zeros(BLANK_SHAPE, np.uint8)]
+    engine = engine_for(params, use_pallas_neck_heads=True)
+    t = time.perf_counter()
+    want = BatchedAdaptiveScalingInference(engine).detect_many(pages)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    got, launches = counted(lambda: BatchedAdaptiveScalingInference(engine, mesh=mesh).detect_many(pages))
+    mesh_ms = (time.perf_counter() - t) * 1e3
+    differ = []
+    for k, (g, w) in enumerate(zip(got, want)):
+        arrays = [(g["rough"].rough_char_mask, w["rough"].rough_char_mask),
+                  (g["rough"].rough_char_height_score_map, w["rough"].rough_char_height_score_map),
+                  (g["precise"].precise_char_prob_score_map, w["precise"].precise_char_prob_score_map),
+                  (g["precise"].precise_np_char_corner_distance, w["precise"].precise_np_char_corner_distance)]
+        if not all(np.array_equal(a, b) for a, b in arrays):
+            differ.append(f"page {k} maps")
+        if [p.points.tolist() for p in g["char_polygons"]] != [p.points.tolist() for p in w["char_polygons"]]:
+            differ.append(f"page {k} polygons")
+    print(f"mesh detect_many (fused f32, world size 1): {len(pages)} pages, polygons "
+          f"{[len(r['char_polygons']) for r in got]}, {mesh_ms:.1f} ms wall (the mesh-less run {plain_ms:.1f} ms, "
+          f"its first); differ {differ}; LAUNCHES={launches} ({smi_line()})", flush=True)
+    if differ or launches != MANY_LAUNCHES:
+        raise AssertionError(f"mesh detect_many: {differ}, launches {launches} != {MANY_LAUNCHES}")
+    return {"launches": launches, "ms": mesh_ms, "plain_ms": plain_ms}
+
+
+def mesh_cli_start(out_dir: str):
+    """Phase mesh: starts ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 -m adascale_torch train --mesh`` on
+    examples/synthetic_training's configs (the "python" render backend), cut
+    to MESH_CLI_EPOCH; ``mesh_cli_finish`` waits for it."""
+    import sys
+
+    def config_json(name):
+        with open(os.path.join(SYNTH_DIR, name)) as fin:
+            return json.load(fin)
+
+    steps = os.path.join(SYNTH_DIR, "steps.json")
+    dataset = dict(config_json("dataset.json"), train_adaptive_scaling_dataset_steps_jsons=[steps],
+                   dev_adaptive_scaling_dataset_steps_json=steps)
+    epoch = dict(config_json("epoch.json"), **MESH_CLI_EPOCH)
+    paths = {}
+    for name, obj in (("dataset", dataset), ("epoch", epoch)):
+        paths[name] = os.path.join(out_dir, f"{name}.json")
+        with open(paths[name], "w") as fout:
+            json.dump(obj, fout)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+           "adascale_torch", "train", "--mesh", "--dataset-config", paths["dataset"], "--epoch-config",
+           paths["epoch"], "--model-config", os.path.join(SYNTH_DIR, "model.json"), "--output",
+           os.path.join(out_dir, "run")]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, epoch, time.perf_counter()
+
+
+def mesh_cli_finish(proc, epoch, t0) -> dict:
+    """Phase mesh: the torchrun CLI run ends within MESH_CLI_TIMEOUT_S with
+    exit 0, finite losses and one block launch a block in every step and dev
+    batch (from the metrics it prints)."""
+    from adascale_torch.models.adaptive_scaling import AdaptiveScalingConfig
+    from adascale_torch.utils.config import load_config
+
+    try:
+        out, err = proc.communicate(timeout=max(MESH_CLI_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train --mesh exited {proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    metrics = json.loads(out.strip().splitlines()[-1])
+    record = metrics["epochs"][0]
+    losses = [metrics["dev_rough_loss"], metrics["dev_precise_loss"], record["train_rough_loss"],
+              record["train_precise_loss"]]
+    model_config = load_config(os.path.join(SYNTH_DIR, "model.json"), AdaptiveScalingConfig)
+    blocks = 2 * sum(n for _, n in model_config.backbone_spec())
+    stall = record["data_stall_s"]
+    stall_text = "no prefetcher" if stall is None else (
+        f"{stall:.3f} s of the epoch's {record['wall_s']:.2f} s wall ({100 * stall / record['wall_s']:.1f} %)")
+    print(f"mesh CLI: torchrun --standalone --nproc_per_node=1 -m adascale_torch train --mesh on "
+          f"examples/synthetic_training (epoch config {json.dumps(epoch)}): exit 0 in {seconds:.2f} s; losses "
+          f"(dev rough, dev precise, train rough, train precise) {losses}; step ms "
+          + ", ".join(f"{v:.1f}" for v in record["step_ms"])
+          + f"; data stall {stall_text}; block launches a step {record['step_launches']}, a dev batch "
+          f"{record['dev_launches']}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh CLI: a loss is not finite: {losses}")
+    if record["step_launches"] + record["dev_launches"] != [blocks] * (MESH_CLI_EPOCH["train_num_batches"]
+                                                                       + MESH_CLI_EPOCH["dev_num_batches"]):
+        raise AssertionError(f"mesh CLI: launches {record['step_launches']} {record['dev_launches']} != {blocks}")
+    return {"launches": {"convnext_block": sum(record["step_launches"]) + sum(record["dev_launches"])},
+            "seconds": seconds}
+
+
+RENDER_PAGES = 8  # pages a backend, timed after one warm page
+
+
+def render_page_ms() -> dict:
+    """Phase mesh: host ms a page of examples/synthetic_training's page
+    config with the "python" render backend (the CLI run's) and the native
+    one, on the same seeds, one process."""
+    import numpy as np
+
+    from adascale_torch.data.synth import SynthPageConfig, generate_page
+
+    with open(os.path.join(SYNTH_DIR, "steps.json")) as fin:
+        page = json.load(fin)["page"]
+    out = {}
+    for backend in ("python", "native"):
+        config = SynthPageConfig(**dict(page, render_backend=backend))
+        generate_page(config, np.random.default_rng(0))
+        t = time.perf_counter()
+        for seed in range(1, RENDER_PAGES + 1):
+            generate_page(config, np.random.default_rng(seed))
+        out[backend] = 1e3 * (time.perf_counter() - t) / RENDER_PAGES
+    print(f"render backends on examples/synthetic_training's {page['page_height']}x{page['page_width']} pages "
+          f"(host, one process, {RENDER_PAGES} pages): python {out['python']:.1f} ms a page, native "
+          f"{out['native']:.1f} ms a page ({smi_line()})", flush=True)
+    return out
+
+
+def check_mesh(params, device) -> dict:
+    """Phase mesh (module docstring): a world-size-1 NCCL mesh in this
+    process (``parallel.create_mesh``) for the step at f32 and bf16 and for
+    detect_many, ended after; then the torchrun CLI run."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from adascale_torch.parallel import create_mesh, mesh_size
+
+    phase_t = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("phase mesh: a process group exists already")
+    mesh = create_mesh("cuda")
+    paths, ms = {}, {}
+    out_dir = tempfile.mkdtemp(prefix=".mesh-", dir=ROOT)
+    cli = None
+    try:
+        if mesh_size(mesh) != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"phase mesh: {mesh_size(mesh)} ranks over {dist.get_backend()}")
+        # The CLI run (mostly host work: its start-up, then pages drawn in
+        # numpy) beside the steps and detect_many, whose times share the
+        # machine with it.
+        cli = mesh_cli_start(out_dir)
+        for dtype, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+            stepped = mesh_step_checked(params, device, mesh, dtype)
+            paths["mesh_train_step" + suffix], ms["train_step" + suffix] = stepped["launches"], stepped["ms"]
+        many = mesh_detect_many_checked(params, mesh)
+        paths["mesh_detect_many"], ms["detect_many"] = many["launches"], {"mesh": many["ms"], "plain": many["plain_ms"]}
+        dist.destroy_process_group()
+        cli = mesh_cli_finish(*cli)
+        render_ms = render_page_ms()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if isinstance(cli, tuple) and cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    paths["mesh_cli_train"] = cli["launches"]
+    print(f"phase mesh: {time.perf_counter() - phase_t:.2f} s", flush=True)
+    return {"paths": paths, "ms": ms, "cli_s": cli["seconds"], "render_ms": render_ms}
 
 
 def parse_phases(argv=None):
@@ -3470,6 +3767,10 @@ def main() -> None:
         by_path.update(looped["paths"])
         by_path["train_loop_detect_cli"] = looped["cli_launches"]
 
+    if "mesh" in phases:
+        stamp("phase mesh: the step, detect_many and the CLI on a mesh")
+        by_path.update(check_mesh(params, device)["paths"])
+
     if "bf16" in phases:
         stamp("phase bf16: bf16 serving (compute_dtype='bfloat16')")
         bf16_rows, bf16_paths = check_bf16(params, image, gen, device)
@@ -3493,6 +3794,8 @@ def main() -> None:
         "train_loop_steps_bf16": ["convnext_block_bf16"], "train_loop_dev_bf16": ["convnext_block_bf16"],
         "train_loop_upernext_bf16": ["convnext_block_bf16"], "train_loop_upernext_dev_bf16": ["convnext_block_bf16"],
         "train_loop_detect_cli": ["convnext_block"],
+        "mesh_train_step": ["convnext_block"], "mesh_train_step_bf16": ["convnext_block_bf16"],
+        "mesh_cli_train": ["convnext_block"],
         "detect_bf16_fpn_module": ["convnext_block_bf16"],
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
         "detect_bf16_fpn_fused": bf16_names, "detect_many_bf16": bf16_names,

@@ -3,7 +3,8 @@ fixture: each page's result equals the port's own single-page ``detect()``
 (the same rough mask in the valid region, the same polygon count, points
 within 1e-3, as tests/test_batch_inference.py holds the JAX package) and
 matches the JAX package's ``detect_many`` (>= 95 % of char polygons matched
-one-to-one at IoU >= 0.5 both ways)."""
+one-to-one at IoU >= 0.5 both ways); on a world-size-1 mesh it equals the
+mesh-less run bit for bit."""
 import os
 import sys
 
@@ -83,9 +84,28 @@ def test_detect_many_matches_jax(pages):
         assert matched >= 0.95 * len(ours), (matched, len(ours))
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+def test_mesh_is_refused(pages):
+    """``detect_many`` on a world-size-1 mesh (gloo, in this process) equals
+    the mesh-less run bit for bit; a mesh that is not a ``DeviceMesh`` is
+    refused (the 2-rank mesh: ``tests/test_torch_mesh_paths.py``)."""
+    import torch.distributed as dist
+
+    from adascale_torch.parallel import create_mesh
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TB.BatchedAdaptiveScalingInference(None, mesh=object())
+    engine = _engine()
+    want = TB.BatchedAdaptiveScalingInference(engine).detect_many(pages[2:])
+    assert not dist.is_initialized()
+    try:
+        got = TB.BatchedAdaptiveScalingInference(engine, mesh=create_mesh(device="cpu")).detect_many(pages[2:])
+    finally:
+        dist.destroy_process_group()
+    for res, ref in zip(got, want):
+        np.testing.assert_array_equal(res["rough"].rough_char_mask, ref["rough"].rough_char_mask)
+        np.testing.assert_array_equal(res["precise"].precise_char_prob_score_map,
+                                      ref["precise"].precise_char_prob_score_map)
+        assert [p.points.tolist() for p in res["char_polygons"]] == [p.points.tolist() for p in ref["char_polygons"]]
 
 
 def test_groups_split_at_the_kernel_limits():

@@ -6,9 +6,9 @@ detection-quality spec, written as a PNG by OpenCV: the port's JSON against
 the JAX CLI's on the same ``.npz`` and PNG, char polygons matched one to one
 at IoU >= 0.5, >= 95 % both ways (the port's engine bar; the two engines
 compute the same function in f32, so the measured share is printed).
-``demo``, ``train --mesh`` and ``export`` of an orbax directory raise,
-naming their ROADMAP items (``train`` and ``export`` themselves:
-``tests/test_torch_loop.py``).
+``demo`` and ``export`` of an orbax directory raise, naming their ROADMAP
+items; ``train --mesh`` runs at world size 1 on the micro model (``train``
+and ``export`` themselves: ``tests/test_torch_loop.py``).
 """
 import json
 import os
@@ -62,18 +62,54 @@ def test_detect_cli_matches_the_jax_cli(tmp_path):
     assert matched >= POLYGON_BAR * len(theirs) and matched >= POLYGON_BAR * len(ours)
 
 
+MICRO_STEPS = dict(
+    page=dict(page_height=128, page_width=128, num_lines_min=2, num_lines_max=3, char_height_min=10,
+              char_height_max=20),
+    rough_crop_size=64, rough_core_margin=2, precise_crop_size=64, precise_core_margin=2,
+    rough_samples_per_page=2, precise_samples_per_page=2,
+)
+MICRO_EPOCH = dict(num_epochs=1, train_num_batches=1, train_batch_size=2, train_num_processes=0, dev_num_batches=1,
+                   dev_batch_size=2, dev_num_processes=0, num_page_char_regression_labels=8)
+
+
+def _micro_train_configs(folder):
+    paths = {}
+    for name, obj in (("steps", MICRO_STEPS), ("epoch", MICRO_EPOCH),
+                      ("model", {"custom_block_channels_and_num_layers": [[8, 1], [16, 1], [32, 1], [64, 1]]})):
+        paths[name] = str(folder / f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    paths["dataset"] = str(folder / "dataset.json")
+    with open(paths["dataset"], "w") as f:
+        json.dump({"train_adaptive_scaling_dataset_steps_jsons": [paths["steps"]],
+                   "dev_adaptive_scaling_dataset_steps_json": paths["steps"]}, f)
+    return ["--dataset-config", paths["dataset"], "--epoch-config", paths["epoch"], "--model-config",
+            paths["model"]]
+
+
 @pytest.mark.parametrize(
     "argv,item",
     [
-        # train and export are ported (tests/test_torch_loop.py); what of them
-        # is not: the mesh, and an orbax checkpoint directory.
-        (["train", "--dataset-config", "d.json", "--output", "{tmp}/out", "--mesh"], "item 10"),
+        # train and export are ported (tests/test_torch_loop.py): train
+        # --mesh runs (at world size 1 here; under torchrun,
+        # tests/test_torch_mesh_paths.py and chip_smoke.py); an orbax
+        # checkpoint directory and demo raise.
+        (["train", "--output", "{tmp}/out", "--mesh", "--device", "cpu"], None),
         (["export", "--checkpoint", "{tmp}", "--output", "{tmp}/out"], "item 9.3"),
         (["demo", "--config", "c.json", "--image", "page.png", "--output", "{tmp}/out"], "item 12"),
     ],
     ids=["train", "export", "demo"],
 )
-def test_unported_commands_raise_naming_their_item(argv, item, tmp_path):
+def test_unported_commands_raise_naming_their_item(argv, item, tmp_path, capsys):
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    if item is None:
+        # train --mesh on the micro model and the "python" render backend
+        # (the steps JSON has no render_backend).
+        cli_main(argv + _micro_train_configs(tmp_path))
+        metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert np.isfinite(metrics["dev_loss"])
+        assert (tmp_path / "out" / "state_0").exists()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        cli_main([a.replace("{tmp}", str(tmp_path)) for a in argv])
+        cli_main(argv)
     assert not (tmp_path / "out").exists()

@@ -159,11 +159,17 @@ def test_pool_equals_inline():
 
 
 def test_python_render_backend_raises_before_any_page():
+    """A dataset on the ``"python"`` backend starts (no refusal before its
+    first page) and, on a 2-process pool, streams the JAX dataset's labels
+    bit for bit; its images lie within ``tests/test_torch_render_python.py``'s
+    bound (here equal)."""
     steps = dict(SMALL, page=dict(SMALL["page"], render_backend="python"))
-    with pytest.raises(NotImplementedError, match="item 9.6"):
-        TD.AdaptiveScalingIterableDataset(
-            TD.AdaptiveScalingDatasetConfig(steps_json=json.dumps(steps), num_processes=2, is_dev=True)
-        )
+    kwargs = dict(steps_json=json.dumps(steps), num_page_char_regression_labels=12, rng_seed=3, num_samples=4,
+                  is_dev=True)
+    got = _stream(TD, TD.AdaptiveScalingDatasetConfig(num_processes=2, **kwargs), 4)
+    want = _stream(JD, JD.AdaptiveScalingDatasetConfig(**kwargs), 4)
+    for g, w in zip(got, want):
+        _assert_batches_equal(g, w)
 
 
 def test_collate_refuses_an_empty_batch():

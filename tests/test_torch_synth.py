@@ -9,14 +9,16 @@ the CPU. Every bar is bit-equality but the one on the warp's scalar tail:
     warp at widths that are multiples of 32; at other widths its last
     ``w % 32`` columns, OpenCV's scalar tail, are held within 1 on <= 0.3 %
     of their values, ROADMAP Queue 3 item 7);
-    ``draw_axis_line`` equals ``cv2.line`` at thickness 1; ``fma_f32``
+    ``draw_line`` equals ``cv2.line`` at thickness 1 on axis lines (the
+    ruled lines and tables); ``fma_f32``
     equals exact rational arithmetic rounded once;
   * ``generate_page`` with the native renderer gives the JAX package's
     pixels, char corners, heights and lines on seeded pages (~256²) with
     the page homography off and on, and ruled lines and tables forced on;
   * ``render_char_labels`` (native and numpy branches) and
     ``char_regression_label`` equal the JAX package's;
-  * the ``"python"`` backend and a failing g++ build raise.
+  * the ``"python"`` backend (``tests/test_torch_render_python.py``) on a
+    small page; an unknown backend and a failing g++ build raise.
 """
 import dataclasses
 from fractions import Fraction
@@ -112,11 +114,13 @@ def test_axis_line_equals_cv2_line():
         else:
             x, y0, y1 = int(rng.integers(-3, 53)), int(rng.integers(-5, 45)), int(rng.integers(-5, 45))
             p0, p1 = (x, y0), (x, y1)
-        TG.draw_axis_line(got, p0, p1, gray)
+        TG.draw_line(got, p0, p1, gray)
         cv2.line(want, p0, p1, (gray, gray, gray), 1)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError, match="horizontal or vertical"):
-        TG.draw_axis_line(got, (0, 0), (3, 4), 1)
+    # Any other segment too (tests/test_torch_render_python.py: 600 of them).
+    TG.draw_line(got, (0, 0), (3, 4), 1)
+    cv2.line(want, (0, 0), (3, 4), (1, 1, 1), 1)
+    np.testing.assert_array_equal(got, want)
 
 
 def _round_f32(value: Fraction) -> np.float32:
@@ -216,8 +220,13 @@ def test_char_regression_label_equals_jax():
 
 
 def test_python_backend_and_unknown_backends_raise():
-    with pytest.raises(NotImplementedError, match="item 9.6"):
-        TS.generate_page(TS.SynthPageConfig(page_height=64, page_width=64), np.random.default_rng(0))
+    """The ``"python"`` backend (the default) draws the JAX package's page;
+    an unknown backend raises."""
+    config = dict(page_height=96, page_width=96, num_lines_min=3, num_lines_max=4, glyph_stroke_prob=0.5)
+    got = TS.generate_page(TS.SynthPageConfig(**config), np.random.default_rng(0))
+    want = JS.generate_page(JS.SynthPageConfig(**config), np.random.default_rng(0))
+    assert len(got.chars) == len(want.chars) > 0
+    np.testing.assert_array_equal(got.image, want.image)
     with pytest.raises(ValueError, match="unknown render_backend"):
         TS.generate_page(TS.SynthPageConfig(page_height=64, page_width=64, render_backend="cv2"), np.random.default_rng(0))
 
