@@ -12,7 +12,11 @@ bucket the same way and run as batched precise forwards, with the engine's
 device peak pick. The per-page polygon build finishes on the host.
 
 A group larger than the kernels take in one launch is split
-(``tiled.max_group_batch``).
+(``tiled.max_group_batch``). The batched forwards run inside
+``utils.precision.matmul_precision(cfg.matmul_precision)``, where the JAX
+package opens ``jax.default_matmul_precision`` (around the forwards only;
+its rough pages are resized before, outside the scope, and so are they
+here).
 
 With a ``mesh`` (``parallel.create_mesh``; every rank is given every page)
 each group's batch is also a multiple of the mesh's ranks, as the JAX
@@ -32,6 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.resize import area_downsample
 from ..parallel.mesh import all_gather_rows, mesh_rank, mesh_size
+from ..utils.precision import matmul_precision
 from .engine import AdaptiveScalingInference, RoughInferResult, precise_result
 from .preprocess import compute_padded_shape, compute_rough_shapes
 from .tiled import max_group_batch
@@ -118,7 +123,8 @@ class BatchedAdaptiveScalingInference:
                         rh, rw = shapes[i][0]
                         page = torch.from_numpy(np.ascontiguousarray(images[i])).to(device)
                         batch[j - rows.start, :rh, :rw] = area_downsample(page.float()[None], (rh, rw))[0]
-                mask_logits, height = engine._forward(batch, "rough")
+                with matmul_precision(cfg.matmul_precision):
+                    mask_logits, height = engine._forward(batch, "rough")
                 maps = engine.rough_maps(mask_logits[..., 0], height[..., 0], valid[rows.start : rows.stop])
                 mask, height = (m.cpu().numpy() for m in self._gather(maps))
             for j, i in enumerate(idxs):
@@ -153,7 +159,9 @@ class BatchedAdaptiveScalingInference:
                         stacked = stacks[i][0]
                         h, w = stacked.shape[:2]
                         batch[j - rows.start, :h, :w] = torch.from_numpy(np.ascontiguousarray(stacked)).to(device)
-                maps = engine.precise_maps(engine._forward(batch, "precise"), valid[rows.start : rows.stop])
+                with matmul_precision(cfg.matmul_precision):
+                    outputs = engine._forward(batch, "precise")
+                maps = engine.precise_maps(outputs, valid[rows.start : rows.stop])
                 maps = [m.cpu().numpy() for m in self._gather(maps)]
             for j, i in enumerate(idxs):
                 precises[i] = precise_result(maps, j, (ph, pw), stacks[i][0].shape[:2])

@@ -20,16 +20,22 @@ runs the rough pass at full resolution over overlapping tiles
 the boundary-band recall pass. ``inference/batch.py`` serves many pages at
 once.
 
-Ported: f32 and bf16 (``compute_dtype="bfloat16"``) serving at
-``matmul_precision="highest"``, both neck types, the fused neck/head
-configuration, the single and tiled rough passes, core-mask peak gating,
-band recall, NMS and area-chunked precise stacks. In bf16 the engine follows
-the JAX engine's two paths: ``use_pallas_backbone`` picks the Pallas
-backbone's rounding (a bf16 residual between blocks) over the Flax module's
-(f32 residual), and the fused neck and heads run only together with it, as
-there; the input is cast to bf16 before the backbone and the maps come back
-in f32. Not ported: other matmul precisions (ROADMAP Queue 1: single-pass
-TF32 for "default"/"high"); the engine raises if a config asks for them.
+Ported: f32 and bf16 (``compute_dtype="bfloat16"``) serving, both neck
+types, the fused neck/head configuration, the single and tiled rough passes,
+core-mask peak gating, band recall, NMS and area-chunked precise stacks. In
+bf16 the engine follows the JAX engine's two paths: ``use_pallas_backbone``
+picks the Pallas backbone's rounding (a bf16 residual between blocks) over
+the Flax module's (f32 residual), and the fused neck and heads run only
+together with it, as there; the input is cast to bf16 before the backbone
+and the maps come back in f32.
+
+``matmul_precision`` is "highest", "high" or "default". The rough pass
+(preprocessing and forward), the precise forward and the tiled rough pass
+run inside ``utils.precision.matmul_precision(cfg.matmul_precision)``, where
+the JAX engine opens ``jax.default_matmul_precision``: at "high" and
+"default" every f32 product on the card is one TF32 pass, in cuDNN and
+cuBLAS and in the kernels' single-pass entries, as XLA computes it on a GPU
+there; on the CPU all three compute the same.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ from ..kernels.fpn_heads import forward_rough_from_features_fused
 from ..kernels.precise_heads import forward_precise_from_features_fused
 from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
 from ..utils.params import load_params, state_dict_from_jax
-from ..utils.precision import pin_full_f32
+from ..utils.precision import PRECISIONS, matmul_precision, pin_full_f32
 from .eval import polygon_iou
 from .flatten import (
     FlattenedTextRegion,
@@ -137,10 +143,9 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _check_supported(cfg: AdaptiveScalingInferenceConfig) -> None:
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
-    if cfg.matmul_precision != "highest":
-        raise NotImplementedError(
-            f"not ported yet: matmul_precision={cfg.matmul_precision!r} (only \"highest\"; "
-            "single-pass TF32 for \"default\"/\"high\" is ROADMAP Queue 1's matmul_precision item)"
+    if cfg.matmul_precision not in PRECISIONS:
+        raise ValueError(
+            f"matmul_precision {cfg.matmul_precision!r}: one of {', '.join(repr(p) for p in PRECISIONS)}"
         )
 
 
@@ -247,8 +252,9 @@ class AdaptiveScalingInference:
         valid = (math.ceil(resized_hw[0] / fdf), math.ceil(resized_hw[1] / fdf))
         with torch.inference_mode():
             page = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-            x = preprocess_image(page, resized_hw, padded_hw)
-            mask_logits, height = self._forward(x, "rough")
+            with matmul_precision(cfg.matmul_precision):
+                x = preprocess_image(page, resized_hw, padded_hw)
+                mask_logits, height = self._forward(x, "rough")
             mask, height = self.rough_maps(mask_logits[..., 0], height[..., 0], [valid])
         return RoughInferResult(
             resized_shape=valid,
@@ -287,14 +293,15 @@ class AdaptiveScalingInference:
         valid = (math.ceil(h / fdf), math.ceil(w / fdf))
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(image)).to(self.device).float()
-            x = F.pad(x, (0, 0, 0, pw - w, 0, ph - h))
-            mask_logits, height = tiled_rough_forward(
-                lambda t: self._forward(t, "rough"),
-                x,
-                tile=tile,
-                overlap=cfg.tiled_rough_tile_overlap,
-                fdf=fdf,
-            )
+            with matmul_precision(cfg.matmul_precision):
+                x = F.pad(x, (0, 0, 0, pw - w, 0, ph - h))
+                mask_logits, height = tiled_rough_forward(
+                    lambda t: self._forward(t, "rough"),
+                    x,
+                    tile=tile,
+                    overlap=cfg.tiled_rough_tile_overlap,
+                    fdf=fdf,
+                )
             mask, height = self.rough_maps(mask_logits[None], height[None], [valid])
         return RoughInferResult(
             resized_shape=valid,
@@ -383,7 +390,9 @@ class AdaptiveScalingInference:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(stacked_image)).to(self.device)
             x = F.pad(x.float()[None], (0, 0, 0, pw - w, 0, ph - h))
-            maps = self.precise_maps(self._forward(x, "precise"), [valid])
+            with matmul_precision(cfg.matmul_precision):
+                outputs = self._forward(x, "precise")
+            maps = self.precise_maps(outputs, [valid])
             maps = [m.cpu().numpy() for m in maps]
         return precise_result(maps, 0, (ph, pw), (h, w))
 

@@ -1,17 +1,19 @@
-"""Detection-quality evaluation: polygon-IoU matching -> precision/recall/F1.
+"""Detection-quality evaluation: polygon-IoU matching -> precision/recall/F1,
+and the rough mask's IoU against the ground truth.
 
 Counterpart of ``adascale/inference/eval.py`` (host-side numpy), using the
-OpenCV-free ``Polygon.fill_mask``. Rasterisation happens on each pair's joint
-bounding-box grid, so the cost follows char size, not page size.
+OpenCV-free ``Polygon.fill_mask`` and ``geometry.fill_poly``.
+Rasterisation of a polygon pair happens on its joint bounding-box grid, so
+the cost follows char size, not page size.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..data.geometry import Polygon
+from ..data.geometry import Polygon, fill_poly
 
 
 def polygon_iou(a: Polygon, b: Polygon) -> float:
@@ -35,17 +37,31 @@ def polygon_iou(a: Polygon, b: Polygon) -> float:
     return float(np.logical_and(ma, mb).sum()) / float(union) if union else 0.0
 
 
+def _boxes(polygons: Sequence[Polygon]) -> np.ndarray:
+    """(n, 4) bounding boxes (x0, x1, y0, y1), as ``polygon_iou`` takes them."""
+    return np.asarray([[float(p.xs.min()), float(p.xs.max()), float(p.ys.min()), float(p.ys.max())]
+                       for p in polygons], np.float64)
+
+
 def match_polygons(
     preds: Sequence[Polygon], gts: Sequence[Polygon], iou_thr: float = 0.5
 ) -> List[Tuple[int, int, float]]:
     """One-to-one greedy matching by descending IoU; returns
-    (pred_idx, gt_idx, iou) triples with iou >= iou_thr."""
+    (pred_idx, gt_idx, iou) triples with iou >= iou_thr. For iou_thr > 0
+    only the pairs whose bounding boxes touch are rasterised (the IoU of any
+    other pair is 0), chosen at once over all pairs."""
     candidates: List[Tuple[float, int, int]] = []
-    for i, p in enumerate(preds):
-        for j, g in enumerate(gts):
-            iou = polygon_iou(p, g)
-            if iou >= iou_thr:
-                candidates.append((iou, i, j))
+    if iou_thr > 0 and preds and gts:
+        a, b = _boxes(preds)[:, None], _boxes(gts)[None]
+        apart = (a[..., 1] < b[..., 0]) | (b[..., 1] < a[..., 0])
+        apart |= (a[..., 3] < b[..., 2]) | (b[..., 3] < a[..., 2])
+        pairs = zip(*np.nonzero(~apart))
+    else:
+        pairs = ((i, j) for i in range(len(preds)) for j in range(len(gts)))
+    for i, j in pairs:
+        iou = polygon_iou(preds[i], gts[j])
+        if iou >= iou_thr:
+            candidates.append((iou, int(i), int(j)))
     candidates.sort(reverse=True)
     matched_p: set = set()
     matched_g: set = set()
@@ -95,3 +111,38 @@ def evaluate_char_detection(
         num_matched=num_matched,
         mean_matched_iou=mean_iou,
     )
+
+
+def mask_iou(pred_mask: np.ndarray, gt_mask: np.ndarray) -> float:
+    """IoU of two binary masks (shapes must match); 1.0 where both are
+    empty."""
+    a = np.asarray(pred_mask) > 0
+    b = np.asarray(gt_mask) > 0
+    union = np.logical_or(a, b).sum()
+    if not union:
+        return 1.0
+    return float(np.logical_and(a, b).sum()) / float(union)
+
+
+def evaluate_rough_mask(
+    rough_char_mask: np.ndarray,
+    gt_chars: Sequence,
+    page_shape: Tuple[int, int],
+    valid_shape: Optional[Tuple[int, int]] = None,
+) -> float:
+    """IoU of the rough pass's char mask against the ground-truth char mask.
+
+    ``rough_char_mask``: the engine's ``RoughInferResult.rough_char_mask``
+    (at the padded feature resolution). ``gt_chars``: ``CharInstance``s (or
+    anything with ``corners``) in page coordinates, scaled to the mask's
+    valid region and filled as ``cv2.fillPoly`` fills their rounded corners.
+    ``valid_shape``: that region (``RoughInferResult.resized_shape``); the
+    comparison is restricted to it."""
+    vh, vw = valid_shape if valid_shape is not None else rough_char_mask.shape[:2]
+    gt = np.zeros((vh, vw), np.uint8)
+    sy = vh / page_shape[0]
+    sx = vw / page_shape[1]
+    for c in gt_chars:
+        pts = np.asarray(c.corners, np.float32) * np.asarray([[sx, sy]], np.float32)
+        fill_poly(gt, np.round(pts).astype(np.int32))
+    return mask_iou(rough_char_mask[:vh, :vw], gt)

@@ -21,6 +21,12 @@ static. torch specializes a dimension whose example size is 0 or 1, so the
 example input has a batch of 2. Only torch's constraint and guard errors
 move to the next tier; the reason is kept in the manifest. Both functions
 turn TF32 off for the process (``utils/precision.py``).
+
+The JAX export has no precision knob, so a program computes at "highest":
+its blocks are the operator, which always launches the 3xTF32 entry, and
+the module of a program that ``load_program`` returns runs inside
+``matmul_precision("highest")``, so that its library convolutions stay in
+full f32 inside a "default" or "high" scope too.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from ..kernels import convnext_block  # noqa: F401  (registers the block operato
 from ..models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
 from ..utils.config import config_to_dict
 from ..utils.params import state_dict_from_jax
-from ..utils.precision import pin_full_f32
+from ..utils.precision import matmul_precision, pin_full_f32
 
 PASSES = ("forward_rough", "forward_precise")
 # The largest H or W a b,h,w program takes is 64 * MAX_BLOCKS_64.
@@ -149,12 +155,29 @@ def export_program(
     return manifest
 
 
+class _AtHighest(nn.Module):
+    """A loaded program's module, run inside ``matmul_precision("highest")``."""
+
+    def __init__(self, program: nn.Module):
+        super().__init__()
+        self.program = program
+
+    def forward(self, *args, **kwargs):
+        with matmul_precision("highest"):
+            return self.program(*args, **kwargs)
+
+
 def load_program(path: str) -> torch.export.ExportedProgram:
     """Load a ``.pt2`` written by ``export_program``; call it through
     ``.module()(x)`` with x (B, H, W, 3) f32 on the device it was exported
     on (the program holds its parameters there). Turns TF32 off for the
-    process (``pin_full_f32``), as the engine does, so that the program's
-    library convolutions run at the f32 it was exported at."""
+    process (``pin_full_f32``), as the engine does, and ``.module()`` runs
+    the program at "highest" whatever ``matmul_precision`` scope it is
+    called in, so that the program's library convolutions run at the f32 it
+    was exported at."""
     pin_full_f32()
-    return torch.export.load(path)
+    program = torch.export.load(path)
+    unpinned = program.module
+    program.module = lambda *args, **kwargs: _AtHighest(unpinned(*args, **kwargs))
+    return program
 

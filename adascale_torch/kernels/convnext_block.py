@@ -15,6 +15,17 @@ fixed-order reduction, for the small late stages).
 On a CPU tensor it runs ``convnext_block_plain``, the eager PyTorch version
 that the tests and ``chip_smoke.py`` hold the kernel against.
 
+Inside a ``utils.precision.matmul_precision("default")`` or ``("high")``
+scope (the JAX engine's ``jax.default_matmul_precision``, under which XLA
+computes an f32 product on a GPU as one TF32 pass) an f32 call on the card
+launches the single-pass entry ``convnext_block_tf32`` instead (the same
+kernels, one TF32 ``mma`` a product on operands rounded as the 3xTF32
+split's hi part; counted in ``LAUNCHES_TF32``); its plain twin is
+``convnext_block_plain(x, p, tf32=True)``. The registered operator and the
+trainable block always run at "highest" (the JAX export and train step have
+no precision knob), so an exported program computes what it computed at
+export whatever the scope.
+
 Training goes through ``TrainableBlock``, the counterpart of
 ``adascale/ops/pallas/convnext_block.py::make_trainable_block``: an
 ``autograd.Function`` whose forward is the kernel (the plain version on the
@@ -67,12 +78,13 @@ process (``tools/kernel_ms.py --only forwards``, PERF.md).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.bf16 import gelu, layer_norm, round_bf16, round_grad_bf16
+from ..utils.precision import round_tf32, tf32_products
 from . import _nvcc, packing
 
 # Number of kernel launches, counted once per call (the call's three or four
@@ -81,6 +93,9 @@ LAUNCHES = 0
 # Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
 # the f32 ones).
 LAUNCHES_BF16 = 0
+# Calls that launched the single-pass TF32 entry (matmul_precision "default"
+# / "high"), counted apart.
+LAUNCHES_TF32 = 0
 
 MAX_CHANNELS = 1536
 EPS = 1e-6
@@ -89,9 +104,9 @@ EPS = 1e-6
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the f32 kernel library."""
     lib = _nvcc.build("convnext_block", "convnext_block.cu")
-    fn = lib.convnext_block_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.convnext_block_f32, lib.convnext_block_tf32):
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.convnext_block_f32_workspace.argtypes = [ctypes.c_int] * 5
     lib.convnext_block_f32_workspace.restype = ctypes.c_longlong
     return lib
@@ -148,15 +163,20 @@ _BF16_SHAPES: Dict[tuple, tuple] = {}
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Eager PyTorch twin of the kernel (NHWC in, NHWC out)."""
+def convnext_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor], tf32: bool = False) -> torch.Tensor:
+    """Eager PyTorch twin of the kernel (NHWC in, NHWC out). ``tf32``: the
+    single-pass TF32 entry's twin, both operands of each projection rounded
+    to TF32 as the kernel rounds them (``utils.precision.round_tf32``), the
+    products summed in f32 (run it in full f32, ``pin_full_f32``); the
+    depthwise, LN, GELU and residual unchanged."""
+    r = round_tf32 if tf32 else (lambda t: t)
     c = x.shape[-1]
     y = F.conv2d(
         x.permute(0, 3, 1, 2), p["dwconv.weight"], p["dwconv.bias"], padding=3, groups=c
     ).permute(0, 2, 3, 1)
     y = F.layer_norm(y, (c,), p["ln.weight"], p["ln.bias"], eps=EPS)
-    y = F.gelu(F.linear(y, p["mlp_up.weight"], p["mlp_up.bias"]), approximate="none")
-    y = F.linear(y, p["mlp_down.weight"], p["mlp_down.bias"])
+    y = F.gelu(F.linear(r(y), r(p["mlp_up.weight"]), p["mlp_up.bias"]), approximate="none")
+    y = F.linear(r(y), r(p["mlp_down.weight"]), p["mlp_down.bias"])
     return x + y * p["block_scale"]
 
 
@@ -236,7 +256,7 @@ def convnext_block(
         mode = MODE_F32
     if torch.compiler.is_compiling():
         return torch.ops.adascale_torch.convnext_block(x, *(p[name] for name in PARAM_NAMES), mode)
-    return _block(x, p, mode)
+    return _block(x, p, mode, mode == MODE_F32 and tf32_products())
 
 
 # The operator's modes: f32; bf16 in the Pallas mode (bf16 x and out) and in
@@ -244,9 +264,10 @@ def convnext_block(
 MODE_F32, MODE_BF16, MODE_BF16_MODULE = 0, 1, 2
 
 
-def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], mode: int) -> torch.Tensor:
+def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], mode: int, tf32: bool = False) -> torch.Tensor:
     """One block in ``mode``: the plain twin on a CPU tensor, the kernel on a
-    CUDA one (which raises on what it does not take)."""
+    CUDA one (which raises on what it does not take); ``tf32`` (f32 on the
+    card): the single-pass TF32 entry."""
     if mode not in (MODE_F32, MODE_BF16, MODE_BF16_MODULE):
         raise ValueError(f"convnext_block: unknown mode {mode}")
     if x.device.type == "cpu":
@@ -254,7 +275,7 @@ def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], mode: int) -> torch.Tens
             return convnext_block_plain(x, p)
         return convnext_block_plain_bf16(x, p, mode == MODE_BF16_MODULE)
     if mode == MODE_F32:
-        return _launch(x, p)
+        return _launch(x, p, tf32)
     return _launch_bf16(x, p, mode == MODE_BF16_MODULE)
 
 
@@ -438,10 +459,17 @@ def _launch_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool) -> t
     return out
 
 
-def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Launch the f32 kernel on a CUDA tensor; raises on what it does not
-    take."""
-    global LAUNCHES
+def _launch(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], tf32: bool = False, workspace: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Launch the f32 kernel on a CUDA tensor (``tf32``: its single-pass
+    TF32 entry); raises on what it does not take. ``workspace``: an f32
+    buffer of at least ``convnext_block_f32_workspace(B, H, W, C, SMs)``
+    floats for the kernel's scratch, which then holds the LayerNorm output
+    h (B H W x C) and the GELU output u (B H W x 4C) after the call, the
+    operands of the two projections (``chip_smoke.py`` holds each projection
+    against its twin on them); else one is allocated."""
+    global LAUNCHES, LAUNCHES_TF32
     _nvcc.check_activation("convnext_block x", x, x.device, (torch.float32,))
     b, h, w, c = x.shape
     if c > MAX_CHANNELS or h > 65535 or b > 65535:
@@ -457,11 +485,15 @@ def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    workspace = torch.empty(
-        lib.convnext_block_f32_workspace(b, h, w, c, sms), dtype=torch.float32, device=x.device
-    )
+    floats = lib.convnext_block_f32_workspace(b, h, w, c, sms)
+    if workspace is None:
+        workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
+    elif workspace.dtype != torch.float32 or workspace.device != x.device or workspace.numel() < floats \
+            or not workspace.is_contiguous():
+        raise ValueError(f"convnext_block: the workspace must be {floats} contiguous f32 on {x.device}")
+    entry = lib.convnext_block_tf32 if tf32 else lib.convnext_block_f32
     with torch.cuda.device(x.device):
-        rc = lib.convnext_block_f32(
+        rc = entry(
             x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
             q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
             q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
@@ -470,6 +502,9 @@ def _launch(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
             b, h, w, c, sms, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"convnext_block_f32 launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"convnext_block_{'tf32' if tf32 else 'f32'} launch failed: CUDA error {rc}")
+    if tf32:
+        LAUNCHES_TF32 += 1
+    else:
+        LAUNCHES += 1
     return out

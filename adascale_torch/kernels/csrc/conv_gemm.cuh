@@ -30,7 +30,9 @@
 //     registers into a TF32 hi and lo with integer rounding (cvt.rna.tf32
 //     runs on the quarter-rate conversion pipe); B's split was done by the
 //     wrapper. Per 8-deep K step: a_lo.b_hi, a_hi.b_lo, a_hi.b_hi (a_lo.b_lo,
-//     ~2^-22 relative, is dropped). Within each group of 8 channels, A's
+//     ~2^-22 relative, is dropped). The single-pass TF32 form (PASSES 1;
+//     matmul_precision "default" / "high") issues a_hi.b_hi alone and
+//     copies only the hi B tile of a chunk. Within each group of 8 channels, A's
 //     register slot s holds channel 2s (s < 4) or 2(s-4)+1, so a thread
 //     reads its two channels with one 8-byte load; the wrapper packs B's K
 //     order to match.
@@ -116,11 +118,15 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// v = hi + lo, both TF32: round to nearest (ties away) on the 13 bits TF32
-// drops. The tensor core reads only the top 19 bits of an operand, so lo is
-// passed rounded the same way without its mask.
+// v rounded to TF32: to nearest (ties away) on the 13 bits TF32 drops.
+__device__ __forceinline__ uint32_t round_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32. The tensor core reads only the top 19 bits of an
+// operand, so lo is passed rounded the same way without its mask.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  hi = round_tf32(v);
   lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
 }
 
@@ -254,16 +260,20 @@ __device__ __forceinline__ void wgmma(float (&d)[K], const uint32_t (&a)[4], uin
   }
 }
 
-// part (replaced) = the 3xTF32 products of one 32-deep chunk for NW
-// features, whose hi and lo B tiles start at descriptors hi and lo; As is
-// this thread's first A element (row g, channel 2 t4). Each 8-deep step's A
-// is read and split just before its products, into one of two register
-// buffers: the step two back must be done with it, while the last step's
-// products still run. after_first() runs once the first step's products
-// are issued. Returns when all are done.
-template <int NW, int K, class AfterFirst>
+// part (replaced) = the products of one 32-deep chunk for NW features,
+// whose hi and lo B tiles start at descriptors hi and lo; As is this
+// thread's first A element (row g, channel 2 t4). PASSES 3: the 3xTF32
+// products (matmul_precision "highest"); 1: one TF32 product of A rounded
+// as split_tf32's hi part and the hi B tile, which the wrapper rounded the
+// same way ("default" / "high"; lo is not read). Each 8-deep step's A is
+// read and split (rounded) just before its products, into one of two
+// register buffers: the step two back must be done with it, while the last
+// step's products still run. after_first() runs once the first step's
+// products are issued. Returns when all are done.
+template <int NW, int PASSES, int K, class AfterFirst>
 __device__ __forceinline__ void chunk_products(float (&part)[K], const float* As, uint32_t hi,
                                                uint32_t lo, AfterFirst after_first) {
+  static_assert(PASSES == 1 || PASSES == 3, "passes");
   uint32_t ah[2][4], al[2][4];
 #pragma unroll
   for (int k8 = 0; k8 < kKC / 8; ++k8) {
@@ -272,15 +282,24 @@ __device__ __forceinline__ void chunk_products(float (&part)[K], const float* As
     if (k8 >= 2) wgmma_wait<1>();
     const float2 v0 = *reinterpret_cast<const float2*>(As + 8 * k8);
     const float2 v1 = *reinterpret_cast<const float2*>(As + 8 * kLdA + 8 * k8);
-    split_tf32(v0.x, h[0], l[0]);
-    split_tf32(v1.x, h[1], l[1]);
-    split_tf32(v0.y, h[2], l[2]);
-    split_tf32(v1.y, h[3], l[3]);
     const uint32_t step = 16 * k8;  // 256 bytes a K step
-    wgmma_fence();
-    wgmma<NW>(part, l, hi + step, k8 > 0);
-    wgmma<NW>(part, h, lo + step, 1);
-    wgmma<NW>(part, h, hi + step, 1);
+    if constexpr (PASSES == 3) {
+      split_tf32(v0.x, h[0], l[0]);
+      split_tf32(v1.x, h[1], l[1]);
+      split_tf32(v0.y, h[2], l[2]);
+      split_tf32(v1.y, h[3], l[3]);
+      wgmma_fence();
+      wgmma<NW>(part, l, hi + step, k8 > 0);
+      wgmma<NW>(part, h, lo + step, 1);
+      wgmma<NW>(part, h, hi + step, 1);
+    } else {
+      h[0] = round_tf32(v0.x);
+      h[1] = round_tf32(v1.x);
+      h[2] = round_tf32(v0.y);
+      h[3] = round_tf32(v1.y);
+      wgmma_fence();
+      wgmma<NW>(part, h, hi + step, k8 > 0);
+    }
     wgmma_commit();
     if (k8 == 0) after_first();
   }
@@ -310,7 +329,9 @@ __device__ __forceinline__ int quad_row() {
 // STAGES mbarriers, which this initialises. Anything the block stored to
 // shared memory before the call is visible to all after it. Each chunk's
 // successor STAGES - 1 on is loaded while the chunk's first products run.
-template <int BM, int NB, int STAGES, int N0, int N1, int K0, int K1>
+// PASSES (chunk_products): 3 for 3xTF32, 1 for one TF32 product, which
+// copies only the hi B tile of each chunk.
+template <int BM, int NB, int STAGES, int N0, int N1, int PASSES, int K0, int K1>
 __device__ __forceinline__ void mainloop(const float* __restrict__ x, const float* __restrict__ w,
                                          int npix, int H, int W, int C, Taps taps, int m0,
                                          unsigned char* smem, uint32_t bars, int arow, int nb0,
@@ -343,7 +364,9 @@ __device__ __forceinline__ void mainloop(const float* __restrict__ x, const floa
     const int oy = taps.oy0 + t / taps.kw, ox = taps.ox0 + t % taps.kw;
     const int s = kt % STAGES;
     const uint32_t stage = sbase + s * R::STAGE_BYTES;
-    if (tid == 0) bulk_load(stage, w + (long long)kt * 2 * NB * kKC, 2 * R::B_BYTES, bars + 8 * s);
+    if (tid == 0)
+      bulk_load(stage, w + (long long)kt * 2 * NB * kKC, (PASSES == 3 ? 2 : 1) * R::B_BYTES,
+                bars + 8 * s);
     float* As = reinterpret_cast<float*>(smem + s * R::STAGE_BYTES + 2 * R::B_BYTES);
 #pragma unroll
     for (int r = 0; r < R::A_ITERS; ++r) {
@@ -382,7 +405,7 @@ __device__ __forceinline__ void mainloop(const float* __restrict__ x, const floa
     const uint32_t lo = hi + (R::B_BYTES >> 4);
     // The next load goes into chunk kt-1's stage; issuing it behind the
     // first products keeps its address work off the tensor cores' path.
-    chunk_products<N0>(part, As, hi, lo, [&] {
+    chunk_products<N0, PASSES>(part, As, hi, lo, [&] {
       load(kt + STAGES - 1);
       cp_async_commit();
     });
@@ -390,7 +413,7 @@ __device__ __forceinline__ void mainloop(const float* __restrict__ x, const floa
     for (int i = 0; i < K0; ++i) acc0[i] += part[i];
     if constexpr (N1 > 0) {
       const uint32_t second = (N0 / 8) * kRowGroup;  // the second width's first row group
-      chunk_products<N1>(part, As, hi + second, lo + second, [] {});
+      chunk_products<N1, PASSES>(part, As, hi + second, lo + second, [] {});
 #pragma unroll
       for (int i = 0; i < K1; ++i) acc1[i] += part[i];
     }
@@ -657,15 +680,16 @@ __device__ __forceinline__ void mainloop_bf16(const bf16* __restrict__ x,
   cp_async_wait<0>();
 }
 
-// The main loop for operands of type T (float: 3xTF32, bf16: one product).
-template <typename T, int BM, int NB, int STAGES, int N0, int N1, int K0, int K1>
+// The main loop for operands of type T (float: PASSES TF32 products a
+// product, 3 or 1; bf16: one product).
+template <typename T, int BM, int NB, int STAGES, int N0, int N1, int PASSES = 3, int K0, int K1>
 __device__ __forceinline__ void conv_mainloop(const T* __restrict__ x, const T* __restrict__ w,
                                               int npix, int H, int W, int C, Taps taps, int m0,
                                               unsigned char* smem, uint32_t bars, int arow,
                                               int nb0, float (&acc0)[K0], float (&acc1)[K1]) {
   if constexpr (std::is_same<T, float>::value)
-    mainloop<BM, NB, STAGES, N0, N1>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0, acc0,
-                                     acc1);
+    mainloop<BM, NB, STAGES, N0, N1, PASSES>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
+                                             acc0, acc1);
   else
     mainloop_bf16<BM, NB, STAGES, N0, N1>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
                                           acc0, acc1);

@@ -52,6 +52,14 @@
 // pixels. Both operands are K-contiguous (h and u row-major, W1 and W2 in
 // nn.Linear's (out, in) layout), so the wrapper packs nothing.
 //
+// matmul_precision "default" / "high" (the JAX engine's
+// jax.default_matmul_precision scope; XLA computes an f32 product on a GPU
+// there as one TF32 pass) is the entry convnext_block_tf32: the same
+// kernels templated on the number of passes, gemm_tf32_kernel issuing one
+// mma a product on operands rounded as the split's hi part, f32 sums.
+// Bound: the projections at 495 TFLOP/s, a third of the 3xTF32 bound's
+// products, the depthwise unchanged.
+//
 // C must be a multiple of 4 (16-byte copies), C <= 1536; pixels, channels
 // and hidden units are masked.
 //
@@ -312,12 +320,16 @@ cudaError_t run_dw_ln(const XT* x, const float* dw_w, const float* dw_b, const f
 
 enum Epilogue { kGelu = 0, kResidual = 1, kPartial = 2 };
 
-// v = hi + lo, both TF32: round to nearest (ties away) on the 13 bits TF32
-// drops, with integer ops (cvt.rna.tf32 runs on the quarter-rate conversion
-// pipe). The tensor core reads only the top 19 bits of an operand, so lo is
-// passed rounded the same way without its mask.
+// v rounded to TF32: to nearest (ties away) on the 13 bits TF32 drops, with
+// integer ops (cvt.rna.tf32 runs on the quarter-rate conversion pipe).
+__device__ __forceinline__ uint32_t round_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32. The tensor core reads only the top 19 bits of an
+// operand, so lo is passed rounded the same way without its mask.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  hi = round_tf32(v);
   lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
 }
 
@@ -340,12 +352,15 @@ struct GemmTile {
   static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile");
 };
 
-// One K stage (32) of 3xTF32 products for a warp: part = A[rows, 32] ·
-// B[cols, 32]^T over MT m16 tiles and NT n8 tiles, into a fresh tile (see
-// gemm_3xtf32_kernel for the fragment order and why the tile is fresh). A and B
-// point at the warp's first row of A and of B; lda and kLd are their row
-// strides in floats.
-template <int MT, int NT>
+// One K stage (32) of products for a warp: part = A[rows, 32] · B[cols,
+// 32]^T over MT m16 tiles and NT n8 tiles, into a fresh tile (see gemm_body
+// for the fragment order and why the tile is fresh). PASSES 3: the 3xTF32
+// split of both operands (f32 accuracy, matmul_precision "highest"); 1: one
+// TF32 product of the operands rounded as split_tf32's hi part ("default" /
+// "high", as XLA computes an f32 product on a GPU there). A and B point at
+// the warp's first row of A and of B; lda and kLd are their row strides in
+// floats.
+template <int MT, int NT, int PASSES>
 __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
                                           const float* __restrict__ Bs, float (&part)[MT][NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -361,23 +376,35 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const float2 v = *reinterpret_cast<const float2*>(Bs + (j * 8 + g) * kLd + kk + 2 * t);
-      split_tf32(v.x, bh[j][0], bl[j][0]);
-      split_tf32(v.y, bh[j][1], bl[j][1]);
+      if constexpr (PASSES == 3) {
+        split_tf32(v.x, bh[j][0], bl[j][0]);
+        split_tf32(v.y, bh[j][1], bl[j][1]);
+      } else {
+        bh[j][0] = round_tf32(v.x);
+        bh[j][1] = round_tf32(v.y);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const float2 v0 = *reinterpret_cast<const float2*>(As + (i * 16 + g) * lda + kk + 2 * t);
       const float2 v1 = *reinterpret_cast<const float2*>(As + (i * 16 + g + 8) * lda + kk + 2 * t);
       uint32_t ah[4], al[4];
-      split_tf32(v0.x, ah[0], al[0]);
-      split_tf32(v1.x, ah[1], al[1]);
-      split_tf32(v0.y, ah[2], al[2]);
-      split_tf32(v1.y, ah[3], al[3]);
-      // The small products first, then hi * hi.
+      if constexpr (PASSES == 3) {
+        split_tf32(v0.x, ah[0], al[0]);
+        split_tf32(v1.x, ah[1], al[1]);
+        split_tf32(v0.y, ah[2], al[2]);
+        split_tf32(v1.y, ah[3], al[3]);
+        // The small products first, then hi * hi.
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);
+        for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);
+        for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);
+      } else {
+        ah[0] = round_tf32(v0.x);
+        ah[1] = round_tf32(v1.x);
+        ah[2] = round_tf32(v0.y);
+        ah[3] = round_tf32(v1.y);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bh[j][0], bh[j][1]);
     }
@@ -400,11 +427,15 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
 // The tensor core rounds its f32 accumulator toward zero after each mma, a
 // bias that grows with K; so each K stage (32) is summed into a fresh
 // register tile and added to the running sum with an ordinary f32 add.
-template <int BN, int EPI>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ Bw, int M, int N, int K,
-            int k_span, const float* __restrict__ bias, const float* __restrict__ x,
-            const float* __restrict__ scale, float* __restrict__ out) {
+//
+// The body of gemm_3xtf32_kernel (PASSES 3) and gemm_tf32_kernel (1), two
+// kernel names so that a profiler trace tells them apart.
+template <int BN, int EPI, int PASSES>
+__device__ __forceinline__ void gemm_body(const float* __restrict__ A, const float* __restrict__ Bw,
+                                          int M, int N, int K, int k_span,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ scale, float* __restrict__ out) {
   using T = GemmTile<BN>;
   constexpr int BM = T::BM, MT = T::MT, NT = T::NT;
   extern __shared__ __align__(16) float smem[];
@@ -462,7 +493,7 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ Bw, in
     const float* As = smem + (kt % kStages) * T::STAGE + (wm * T::WM) * kLd;
     const float* Bs = As - (wm * T::WM) * kLd + BM * kLd + (wn * T::WN) * kLd;
     float part[MT][NT][4];
-    mma_stage<MT, NT>(As, kLd, Bs, part);
+    mma_stage<MT, NT, PASSES>(As, kLd, Bs, part);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -499,6 +530,20 @@ gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ Bw, in
   }
 }
 
+#define GEMM_PARAMS                                                                           \
+  const float *__restrict__ A, const float *__restrict__ Bw, int M, int N, int K, int k_span, \
+      const float *__restrict__ bias, const float *__restrict__ x,                            \
+      const float *__restrict__ scale, float *__restrict__ out
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(GEMM_PARAMS) {
+  gemm_body<BN, EPI, 3>(A, Bw, M, N, K, k_span, bias, x, scale, out);
+}
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 2) gemm_tf32_kernel(GEMM_PARAMS) {
+  gemm_body<BN, EPI, 1>(A, Bw, M, N, K, k_span, bias, x, scale, out);
+}
+#undef GEMM_PARAMS
+
 // Adds the split partials in split order, then the residual epilogue.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const float4* __restrict__ partial, const float4* __restrict__ x,
@@ -521,17 +566,17 @@ reduce_kernel(const float4* __restrict__ partial, const float4* __restrict__ x,
                        xv.w + (s.w + bias[c + 3]) * scale[c + 3]);
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, int PASSES>
 cudaError_t launch_gemm(const float* A, const float* Bw, int M, int N, int K, int splits,
                         int k_span, const float* bias, const float* x, const float* scale,
                         float* out, cudaStream_t stream) {
   constexpr size_t smem = GemmTile<BN>::SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(gemm_3xtf32_kernel<BN, EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = PASSES == 3 ? gemm_3xtf32_kernel<BN, EPI> : gemm_tf32_kernel<BN, EPI>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, splits);
-  gemm_3xtf32_kernel<BN, EPI><<<grid, kThreads, smem, stream>>>(A, Bw, M, N, K, k_span, bias, x,
-                                                               scale, out);
+  kernel<<<grid, kThreads, smem, stream>>>(A, Bw, M, N, K, k_span, bias, x, scale, out);
   return cudaGetLastError();
 }
 
@@ -576,37 +621,64 @@ Plan make_plan(long long M, int C, int sms) {
   return p;
 }
 
+template <int PASSES>
 cudaError_t run_gemm1(const float* h, const float* w1, const float* b1, float* u, int M, int C,
                       const Plan& p, cudaStream_t stream) {
   const int N = 4 * C, K = C;
   if (p.bn1 == 128)
-    return launch_gemm<128, kGelu>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
-  return launch_gemm<96, kGelu>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
+    return launch_gemm<128, kGelu, PASSES>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
+  return launch_gemm<96, kGelu, PASSES>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
 }
 
-template <int BN>
+template <int BN, int PASSES>
 cudaError_t gemm2_tiles(const float* u, const float* w2, const float* b2, const float* x,
                         const float* scale, float* partial, float* out, int M, int C,
                         const Plan& p, cudaStream_t stream) {
   const int N = C, K = 4 * C;
   if (p.splits == 1)
-    return launch_gemm<BN, kResidual>(u, w2, M, N, K, 1, K, b2, x, scale, out, stream);
-  return launch_gemm<BN, kPartial>(u, w2, M, N, K, p.splits, p.k_span, nullptr, nullptr, nullptr,
-                                   partial, stream);
+    return launch_gemm<BN, kResidual, PASSES>(u, w2, M, N, K, 1, K, b2, x, scale, out, stream);
+  return launch_gemm<BN, kPartial, PASSES>(u, w2, M, N, K, p.splits, p.k_span, nullptr, nullptr,
+                                           nullptr, partial, stream);
 }
 
+template <int PASSES>
 cudaError_t run_gemm2(const float* u, const float* w2, const float* b2, const float* x,
                       const float* scale, float* partial, float* out, int M, int C,
                       const Plan& p, cudaStream_t stream) {
-  cudaError_t e = p.bn2 == 128
-                      ? gemm2_tiles<128>(u, w2, b2, x, scale, partial, out, M, C, p, stream)
-                      : gemm2_tiles<96>(u, w2, b2, x, scale, partial, out, M, C, p, stream);
+  cudaError_t e =
+      p.bn2 == 128
+          ? gemm2_tiles<128, PASSES>(u, w2, b2, x, scale, partial, out, M, C, p, stream)
+          : gemm2_tiles<96, PASSES>(u, w2, b2, x, scale, partial, out, M, C, p, stream);
   if (e != cudaSuccess || p.splits == 1) return e;
   const long long n4 = (long long)M * C / 4;
   reduce_kernel<<<(unsigned)cdiv(n4, kThreads), kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(partial), reinterpret_cast<const float4*>(x), b2, scale,
       reinterpret_cast<float4*>(out), n4, C, p.splits);
   return cudaGetLastError();
+}
+
+// The f32 entries' body: the depthwise + LN, then the two GEMMs with PASSES
+// TF32 products a product.
+template <int PASSES>
+int run_block_f32(const float* x, const float* dw_w, const float* dw_b, const float* ln_g,
+                  const float* ln_b, const float* w1, const float* b1, const float* w2,
+                  const float* b2, const float* scale, float* workspace, float* out, int B, int H,
+                  int W, int C, int sms, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxC || C % 4 || H > 65535 || B > 65535 ||
+      sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  if (cdiv(M, kBM) > 65535) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(M, C, sms);
+  float* h = workspace;
+  float* u = h + M * C;
+  float* partial = u + M * 4 * C;
+  cudaError_t e =
+      run_dw_ln<float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
+  if (e == cudaSuccess) e = run_gemm1<PASSES>(h, w1, b1, u, (int)M, C, p, stream);
+  if (e == cudaSuccess)
+    e = run_gemm2<PASSES>(u, w2, b2, x, scale, partial, out, (int)M, C, p, stream);
+  return (int)e;
 }
 
 }  // namespace
@@ -702,27 +774,28 @@ extern "C" long long convnext_block_f32_workspace(int B, int H, int W, int C, in
 // x and out are (B, H, W, C) f32, contiguous, 16-byte aligned; workspace
 // holds convnext_block_f32_workspace(B, H, W, C, sms) floats. The weights are
 // in PyTorch's layouts: dw_w (C, 1, 7, 7), w1 (4C, C), w2 (C, 4C); the
-// vectors have C entries, b1 has 4C.
+// vectors have C entries, b1 has 4C. The projections at f32 accuracy
+// (3xTF32), matmul_precision "highest".
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int convnext_block_f32(const float* x, const float* dw_w, const float* dw_b,
                                   const float* ln_g, const float* ln_b, const float* w1,
                                   const float* b1, const float* w2, const float* b2,
                                   const float* scale, float* workspace, float* out, int B,
                                   int H, int W, int C, int sms, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxC || C % 4 || H > 65535 || B > 65535 ||
-      sms <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  if (cdiv(M, kBM) > 65535) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(M, C, sms);
-  float* h = workspace;
-  float* u = h + M * C;
-  float* partial = u + M * 4 * C;
-  cudaError_t e =
-      run_dw_ln<float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
-  if (e == cudaSuccess) e = run_gemm1(h, w1, b1, u, (int)M, C, p, stream);
-  if (e == cudaSuccess) e = run_gemm2(u, w2, b2, x, scale, partial, out, (int)M, C, p, stream);
-  return (int)e;
+  return run_block_f32<3>(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, workspace, out, B, H,
+                          W, C, sms, stream);
+}
+
+// As convnext_block_f32, the projections as one TF32 product a product
+// (matmul_precision "default" / "high"): both operands rounded to TF32 as
+// the 3xTF32 split's hi part, f32 sums.
+extern "C" int convnext_block_tf32(const float* x, const float* dw_w, const float* dw_b,
+                                   const float* ln_g, const float* ln_b, const float* w1,
+                                   const float* b1, const float* w2, const float* b2,
+                                   const float* scale, float* workspace, float* out, int B,
+                                   int H, int W, int C, int sms, cudaStream_t stream) {
+  return run_block_f32<1>(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, workspace, out, B, H,
+                          W, C, sms, stream);
 }
 
 #endif  // CONVNEXT_BLOCK_BF16

@@ -132,8 +132,10 @@ __device__ __forceinline__ long long out_pixel(int m, int H, int W, int pa, int 
 // within each 8 as conv_gemm.cuh says, for bf16 one part in K's order; zero
 // past the head's F and past C; vec (heads, 3, N): smoothing bias, LN
 // scale, LN bias; w2 (heads, kMaxOut, N) and b2 (heads, kMaxOut), zero past
-// each head's real sizes; out (B, 2H, 2W, Mtot).
-template <typename T, int N, bool ROUND_Y>
+// each head's real sizes; out (B, 2H, 2W, Mtot). PASSES: TF32 products a
+// product for f32 (conv_gemm.cuh's mainloop: 3, or 1 for matmul_precision
+// "default" / "high").
+template <typename T, int N, bool ROUND_Y, int PASSES = 3>
 __global__ void __launch_bounds__(kThreads, 1)
 heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const float* __restrict__ vec, const float* __restrict__ w2,
@@ -159,8 +161,9 @@ heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // Tap t of phase (pa, pb) reads source pixel (i + pa - 1 + t / 2, j + pb - 1 + t % 2).
   const int arow = 64 * (tid / 128);
   float acc0[N0 / 2], acc1[N1 / 2];
-  conv_mainloop<T, kBM, N, kStages, N0, N1>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0,
-                                            smem, bars, arow, 0, acc0, acc1);
+  conv_mainloop<T, kBM, N, kStages, N0, N1, PASSES>(x, wb, npix, H, W, C,
+                                                    Taps{4, 2, pa - 1, pb - 1}, m0, smem, bars,
+                                                    arow, 0, acc0, acc1);
 
   int F, M, moff;
   head_sizes(sizes, head, F, M, moff);
@@ -209,7 +212,7 @@ heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // stores z = acc + bias (f32) to ws (heads, 4 phases, chunk, slices N),
 // pixel p0 + r at row r. w (heads, slices, 4 phases, ...) as heads_kernel's
 // per slice; vec (heads, 3, slices N).
-template <typename T, int N>
+template <typename T, int N, int PASSES = 3>
 __global__ void __launch_bounds__(kThreads, 1)
 heads_sums_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ vec, float* __restrict__ ws, int slices, int p0,
@@ -227,8 +230,9 @@ heads_sums_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + L::R::BYTES;
   const int arow = 64 * (tid / 128);
   float acc0[N0 / 2], acc1[N1 / 2];
-  conv_mainloop<T, kBM, N, kStages, N0, N1>(x, wb, p0 + n, H, W, C, Taps{4, 2, pa - 1, pb - 1},
-                                            p0 + r0, smem, bars, arow, 0, acc0, acc1);
+  conv_mainloop<T, kBM, N, kStages, N0, N1, PASSES>(x, wb, p0 + n, H, W, C,
+                                                    Taps{4, 2, pa - 1, pb - 1}, p0 + r0, smem,
+                                                    bars, arow, 0, acc0, acc1);
   const int fp = slices * N;
   float* wsb = ws + (long long)(head * 4 + phase) * chunk * fp;
   const float* bias = vec + (long long)head * 3 * fp;
@@ -277,8 +281,9 @@ heads_ln_kernel(const float* __restrict__ ws, const float* __restrict__ vec,
 
 // The C entry points' body: checks, head sizes, one launch (where the
 // heads are split into slices, two a chunk of `chunk` pixels, a multiple of
-// kBM; ws then holds heads x 4 x chunk x slices N floats).
-template <typename T, int N, bool ROUND_Y>
+// kBM; ws then holds heads x 4 x chunk x slices N floats). PASSES as
+// heads_kernel's.
+template <typename T, int N, bool ROUND_Y, int PASSES = 3>
 int launch_heads(const T* x, const T* w, const float* vec, const float* w2, const float* b2,
                  float* out, float* ws, int chunk, const int* F, const int* M, int heads,
                  int slices, int B, int H, int W, int C, cudaStream_t stream) {
@@ -302,20 +307,21 @@ int launch_heads(const T* x, const T* w, const float* vec, const float* w2, cons
   const long long tiles = (npix + kBM - 1) / kBM;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   if (slices == 1) {
-    cudaError_t e = allow_smem(heads_kernel<T, N, ROUND_Y>, L::SMEM_BYTES);
+    cudaError_t e = allow_smem(heads_kernel<T, N, ROUND_Y, PASSES>, L::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(4 * heads, (unsigned)tiles);
-    heads_kernel<T, N, ROUND_Y><<<grid, kThreads, L::SMEM_BYTES, stream>>>(
+    heads_kernel<T, N, ROUND_Y, PASSES><<<grid, kThreads, L::SMEM_BYTES, stream>>>(
         x, w, vec, w2, b2, out, sizes, (int)npix, H, W, C, mtot);
     return (int)cudaGetLastError();
   }
   constexpr size_t smem = (size_t)L::R::BYTES + 8 * kStages;
-  cudaError_t e = allow_smem(heads_sums_kernel<T, N>, smem);
+  cudaError_t e = allow_smem(heads_sums_kernel<T, N, PASSES>, smem);
   if (e != cudaSuccess) return (int)e;
   for (int p0 = 0; p0 < npix; p0 += chunk) {
     const int n = (int)std::min<long long>(chunk, npix - p0);
-    heads_sums_kernel<T, N><<<dim3(4 * heads * slices, (n + kBM - 1) / kBM), kThreads, smem,
-                              stream>>>(x, w, vec, ws, slices, p0, n, chunk, H, W, C);
+    heads_sums_kernel<T, N, PASSES><<<dim3(4 * heads * slices, (n + kBM - 1) / kBM), kThreads,
+                                      smem, stream>>>(x, w, vec, ws, slices, p0, n, chunk, H, W,
+                                                      C);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int rows = (n + kThreads / 32 - 1) / (kThreads / 32);

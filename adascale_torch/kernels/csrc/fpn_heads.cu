@@ -45,6 +45,17 @@ extern "C" int fpn_heads_f32(const float* x, const float* w, const float* vec, c
                                                   slices, B, H, W, C, stream);
 }
 
+// As fpn_heads_f32, the products as one TF32 product a product
+// (matmul_precision "default" / "high"): x rounded to TF32 in registers,
+// only the packed weights' hi part read.
+extern "C" int fpn_heads_tf32(const float* x, const float* w, const float* vec, const float* w2,
+                              const float* b2, float* out, float* ws, int chunk, const int* F,
+                              const int* M, int heads, int slices, int B, int H, int W, int C,
+                              cudaStream_t stream) {
+  return fpn_head::launch_heads<float, kN, false, 1>(x, w, vec, w2, b2, out, ws, chunk, F, M,
+                                                     heads, slices, B, H, W, C, stream);
+}
+
 // As fpn_heads_f32 with x and w in bf16 (C % 8 == 0); with one slice, w
 // as fpn_head::heads_tma_kernel takes it (packing.pack_sw128's chunks).
 extern "C" int fpn_heads_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* vec,

@@ -19,6 +19,10 @@
 // dense TF32 (700 W): 0.206 ms at 240x192, 0.238 ms at 256x208, against
 // ~0.03 ms for its bytes (f0, u and z0 once). Bound by operations.
 //
+// matmul_precision "default" / "high": the entry fpn_neck_l0_tf32, the same
+// launches with one TF32 product a product (conv_gemm.cuh, PASSES 1), a
+// third of the products: 0.069 ms at 240x192 at 495 TFLOP/s.
+//
 // Design: two launches of the implicit GEMM of conv_gemm.cuh (3xTF32 wgmma,
 // B packed once per parameter set by the wrapper), where the TPU kernel
 // made one pass over row bands and recomputed step1 for the halo rows:
@@ -96,7 +100,9 @@ static_assert(kSmem1<bf16> <= 232448 && 2 * (kSmem2<bf16> + 1024) <= 233472, "sh
 // 8, 8, 16 bytes of K) and vec1 (3, slices kMid): b1, LN scale, LN bias,
 // zero past Cm; u and t (B, H, W, Cm). With SUMS, block (x, y) stores
 // slice y's pre-LN sums to ws (npix, slices kMid) and writes no t.
-template <typename T, bool SUMS>
+// PASSES: TF32 products a product for f32 (conv_gemm.cuh's mainloop: 3, or
+// 1 for matmul_precision "default" / "high").
+template <typename T, bool SUMS, int PASSES = 3>
 __global__ void __launch_bounds__(kThreads, 1)
 neck_step1_kernel(const T* __restrict__ f0, const T* __restrict__ w1,
                   const float* __restrict__ vec1, const T* __restrict__ u,
@@ -117,8 +123,8 @@ neck_step1_kernel(const T* __restrict__ f0, const T* __restrict__ w1,
   const int chunks = (C0 + kKC - 1) / kKC;
   const T* wb = w1 + (long long)slice * chunks * kParts<T> * kMid * kKC;
   float acc0[48], acc1[48];
-  conv_mainloop<T, kBM1, kMid, 2, 96, 96>(f0, wb, npix, H, W, C0, Taps{1, 1, 0, 0}, m0, smem,
-                                          bars, 0, nb0, acc0, acc1);
+  conv_mainloop<T, kBM1, kMid, 2, 96, 96, PASSES>(f0, wb, npix, H, W, C0, Taps{1, 1, 0, 0}, m0,
+                                                  smem, bars, 0, nb0, acc0, acc1);
   const int t4 = tid % 4;
   if constexpr (SUMS) {
     const int m = m0 + quad_row();
@@ -165,8 +171,8 @@ neck_step1_kernel(const T* __restrict__ f0, const T* __restrict__ w1,
 // t (B, H, W, Cm); w2 (slices, 9 taps, ceil(Cm/32) chunks, parts, kNB/8, 8,
 // 8, 16 bytes of K) and vec2 (3, slices kNB): b2, LN scale, LN bias, zero
 // past Co; out (B, H, W, Co). With SUMS, block (x, y) stores slice y's
-// pre-LN sums to ws (npix, slices kNB) and writes no out.
-template <typename T, bool SUMS>
+// pre-LN sums to ws (npix, slices kNB) and writes no out. PASSES as step1's.
+template <typename T, bool SUMS, int PASSES = 3>
 __global__ void __launch_bounds__(kThreads, 2)
 neck_step2_kernel(const T* __restrict__ t, const T* __restrict__ w2,
                   const float* __restrict__ vec2, T* __restrict__ out, float* __restrict__ ws,
@@ -187,8 +193,8 @@ neck_step2_kernel(const T* __restrict__ t, const T* __restrict__ w2,
   const int chunks = (Cm + kKC - 1) / kKC;
   const T* wb = w2 + (long long)slice * 9 * chunks * kParts<T> * kNB * kKC;
   float acc[kNB / 2], none[1];
-  conv_mainloop<T, kBM2, kNB, 2, kNB, 0>(t, wb, npix, H, W, Cm, Taps{9, 3, -1, -1}, m0, smem, bars,
-                                         arow, 0, acc, none);
+  conv_mainloop<T, kBM2, kNB, 2, kNB, 0, PASSES>(t, wb, npix, H, W, Cm, Taps{9, 3, -1, -1}, m0,
+                                                 smem, bars, arow, 0, acc, none);
   const int t4 = tid % 4, row0 = arow + quad_row();
   if constexpr (SUMS) {
     store_sums(acc, ws, m0 + row0, npix, cop, slice * kNB, t4, vec2);
@@ -240,7 +246,7 @@ ln_gelu_rows(const float* __restrict__ ws, const float* __restrict__ vec,
   }
 }
 
-template <typename T>
+template <typename T, int PASSES = 3>
 int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w2,
              const float* vec2, T* t, T* out, float* ws, int B, int H, int W, int C0, int Cm,
              int Co, cudaStream_t stream) {
@@ -258,14 +264,14 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
   constexpr size_t smem1 = kSmem1<T>, smem2 = kSmem2<T>;
   cudaError_t e;
   if (s1 == 1) {
-    e = allow_smem(neck_step1_kernel<T, false>, smem1);
+    e = allow_smem(neck_step1_kernel<T, false, PASSES>, smem1);
     if (e != cudaSuccess) return (int)e;
-    neck_step1_kernel<T, false><<<grid1, kThreads, smem1, stream>>>(f0, w1, vec1, u, t, ws,
+    neck_step1_kernel<T, false, PASSES><<<grid1, kThreads, smem1, stream>>>(f0, w1, vec1, u, t, ws,
                                                                       (int)npix, H, W, C0, Cm);
   } else {
-    e = allow_smem(neck_step1_kernel<T, true>, smem1);
+    e = allow_smem(neck_step1_kernel<T, true, PASSES>, smem1);
     if (e != cudaSuccess) return (int)e;
-    neck_step1_kernel<T, true><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
+    neck_step1_kernel<T, true, PASSES><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
         f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -274,14 +280,14 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (s2 == 1) {
-    e = allow_smem(neck_step2_kernel<T, false>, smem2);
+    e = allow_smem(neck_step2_kernel<T, false, PASSES>, smem2);
     if (e != cudaSuccess) return (int)e;
-    neck_step2_kernel<T, false><<<grid2, kThreads, smem2, stream>>>(t, w2, vec2, out, ws,
+    neck_step2_kernel<T, false, PASSES><<<grid2, kThreads, smem2, stream>>>(t, w2, vec2, out, ws,
                                                                       (int)npix, H, W, Cm, Co);
   } else {
-    e = allow_smem(neck_step2_kernel<T, true>, smem2);
+    e = allow_smem(neck_step2_kernel<T, true, PASSES>, smem2);
     if (e != cudaSuccess) return (int)e;
-    neck_step2_kernel<T, true><<<dim3(grid2, s2), kThreads, smem2, stream>>>(
+    neck_step2_kernel<T, true, PASSES><<<dim3(grid2, s2), kThreads, smem2, stream>>>(
         t, w2, vec2, out, ws, (int)npix, H, W, Cm, Co);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -563,6 +569,16 @@ extern "C" int fpn_neck_l0_f32(const float* f0, const float* u, const float* w1,
                                float* out, float* ws, int B, int H, int W, int C0, int Cm, int Co,
                                cudaStream_t stream) {
   return run_neck<float>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
+}
+
+// As fpn_neck_l0_f32, the products as one TF32 product a product
+// (matmul_precision "default" / "high"): f0 and t rounded to TF32 in
+// registers, only the packed weights' hi parts read.
+extern "C" int fpn_neck_l0_tf32(const float* f0, const float* u, const float* w1,
+                                const float* vec1, const float* w2, const float* vec2, float* t,
+                                float* out, float* ws, int B, int H, int W, int C0, int Cm, int Co,
+                                cudaStream_t stream) {
+  return run_neck<float, 1>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
 }
 
 // As fpn_neck_l0_f32 with f0, u, t, out and the packed w1, w2 in bf16 (C0 %

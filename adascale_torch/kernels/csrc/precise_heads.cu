@@ -42,6 +42,17 @@ extern "C" int precise_heads_f32(const float* x, const float* w, const float* ve
                                                   slices, B, H, W, C, stream);
 }
 
+// As precise_heads_f32, the products as one TF32 product a product
+// (matmul_precision "default" / "high"): x rounded to TF32 in registers,
+// only the packed weights' hi part read.
+extern "C" int precise_heads_tf32(const float* x, const float* w, const float* vec,
+                                  const float* w2, const float* b2, float* out, float* ws,
+                                  int chunk, const int* F, const int* M, int heads, int slices,
+                                  int B, int H, int W, int C, cudaStream_t stream) {
+  return fpn_head::launch_heads<float, kN, false, 1>(x, w, vec, w2, b2, out, ws, chunk, F, M,
+                                                     heads, slices, B, H, W, C, stream);
+}
+
 // As precise_heads_f32 with x and w in bf16 (C % 8 == 0; with one slice, w
 // as fpn_head::heads_tma_kernel takes it), the GELU output rounded to bf16
 // before the projection (w2 holds bf16 values).

@@ -26,7 +26,12 @@ projection, f32 out (one bf16 product a product: 0.22 ms at 989 TFLOP/s),
 on the persistent, TMA-fed loop of ``csrc/conv_tma.cuh``
 (``fpn_head.cuh::heads_tma_kernel``, the taps packed by
 ``packing.pack_sw128``);
-its plain twin is ``heads_phase_form(..., kernel=True)``. Heads wider than
+its plain twin is ``heads_phase_form(..., kernel=True)``. Inside a
+``utils.precision.matmul_precision("default")`` or ``("high")`` scope an
+f32 ``x`` on the card launches the single-pass entry ``fpn_heads_tf32`` (one
+TF32 ``wgmma`` a product on ``x`` and the collapsed taps rounded to TF32,
+only the packed taps' hi part read; 0.44 ms at 495 TFLOP/s; counted in
+``LAUNCHES_TF32``), whose plain twin is ``heads_phase_form(..., tf32=True)``. Heads wider than
 the kernel's tile (192 features; the base and large backbones' 256 and 384)
 run split into slices of the tile (``csrc/fpn_head.cuh``).
 
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_upsample import heads_phase_form, phase_tap_weights
+from ..utils.precision import tf32_products
 from . import _nvcc, packing
 from .fpn_neck import fpn_neck_forward_fused
 from .packing import KC
@@ -53,6 +59,8 @@ LAUNCHES = 0
 # Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
 # the f32 ones).
 LAUNCHES_BF16 = 0
+# Calls that launched the single-pass TF32 entry, counted apart.
+LAUNCHES_TF32 = 0
 
 MAX_HEADS = 4
 MAX_OUT = 4
@@ -72,8 +80,9 @@ Params = Dict[str, torch.Tensor]
 
 def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     """Declare the C signatures of a heads library (``<prefix>_f32``,
-    ``<prefix>_bf16``, ``<prefix>_tile_width`` and ``<prefix>_max_width``)."""
-    for dtype in ("f32", "bf16"):
+    ``<prefix>_tf32``, ``<prefix>_bf16``, ``<prefix>_tile_width`` and
+    ``<prefix>_max_width``)."""
+    for dtype in ("f32", "tf32", "bf16"):
         fn = getattr(lib, f"{prefix}_{dtype}")
         fn.argtypes = (
             [ctypes.c_void_p] * 7
@@ -174,9 +183,11 @@ def run_heads_kernel(
     heads: Sequence[Params],
     wrapper: str,
     round_y: bool = False,
+    tf32: bool = False,
 ) -> List[torch.Tensor]:
     """Check, pack (once per parameter set) and launch a heads library on a
-    CUDA tensor, f32 or bf16 (``round_y`` for the precise heads). Returns each
+    CUDA tensor, f32 or bf16 (``round_y`` for the precise heads), an f32
+    ``x`` through the single-pass TF32 entry where ``tf32``. Returns each
     head's (B, 2H, 2W, M) f32 output, a view into one packed map. Raises
     where a gradient is wanted (``_nvcc.refuse_grad``, naming ``wrapper``)."""
     _nvcc.check_activation(f"{prefix} x", x, x.device, tuple(_nvcc.CHANNEL_MULTIPLE))
@@ -216,7 +227,7 @@ def run_heads_kernel(
     )
     f_arr = (ctypes.c_int * nh)(*widths)
     m_arr = (ctypes.c_int * nh)(*outs)
-    entry = f"{prefix}_{'bf16' if bf16 else 'f32'}"
+    entry = f"{prefix}_{'bf16' if bf16 else 'tf32' if tf32 else 'f32'}"
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), packed["w"].data_ptr(), packed["vec"].data_ptr(), packed["w2"].data_ptr(),
@@ -231,12 +242,13 @@ def run_heads_kernel(
 
 
 def fused_rough_heads_plain(
-    x: torch.Tensor, p_mask: Params, p_height: Params
+    x: torch.Tensor, p_mask: Params, p_height: Params, tf32: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eager PyTorch twin of the kernel: (mask logits, raw height), f32; for
-    a bf16 ``x`` rounded where the bf16 kernel rounds."""
+    a bf16 ``x`` rounded where the bf16 kernel rounds; ``tf32`` (f32): the
+    single-pass TF32 entry's twin."""
     bf16 = x.dtype == torch.bfloat16
-    mask_logits, height_raw = heads_phase_form(x, [p_mask, p_height], kernel=bf16)
+    mask_logits, height_raw = heads_phase_form(x, [p_mask, p_height], kernel=bf16, tf32=tf32 and not bf16)
     return mask_logits, height_raw
 
 
@@ -246,15 +258,18 @@ def fused_rough_heads(
     """(mask logits, raw height), each (B, 2H, 2W, 1) f32, from an f32 or
     bf16 ``x``: the CUDA kernel on a CUDA tensor, the plain version on a CPU
     tensor. On the card it raises where a gradient is wanted."""
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_TF32
     _nvcc.check_dtype("fused_rough_heads x", x)
     if x.device.type == "cpu":
         return fused_rough_heads_plain(x, p_mask, p_height)
+    tf32 = x.dtype == torch.float32 and tf32_products()
     mask_logits, height_raw = run_heads_kernel(
-        build, "fpn_heads", x, [p_mask, p_height], "fused_rough_heads"
+        build, "fpn_heads", x, [p_mask, p_height], "fused_rough_heads", tf32=tf32
     )
     if x.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
+    elif tf32:
+        LAUNCHES_TF32 += 1
     else:
         LAUNCHES += 1
     return mask_logits, height_raw

@@ -27,6 +27,13 @@ the kernel's tiles (Cm 384, Co 96: the base and large backbones' 512 / 128
 and 768 / 192) run each step split into slices of its tile, with a second
 pass for the LayerNorm (``csrc/fpn_neck_l0.cu``).
 
+Inside a ``utils.precision.matmul_precision("default")`` or ``("high")``
+scope an f32 call on the card launches the single-pass entry
+``fpn_neck_l0_tf32`` (one TF32 ``wgmma`` a product, reading only the packed
+weights' hi part; 0.069 ms at 240x192 at 495 TFLOP/s; counted in
+``LAUNCHES_TF32``), whose plain twin is ``fused_neck_l0_plain(...,
+tf32=True)``.
+
 ``fpn_neck_forward_fused(neck, features)`` is the counterpart of
 ``adascale/ops/pallas/fpn_neck.py::fpn_neck_forward_fused``: the port's
 ``FpnNeck`` output with level 0 through ``fused_neck_l0`` and levels 1..n
@@ -42,7 +49,7 @@ names: ``step1_0.conv.weight`` (Cm, C0), ``step1_0.conv.bias``,
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +57,7 @@ from torch import nn
 
 from ..ops.bf16 import round_bf16
 from ..ops.resize import resize_nearest
+from ..utils.precision import round_tf32, tf32_products
 from . import _nvcc, packing
 
 # Calls that launched the kernel (its two CUDA launches count once).
@@ -57,6 +65,8 @@ LAUNCHES = 0
 # Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
 # the f32 ones).
 LAUNCHES_BF16 = 0
+# Calls that launched the single-pass TF32 entry, counted apart.
+LAUNCHES_TF32 = 0
 
 EPS = 1e-6
 # The packed layout's slice widths, as csrc/fpn_neck_l0.cu reads them
@@ -74,7 +84,7 @@ PARAM_NAMES = (
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _nvcc.build("fpn_neck_l0", "fpn_neck_l0.cu")
-    for fn in (lib.fpn_neck_l0_f32, lib.fpn_neck_l0_bf16):
+    for fn in (lib.fpn_neck_l0_f32, lib.fpn_neck_l0_tf32, lib.fpn_neck_l0_bf16):
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     widths = []
@@ -96,22 +106,26 @@ def _ln_gelu(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch
 
 
 def fused_neck_l0_plain(
-    f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor]
+    f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor], tf32: bool = False
 ) -> torch.Tensor:
     """Eager PyTorch twin of the kernel (NHWC in, NHWC out). For bf16 ``f0``
     and ``u`` it computes in f32 on the bf16 values and rounds ``t`` and the
-    output to bf16, where the bf16 kernel rounds."""
+    output to bf16, where the bf16 kernel rounds. ``tf32`` (f32): the
+    single-pass TF32 entry's twin, both operands of each product rounded to
+    TF32 as the kernel rounds them (``f0`` and ``W1``, ``t`` and ``W2``),
+    summed in f32 (run it in full f32, ``pin_full_f32``)."""
     w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
     bf16 = f0.dtype == torch.bfloat16
+    r = round_tf32 if tf32 and not bf16 else (lambda v: v)
     if bf16:
         f0, u, w1, w2 = f0.float(), u.float(), round_bf16(w1), round_bf16(w2)
     a = _ln_gelu(
-        F.linear(f0, w1, p["step1_0.conv.bias"]), p["step1_0.ln.weight"], p["step1_0.ln.bias"],
+        F.linear(r(f0), r(w1), p["step1_0.conv.bias"]), p["step1_0.ln.weight"], p["step1_0.ln.bias"],
     )
     t = a + u
     if bf16:
         t = round_bf16(t)
-    z = F.conv2d(t.permute(0, 3, 1, 2), w2, p["step2_0.conv.bias"], padding=1)
+    z = F.conv2d(r(t).permute(0, 3, 1, 2), r(w2), p["step2_0.conv.bias"], padding=1)
     out = _ln_gelu(z.permute(0, 2, 3, 1), p["step2_0.ln.weight"], p["step2_0.ln.bias"])
     return out.to(torch.bfloat16) if bf16 else out
 
@@ -177,12 +191,17 @@ def packed_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) 
     )
 
 
-def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+def fused_neck_l0(
+    f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """The level-0 chain, f32 or bf16 (``f0`` and ``u`` of one dtype; the
-    output in it): the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor. On the card it raises where a gradient is wanted
-    (``_nvcc.refuse_grad``)."""
-    global LAUNCHES, LAUNCHES_BF16
+    output in it): the CUDA kernel on a CUDA tensor (f32 inside a "default"
+    or "high" ``matmul_precision`` scope: its single-pass TF32 entry), the
+    plain version on a CPU tensor. On the card it raises where a gradient is
+    wanted (``_nvcc.refuse_grad``). ``t``: a buffer like ``u`` for the
+    chain's intermediate ``t = a + u``, which the 3x3 reads (``chip_smoke.py``
+    holds each step against its twin on it); else one is allocated."""
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_TF32
     _nvcc.check_dtype("fused_neck_l0 f0", f0)
     _nvcc.check_dtype("fused_neck_l0 u", u)
     if f0.device.type == "cpu":
@@ -206,11 +225,15 @@ def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor])
         raise ValueError(f"fused_neck_l0: bf16 C0={c0}; the one-pass kernel takes C0 <= {lib.fpn_neck_l0_bf16_max_c0()}")
     packed = packed_neck(p, f0.dtype)
     s1, s2 = slices(cm, co)
-    t = torch.empty_like(u)
+    if t is None:
+        t = torch.empty_like(u)
+    elif t.shape != u.shape or t.dtype != u.dtype or t.device != u.device or not t.is_contiguous():
+        raise ValueError(f"fused_neck_l0: t must be contiguous, {tuple(u.shape)} {u.dtype} on {u.device}")
     out = torch.empty(b, h, w, co, dtype=f0.dtype, device=f0.device)
     ws_cols = max(s1 * MID_WIDTH if s1 > 1 else 0, s2 * OUT_WIDTH if s2 > 1 else 0)
     ws = torch.empty(b * h * w * ws_cols, dtype=torch.float32, device=f0.device) if ws_cols else None
-    entry = "fpn_neck_l0_bf16" if f0.dtype == torch.bfloat16 else "fpn_neck_l0_f32"
+    tf32 = f0.dtype == torch.float32 and tf32_products()
+    entry = "fpn_neck_l0_" + ("bf16" if f0.dtype == torch.bfloat16 else "tf32" if tf32 else "f32")
     with torch.cuda.device(f0.device):
         rc = getattr(lib, entry)(
             f0.data_ptr(), u.data_ptr(), packed["w1"].data_ptr(), packed["vec1"].data_ptr(),
@@ -224,6 +247,8 @@ def fused_neck_l0(f0: torch.Tensor, u: torch.Tensor, p: Dict[str, torch.Tensor])
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     if f0.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
+    elif tf32:
+        LAUNCHES_TF32 += 1
     else:
         LAUNCHES += 1
     return out

@@ -25,6 +25,8 @@ from typing import Callable, Dict, Hashable, Sequence
 
 import torch
 
+from ..utils.precision import round_tf32 as tf32_round
+
 # The packed layout's constants, as csrc/conv_gemm.cuh reads them: input
 # channels a kernel stage (kKC), and the channel each wgmma K slot of a group
 # of 8 holds (thread t of a quad loads channels 2t and 2t + 1, its K slots t
@@ -41,12 +43,6 @@ _PACKED: Dict[int, tuple] = {}
 # Packs built (calls of a ``pack``), so that a run can show that warm calls
 # build none.
 PACKS = 0
-
-
-def tf32_round(v: torch.Tensor) -> torch.Tensor:
-    """f32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties
-    away from zero, by integer ops on its bits, as the kernels split A."""
-    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 def pack_kmajor(taps: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,11 @@ GELU output and projection rounded to bf16 before the projection, as the
 Pallas kernel's compute-dtype projection; 0.51 ms at 989 TFLOP/s; on the
 TMA-fed loop of ``csrc/conv_tma.cuh``, ``fpn_head.cuh::heads_tma_kernel``); heads
 wider than the 200-wide tile (base 256-258, large 384-386) run split into
-slices of it.
+slices of it. Inside a ``utils.precision.matmul_precision("default")`` or
+``("high")`` scope an f32 ``x`` on the card launches the single-pass entry
+``precise_heads_tf32`` (as the rough heads'; 1.02 ms at 495 TFLOP/s;
+counted in ``LAUNCHES_TF32``), whose plain twin is
+``fused_precise_heads_plain(..., tf32=True)``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_upsample import heads_phase_form
+from ..utils.precision import tf32_products
 from . import _nvcc
 from .fpn_heads import Params, bind, head_params, run_heads_kernel
 from .fpn_neck import fpn_neck_forward_fused
@@ -38,6 +43,8 @@ LAUNCHES = 0
 # Calls that launched the bf16 kernel, counted apart (LAUNCHES counts
 # the f32 ones).
 LAUNCHES_BF16 = 0
+# Calls that launched the single-pass TF32 entry, counted apart.
+LAUNCHES_TF32 = 0
 
 HEAD_NAMES = (
     "precise_char_prob_head",
@@ -52,24 +59,30 @@ def build() -> ctypes.CDLL:
     return bind(_nvcc.build("precise_heads", "precise_heads.cu"), "precise_heads")
 
 
-def fused_precise_heads_plain(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
+def fused_precise_heads_plain(
+    x: torch.Tensor, heads: Sequence[Params], tf32: bool = False
+) -> List[torch.Tensor]:
     """Eager PyTorch twin of the kernel: each head's (B, 2H, 2W, M) f32
-    output; for a bf16 ``x`` rounded where the bf16 kernel rounds."""
+    output; for a bf16 ``x`` rounded where the bf16 kernel rounds; ``tf32``
+    (f32): the single-pass TF32 entry's twin."""
     bf16 = x.dtype == torch.bfloat16
-    return heads_phase_form(x, heads, kernel=bf16, round_y=bf16)
+    return heads_phase_form(x, heads, kernel=bf16, round_y=bf16, tf32=tf32 and not bf16)
 
 
 def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.Tensor]:
     """Each head's (B, 2H, 2W, M) f32 output from an f32 or bf16 ``x``: the
     CUDA kernel on a CUDA tensor, the plain version on a CPU tensor. On the card it raises where a
     gradient is wanted."""
-    global LAUNCHES, LAUNCHES_BF16
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_TF32
     _nvcc.check_dtype("fused_precise_heads x", x)
     if x.device.type == "cpu":
         return fused_precise_heads_plain(x, heads)
-    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True)
+    tf32 = x.dtype == torch.float32 and tf32_products()
+    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True, tf32=tf32)
     if x.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
+    elif tf32:
+        LAUNCHES_TF32 += 1
     else:
         LAUNCHES += 1
     return outs

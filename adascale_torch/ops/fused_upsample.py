@@ -33,6 +33,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import round_tf32
 from .bf16 import gelu, layer_norm, round_bf16
 
 EPS = 1e-6
@@ -60,6 +61,7 @@ def heads_phase_form(
     heads: Sequence[Dict[str, torch.Tensor]],
     kernel: bool = False,
     round_y: bool = False,
+    tf32: bool = False,
 ) -> List[torch.Tensor]:
     """FpnHeads at factor 2 over one (B, H, W, C) input, each
     ``Linear(GELU(LN(conv3x3(nearest_x2(x)) + b)))`` -> (B, 2H, 2W, M): per
@@ -73,7 +75,10 @@ def heads_phase_form(
     The module form computes in ``x``'s dtype, f32 or f64 (a bf16 ``x``:
     ``module_head_bf16``); ``kernel=True`` is the fused kernels' bf16 form
     for a bf16 ``x`` (f32 out), with ``round_y`` for the precise heads
-    (module docstring)."""
+    (module docstring). ``tf32`` (an f32 ``x``) is the fused kernels'
+    single-pass TF32 form: the shifted inputs and the collapsed taps
+    (collapsed in f32) rounded to TF32 (``utils.precision.round_tf32``)
+    before each phase's product, summed in f32; run it in full f32."""
     if x.dtype == torch.bfloat16 and not kernel:
         raise ValueError("heads_phase_form: the bf16 module form is module_head_bf16")
     b, h, w, c = x.shape
@@ -86,6 +91,10 @@ def heads_phase_form(
     else:
         dt = x.dtype
         wk = torch.cat([phase_tap_weights(p["step1.conv.weight"].to(dt)) for p in heads], dim=-1)
+    if tf32:
+        if dt != torch.float32:
+            raise ValueError(f"heads_phase_form: the TF32 form takes an f32 x, not {dt}")
+        wk = round_tf32(wk)
     ln_dt = torch.float64 if dt == torch.float64 else torch.float32  # LN in f32 at least
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     widths = [p["step1.conv.weight"].shape[0] for p in heads]
@@ -98,6 +107,8 @@ def heads_phase_form(
                 [xp[:, a + dy : a + dy + h, bb + dx : bb + dx + w] for dy in (0, 1) for dx in (0, 1)],
                 dim=-1,
             )
+            if tf32:
+                cols = round_tf32(cols)
             acc = cols.reshape(-1, 4 * c) @ wk[2 * a + bb].reshape(4 * c, -1)
             for out, p, z in zip(outs, heads, acc.split(widths, dim=-1)):
                 z = z + p["step1.conv.bias"].to(dt)

@@ -2,7 +2,9 @@
 ``adascale/tools/bf16_drift.py``.
 
 Runs the two-pass engine twice over one page, at ``compute_dtype="float32"``
-and at ``"bfloat16"`` (the same engine configuration otherwise), and reports
+with ``matmul_precision="highest"`` and at ``"bfloat16"`` with
+``"default"``, as the JAX tool does (the same engine configuration
+otherwise), and reports
 rough mask agreement, the height map's largest and median difference where
 both are valid, the median heights, and each run's char F1 against the
 page's ground-truth corners, with dF1 = F1(bf16) - F1(f32).
@@ -33,6 +35,8 @@ import numpy as np
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 WEIGHTS = os.path.join(ROOT, "examples/flagship_training/flagship_fpn_params.f16.npz")
 PAGE = os.path.join(ROOT, "tests/fixtures/shift_pages/page_0.npz")
+# (compute_dtype, matmul_precision) of the two runs, the JAX tool's.
+RUNS = (("float32", "highest"), ("bfloat16", "default"))
 
 
 def drift(
@@ -43,18 +47,21 @@ def drift(
     results: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, float]:
     """bf16 against f32 for an ``AdaptiveScalingInferenceConfig`` (its
-    ``compute_dtype`` is set to each in turn) on ``image``; the numbers that
-    ``main`` prints, with both F1s and both results (``results``). A
-    ``results`` entry ("float32" or "bfloat16") is that dtype's detect() of
-    ``image`` already run with this config, and is used in place of a run."""
+    ``compute_dtype`` and ``matmul_precision`` set to each of ``RUNS`` in
+    turn) on ``image``; the numbers that ``main`` prints, with both F1s and
+    both results (``results``). A ``results`` entry ("float32" or
+    "bfloat16") is that dtype's detect() of ``image`` already run with this
+    config at that run's precision, and is used in place of a run."""
     from ..inference.engine import AdaptiveScalingInference
     from ..inference.eval import evaluate_char_detection
 
     runs = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype, precision in RUNS:
         result = (results or {}).get(dtype)
         if result is None:
-            engine = AdaptiveScalingInference(dataclasses.replace(config, compute_dtype=dtype), params=params)
+            engine = AdaptiveScalingInference(
+                dataclasses.replace(config, compute_dtype=dtype, matmul_precision=precision), params=params
+            )
             result = engine.detect(image)
         runs[dtype] = (result, evaluate_char_detection(result["char_polygons"], gt_corners, iou_thr=0.5))
     (r32, m32), (r16, m16) = runs["float32"], runs["bfloat16"]

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,mesh,bf16,widths]
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,mesh,bf16,widths,tf32]
 
 With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
 those listed. A missing weight file or reference is an error in any phase
@@ -137,9 +137,11 @@ that reads it. Phases, each announced with its elapsed seconds:
      forwards (CUDA events, warm) and no weight pack built; the same two
      programs loaded and run in a fresh interpreter (FRESH_PROGRAM_SCRIPT,
      no precision flag set before ``load_program``) at page_0's inputs,
-     held against the eager outputs at EXPORT_REL_TOL, with the error that
-     the same program shows once TF32 is let back into cuDNN printed
-     beside (that interpreter runs beside the two checks that follow); the tiny/UPerNeXt flagship exported, loaded and held likewise
+     held against the eager outputs at EXPORT_REL_TOL, and the rough one
+     run again inside ``matmul_precision("default")`` equal to its run
+     outside bit for bit (a program computes at "highest" whatever the
+     scope; that interpreter runs beside the two checks that follow); the
+     tiny/UPerNeXt flagship exported, loaded and held likewise
      (its bilinear resizes and adaptive pools under symbolic H and W) at
      page_0's rough input, its own precise stack and EXPORT_SECOND_SHAPE;
      a one-block bf16 program run six times packs its weights once; then
@@ -223,7 +225,29 @@ that reads it. Phases, each announced with its elapsed seconds:
      the base widths at a tiled group's batch (WIDTH_GROUP: their
      workspace in several chunks of pixels); a fused detect() of a
      random-init base model on page_0, f32 and bf16, runs to the end with
-     the neck and heads kernels launched.
+     the neck and heads kernels launched;
+ tf32. matmul_precision "default" / "high" (one TF32 pass a product): each
+     f32 kernel's single-pass TF32 entry (inside
+     ``utils.precision.matmul_precision("default")``) at the flagship's
+     shapes and a ragged one against its TF32 plain twin at TF32_TWIN_TOL
+     (the block and the neck stage by stage on the kernel's own
+     intermediates, the end-to-end difference printed beside the twin's own
+     spread, ``tf32_twin_spread``), against an f64 product of the
+     unrounded operands (<= TF32_F64_BAR, >= TF32_PASS_RATIO times the
+     3xTF32 entry's error), its ms beside the 3xTF32 entry's, the twin's
+     and the bound (products at 495 TFLOP/s, the depthwise at 67, bytes at
+     3.35 TB/s); detect() on page_0 at "highest", "default" and "high" for
+     the FPN module path, the FPN fused configuration and the UPerNeXt one
+     (f32; "highest" reused from phases 4, 5 and 9 where they ran): exact
+     launches (the TF32 entries only at "default"), an engine at "high"
+     equal to one at "default" bit for bit in both passes, "default"
+     against "highest" at TF32_MASK_BAR, TF32_POLYGON_BAR and TF32_F1_TOL
+     (char F1 against page_0's ground truth), the fused rough and precise
+     forwards at B = 16 at both precisions; the fused bf16 detect() at
+     "highest" (phase bf16's, where it ran) and
+     "default" against the JAX bf16 reference (phase bf16's bars);
+     ``tools/eval_checkpoint.evaluate`` of the FPN flagship on
+     TF32_EVAL_PAGES pages of its steps.json, fused, f32 and bf16.
 
 Each run counts every kernel's launches from 0 just before a path and reads
 them just after; a kernel that a path runs and that was not launched fails
@@ -237,7 +261,8 @@ steps and dev batches beside it; the mesh steps and the mesh CLI run
 beside the trainable rows), the loaded
 programs of phase export for the block's registered operator,
 "convnext_block_op", the fused bf16 detect() for the bf16 entries, listed
-as "<name>_bf16") and on every path
+as "<name>_bf16", the fused f32 detect() at "default" for the single-pass
+TF32 entries, listed as "<name>_tf32") and on every path
 (``launches_by_path``).
 
 The second-to-last line is a JSON object describing each kernel, the last
@@ -341,7 +366,7 @@ MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "preci
 # this (tests/test_batch_inference.py's bar).
 MANY_POINT_TOL = 1e-3
 PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "loop", "mesh", "bf16",
-          "widths")
+          "widths", "tf32")
 KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # bf16 serving (phase bf16): the dense bf16 tensor-core peak (H100 SXM, 700 W);
 # each bf16 kernel against its bf16 plain twin, the largest difference over
@@ -922,7 +947,7 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
 KERNEL_GROUPS = {
     "heads": ("heads_kernel", "heads_tma_kernel"),
     "neck_l0": ("neck_step1_", "neck_step2_"),
-    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel", "dw_ln_pairs_kernel", "mlp_fused_kernel",
+    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "gemm_tf32_kernel", "reduce_kernel", "dw_ln_pairs_kernel", "mlp_fused_kernel",
                "gemm_wgmma_kernel", "reduce_bf16_kernel"),
 }
 
@@ -1682,19 +1707,22 @@ def kernel_modules():
 
 
 def counted(fn):
-    """Run ``fn`` with every kernel's launch count (f32 and bf16) set to 0
-    just before and read just after; returns its result and the counts (the
-    f32 kernels' under their names, the bf16 ones' under "<name>_bf16")."""
+    """Run ``fn`` with every kernel's launch count (f32, bf16 and single-pass
+    TF32) set to 0 just before and read just after; returns its result and
+    the counts (the f32 kernels' under their names, the bf16 ones' under
+    "<name>_bf16", the TF32 entries' under "<name>_tf32")."""
     import torch
 
     modules = kernel_modules()
     for m in modules.values():
-        m.LAUNCHES = m.LAUNCHES_BF16 = 0
+        m.LAUNCHES = m.LAUNCHES_BF16 = m.LAUNCHES_TF32 = 0
     out = fn()
     torch.cuda.synchronize()
     counts = {name: m.LAUNCHES for name, m in modules.items()}
-    # The bf16 kernels' launches, under "<name>_bf16", where there were any.
+    # The bf16 and TF32 entries' launches, under "<name>_bf16" and
+    # "<name>_tf32", where there were any.
     counts.update({f"{name}_bf16": m.LAUNCHES_BF16 for name, m in modules.items() if m.LAUNCHES_BF16})
+    counts.update({f"{name}_tf32": m.LAUNCHES_TF32 for name, m in modules.items() if m.LAUNCHES_TF32})
     return out, counts
 
 
@@ -1932,7 +1960,8 @@ def check_upernext(image) -> dict:
         raise AssertionError(f"UPerNeXt LAUNCHES {launches} != {want}")
     check_path_forwards("UPerNeXt", engine, calls)
     x_rough, x_precise = forward_inputs(image, result, engine.device)
-    return {"launches": launches, **timed_forwards("UPerNeXt", engine, x_rough, x_precise)}
+    return {"launches": launches, "engine": engine, "result": result,
+            **timed_forwards("UPerNeXt", engine, x_rough, x_precise)}
 
 
 def timed_forwards(label: str, engine, x_rough, x_precise) -> dict:
@@ -2518,7 +2547,8 @@ def check_bf16_many(engine, single0=None) -> dict:
 def check_bf16(params, image, gen, device) -> tuple:
     """Phase bf16: the kernels, the forwards' times, the three detect()s
     against their JAX bf16 references, detect_many and the drift numbers.
-    Returns the kernels line's bf16 entries and the paths' launches."""
+    Returns the kernels line's bf16 entries, the paths' launches and the
+    fused FPN detect() of page_0."""
     import numpy as np
 
     from adascale_torch.tools.bf16_drift import drift, format_drift
@@ -2527,17 +2557,17 @@ def check_bf16(params, image, gen, device) -> tuple:
     stamp("bf16: detect() against the JAX bf16 references")
     by_path, results, parity = check_bf16_detects(image)
     # page_0's fused bf16 detect() (the same configuration as the engines
-    # below) serves the forwards' inputs, detect_many and the drift.
+    # below) serves the forwards' inputs and detect_many; the drift runs its
+    # bf16 detect() at "default", as the JAX tool does.
     fused = results["fpn_fused"]
     engines = bf16_engines(params)
     stamp("bf16: the flagship's forwards, f32 against bf16")
     rows["forwards"] = bf16_forward_times(engines, image, fused)
     stamp("bf16: detect_many against single-page detect()")
     by_path["detect_many_bf16"] = check_bf16_many(engines[("bfloat16", True)], fused)
-    stamp("bf16: drift against f32 (adascale_torch.tools.bf16_drift)")
+    stamp("bf16: drift against f32 (adascale_torch.tools.bf16_drift: f32 at \"highest\", bf16 at \"default\")")
     page = np.load(SHIFT_PAGES[0])
-    d = drift(params, engines[("float32", True)].config, page["image"], list(page["corners"]),
-              results={"bfloat16": fused})
+    d = drift(params, engines[("float32", True)].config, page["image"], list(page["corners"]))
     print(f"bf16 drift, flagship on page_0, fused configuration: {format_drift(d)}", flush=True)
     rows["drift_fused"] = {k: v for k, v in d.items() if k != "results"}
     # The fused FPN heads' height map is f32 (no bf16 logit to match bit for
@@ -2552,7 +2582,7 @@ def check_bf16(params, image, gen, device) -> tuple:
     if not parity["fpn_fused"]["height"]["median_rel"] < f32["median_rel"]:
         raise AssertionError(f"bf16 fpn_fused: no nearer the bf16 reference than f32: {parity['fpn_fused']}")
     rows["parity"] = parity
-    return rows, by_path
+    return rows, by_path, fused
 
 
 def widths_bound_ms(name: str, b: int, h: int, w: int, c0: int, cm: int, co: int, heads, dtype):
@@ -2711,6 +2741,453 @@ def check_grad_refusal(gen, device) -> None:
 # EXPORT_SECOND_SHAPE, each output within EXPORT_REL_TOL of the eager
 # model's largest value (cuDNN may pick other algorithms inside the program);
 # then `python -m adascale_torch detect` on page_0 written as a PNG.
+# Phase tf32: matmul_precision "default" / "high", one TF32 pass a product.
+# Each TF32 entry against its TF32 plain twin (both operands rounded as the
+# kernel rounds them, other summation orders), stage by stage on the
+# kernel's own operands, at TF32_TWIN_TOL of the largest value (the f32
+# kernels' bar): the heads end to end (their rounded operands are the
+# call's inputs); the block's depthwise + LN, GEMM 1 on its h and GEMM 2 on
+# its u (read from the kernel's workspace); the neck's step1 and its 3x3 on
+# its t. End to end, an intermediate that differs from the twin's in its
+# last bit can round to the neighbouring TF32 value, a 2^-11 step that the
+# next product carries to the output: the twin itself moves by ~1e-4 of its
+# largest value when only its intermediates' f32 rounding changes
+# (``tf32_twin_spread``; the block at 240x192x96, H100 and CPU: 1.34e-4), so
+# the end-to-end difference is printed beside that spread, not held to the
+# bar. Against an f64 product of the unrounded operands: at most
+# TF32_F64_BAR of the largest value, and at least TF32_PASS_RATIO times the
+# 3xTF32 entry's error on the same inputs, so that it is one pass.
+TF32_TWIN_TOL = 2e-5
+TF32_F64_BAR = 1e-2
+TF32_PASS_RATIO = 10.0
+
+
+def tf32_twin_spread(name: str, args):
+    """The TF32 plain twin of ``name`` ("convnext_block" or "fpn_neck_l0")
+    on ``args`` with its f32 intermediates (the block's LN output, the
+    neck's t) computed in f64 from the same rounded operands and cast to
+    f32: the same values rounded to f32 otherwise than the twin rounds them,
+    so that the two differ only where a last-bit difference flips a TF32
+    rounding."""
+    import torch.nn.functional as F
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.kernels import fpn_neck
+    from adascale_torch.utils.precision import round_tf32 as r
+
+    if name == "convnext_block":
+        x, p = args
+        c = x.shape[-1]
+        q = {k: v.double() for k, v in p.items()}
+        y = F.conv2d(x.double().permute(0, 3, 1, 2), q["dwconv.weight"], q["dwconv.bias"], padding=3,
+                     groups=c).permute(0, 2, 3, 1)
+        h = F.layer_norm(y, (c,), q["ln.weight"], q["ln.bias"], eps=K.EPS).float()
+        u = F.gelu(F.linear(r(h), r(p["mlp_up.weight"]), p["mlp_up.bias"]), approximate="none")
+        return x + F.linear(r(u), r(p["mlp_down.weight"]), p["mlp_down.bias"]) * p["block_scale"]
+    f0, u, p = args
+    q = {k: v.double() for k, v in p.items()}
+
+    def ln_gelu(z, part):
+        z = F.layer_norm(z, (z.shape[-1],), q[f"{part}.ln.weight"], q[f"{part}.ln.bias"], eps=fpn_neck.EPS)
+        return F.gelu(z, approximate="none")
+
+    a = ln_gelu(F.linear(r(f0).double(), r(p["step1_0.conv.weight"]).double(), q["step1_0.conv.bias"]),
+                "step1_0")
+    t = (a + u.double()).float()
+    z = F.conv2d(r(t).permute(0, 3, 1, 2), r(p["step2_0.conv.weight"]), p["step2_0.conv.bias"], padding=1)
+    return ln_gelu(z.permute(0, 2, 3, 1).double(), "step2_0").float()
+
+
+def block_tf32_stages(x, p):
+    """The block's TF32 entry run once with its workspace kept, and its
+    stages against their TF32 twins on the kernel's own operands: (stage,
+    kernel, twin) for the depthwise + LN (h), GEMM 1 (u = GELU(h W1 + b1))
+    and GEMM 2 (the block's output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.utils.precision import matmul_precision
+    from adascale_torch.utils.precision import round_tf32 as r
+
+    b, h, w, c = x.shape
+    m = b * h * w
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ws = torch.empty(K.build().convnext_block_f32_workspace(b, h, w, c, sms), device=x.device)
+    with matmul_precision("default"):
+        out = K._launch(x, p, True, ws)
+    hk, uk = ws[: m * c].view(b, h, w, c), ws[m * c : 5 * m * c].view(b, h, w, 4 * c)
+    y = F.conv2d(x.permute(0, 3, 1, 2), p["dwconv.weight"], p["dwconv.bias"], padding=3, groups=c)
+    ln = F.layer_norm(y.permute(0, 2, 3, 1), (c,), p["ln.weight"], p["ln.bias"], eps=K.EPS)
+    gemm1 = F.gelu(F.linear(r(hk), r(p["mlp_up.weight"]), p["mlp_up.bias"]), approximate="none")
+    gemm2 = x + F.linear(r(uk), r(p["mlp_down.weight"]), p["mlp_down.bias"]) * p["block_scale"]
+    return [("dw_ln", hk, ln), ("gemm1", uk, gemm1), ("gemm2", out, gemm2)]
+
+
+def neck_tf32_stages(f0, u, p):
+    """The neck's TF32 entry run once with its t kept, and its two steps
+    against their TF32 twins on the kernel's own operands: (stage, kernel,
+    twin) for step1 (t = GELU(LN(f0 W1 + b1)) + u) and the 3x3 (the
+    output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from adascale_torch.kernels import fpn_neck
+    from adascale_torch.utils.precision import matmul_precision
+    from adascale_torch.utils.precision import round_tf32 as r
+
+    t = torch.empty_like(u)
+    with matmul_precision("default"):
+        out = fpn_neck.fused_neck_l0(f0, u, p, t=t)
+    step1 = fpn_neck._ln_gelu(F.linear(r(f0), r(p["step1_0.conv.weight"]), p["step1_0.conv.bias"]),
+                              p["step1_0.ln.weight"], p["step1_0.ln.bias"]) + u
+    z = F.conv2d(r(t).permute(0, 3, 1, 2), r(p["step2_0.conv.weight"]), p["step2_0.conv.bias"], padding=1)
+    step2 = fpn_neck._ln_gelu(z.permute(0, 2, 3, 1), p["step2_0.ln.weight"], p["step2_0.ln.bias"])
+    return [("step1", t, step1), ("step2", out, step2)]
+
+
+def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: float, flops_simt: float,
+                      nbytes: float, stages=None, spread=None, reps: int = 10) -> dict:
+    """A kernel's single-pass TF32 entry (``kernel`` called inside
+    ``matmul_precision("default")``) against its TF32 plain twin
+    (``plain(*args, tf32=True)``) and against ``plain`` on ``exact_args``
+    (f64, unrounded), beside its 3xTF32 entry (``kernel`` outside the scope)
+    on the same inputs. Held to TF32_TWIN_TOL: end to end, or, given
+    ``stages``, each of the (stage, kernel, twin) that ``stages(*args)``
+    returns (the end-to-end difference then printed beside the twin's own
+    spread, ``spread(args)``); and to TF32_F64_BAR and TF32_PASS_RATIO.
+    Prints and returns the errors, the TF32 entry's, the 3xTF32 entry's and
+    the twin's ms, and the bound's two parts (``flops_tc`` products at the
+    dense TF32 rate plus ``flops_simt`` at the f32 SIMT rate; ``nbytes`` at
+    the memory rate)."""
+    import torch
+
+    from adascale_torch.utils.precision import matmul_precision
+
+    def listed(v):
+        return [v] if torch.is_tensor(v) else list(v)
+
+    def rel_err_of(got, want):
+        return max(float((g - w_).abs().max()) for g, w_ in zip(got, want)) / max(
+            float(w_.abs().max()) for w_ in want)
+
+    with matmul_precision("default"):
+        got = listed(kernel(*args))
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kernel(*args), reps)
+    got3 = listed(kernel(*args))
+    ms3 = cuda_ms(lambda: kernel(*args), reps)
+    twin = listed(plain(*args, tf32=True))
+    plain_ms = cuda_ms(lambda: plain(*args, tf32=True), reps)
+    exact = listed(plain(*exact_args))
+    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, twin))
+    rel = rel_err_of(got, twin)
+    staged = {name: rel_err_of([k], [t_]) for name, k, t_ in stages(*args)} if stages else {"end_to_end": rel}
+    rel_spread = rel_err_of(listed(spread(args)), twin) if spread else 0.0
+    scale = max(float(e.abs().max()) for e in exact)
+    rel64 = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact)) / scale
+    rel64_3 = max(float((g.double() - e).abs().max()) for g, e in zip(got3, exact)) / scale
+    t_ops = (flops_tc / PEAK_TF32_FLOPS + flops_simt / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(
+        f"{label} TF32: against its TF32 twin "
+        + " ".join(f"{name}={v:.3e}" for name, v in staged.items())
+        + (f" (end to end {rel:.3e}, the twin's own spread {rel_spread:.3e})" if stages else "")
+        + f" max_abs_err={err:.3e} rel_vs_f64 tf32={rel64:.3e} 3xtf32={rel64_3:.3e} "
+        f"ratio={rel64 / max(rel64_3, 1e-30):.1f} kernel_ms={ms:.4f} kernel_3xtf32_ms={ms3:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}, 1 TF32 pass)",
+        flush=True,
+    )
+    worst = max(staged.values())
+    if not worst <= TF32_TWIN_TOL:
+        raise AssertionError(f"{label} TF32: relative error against its twin {staged} > {TF32_TWIN_TOL}")
+    if not rel64 <= TF32_F64_BAR:
+        raise AssertionError(f"{label} TF32: relative error {rel64} against f64 > {TF32_F64_BAR}")
+    if not rel64 >= TF32_PASS_RATIO * rel64_3:
+        raise AssertionError(
+            f"{label} TF32: error against f64 {rel64} < {TF32_PASS_RATIO} x the 3xTF32 entry's {rel64_3}")
+    return {"max_abs_err": err, "rel": worst, "end_to_end": rel, "twin_spread": rel_spread, "ms": ms,
+            "ms_3xtf32": ms3, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes, "rel64": rel64,
+            "rel64_3xtf32": rel64_3}
+
+
+def check_tf32_kernels(gen, device) -> dict:
+    """Phase tf32, its kernels: each f32 kernel's single-pass TF32 entry at
+    the flagship's shapes (the block at every stage shape of both passes,
+    the neck at both passes' level 0, the heads at theirs) and a ragged one
+    each, by ``check_tf32_kernel``. Returns the kernels line's entries
+    ("<name>_tf32"): times and bounds summed over one one-chunk detect()'s
+    calls, the errors the worst."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
+
+    def double(params):
+        return {k: v.double() for k, v in params.items()}
+
+    def total(rows):
+        t_ops = sum(n * r["t_ops"] for r, n in rows)
+        t_bytes = sum(n * r["t_bytes"] for r, n in rows)
+        return {
+            "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
+            **{k: sum(n * r[k] for r, n in rows) for k in ("ms", "plain_ms", "ms_3xtf32")},
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_rate": "1 TF32 product a product at 495 TFLOP/s (the block's depthwise at 67 TFLOP/s f32)",
+            **{k: max(r[k] for r, _ in rows) for k in ("rel", "end_to_end", "twin_spread")},
+            "rel_vs_f64": {"tf32": max(r["rel64"] for r, _ in rows),
+                           "3xtf32": max(r["rel64_3xtf32"] for r, _ in rows)},
+        }
+
+    rows = {}
+    block_rows = []
+    for (h, w, c), blocks in STAGE_SHAPES + PRECISE_STAGE_SHAPES + [(RAGGED_SHAPE, 0)]:
+        p = random_block_params(c, gen, device)
+        x = torch.randn(1, h, w, c, generator=gen).to(device)
+        npix = h * w
+        nbytes = 4 * (2 * npix * c + 49 * c + 8 * c * c + 4 * c + 6 * c)
+        block_rows.append((check_tf32_kernel(
+            f"convnext_block {h}x{w}x{c}", K.convnext_block, K.convnext_block_plain, (x, p),
+            (x.double(), double(p)), npix * 16 * c * c, npix * 2 * 49 * c, nbytes, stages=block_tf32_stages,
+            spread=lambda a: tf32_twin_spread("convnext_block", a)), blocks))
+    rows["convnext_block_tf32"] = total(block_rows)
+
+    neck_rows = []
+    for (h, w, c0, cm, co), calls in NECK_SHAPES:
+        p = random_neck_params(c0, cm, co, gen, device)
+        f0 = torch.randn(1, h, w, c0, generator=gen).to(device)
+        u = torch.randn(1, h, w, cm, generator=gen).to(device)
+        flops, nbytes = neck_work(1, h, w, c0, cm, co)
+        neck_rows.append((check_tf32_kernel(
+            f"fpn_neck_l0 {h}x{w} {c0}->{cm}->{co}", fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain,
+            (f0, u, p), (f0.double(), u.double(), double(p)), flops, 0.0, nbytes, stages=neck_tf32_stages,
+            spread=lambda a: tf32_twin_spread("fpn_neck_l0", a)), calls))
+    rows["fpn_neck_l0_tf32"] = total(neck_rows)
+
+    for name, shapes, outs in (("fpn_heads", ROUGH_HEAD_SHAPES, (1, 1)),
+                               ("precise_heads", PRECISE_HEAD_SHAPES, PRECISE_OUT)):
+        head_rows = []
+        for (h, w, c), calls in shapes:
+            heads = [random_head_params(c, m, gen, device) for m in outs]
+            x = torch.randn(1, h, w, c, generator=gen).to(device)
+            if name == "fpn_heads":
+                kernel, plain = fpn_heads.fused_rough_heads, fpn_heads.fused_rough_heads_plain
+                args, exact_args = (x, *heads), (x.double(), *map(double, heads))
+            else:
+                kernel, plain = precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain
+                args, exact_args = (x, heads), (x.double(), [double(p) for p in heads])
+            flops, nbytes = heads_work(1, h, w, c, heads)
+            head_rows.append((check_tf32_kernel(f"{name} {h}x{w}x{c}", kernel, plain, args, exact_args, flops,
+                                                0.0, nbytes), calls))
+        rows[f"{name}_tf32"] = total(head_rows)
+    return rows
+
+
+# detect() on page_0 at "default" against "highest" (f32): the rough mask
+# agreement, the polygons matched both ways at IoU >= 0.5 and each run's
+# char F1 against the page's ground-truth corners, apart by at most
+# TF32_F1_TOL; "high" equal to "default" bit for bit. (label, weights, neck,
+# fused neck and heads.)
+TF32_MASK_BAR, TF32_POLYGON_BAR, TF32_F1_TOL = 0.995, 0.90, 0.02
+TF32_DETECTS = (
+    ("fpn_module", WEIGHTS, "fpn", False),
+    ("fpn_fused", WEIGHTS, "fpn", True),
+    ("upernext_fused", UPERNEXT_WEIGHTS, "upernext", True),
+)
+# eval_checkpoint.evaluate on the FPN flagship's .npz: pages of its
+# steps.json, fused, at f32 ("highest") and bf16 ("default").
+TF32_EVAL_PAGES = 2
+
+
+def same_detect(a, b) -> bool:
+    """Two detect() results equal bit for bit: the rough maps and every
+    polygon's points."""
+    import numpy as np
+
+    return (
+        np.array_equal(a["rough"].rough_char_mask, b["rough"].rough_char_mask)
+        and np.array_equal(a["rough"].rough_char_height_score_map, b["rough"].rough_char_height_score_map)
+        and len(a["char_polygons"]) == len(b["char_polygons"])
+        and all(np.array_equal(p.points, q.points) for p, q in zip(a["char_polygons"], b["char_polygons"]))
+    )
+
+
+def tf32_forward_ms(label: str, engines, image, result) -> dict:
+    """The rough and precise forwards of each of ``engines`` (by precision)
+    on page_0's inputs at B = MANY_BATCH inside its precision's scope: ms per
+    call (CUDA events, warm, the median of three single calls)."""
+    import torch
+
+    from adascale_torch.utils.precision import matmul_precision
+
+    x_rough, x_precise = forward_inputs(image, result, next(iter(engines.values())).device)
+    out = {}
+    with torch.inference_mode():
+        for which, x in (("rough", x_rough), ("precise", x_precise)):
+            xb = x.expand(MANY_BATCH, *x.shape[1:]).contiguous()
+            for precision, engine in engines.items():
+                with matmul_precision(precision):
+                    out[f"{which}_{precision}_ms"] = cuda_ms(lambda: engine._forward(xb, which), reps=1)
+            print(
+                f"tf32 {label} {which} forward B={MANY_BATCH} {tuple(xb.shape[1:3])}: "
+                + ", ".join(f"{p} {out[f'{which}_{p}_ms']:.3f} ms" for p in engines)
+                + " (CUDA events, warm)",
+                flush=True,
+            )
+    return out
+
+
+def with_precision(engine, precision: str):
+    """A copy of ``engine`` (the same model and weights) whose config asks
+    ``precision``: what an engine built with it computes."""
+    import copy
+
+    other = copy.copy(engine)
+    other.config = dataclasses.replace(engine.config, matmul_precision=precision)
+    return other
+
+
+def same_passes(a, b, image, stacked) -> bool:
+    """Two engines' rough pass on ``image`` and precise pass on ``stacked``
+    equal bit for bit (every map each pass brings back)."""
+    import numpy as np
+
+    ra, rb = a.rough_infer(image), b.rough_infer(image)
+    pa, pb = a.precise_infer(stacked), b.precise_infer(stacked)
+    return all(np.array_equal(getattr(x, f.name), getattr(y, f.name))
+               for x, y in ((ra, rb), (pa, pb)) for f in dataclasses.fields(x))
+
+
+def check_tf32_detects(image, highest: dict) -> tuple:
+    """Phase tf32, its paths: detect() on page_0 at "default" for each of
+    TF32_DETECTS (f32; "highest" as an earlier phase ran it, in ``highest``,
+    else run here) with exact launches, the TF32 entries only; "default"
+    against "highest" at TF32_MASK_BAR, TF32_POLYGON_BAR and TF32_F1_TOL
+    (the F1 against page_0's ground truth); an engine at "high" equal to the
+    one at "default" bit for bit in both passes; the fused FPN forwards at
+    B = MANY_BATCH at both precisions. Then the fused bf16 detect() at
+    "highest" (phase bf16's, where it ran) and "default", each against the
+    JAX bf16 reference at phase bf16's bars (its height map nearer the
+    reference than the f32 fused run's at the same precision). Returns the
+    launches by path and the numbers."""
+    import numpy as np
+
+    from adascale_torch.inference.eval import evaluate_char_detection, match_polygons
+    from adascale_torch.utils.params import load_npz
+
+    page = np.load(SHIFT_PAGES[0])
+    if not np.array_equal(page["image"], image):
+        raise AssertionError(f"{SHIFT_PAGES[0]} is not the page of the references")
+    corners = list(page["corners"])
+    by_path, numbers, f32_fused = {}, {}, {}
+    for label, weights, neck, fused in TF32_DETECTS:
+        if label in highest:
+            engine, hi = highest[label]
+        else:
+            engine = engine_for(load_npz(weights), neck_head_type=neck, use_pallas_neck_heads=fused)
+            hi = engine.detect(image)
+        default = with_precision(engine, "default")
+        de, launches = counted(lambda: default.detect(image))
+        chunks = de["num_precise_chunks"]
+        blocks = sum(n for _, n in engine.config.model.backbone_spec())
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["convnext_block_tf32"] = blocks * (1 + chunks)
+        if neck == "fpn" and fused:
+            want.update(fpn_neck_l0_tf32=1 + chunks, fpn_heads_tf32=1, precise_heads_tf32=chunks)
+        if launches != want:
+            raise AssertionError(f"tf32 {label} at default: LAUNCHES {launches} != {want}")
+        if not same_passes(with_precision(engine, "high"), default, image, de["stacked_image"]):
+            raise AssertionError(f"tf32 {label}: \"high\" differs from \"default\"")
+        agreement = float((hi["rough"].rough_char_mask == de["rough"].rough_char_mask).mean())
+        matched = len(match_polygons(de["char_polygons"], hi["char_polygons"], 0.5))
+        shares = (matched / max(len(hi["char_polygons"]), 1), matched / max(len(de["char_polygons"]), 1))
+        f1 = {p: evaluate_char_detection(r["char_polygons"], corners, iou_thr=0.5).f1
+              for p, r in (("highest", hi), ("default", de))}
+        equal_height = float((hi["rough"].rough_char_height_score_map
+                              == de["rough"].rough_char_height_score_map).mean())
+        print(
+            f"tf32 {label}: \"default\" against \"highest\": rough mask agreement {agreement:.6f}, height map "
+            f"equal {equal_height:.4f}, polygons {len(de['char_polygons'])} / {len(hi['char_polygons'])}, "
+            f"matched@0.5 {matched} ({shares[0]:.4f} of highest's, {shares[1]:.4f} of default's); char F1 "
+            f"against page_0's ground truth default {f1['default']:.4f} highest {f1['highest']:.4f}; \"high\" "
+            f"equal to \"default\" bit for bit (both passes); LAUNCHES default {launches}",
+            flush=True,
+        )
+        if agreement < TF32_MASK_BAR or min(shares) < TF32_POLYGON_BAR:
+            raise AssertionError(f"tf32 {label}: mask {agreement}, polygons {shares}")
+        if abs(f1["default"] - f1["highest"]) > TF32_F1_TOL:
+            raise AssertionError(f"tf32 {label}: F1 {f1}")
+        by_path[f"detect_tf32_{label}"] = launches
+        numbers[label] = {"mask_agreement": agreement, "polygons_matched": list(shares), "f1": f1,
+                          "height_equal": equal_height}
+        if label == "fpn_fused":
+            numbers[label].update(tf32_forward_ms(label, {"highest": engine, "default": default}, image, hi))
+        if label == "fpn_fused":
+            f32_fused = {"highest": hi, "default": de}
+
+    ref = np.load(FPN_FUSED_BF16_REFERENCE)
+    engine = engine_for(load_npz(WEIGHTS), compute_dtype="bfloat16", use_pallas_backbone=True,
+                        use_pallas_neck_heads=True)
+    bf16 = {"highest": highest.get("bf16_fused")}
+    for precision in ("highest", "default"):
+        if bf16.get(precision) is not None:
+            continue
+        bf16[precision], launches = counted(lambda: with_precision(engine, precision).detect(image))
+        chunks = bf16[precision]["num_precise_chunks"]
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        blocks = sum(n for _, n in engine.config.model.backbone_spec())
+        want.update(convnext_block_bf16=blocks * (1 + chunks), fpn_neck_l0_bf16=1 + chunks, fpn_heads_bf16=1,
+                    precise_heads_bf16=chunks)
+        if launches != want:
+            raise AssertionError(f"tf32 bf16 fused at {precision}: LAUNCHES {launches} != {want}")
+        if precision == "default":
+            by_path["detect_tf32_bf16_fused"] = launches
+    for precision, result in bf16.items():
+        shares = check_against_reference(result, ref, f"bf16 fused at {precision}",
+                                         mask_bar=BF16_MASK_BAR, polygon_bar=BF16_POLYGON_FLOOR)
+        height, height_f32 = height_parity(result, ref), height_parity(f32_fused[precision], ref)
+        print(
+            f"tf32 bf16 fused at {precision}: polygons {shares[0]:.4f} / {shares[1]:.4f} of the JAX bf16 "
+            f"reference's; rough height map median difference {height['median_rel']:.3e} (f32 fused at "
+            f"{precision}: {height_f32['median_rel']:.3e})",
+            flush=True,
+        )
+        if not height["median_rel"] < height_f32["median_rel"]:
+            raise AssertionError(f"tf32 bf16 fused at {precision}: no nearer the bf16 reference than f32")
+    a, b = bf16["highest"], bf16["default"]
+    numbers["bf16_fused_default_vs_highest"] = {
+        "mask_agreement": float((a["rough"].rough_char_mask == b["rough"].rough_char_mask).mean()),
+        "height_equal": float((a["rough"].rough_char_height_score_map
+                               == b["rough"].rough_char_height_score_map).mean()),
+        "equal": same_detect(a, b),
+    }
+    print(f"tf32 bf16 fused, \"default\" against \"highest\": {json.dumps(numbers['bf16_fused_default_vs_highest'])}",
+          flush=True)
+    return by_path, numbers
+
+
+def check_tf32_eval() -> dict:
+    """Phase tf32, the evaluation tool: ``eval_checkpoint.evaluate`` of the
+    FPN flagship's .npz on TF32_EVAL_PAGES pages of its steps.json, fused,
+    f32 (at "highest") and bf16 (at "default"): every rate in [0, 1].
+    Returns the two JSON objects."""
+    from adascale_torch.tools.eval_checkpoint import evaluate
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        out[dtype] = evaluate(WEIGHTS, MODEL_JSON, steps_json=os.path.join(FLAGSHIP_DIR, "steps.json"),
+                              num_pages=TF32_EVAL_PAGES, compute_dtype=dtype, pallas=True)
+        print(f"tf32 eval_checkpoint ({dtype}, {TF32_EVAL_PAGES} pages, fused, {time.perf_counter() - t:.2f} s): "
+              f"{json.dumps(out[dtype])}", flush=True)
+        rates = [v for k, v in out[dtype].items() if k.startswith(("char_", "direct_char_", "rough_mask"))]
+        if not rates or not all(0.0 <= v <= 1.0 for v in rates):
+            raise AssertionError(f"eval_checkpoint ({dtype}): rates out of [0, 1]: {out[dtype]}")
+    return out
+
+
 EXPORT_EXAMPLE_HW = (640, 640)
 EXPORT_SECOND_SHAPE = (2, 512, 704, 3)
 EXPORT_REL_TOL = 1e-5
@@ -2830,7 +3307,9 @@ def check_bf16_program_packs(params, device) -> None:
 # loads the FPN programs in FOLDER (argv[1]) with nothing set beforehand,
 # runs each at the input saved beside it, and saves the outputs, the block
 # launches, the precision flags before and after load_program, and the
-# rough program's outputs with TF32 let back into cuDNN.
+# rough program's outputs run inside matmul_precision("default") (TF32 let
+# back into cuDNN and cuBLAS, the kernels' TF32 entries chosen): a program
+# computes at "highest" whatever the scope.
 FRESH_PROGRAM_SCRIPT = r"""
 import sys
 
@@ -2839,6 +3318,7 @@ import torch
 flags_before = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
 from adascale_torch.inference.export import load_program
 from adascale_torch.kernels import convnext_block as K
+from adascale_torch.utils.precision import matmul_precision
 
 folder, outputs, launches = sys.argv[1], {}, {}
 for which in ("rough", "precise"):
@@ -2851,9 +3331,10 @@ for which in ("rough", "precise"):
     if which == "rough":
         rough, x_rough = module, x
 flags_after = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
-torch.backends.cudnn.allow_tf32 = True
-with torch.inference_mode():
+count = K.LAUNCHES
+with torch.inference_mode(), matmul_precision("default"):
     outputs["rough_tf32"] = [t.cpu() for t in rough(x_rough)]
+launches["rough_tf32"] = K.LAUNCHES - count
 torch.save({"outputs": outputs, "launches": launches, "flags_before": flags_before,
             "flags_after": flags_after}, f"{folder}/fresh.pt")
 """
@@ -2940,7 +3421,9 @@ def check_fresh_process(proc, t, log, folder: str, x_rough, x_precise, eager, bl
     """The fresh interpreter of ``start_fresh_process`` ends within 300 s:
     each output within EXPORT_REL_TOL of ``eager``'s (by run, as
     ``export_checked`` keys them), ``blocks_per_pass`` launches a pass, TF32
-    off after ``load_program``. Returns the errors, with TF32's beside."""
+    off after ``load_program``; the rough program run inside
+    ``matmul_precision("default")`` equal bit for bit to its run outside,
+    with ``blocks_per_pass`` 3xTF32 launches. Returns the errors."""
     import torch
 
     inputs = {"rough": x_rough, "precise": x_precise}
@@ -2962,15 +3445,20 @@ def check_fresh_process(proc, t, log, folder: str, x_rough, x_precise, eager, bl
         rels[which] = [rel_err(g.to(w_.device), w_) for g, w_ in zip(fresh["outputs"][which], want)]
     tf32 = [rel_err(g.to(w_.device), w_)
             for g, w_ in zip(fresh["outputs"]["rough_tf32"], eager[f"rough {tuple(x_rough.shape)}"])]
+    scoped_equal = all(torch.equal(a, b) for a, b in zip(fresh["outputs"]["rough_tf32"], fresh["outputs"]["rough"]))
     print(
         f"fresh interpreter ({seconds:.2f} s): flags (cudnn, matmul allow_tf32) before load_program "
         f"{fresh['flags_before']}, after {fresh['flags_after']}; block launches {fresh['launches']}; rel err vs "
         "eager per output " + "; ".join(f"{k} " + " ".join(f"{r:.3e}" for r in v) for k, v in rels.items())
-        + "; rough with TF32 let back into cuDNN " + " ".join(f"{r:.3e}" for r in tf32),
+        + "; rough inside matmul_precision(\"default\") " + " ".join(f"{r:.3e}" for r in tf32)
+        + f" (equal bit for bit to the run outside: {scoped_equal}; block launches "
+        f"{fresh['launches']['rough_tf32']})",
         flush=True,
     )
     if any(fresh["flags_after"]):
         raise AssertionError(f"fresh interpreter: TF32 still allowed after load_program {fresh['flags_after']}")
+    if not scoped_equal:
+        raise AssertionError("fresh interpreter: the rough program inside a \"default\" scope differs")
     if set(fresh["launches"].values()) != {blocks_per_pass}:
         raise AssertionError(f"fresh interpreter: block launches {fresh['launches']}, want {blocks_per_pass} a pass")
     worst = max(max(v) for v in rels.values())
@@ -3087,15 +3575,17 @@ UPERNEXT_DIR = os.path.join(ROOT, "examples/flagship_upernext")
 # from its weights: (label, folder, weights, epochs, train batches, dev
 # batches, epoch config overrides). Cuts: the depth (the files: 40 epochs of
 # 1000 batches, 8 dev batches); the last run's dtype (the files ask bf16: the
-# f32 loop stays a path) and its pages, drawn in the trainer's process (the
-# spawned pools' ~15-20 s start each is paid by the two runs before it). The
-# first run is the main one (restore, export and the detect CLI on its
+# f32 loop stays a path); where the pages are drawn: a spawned pool's start
+# costs ~15-20 s (PR 17 calls 22-25), so only the first run's training
+# batches come from a 4-process pool, as the files ask, and every other
+# page (the dev batches, the later runs) is drawn in the trainer's process.
+# The first run is the main one (restore, export and the detect CLI on its
 # checkpoint); every run restores its last checkpoint.
+IN_PROCESS = {"train_num_processes": 0, "dev_num_processes": 0}
 LOOP_RUNS = (
-    ("fpn_bf16", FLAGSHIP_DIR, WEIGHTS, 2, 6, 1, {}),
-    ("upernext_bf16", UPERNEXT_DIR, UPERNEXT_WEIGHTS, 1, 3, 1, {}),
-    ("fpn_f32", FLAGSHIP_DIR, WEIGHTS, 1, 2, 1,
-     {"compute_dtype": "float32", "train_num_processes": 0, "dev_num_processes": 0}),
+    ("fpn_bf16", FLAGSHIP_DIR, WEIGHTS, 2, 6, 1, {"dev_num_processes": 0}),
+    ("upernext_bf16", UPERNEXT_DIR, UPERNEXT_WEIGHTS, 1, 2, 1, IN_PROCESS),
+    ("fpn_f32", FLAGSHIP_DIR, WEIGHTS, 1, 2, 1, {"compute_dtype": "float32", **IN_PROCESS}),
 )
 # Each run's launch paths: its steps' and its dev batches'.
 LOOP_PATHS = {
@@ -3103,7 +3593,7 @@ LOOP_PATHS = {
     "upernext_bf16": ("train_loop_upernext_bf16", "train_loop_upernext_dev_bf16"),
     "fpn_f32": ("train_loop_steps", "train_loop_dev"),
 }
-LOOP_POOL_RUNS = 24  # pages timed through a warm 4-process pool
+LOOP_POOL_RUNS = 12  # pages timed through a warm 4-process pool
 LOOP_CHECKPOINT = re.compile(r"state_(\d+)(_not_best)?")
 # Paths whose block launches are the trainable blocks' (rows 1' and 1b').
 TRAIN_PATHS = ("train_step", "train_step_bf16", "mesh_train_step", "mesh_train_step_bf16", "mesh_cli_train") + tuple(
@@ -3601,6 +4091,10 @@ def main() -> None:
     ref = np.load(REFERENCE)
     image = np.load(os.path.join(ROOT, str(ref["page"])))["image"]
     rows, by_path = {}, {}
+    # page_0's detect() at "highest" by configuration, where a phase ran it
+    # (phase tf32 holds "default" against it): (engine, result), bf16 the
+    # result alone.
+    highest = {}
 
     if "3" in phases:
         stamp("phase 3: kernels against plain")
@@ -3615,6 +4109,7 @@ def main() -> None:
     if "4" in phases:
         stamp("phase 4: detect() with the tiny/FPN flagship")
         result, launches = counted(lambda: engine.detect(image))
+        highest["fpn_module"] = (engine, result)
         chunks = result["num_precise_chunks"]
         stamp("detect() done; comparing with the JAX reference")
         check_against_reference(result, ref, f"LAUNCHES={launches}")
@@ -3643,6 +4138,7 @@ def main() -> None:
         from adascale_torch.kernels import packing
 
         result, by_path["detect_fused"] = fused_detect_checked(fused, image, ref, blocks_per_pass)
+        highest["fpn_fused"] = (fused, result)
         x_rough, x_precise = forward_inputs(image, result, device)
 
         stamp("fused forwards against the module path; warm timings")
@@ -3737,7 +4233,9 @@ def main() -> None:
 
     if "9" in phases:
         stamp("phase 9: detect() with the tiny/UPerNeXt flagship (fused configuration)")
-        by_path["upernext_detect"] = check_upernext(image)["launches"]
+        upernext = check_upernext(image)
+        by_path["upernext_detect"] = upernext["launches"]
+        highest["upernext_fused"] = (upernext["engine"], upernext["result"])
 
     if "10" in phases:
         stamp("phase 10: tiled detect() with band recall on a 1024x1536 page")
@@ -3773,7 +4271,7 @@ def main() -> None:
 
     if "bf16" in phases:
         stamp("phase bf16: bf16 serving (compute_dtype='bfloat16')")
-        bf16_rows, bf16_paths = check_bf16(params, image, gen, device)
+        bf16_rows, bf16_paths, highest["bf16_fused"] = check_bf16(params, image, gen, device)
         rows.update({k: v for k, v in bf16_rows.items() if k.endswith("_bf16")})
         print("bf16 forwards and drift: " + json.dumps(
             {k: v for k, v in bf16_rows.items() if not k.endswith("_bf16")}), flush=True)
@@ -3782,6 +4280,18 @@ def main() -> None:
     if "widths" in phases:
         stamp("phase widths: the neck and heads kernels at the base and large widths")
         by_path.update(check_widths(gen, device))
+
+    if "tf32" in phases:
+        stamp("phase tf32: matmul_precision \"default\" / \"high\" (single-pass TF32)")
+        phase_t = time.perf_counter()
+        rows.update(check_tf32_kernels(gen, device))
+        stamp("tf32: detect() at \"default\" and \"high\" against \"highest\"")
+        tf32_paths, tf32_numbers = check_tf32_detects(image, highest)
+        by_path.update(tf32_paths)
+        stamp("tf32: eval_checkpoint.evaluate on the flagship")
+        tf32_numbers["eval_checkpoint"] = check_tf32_eval()
+        print("tf32 numbers: " + json.dumps(tf32_numbers), flush=True)
+        print(f"phase tf32: {time.perf_counter() - phase_t:.2f} s", flush=True)
 
     # Every kernel a path runs was launched in that path's counted run.
     bf16_names = [f"{k}_bf16" for k in KERNEL_NAMES]
@@ -3800,6 +4310,8 @@ def main() -> None:
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
         "detect_bf16_fpn_fused": bf16_names, "detect_many_bf16": bf16_names,
         "detect_base_random_bfloat16": bf16_names,
+        "detect_tf32_fpn_module": ["convnext_block_tf32"], "detect_tf32_upernext_fused": ["convnext_block_tf32"],
+        "detect_tf32_fpn_fused": [f"{k}_tf32" for k in KERNEL_NAMES], "detect_tf32_bf16_fused": bf16_names,
     }
     for path, launches in by_path.items():
         missing = [k for k in path_kernels.get(path, KERNEL_NAMES) if not launches.get(k)]
@@ -3825,6 +4337,12 @@ def main() -> None:
         "fpn_neck_l0_bf16": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_bf16_fpn_fused"),
         "fpn_heads_bf16": ("fpn_head.cuh", "adascale/ops/pallas/fpn_heads.py:200", "detect_bf16_fpn_fused"),
         "precise_heads_bf16": ("fpn_head.cuh", "adascale/ops/pallas/precise_heads.py:144", "detect_bf16_fpn_fused"),
+        # The single-pass TF32 entries (matmul_precision "default" / "high"),
+        # on the fused f32 detect() at "default".
+        "convnext_block_tf32": ("convnext_block.cu", "adascale/ops/pallas/convnext_block.py:290", "detect_tf32_fpn_fused"),
+        "fpn_neck_l0_tf32": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_tf32_fpn_fused"),
+        "fpn_heads_tf32": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_tf32_fpn_fused"),
+        "precise_heads_tf32": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_tf32_fpn_fused"),
     }
     kernels = []
     for kernel, (source, replaces, main_path) in sources.items():

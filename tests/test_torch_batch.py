@@ -84,7 +84,7 @@ def test_detect_many_matches_jax(pages):
         assert matched >= 0.95 * len(ours), (matched, len(ours))
 
 
-def test_mesh_is_refused(pages):
+def test_detect_many_on_a_one_rank_mesh(pages):
     """``detect_many`` on a world-size-1 mesh (gloo, in this process) equals
     the mesh-less run bit for bit; a mesh that is not a ``DeviceMesh`` is
     refused (the 2-rank mesh: ``tests/test_torch_mesh_paths.py``)."""

@@ -100,7 +100,7 @@ def _micro_train_configs(folder):
     ],
     ids=["train", "export", "demo"],
 )
-def test_unported_commands_raise_naming_their_item(argv, item, tmp_path, capsys):
+def test_commands_run_or_raise_naming_their_item(argv, item, tmp_path, capsys):
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     if item is None:
         # train --mesh on the micro model and the "python" render backend

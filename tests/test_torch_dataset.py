@@ -158,7 +158,7 @@ def test_pool_equals_inline():
         _assert_batches_equal(g, w)
 
 
-def test_python_render_backend_raises_before_any_page():
+def test_python_render_backend_streams_the_jax_labels():
     """A dataset on the ``"python"`` backend starts (no refusal before its
     first page) and, on a 2-process pool, streams the JAX dataset's labels
     bit for bit; its images lie within ``tests/test_torch_render_python.py``'s

@@ -169,14 +169,13 @@ def test_blank_page_matches_jax_both_ways(blank_jax, fused):
 
 
 def test_unported_options_raise():
-    """matmul_precision other than "highest" is not ported (compute_dtype
-    "bfloat16" is: tests/test_torch_bf16.py)."""
-    for field, value in [
-        ("matmul_precision", "default"),
-        ("matmul_precision", "high"),
-    ]:
-        config = AdaptiveScalingInferenceConfig(device="cpu", **{field: value})
-        with pytest.raises(NotImplementedError, match=field):
+    """A matmul_precision the port does not have raises, naming the three
+    it has ("highest", "high" and "default" are ported:
+    tests/test_torch_precision.py; compute_dtype "bfloat16" is too:
+    tests/test_torch_bf16.py)."""
+    for value in ("fastest", "float32", "tensorfloat32", "HIGHEST"):
+        config = AdaptiveScalingInferenceConfig(device="cpu", matmul_precision=value)
+        with pytest.raises(ValueError, match="'highest', 'high', 'default'"):
             AdaptiveScalingInference(config, params={})
 
 

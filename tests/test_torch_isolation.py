@@ -27,6 +27,9 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import adascale_torch.native, adascale_torch.data.synth, adascale_torch.data.dataset\n"
         "import adascale_torch.data.prefetch, adascale_torch.training.checkpoint, adascale_torch.training.loop\n"
         "import adascale_torch.parallel, adascale_torch.parallel.mesh\n"
+        "import adascale_torch.utils.precision, adascale_torch.tools.bf16_drift\n"
+        "import adascale_torch.tools.eval_checkpoint, adascale_torch.tools.tiled_recall\n"
+        "import adascale_torch.tools.battery\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'cv2', 'PIL', 'adascale'))\n"

@@ -328,7 +328,7 @@ def test_grad_inspection_equals_jax(init_npz):
 
 
 @pytest.mark.parametrize("what", ["mesh", "float16", "python_backend", "no_card"])
-def test_unported_paths_raise(tmp_path, what):
+def test_train_paths_run_or_raise(tmp_path, what):
     """float16 and a missing card raise; the mesh (at world size 1, gloo in
     this process: the plain loop's losses bit for bit, the group ended after)
     and the ``"python"`` render backend (finite losses) run."""

@@ -219,7 +219,7 @@ def test_char_regression_label_equals_jax():
     assert labelled > 100
 
 
-def test_python_backend_and_unknown_backends_raise():
+def test_python_backend_draws_the_jax_page_and_unknown_backends_raise():
     """The ``"python"`` backend (the default) draws the JAX package's page;
     an unknown backend raises."""
     config = dict(page_height=96, page_width=96, num_lines_min=3, num_lines_max=4, glyph_stroke_prob=0.5)
