@@ -11,12 +11,13 @@ One-to-one with ``adascale/cli.py``:
            -> ``params.npz`` + ``model_config.json``, which ``detect`` serves)
   detect   AdaptiveScalingInference.detect -> char polygons JSON
   pt2      inference.export.export_program (the counterpart of ``stablehlo``)
-  demo     not ported yet: the painter and its Hershey text, ROADMAP Queue 1
-           item 12
+  demo     inference.demo.infer: detect() and the ten visualisation images,
+           as PNG
 
-``detect`` reads PNG or an ``.npz`` page (``utils/png.py``). ``train`` and
-``detect`` run on the card unless ``--device cpu`` asks for the plain
-versions.
+``detect`` and ``demo`` read PNG or an ``.npz`` page (``utils/png.py``).
+``train``, ``detect``, ``demo`` and ``pt2`` run on the card unless
+``--device cpu`` asks for the plain versions (``demo``: the inference
+config's ``device`` unless ``--device`` is given).
 """
 from __future__ import annotations
 
@@ -53,9 +54,10 @@ def _cmd_export(args):
 
 
 def _cmd_demo(args):
-    raise NotImplementedError(
-        "demo: the painter and its Hershey text renderer are not ported yet (ROADMAP Queue 1 item 12)"
-    )
+    from .inference.demo import infer
+
+    result = infer(args.config, args.image, args.output, device=args.device)
+    print(json.dumps({"num_chars": len(result["char_polygons"]), "output": args.output}))
 
 
 def _cmd_detect(args):
@@ -124,10 +126,11 @@ def main(argv=None):
     p.add_argument("--model-config")
     p.set_defaults(fn=_cmd_export)
 
-    p = sub.add_parser("demo", help="two-stage inference + visualization images (not ported yet)")
-    p.add_argument("--config", required=True)
-    p.add_argument("--image", required=True)
+    p = sub.add_parser("demo", help="two-stage inference + visualization images (PNG)")
+    p.add_argument("--config", required=True, help="inference config JSON (AdaptiveScalingInferenceConfig)")
+    p.add_argument("--image", required=True, help="page image, PNG or .npz")
     p.add_argument("--output", required=True)
+    p.add_argument("--device", help="cuda (the kernels) or cpu (their plain versions); default: the config's")
     p.set_defaults(fn=_cmd_demo)
 
     p = sub.add_parser("detect", help="page image (PNG or .npz) -> char polygons JSON")

@@ -27,7 +27,8 @@ Counterpart of ``adascale/data/geometry.py`` without OpenCV:
     them when the width is a multiple of 32 (the flagship's 768-pixel
     pages); the last ``width % 32`` columns come from its scalar tail, whose
     order is not found yet (within 1 gray level, ROADMAP Queue 3 item 7);
-  * ``draw_line`` follows ``cv2.line`` with ``LINE_8`` bit for bit: at
+  * ``draw_line`` and ``draw_polyline`` follow ``cv2.line`` and
+    ``cv2.polylines`` with ``LINE_8`` bit for bit: at
     thickness 1 the 8-connected line of ``LineIterator``, clipped to the
     image; thicker, the segment clipped to the image grown by the thickness
     on every side, then ``ThickLine``: a convex quadrilateral in 16.16 fixed
@@ -298,13 +299,13 @@ def _fill_circle(image: np.ndarray, cx: int, cy: int, radius: int, value) -> Non
         minus -= mask & 2
 
 
-def draw_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value, thickness: int = 1) -> None:
-    """``cv2.line(image, p0, p1, (v, v, v), thickness)`` (``LINE_8``) for
-    integer (x, y) ends, bit for bit (module docstring)."""
-    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
-    if thickness <= 1:
-        _draw_line8(image, x0, y0, x1, y1, value)
-        return
+def _thick_segment(image: np.ndarray, x0: int, y0: int, x1: int, y1: int, value, thickness: int,
+                   caps: Tuple[bool, bool]) -> None:
+    """OpenCV's ``ThickLine`` for integer ends and ``LINE_8`` at thickness >
+    1: the segment clipped to the image grown by the thickness on every
+    side, then a convex quadrilateral in 16.16 fixed point
+    (``FillConvexPoly``, its edges drawn by ``Line2``) and a filled circle on
+    each end that ``caps`` asks for (``flags`` bits 1 and 2)."""
     h, w = image.shape[:2]
     t = thickness
     ok, x0, y0, x1, y1 = _clip_line(w + 2 * t, h + 2 * t, x0 + t, y0 + t, x1 + t, y1 + t)
@@ -322,8 +323,38 @@ def draw_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value
         _fill_convex_poly(image, [(X0 + px, Y0 + py), (X0 - px, Y0 - py), (X1 - px, Y1 - py), (X1 + px, Y1 + py)],
                           value)
     radius = (half_width + (_XY_ONE >> 1)) >> _XY_SHIFT
-    for cx, cy in ((x0, y0), (x1, y1)):
-        _fill_circle(image, cx, cy, radius, value)
+    for cap, (cx, cy) in zip(caps, ((x0, y0), (x1, y1))):
+        if cap:
+            _fill_circle(image, cx, cy, radius, value)
+
+
+def draw_line(image: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], value, thickness: int = 1) -> None:
+    """``cv2.line(image, p0, p1, (v, v, v), thickness)`` (``LINE_8``) for
+    integer (x, y) ends, bit for bit (module docstring)."""
+    (x0, y0), (x1, y1) = (int(v) for v in p0), (int(v) for v in p1)
+    if thickness <= 1:
+        _draw_line8(image, x0, y0, x1, y1, value)
+        return
+    _thick_segment(image, x0, y0, x1, y1, value, thickness, (True, True))
+
+
+def draw_polyline(image: np.ndarray, points: np.ndarray, closed: bool, value, thickness: int = 1) -> None:
+    """``cv2.polylines(image, [points], closed, value, thickness)``
+    (``LINE_8``, no shift) for integer (x, y) points, bit for bit: OpenCV's
+    ``PolyLine``, segment by segment from the last point to the first when
+    ``closed``; thicker than 1 pixel, each segment by ``ThickLine``, capped
+    at its end (and the first segment of an open line at its start too)."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(points).reshape(-1, 2)]
+    if not pts:
+        return
+    p0 = pts[-1] if closed else pts[0]
+    for k in range(0 if closed else 1, len(pts)):
+        p1 = pts[k]
+        if thickness <= 1:
+            _draw_line8(image, *p0, *p1, value)
+        else:
+            _thick_segment(image, *p0, *p1, value, thickness, (not closed and k == 1, True))
+        p0 = p1
 
 
 @dataclasses.dataclass
@@ -628,26 +659,26 @@ def _invert3(mat: np.ndarray) -> np.ndarray:
 
 
 def fma_f32(a, b, c) -> np.ndarray:
-    """``a * b + c`` on f32 operands with one rounding to f32, as a fused
-    multiply-add gives it. The product of two f32 values is exact in f64, so
-    rounding the f64 sum again to f32 is right except where that sum lands
-    exactly halfway between two f32 values (its 29 low fraction bits
-    ``1 << 28``) and was itself rounded: there the sum's rounding error
-    (TwoSum) picks the neighbour."""
-    a, b, c = np.broadcast_arrays(*(np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c)))
-    shape = a.shape
-    p = (a * b).reshape(-1)
-    c = c.reshape(-1)
-    s = p + c
+    """``a * b + c`` on f32 operands (broadcast together) with one rounding
+    to f32, as a fused multiply-add gives it. The product of two f32 values
+    is exact in f64, so rounding the f64 sum again to f32 is right except
+    where that sum lands exactly halfway between two f32 values (its 29 low
+    fraction bits ``1 << 28``) and was itself rounded: there the sum's
+    rounding error (TwoSum) picks the neighbour."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    p = np.multiply(a, b, dtype=np.float64)
+    s = np.add(p, c, dtype=np.float64)
     r = s.astype(np.float32)
-    halfway = np.nonzero((s.view(np.uint64) & np.uint64((1 << 29) - 1)) == np.uint64(1 << 28))[0]
+    halfway = np.flatnonzero((s.view(np.uint64) & np.uint64((1 << 29) - 1)) == np.uint64(1 << 28))
     if halfway.size:
-        pi, ci, si = p[halfway], c[halfway], s[halfway]
+        at = np.unravel_index(halfway, s.shape)
+        pi, ci, si = np.broadcast_to(p, s.shape)[at], np.broadcast_to(c, s.shape)[at], s[at]
         bb = si - pi
         err = (pi - (si - bb)) + (ci - bb)
-        down, up = np.nextafter(si, -np.inf).astype(np.float32), np.nextafter(si, np.inf).astype(np.float32)
-        r[halfway] = np.where(err > 0, up, np.where(err < 0, down, r[halfway]))
-    return r.reshape(shape)
+        off = np.flatnonzero(err)
+        if off.size:
+            r[tuple(v[off] for v in at)] = np.nextafter(si[off], np.copysign(np.inf, err[off])).astype(np.float32)
+    return r
 
 
 def warp_perspective(
@@ -673,23 +704,39 @@ def warp_perspective(
     w = fma_f32(m[6], xs, row_w)
     sx = fma_f32(m[0], xs, row_x) / w
     sy = fma_f32(m[3], xs, row_y) / w
+    return bilinear_fma(img, sx, sy, border_value)
+
+
+def bilinear_fma(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border_value: int = 0) -> np.ndarray:
+    """The bilinear gather of OpenCV 5.0's warp vector loops on uint8 (H, W)
+    or (H, W, C): for f32 source positions ``(sx, sy)`` (out_h, out_w), the
+    four taps (``border_value`` outside the image) blended as
+    ``fma(a, p01 - p00, p00)``, ``fma(a, p11 - p10, p10)``, then
+    ``fma(b, v1 - v0, v0)``, rounded half to even."""
     fx, fy = np.floor(sx), np.floor(sy)
     a, b = (sx - fx)[..., None], (sy - fy)[..., None]
-    ix, iy = fx.astype(np.int64), fy.astype(np.int64)
-
-    h, wi = img.shape[:2]
-    src = img.reshape(h, wi, -1).astype(np.float32)
-    border = np.float32(border_value)
-
-    def tap(yy, xx):
-        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < wi)
-        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, wi - 1)]
-        return np.where(inside[..., None], v, border)
-
-    p00, p01 = tap(iy, ix), tap(iy, ix + 1)
-    p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
-    v0 = fma_f32(a, p01 - p00, p00)
-    v1 = fma_f32(a, p11 - p10, p10)
+    h, w = img.shape[:2]
+    src = img.reshape(h, w, -1)
+    # A border two pixels wide: a tap pair whose left (upper) tap lies
+    # left of -1 or right of w - 1 is border on both taps, so clipping the
+    # pair's start to [-2, w] keeps every tap's value and makes one gather.
+    padded = np.full((h + 4, w + 4, src.shape[2]), border_value, src.dtype)
+    padded[2:-2, 2:-2] = src
+    flat = padded.reshape(-1, src.shape[2])
+    ix = np.clip(fx.astype(np.int64), -2, w) + 2
+    iy = np.clip(fy.astype(np.int64), -2, h) + 2
+    i00 = iy * (w + 4) + ix
+    p00, p01 = (np.take(flat, i00 + d, axis=0).astype(np.float32) for d in (0, 1))
+    p10, p11 = (np.take(flat, i00 + d, axis=0).astype(np.float32) for d in (w + 4, w + 5))
+    if np.all((a == 0) | (a >= 2.0**-21)):
+        # Each such a is a multiple of 2^-44, so a * d + p with whole |d|,
+        # p < 2^8 needs at most 53 bits: exact in f64, rounded once to f32.
+        a64 = a.astype(np.float64)
+        v0 = (a64 * (p01 - p00) + p00).astype(np.float32)
+        v1 = (a64 * (p11 - p10) + p10).astype(np.float32)
+    else:
+        v0 = fma_f32(a, p01 - p00, p00)
+        v1 = fma_f32(a, p11 - p10, p10)
     v = fma_f32(b, v1 - v0, v0)
     out = np.clip(np.rint(v), 0, 255).astype(np.uint8)
-    return out.reshape((oh, ow) + img.shape[2:])
+    return out.reshape(sx.shape + img.shape[2:])

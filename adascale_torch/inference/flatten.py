@@ -11,8 +11,9 @@ The OpenCV calls of the JAX package are replaced as follows:
     rotating calipers, followed in f32 step by step so that near-ties pick
     the same rectangle; ``_long_side_angle`` turns it into the rotation
     angle and long-side ratio as the JAX package does;
-  * ``warpAffine`` -> ``warp_affine``: an inverse-mapped bilinear warp with
-    OpenCV's pixel-centre convention and a zero border;
+  * ``warpAffine`` -> ``warp_affine``: OpenCV 5.0's inverse-mapped f32
+    bilinear warp with its fused multiply-adds and a constant border (zero
+    unless asked), bit for bit where its vector loop runs;
   * ``resize`` -> ``resize_area`` / ``resize_linear`` / ``resize_nearest``,
     each with its OpenCV convention (area weights, half-pixel centres,
     ``floor(dst * in / out)``).
@@ -25,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..data.geometry import Box, Polygon, rotate_trans_mat, rotated_shape
+from ..data.geometry import Box, Polygon, bilinear_fma, fma_f32, rotate_trans_mat, rotated_shape
 from ..ops.resize import area_resize_weights
 
 
@@ -102,30 +103,36 @@ def resize_nearest(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     return img[rows][:, cols]
 
 
-def warp_affine(img: np.ndarray, mat: np.ndarray, out_wh: Tuple[int, int]) -> np.ndarray:
-    """``cv2.warpAffine(img, mat, out_wh)``: bilinear, zero border, uint8.
+def invert_affine(mat: np.ndarray) -> np.ndarray:
+    """``cv2.invertAffineTransform`` as ``warpAffine`` inverts its matrix:
+    f64, ``1 / det`` times the adjugate, the offsets from the inverted
+    coefficients."""
+    m = [float(v) for v in np.asarray(mat, np.float64).reshape(-1)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0.0 else 0.0
+    a11, a22, a12, a21 = m[4] * d, m[0] * d, -m[1] * d, -m[3] * d
+    return np.asarray(
+        [[a11, a12, -a11 * m[2] - a12 * m[5]], [a21, a22, -a21 * m[2] - a22 * m[5]]], np.float64
+    )
 
-    Each destination pixel maps through the inverted matrix to a source
-    position; the four taps are weighted in f32 and the sum is rounded."""
-    m = np.asarray(mat, dtype=np.float32).astype(np.float64)
-    inv = np.linalg.inv(np.vstack([m, [0.0, 0.0, 1.0]]))[:2]
+
+def warp_affine(img: np.ndarray, mat: np.ndarray, out_wh: Tuple[int, int], border_value: int = 0) -> np.ndarray:
+    """``cv2.warpAffine(img, mat, out_wh, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=(v, v, v))`` on uint8, bit for
+    bit with OpenCV 5.0 on every column its vector loop covers (all of them
+    when the width is a multiple of 32; the last ``width % 32`` come from
+    its scalar tail, within one gray level, as ``warp_perspective``'s).
+
+    The matrix is inverted in f64 (``invert_affine``) and rounded to f32;
+    destination pixel (x, y) samples ``fma(M0, x, y*M1 + M2)``,
+    ``fma(M3, x, y*M4 + M5)`` in f32 (``data.geometry.bilinear_fma``)."""
+    m = invert_affine(mat).astype(np.float32).reshape(-1)
     ow, oh = out_wh
-    xs, ys = np.meshgrid(np.arange(ow, dtype=np.float64), np.arange(oh, dtype=np.float64))
-    sx = (inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]).astype(np.float32)
-    sy = (inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]).astype(np.float32)
-    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
-    fx, fy = sx - x0, sy - y0
-
-    h, w = img.shape[:2]
-    src = img.reshape(h, w, -1).astype(np.float32)
-    out = np.zeros((oh, ow, src.shape[2]), dtype=np.float32)
-    for dy, wy in ((0, 1 - fy), (1, fy)):
-        for dx, wx in ((0, 1 - fx), (1, fx)):
-            yy, xx = y0 + dy, x0 + dx
-            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
-            out += np.where(ok[..., None], v, 0) * (wy * wx)[..., None]
-    return _round_u8(out).reshape((oh, ow) + img.shape[2:])
+    xs = np.arange(ow, dtype=np.float32)[None, :]
+    ys = np.arange(oh, dtype=np.float32)[:, None]
+    sx = fma_f32(m[0], xs, ys * m[1] + m[2])
+    sy = fma_f32(m[3], xs, ys * m[4] + m[5])
+    return bilinear_fma(img, sx, sy, border_value)
 
 
 # ------------------------------------------------------------ regions
@@ -422,11 +429,16 @@ class TextRegionFlattener:
             if angle != 0.0:
                 mat = rotate_trans_mat(angle, box.shape)
                 new_h, new_w = rotated_shape(angle, box.shape)
-                rotated = warp_affine(crop, mat, (new_w, new_h))
-                rotated_mask = warp_affine(mask, mat, (new_w, new_h))
-                rotated_core = (
-                    warp_affine(core_mask, mat, (new_w, new_h)) if core_mask is not None else None
-                )
+                # The crop and its masks as channels of one warp: one
+                # coordinate pass and one gather; each channel comes out as
+                # it would warped alone.
+                nc = crop.shape[2] if crop.ndim == 3 else 1
+                planes = [crop.reshape(box.shape + (nc,)), mask[..., None]]
+                planes += [core_mask[..., None]] if core_mask is not None else []
+                warped = warp_affine(np.concatenate(planes, axis=2), mat, (new_w, new_h))
+                rotated = warped[..., :nc].reshape(warped.shape[:2] + crop.shape[2:])
+                rotated_mask = warped[..., nc]
+                rotated_core = warped[..., nc + 1] if core_mask is not None else None
             else:
                 rotated, rotated_mask, rotated_core = crop, mask, core_mask
 

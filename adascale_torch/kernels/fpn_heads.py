@@ -281,12 +281,17 @@ def head_params(head: nn.Module) -> Params:
 
 
 def forward_rough_from_features_fused(
-    model: nn.Module, features: Sequence[torch.Tensor]
+    model: nn.Module, features: Sequence[torch.Tensor], *, fuse_neck: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``AdaptiveScaling.forward_rough_from_features`` with the rough neck's
-    level 0 and both heads through their kernels; softplus on the height in
-    f32, as the model does."""
-    neck = fpn_neck_forward_fused(model.rough_neck, features)
+    """``AdaptiveScaling.forward_rough_from_features`` with both heads
+    through their kernel and, with ``fuse_neck`` and an FPN neck, the rough
+    neck's level 0 through its kernel too (else the model's neck module
+    feeds the heads kernel, as the JAX function's ``fuse_neck=False``);
+    softplus on the height in f32, as the model does."""
+    if fuse_neck and model.config.neck_head_type == "fpn":
+        neck = fpn_neck_forward_fused(model.rough_neck, features)
+    else:
+        neck = model.rough_neck(features)
     mask_logits, height_raw = fused_rough_heads(
         neck,
         head_params(model.rough_char_mask_head),

@@ -9,7 +9,7 @@
     ``tests/fixtures/shift_pages`` do.
 
 JPEG, 16-bit, interlaced, palette and gray + alpha PNG raise with a message
-that says so (JPEG is out of scope, ROADMAP Queue 1 item 12). ``write_png(path, image)`` writes
+that says so (JPEG is out of scope, ROADMAP Queue 1 item 14). ``write_png(path, image)`` writes
 gray, RGB or RGBA uint8 with no row filter.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ def read_image(path: str) -> np.ndarray:
     with open(path, "rb") as fin:
         data = fin.read()
     if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(f"{path}: JPEG is not read by the port (ROADMAP Queue 1 item 12); use PNG or .npz")
+        raise NotImplementedError(f"{path}: JPEG is not read by the port (ROADMAP Queue 1 item 14); use PNG or .npz")
     return to_rgb(read_png_bytes(data, str(path)))
 
 

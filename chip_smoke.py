@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,mesh,bf16,widths,tf32]
+    python3 chip_smoke.py [--phases 3,3b,4,5,6,7,8a,8b,8c,9,10,11,12,export,loop,mesh,bf16,widths,tf32,tools]
 
 With no argument it runs every phase; ``--phases`` runs phases 1 and 2 and
 those listed. A missing weight file or reference is an error in any phase
@@ -247,7 +247,22 @@ that reads it. Phases, each announced with its elapsed seconds:
      "highest" (phase bf16's, where it ran) and
      "default" against the JAX bf16 reference (phase bf16's bars);
      ``tools/eval_checkpoint.evaluate`` of the FPN flagship on
-     TF32_EVAL_PAGES pages of its steps.json, fused, f32 and bf16.
+     TF32_EVAL_PAGES pages of its steps.json, fused, f32 and bf16;
+ tools. ``python -m adascale_torch demo`` (run in this process by
+     ``runpy``) on page_0 with the FPN flagship, fused (kernels 1-4), every
+     launch held against its plain twin: its ten PNGs read back equal to
+     ``inference.demo.visualisations`` of its result, its remapped polygons
+     equal to phase 5's; ``tools/serve_profile --pallas`` and
+     ``tools/kernel_sweep`` at B = 2 x 768x768 and ``tools/train_profile``
+     at B = 2 (the training crops), each f32 and bf16, run once silent with
+     every block's layer scale 1 (``unit_block_scale``: at the init's 1e-6 a
+     block's output is its input) and every launch held against its twin,
+     and then timed (TOOLS_ITERS calls a
+     row, each row with the card's name and power limit; a serve_profile row
+     under its roofline bound fails); ``tools.inspect.profile_forward`` at
+     TOOLS_FORWARD with a trace directory whose Chrome traces must hold
+     device kernels; the kernels each tool must launch (TOOLS_PATH_KERNELS);
+     the phase's seconds.
 
 Each run counts every kernel's launches from 0 just before a path and reads
 them just after; a kernel that a path runs and that was not launched fails
@@ -366,7 +381,7 @@ MANY_LAUNCHES = {"convnext_block": 108, "fpn_neck_l0": 6, "fpn_heads": 2, "preci
 # this (tests/test_batch_inference.py's bar).
 MANY_POINT_TOL = 1e-3
 PHASES = ("3", "3b", "4", "5", "6", "7", "8a", "8b", "8c", "9", "10", "11", "12", "export", "loop", "mesh", "bf16",
-          "widths", "tf32")
+          "widths", "tf32", "tools")
 KERNEL_NAMES = ("convnext_block", "fpn_neck_l0", "fpn_heads", "precise_heads")
 # bf16 serving (phase bf16): the dense bf16 tensor-core peak (H100 SXM, 700 W);
 # each bf16 kernel against its bf16 plain twin, the largest difference over
@@ -1751,38 +1766,44 @@ def held_against_plain(worst: dict):
     twin on the same inputs, with phase 3's and 3b's bar (the largest
     difference over the outputs <= REL_TOL of the largest plain value; a
     bf16 launch against its bf16 twin at BF16_TOL, gathered under
-    "<name>_bf16").
+    "<name>_bf16"; a single-pass TF32 launch against its TF32 twin at
+    TF32_HELD_TOL, under "<name>_tf32").
     ``worst[name]`` gathers each kernel's launches, input shapes and largest
     relative error. The plain twins launch nothing, so the counts move as
     they would without the check."""
     import torch
 
     from adascale_torch.kernels import convnext_block, fpn_heads, fpn_neck, precise_heads
+    from adascale_torch.utils.precision import tf32_products
 
-    def block_plain(x, p, module=None):
-        if module is None:
-            return convnext_block.convnext_block_plain(x, p)
-        return convnext_block.convnext_block_plain_bf16(x, p, module)
+    def block_plain(x, p, tf32=False, workspace=None):
+        return convnext_block.convnext_block_plain(x, p, tf32)
 
+    # (name, module, function, plain twin, kind): kind "f32", "bf16", or
+    # None where the input's dtype and the precision scope decide it.
     hooks = [
-        ("convnext_block", convnext_block, "_launch", block_plain),
-        ("convnext_block", convnext_block, "_launch_bf16", block_plain),
-        ("fpn_neck_l0", fpn_neck, "fused_neck_l0", fpn_neck.fused_neck_l0_plain),
-        ("fpn_heads", fpn_heads, "fused_rough_heads", fpn_heads.fused_rough_heads_plain),
-        ("precise_heads", precise_heads, "fused_precise_heads", precise_heads.fused_precise_heads_plain),
+        ("convnext_block", convnext_block, "_launch", block_plain, "f32"),
+        ("convnext_block", convnext_block, "_launch_bf16", convnext_block.convnext_block_plain_bf16, "bf16"),
+        ("fpn_neck_l0", fpn_neck, "fused_neck_l0", fpn_neck.fused_neck_l0_plain, None),
+        ("fpn_heads", fpn_heads, "fused_rough_heads", fpn_heads.fused_rough_heads_plain, None),
+        ("precise_heads", precise_heads, "fused_precise_heads", precise_heads.fused_precise_heads_plain, None),
     ]
 
-    def checked(name, kernel, plain):
+    def checked(name, kernel, plain, kind):
         def call(x, *args):
             got = kernel(x, *args)
-            want = plain(x, *args)
+            bf16 = kind == "bf16" or (kind is None and x.dtype == torch.bfloat16)
+            if kind == "f32":
+                tf32 = bool(args[1]) if len(args) > 1 else False
+                want = plain(x, *args)
+            else:
+                tf32 = not bf16 and tf32_products()
+                want = plain(x, *args, tf32=True) if tf32 else plain(x, *args)
             gs, ws = ([v] if torch.is_tensor(v) else list(v) for v in (got, want))
             err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(gs, ws))
             rel = err / (max(float(w.float().abs().max()) for w in ws) or 1.0)
-            # A bf16 launch: the block's module mode takes an f32 x.
-            bf16 = x.dtype == torch.bfloat16 or (name == "convnext_block" and len(args) > 1)
-            key = f"{name}_bf16" if bf16 else name
-            tol = BF16_TOL if bf16 else REL_TOL
+            key = f"{name}_bf16" if bf16 else f"{name}_tf32" if tf32 else name
+            tol = BF16_TOL if bf16 else TF32_HELD_TOL if tf32 else REL_TOL
             row = worst.setdefault(key, {"launches": 0, "shapes": set(), "rel": 0.0})
             row["launches"] += 1
             row["shapes"].add(tuple(x.shape))
@@ -1793,9 +1814,9 @@ def held_against_plain(worst: dict):
 
         return call
 
-    saved = [(module, attr, getattr(module, attr)) for _, module, attr, _ in hooks]
-    for name, module, attr, plain in hooks:
-        setattr(module, attr, checked(name, getattr(module, attr), plain))
+    saved = [(module, attr, getattr(module, attr)) for _, module, attr, _, _ in hooks]
+    for name, module, attr, plain, kind in hooks:
+        setattr(module, attr, checked(name, getattr(module, attr), plain, kind))
     try:
         yield worst
     finally:
@@ -2759,6 +2780,9 @@ def check_grad_refusal(gen, device) -> None:
 # 3xTF32 entry's error on the same inputs, so that it is one pass.
 TF32_TWIN_TOL = 2e-5
 TF32_F64_BAR = 1e-2
+# A TF32 launch held against its TF32 twin on a path (``held_against_plain``):
+# about 7 times the twin's own spread above.
+TF32_HELD_TOL = 1e-3
 TF32_PASS_RATIO = 10.0
 
 
@@ -3596,8 +3620,8 @@ LOOP_PATHS = {
 LOOP_POOL_RUNS = 12  # pages timed through a warm 4-process pool
 LOOP_CHECKPOINT = re.compile(r"state_(\d+)(_not_best)?")
 # Paths whose block launches are the trainable blocks' (rows 1' and 1b').
-TRAIN_PATHS = ("train_step", "train_step_bf16", "mesh_train_step", "mesh_train_step_bf16", "mesh_cli_train") + tuple(
-    p for pair in LOOP_PATHS.values() for p in pair)
+TRAIN_PATHS = ("train_step", "train_step_bf16", "mesh_train_step", "mesh_train_step_bf16", "mesh_cli_train",
+               "tools_train_profile", "tools_train_profile_bf16") + tuple(p for pair in LOOP_PATHS.values() for p in pair)
 
 
 def loop_run(label: str, folder: str, weights: str, epochs: int, batches: int, dev_batches: int,
@@ -4045,6 +4069,173 @@ def check_mesh(params, device) -> dict:
     return {"paths": paths, "ms": ms, "cli_s": cli["seconds"], "render_ms": render_ms}
 
 
+# Phase tools: the demo CLI on page_0 (fused f32) and the profilers at a
+# small batch and a few iterations, each in f32 and bf16.
+TOOLS_SERVE_ARGS = ["--batch", "2", "--hw", "768", "--pallas"]
+TOOLS_SWEEP_ARGS = ["--batch", "2", "--hw", "768"]
+TOOLS_TRAIN_ARGS = ["--batch", "2"]  # the flagship's 512x512 rough and 320x320 precise crops
+TOOLS_ITERS = "3"
+TOOLS_FORWARD = {"resolution": 640, "batch": 1, "iters": 5}
+# The kernels each tool's timed run must launch (by counted()'s names).
+TOOLS_PATH_KERNELS = {
+    "tools_demo_cli": list(KERNEL_NAMES),
+    "tools_serve_profile": ["convnext_block"],
+    "tools_serve_profile_bf16": ["convnext_block_bf16"],
+    "tools_kernel_sweep": ["convnext_block", "convnext_block_tf32", "convnext_block_bf16", "fpn_neck_l0", "fpn_heads",
+                           "precise_heads"],
+    "tools_kernel_sweep_bf16": ["convnext_block", "convnext_block_tf32"] + [f"{k}_bf16" for k in KERNEL_NAMES],
+    "tools_train_profile": ["convnext_block"],
+    "tools_train_profile_bf16": ["convnext_block_bf16"],
+    "tools_profile_forward": ["convnext_block"],
+}
+
+
+def check_demo_cli(params, image, ref, fused_result, out_dir: str, worst: dict) -> dict:
+    """``python -m adascale_torch demo`` (run in this process by ``runpy``)
+    on page_0 with the FPN flagship's .npz and model.json, fused, every
+    kernel launch held against its plain twin: the ten PNGs read back equal
+    to ``inference.demo.visualisations`` of its result, its remapped
+    polygons equal to phase 5's fused detect(). Returns its launches."""
+    import runpy
+    import sys
+
+    import numpy as np
+
+    from adascale_torch.inference import demo
+    from adascale_torch.utils.png import read_image
+
+    with open(os.path.join(ROOT, "examples/flagship_training/model.json")) as f:
+        model = json.load(f)
+    config = os.path.join(out_dir, "infer.json")
+    with open(config, "w") as f:
+        json.dump({"checkpoint": WEIGHTS, "model": model, "use_pallas_backbone": True,
+                   "use_pallas_neck_heads": True}, f)
+    results, original, argv = [], demo.infer, sys.argv
+    demo.infer = lambda *a, **k: results.append(original(*a, **k)) or results[-1]
+    sys.argv = ["adascale_torch", "demo", "--config", config, "--image", os.path.join(ROOT, str(ref["page"])),
+                "--output", os.path.join(out_dir, "demo")]
+    t = time.perf_counter()
+    try:
+        with held_against_plain(worst):
+            _, launches = counted(lambda: runpy.run_module("adascale_torch", run_name="__main__"))
+    finally:
+        demo.infer, sys.argv = original, argv
+    seconds = time.perf_counter() - t
+    result = results[0]
+    want = demo.visualisations(engine_for(params, use_pallas_neck_heads=True), image, result)
+    for stem in demo.STEMS:
+        got = read_image(os.path.join(out_dir, "demo", f"{stem}.png"))
+        if got.shape != want[stem].shape or not np.array_equal(got, want[stem]):
+            raise AssertionError(f"demo {stem}.png: {got.shape} differs from its visualisation {want[stem].shape}")
+    ours, theirs = result["char_polygons"], fused_result["char_polygons"]
+    if len(ours) != len(theirs) or not all(np.array_equal(a.points, b.points) for a, b in zip(ours, theirs)):
+        raise AssertionError(f"demo: {len(ours)} remapped polygons differ from the fused detect()'s {len(theirs)}")
+    print(
+        f"demo CLI: {len(demo.STEMS)} PNGs read back equal to their visualisations, {len(ours)} remapped polygons "
+        f"equal to the fused detect()'s, {seconds:.2f} s (the twins' checks inside), launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+@contextlib.contextmanager
+def unit_block_scale():
+    """Within: the profilers' models (``tools.train_profile.build``) come
+    with every ConvNeXt block's layer scale at 1. At the init's 1e-6 a
+    block returns its input plus 1e-6 of the kernel's work, and holding
+    that output against the twin's would measure the input."""
+    import torch
+
+    from adascale_torch.tools import train_profile
+
+    build = train_profile.build
+
+    def unit(*args, **kwargs):
+        model, specs = build(*args, **kwargs)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("block_scale"):
+                    p.fill_(1.0)
+        return model, specs
+
+    train_profile.build = unit
+    try:
+        yield
+    finally:
+        train_profile.build = build
+
+
+def check_tools(params, image, ref, device, fused_result=None) -> dict:
+    """Phase tools (module docstring). Each profiler runs twice a dtype:
+    once silent at one timed call, every kernel launch held against its
+    plain twin, then timed and printed (rows with the card's name and power
+    limit; serve_profile raises on a row under its bound), its launches
+    counted. Returns the launches by path."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from adascale_torch.tools import inspect as tool_inspect
+    from adascale_torch.tools import kernel_sweep, serve_profile, train_profile
+
+    phase_t = time.perf_counter()
+    paths, worst = {}, {}
+    out_dir = tempfile.mkdtemp(prefix=".tools-", dir=ROOT)
+    try:
+        if fused_result is None:
+            fused_result = engine_for(params, use_pallas_neck_heads=True).detect(image)
+        paths["tools_demo_cli"] = check_demo_cli(params, image, ref, fused_result, out_dir, worst)
+
+        for main, args in ((serve_profile, TOOLS_SERVE_ARGS), (kernel_sweep, TOOLS_SWEEP_ARGS),
+                           (train_profile, TOOLS_TRAIN_ARGS)):
+            tool = main.__name__.rsplit(".", 1)[1]
+            for dtype, suffix in (("f32", ""), ("bf16", "_bf16")):
+                argv = args + ["--dtype", dtype]
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()), unit_block_scale(), held_against_plain(worst):
+                    main.main(argv + ["--iters", "1"])
+                held_s = time.perf_counter() - t
+                stamp(f"tools: {tool} {' '.join(argv)}")
+                t = time.perf_counter()
+                _, paths[f"tools_{tool}{suffix}"] = counted(lambda: main.main(argv + ["--iters", TOOLS_ITERS]))
+                print(f"{tool} {dtype}: {time.perf_counter() - t:.2f} s timed, {held_s:.2f} s held against the "
+                      f"twins; launches {paths[f'tools_{tool}{suffix}']}", flush=True)
+
+        traces = os.path.join(out_dir, "traces")
+        forward, paths["tools_profile_forward"] = counted(
+            lambda: tool_inspect.profile_forward(trace_dir=traces, device="cuda", **TOOLS_FORWARD)
+        )
+        kernels = {}
+        for name in forward:
+            with open(os.path.join(traces, f"{name}.json")) as f:
+                events = json.load(f)["traceEvents"]
+            kernels[name] = sum(1 for e in events if e.get("cat") == "kernel")
+            if not kernels[name]:
+                raise AssertionError(f"profile_forward's {name} trace holds no device kernel")
+        print(
+            "profile_forward (tiny/FPN, random init, "
+            + ", ".join(f"{k}={v}" for k, v in TOOLS_FORWARD.items())
+            + "): " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in forward.items())
+            + f"; trace kernels {kernels} [{smi_line()}]",
+            flush=True,
+        )
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(
+        "tools: kernel launches against their plain twins: "
+        + "; ".join(f"{k} {v['launches']} at {len(v['shapes'])} shapes worst rel {v['rel']:.3e}"
+                    for k, v in worst.items()),
+        flush=True,
+    )
+    for path, launches in paths.items():
+        missing = [k for k in TOOLS_PATH_KERNELS[path] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"path {path}: kernels {missing} were not launched ({launches})")
+    print(f"phase tools: {time.perf_counter() - phase_t:.2f} s", flush=True)
+    return paths
+
+
 def parse_phases(argv=None):
     """The phases to run: all of them, or those ``--phases`` lists (phases 1
     and 2, the device and the build, always run)."""
@@ -4133,12 +4324,14 @@ def main() -> None:
         print_detect_steps(engine, image)
 
     fused = engine_for(params, use_pallas_neck_heads=True)
+    fused_result = None
     if "5" in phases:
         stamp("phase 5: detect() with use_pallas_neck_heads=True")
         from adascale_torch.kernels import packing
 
         result, by_path["detect_fused"] = fused_detect_checked(fused, image, ref, blocks_per_pass)
         highest["fpn_fused"] = (fused, result)
+        fused_result = result
         x_rough, x_precise = forward_inputs(image, result, device)
 
         stamp("fused forwards against the module path; warm timings")
@@ -4293,6 +4486,10 @@ def main() -> None:
         print("tf32 numbers: " + json.dumps(tf32_numbers), flush=True)
         print(f"phase tf32: {time.perf_counter() - phase_t:.2f} s", flush=True)
 
+    if "tools" in phases:
+        stamp("phase tools: the demo CLI and the profiling tools")
+        by_path.update(check_tools(params, image, ref, device, fused_result))
+
     # Every kernel a path runs was launched in that path's counted run.
     bf16_names = [f"{k}_bf16" for k in KERNEL_NAMES]
     path_kernels = {
@@ -4312,6 +4509,7 @@ def main() -> None:
         "detect_base_random_bfloat16": bf16_names,
         "detect_tf32_fpn_module": ["convnext_block_tf32"], "detect_tf32_upernext_fused": ["convnext_block_tf32"],
         "detect_tf32_fpn_fused": [f"{k}_tf32" for k in KERNEL_NAMES], "detect_tf32_bf16_fused": bf16_names,
+        **TOOLS_PATH_KERNELS,
     }
     for path, launches in by_path.items():
         missing = [k for k in path_kernels.get(path, KERNEL_NAMES) if not launches.get(k)]

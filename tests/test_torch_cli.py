@@ -6,9 +6,10 @@ detection-quality spec, written as a PNG by OpenCV: the port's JSON against
 the JAX CLI's on the same ``.npz`` and PNG, char polygons matched one to one
 at IoU >= 0.5, >= 95 % both ways (the port's engine bar; the two engines
 compute the same function in f32, so the measured share is printed).
-``demo`` and ``export`` of an orbax directory raise, naming their ROADMAP
-items; ``train --mesh`` runs at world size 1 on the micro model (``train``
-and ``export`` themselves: ``tests/test_torch_loop.py``).
+``export`` of an orbax directory raises, naming its ROADMAP item; ``train
+--mesh`` runs at world size 1 on the micro model (``train`` and ``export``
+themselves: ``tests/test_torch_loop.py``), and so does ``demo`` (its images
+against the JAX demo's: ``tests/test_torch_demo.py``).
 """
 import json
 import os
@@ -18,20 +19,28 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_detection_quality import FIXTURE, MODEL_SPEC, PAGE_SPEC  # noqa: E402
 
 from adascale.cli import main as jax_cli_main  # noqa: E402
-from adascale.data.synth import generate_page  # noqa: E402
+from adascale.data.synth import SynthPageConfig, generate_page  # noqa: E402
+from adascale.tools.export_params import flatten_params  # noqa: E402
 from adascale.utils.config import config_to_dict as jax_config_to_dict  # noqa: E402
 from adascale_torch.cli import main as cli_main  # noqa: E402
 from adascale_torch.data.geometry import Polygon  # noqa: E402
+from adascale_torch.inference.demo import STEMS as DEMO_STEMS  # noqa: E402
 from adascale_torch.inference.eval import match_polygons  # noqa: E402
+from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig  # noqa: E402
+from adascale_torch.models.adaptive_scaling import init_like_flax_  # noqa: E402
+from adascale_torch.utils.params import jax_from_state_dict  # noqa: E402
+from adascale_torch.utils.png import write_png  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POLYGON_BAR = 0.95
+MICRO_SPEC = ((8, 1), (16, 1), (32, 1), (64, 1))
 
 
 def test_detect_cli_matches_the_jax_cli(tmp_path):
@@ -87,21 +96,43 @@ def _micro_train_configs(folder):
             paths["model"]]
 
 
+def _micro_demo_inputs(folder):
+    """``--config`` (the micro model at a seeded init, as an ``.npz``) and
+    ``--image`` (a 192x192 synth page as PNG) for ``demo``."""
+    model = AdaptiveScaling(AdaptiveScalingConfig(custom_block_channels_and_num_layers=MICRO_SPEC))
+    init_like_flax_(model, torch.Generator().manual_seed(0))
+    weights = str(folder / "micro.npz")
+    np.savez(weights, **flatten_params(jax_from_state_dict(model.state_dict())))
+    config = folder / "infer.json"
+    config.write_text(json.dumps({"checkpoint": weights, "model": {"custom_block_channels_and_num_layers": MICRO_SPEC}}))
+    page = generate_page(SynthPageConfig(page_height=192, page_width=192, num_lines_min=2, num_lines_max=3),
+                         np.random.default_rng(2))
+    image = str(folder / "page.png")
+    write_png(image, page.image)
+    return ["--config", str(config), "--image", image]
+
+
 @pytest.mark.parametrize(
     "argv,item",
     [
         # train and export are ported (tests/test_torch_loop.py): train
         # --mesh runs (at world size 1 here; under torchrun,
         # tests/test_torch_mesh_paths.py and chip_smoke.py); an orbax
-        # checkpoint directory and demo raise.
+        # checkpoint directory raises; demo runs on the micro model.
         (["train", "--output", "{tmp}/out", "--mesh", "--device", "cpu"], None),
         (["export", "--checkpoint", "{tmp}", "--output", "{tmp}/out"], "item 9.3"),
-        (["demo", "--config", "c.json", "--image", "page.png", "--output", "{tmp}/out"], "item 12"),
+        (["demo", "--output", "{tmp}/out", "--device", "cpu"], None),
     ],
     ids=["train", "export", "demo"],
 )
 def test_commands_run_or_raise_naming_their_item(argv, item, tmp_path, capsys):
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    if argv[0] == "demo":
+        cli_main(argv + _micro_demo_inputs(tmp_path))
+        printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert printed["num_chars"] >= 0 and printed["output"] == str(tmp_path / "out")
+        assert sorted(os.listdir(tmp_path / "out")) == sorted(f"{stem}.png" for stem in DEMO_STEMS)
+        return
     if item is None:
         # train --mesh on the micro model and the "python" render backend
         # (the steps JSON has no render_backend).

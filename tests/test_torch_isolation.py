@@ -30,6 +30,10 @@ def test_port_and_chip_smoke_import_no_jax_cv2_or_adascale():
         "import adascale_torch.utils.precision, adascale_torch.tools.bf16_drift\n"
         "import adascale_torch.tools.eval_checkpoint, adascale_torch.tools.tiled_recall\n"
         "import adascale_torch.tools.battery\n"
+        "import adascale_torch.utils.painter, adascale_torch.utils.jpeg, adascale_torch.inference.demo\n"
+        "import adascale_torch.tools.inspect, adascale_torch.tools.train_profile\n"
+        "import adascale_torch.tools.serve_profile, adascale_torch.tools.kernel_sweep\n"
+        "import adascale_torch.tools.shift_fixtures\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'cv2', 'PIL', 'adascale'))\n"
@@ -67,3 +71,37 @@ def test_engine_without_device_raises_without_cuda():
     assert config.device == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AdaptiveScalingInference(config, params={})
+
+
+def _demo(tmp):
+    from adascale_torch.inference.demo import infer
+
+    infer('{"model": {"custom_block_channels_and_num_layers": [[8, 1], [16, 1], [32, 1], [64, 1]]}}',
+          "page.png", str(tmp))
+
+
+def _profile_forward(tmp):
+    from adascale_torch.tools.inspect import profile_forward
+
+    profile_forward(resolution=64)
+
+
+def _tool_main(name):
+    def run(tmp):
+        import importlib
+
+        importlib.import_module(f"adascale_torch.tools.{name}").main(["--block-spec", "8x1,16x1,32x1,64x1"])
+
+    return run
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [_demo, _profile_forward, _tool_main("train_profile"), _tool_main("serve_profile"), _tool_main("kernel_sweep")],
+    ids=["demo", "profile_forward", "train_profile", "serve_profile", "kernel_sweep"],
+)
+def test_card_entry_points_raise_without_cuda(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cpu"):
+        entry(tmp_path)
