@@ -18,10 +18,13 @@ that the tests and ``chip_smoke.py`` hold the kernel against.
 Inside a ``utils.precision.matmul_precision("default")`` or ``("high")``
 scope (the JAX engine's ``jax.default_matmul_precision``, under which XLA
 computes an f32 product on a GPU as one TF32 pass) an f32 call on the card
-launches the single-pass entry ``convnext_block_tf32`` instead (the same
-kernels, one TF32 ``mma`` a product on operands rounded as the 3xTF32
-split's hi part; counted in ``LAUNCHES_TF32``); its plain twin is
-``convnext_block_plain(x, p, tf32=True)``. The registered operator and the
+launches the single-pass entry ``convnext_block_tf32`` instead (counted in
+``LAUNCHES_TF32``): the same depthwise + LN, then the MLP on TF32 ``wgmma``
+(``csrc/block_tf32.cuh``: for C <= 192 one kernel with the 4C hidden on
+chip, wider two TMA-fed GEMMs), both operands of each product rounded to
+TF32 (W1 and W2 once per parameter set by ``packing.pack_block_tf32``), f32
+sums, batch-invariant; its plain twin is ``convnext_block_plain(x, p,
+tf32=True)``. The registered operator and the
 trainable block always run at "highest" (the JAX export and train step have
 no precision knob), so an exported program computes what it computed at
 export whatever the scope.
@@ -53,8 +56,9 @@ none, as the JAX package's Pallas training backbone is f32 only.
 
 The kernels are built on first use by ``_nvcc.build`` (``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``; ``build``:
-f32, ``build_bf16``: bf16, one library a mode, all from the same source): no
-PyTorch headers, so a build takes seconds.
+f32, ``build_tf32``: the single-pass TF32 entry, ``build_bf16``: bf16, one
+library a mode, all from the same source): no PyTorch headers, so a build
+takes seconds.
 
 ``p`` holds the block's parameters in PyTorch layout, as the port's
 ``ConvNeXtBlock.state_dict()`` does: ``dwconv.weight`` (C, 1, 7, 7),
@@ -102,13 +106,45 @@ EPS = 1e-6
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the f32 kernel library."""
+    """Compile (once per source hash) and load the f32 kernel library (the
+    3xTF32 entry)."""
     lib = _nvcc.build("convnext_block", "convnext_block.cu")
-    for fn in (lib.convnext_block_f32, lib.convnext_block_tf32):
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib.convnext_block_f32.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.convnext_block_f32.restype = ctypes.c_int
     lib.convnext_block_f32_workspace.argtypes = [ctypes.c_int] * 5
     lib.convnext_block_f32_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def build_tf32() -> ctypes.CDLL:
+    """Compile and load the single-pass TF32 entry's library: the same
+    source built with ``-DCONVNEXT_BLOCK_TF32``, a library of its own, so
+    that it compiles beside the others. Raises if its packed layout is not
+    the one ``packing.pack_block_tf32`` makes."""
+    global _TF32_LIB
+    if _TF32_LIB is not None:
+        return _TF32_LIB
+    lib = _nvcc.build("convnext_block_tf32", "convnext_block.cu", ("CONVNEXT_BLOCK_TF32",))
+    lib.convnext_block_tf32.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.convnext_block_tf32.restype = ctypes.c_int
+    lib.convnext_block_tf32_workspace.argtypes = [ctypes.c_int] * 5
+    lib.convnext_block_tf32_workspace.restype = ctypes.c_longlong
+    lib.convnext_block_tf32_fused_width.argtypes = [ctypes.c_int]
+    lib.convnext_block_tf32_fused_width.restype = ctypes.c_int
+    lib.convnext_block_tf32_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    layout = (ctypes.c_int * 6)()
+    lib.convnext_block_tf32_layout(layout)
+    want = (packing.BLOCK_FUSED_MAX_C, *(packing.BLOCK_TF32_HIDDEN[w] for w in packing.BLOCK_FUSED_WIDTHS),
+            *packing.BLOCK_TF32_TILE)
+    if tuple(layout) != want:
+        raise RuntimeError(
+            f"convnext_block_tf32: the library's widest fused C, hidden chunks and tile {tuple(layout)} "
+            f"are not the packing's {want}"
+        )
+    for c in range(4, MAX_CHANNELS + 1, 4):
+        if lib.convnext_block_tf32_fused_width(c) != packing.block_fused_width(c):
+            raise RuntimeError(f"convnext_block_tf32: the library's layout for C = {c} is not the packing's")
+    _TF32_LIB = lib
     return lib
 
 
@@ -116,7 +152,7 @@ def build_bf16(module: bool) -> ctypes.CDLL:
     """Compile and load the bf16 kernel library of one mode (``module``: the
     module mode, else the Pallas mode): the same source built with
     ``-DCONVNEXT_BLOCK_BF16`` and ``-DCONVNEXT_BLOCK_BF16_MODULE``, a library
-    of its own, so that the three compile in parallel. Raises if the
+    of its own, so that the four compile in parallel. Raises if the
     library's packed layout is not the one ``packing.pack_block_bf16``
     makes."""
     if module in _BF16_LIBS:
@@ -155,6 +191,10 @@ def build_bf16(module: bool) -> ctypes.CDLL:
 # (asking for them took 2-4 us of a call's host time beside an H100,
 # tools/kernel_ms.py --only block_bf16_host).
 _BF16_LIBS: Dict[bool, ctypes.CDLL] = {}
+# The loaded TF32 library, once its layout was checked.
+_TF32_LIB: Optional[ctypes.CDLL] = None
+# A TF32 launch's multiprocessors and workspace floats by card and shape.
+_TF32_SHAPES: Dict[tuple, tuple] = {}
 _GELU_TABLES: Dict[int, torch.Tensor] = {}
 _BF16_SHAPES: Dict[tuple, tuple] = {}
 # The current stream's handle without building a Stream object (3-6 us a
@@ -459,21 +499,91 @@ def _launch_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor], module: bool) -> t
     return out
 
 
+def tf32_weights(p: Dict[str, torch.Tensor], c: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The TF32 launch's parameters by ``BF16_ARGS``, in its order: checked
+    against C's shapes on ``device``, W1 and W2 rounded to TF32 and packed by
+    ``packing.pack_block_tf32``, the rest contiguous in PyTorch's layouts
+    (the depthwise taps (C, 1, 7, 7)). Checked and built once per parameter
+    set, C and device (``packing.cached``)."""
+    ts = [p[name] for name in PARAM_NAMES]
+
+    def pack():
+        for name, shape in _param_shapes(c).items():
+            _nvcc.check_param(name, p[name], shape, device)
+        args = dict(zip(BF16_ARGS, (t.detach().contiguous() for t in ts)))
+        if args["dw_w"].data_ptr() % 16:
+            raise ValueError("convnext_block: dwconv.weight is not 16-byte aligned")
+        args.update(packing.pack_block_tf32(p["mlp_up.weight"].detach(), p["mlp_down.weight"].detach()))
+        return args
+
+    return packing.cached(ts, ("block_tf32", c, device), pack)
+
+
+def tf32_workspace_floats(b: int, h: int, w: int, c: int, device: torch.device, keep_u: bool = False) -> int:
+    """Floats of scratch a TF32 launch of (b, h, w, c) takes on ``device``
+    (``convnext_block_tf32_workspace``), or with ``keep_u`` at least
+    B H W x 5C, so that u can follow h in it (``_launch``'s workspace)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, b, h, w, c)
+    if key not in _TF32_SHAPES:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _TF32_SHAPES[key] = (sms, build_tf32().convnext_block_tf32_workspace(b, h, w, c, sms))
+    floats = _TF32_SHAPES[key][1]
+    return max(floats, 5 * b * h * w * c) if keep_u else floats
+
+
+def _launch_tf32(x: torch.Tensor, p: Dict[str, torch.Tensor], workspace: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the single-pass TF32 entry (``csrc/block_tf32.cuh``) on a
+    CUDA tensor; raises on what it does not take. With a ``workspace`` (at
+    least ``tf32_workspace_floats(..., keep_u=True)`` floats) h and u are
+    kept there, as ``_launch`` says."""
+    b, h, w, c = x.shape
+    lib = build_tf32()
+    args = tf32_weights(p, c, x.device)
+    floats = tf32_workspace_floats(b, h, w, c, x.device, keep_u=workspace is not None)
+    sms = _TF32_SHAPES[(x.device.index, b, h, w, c)][0]
+    if workspace is None:
+        workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
+        u_out = 0
+    elif workspace.dtype != torch.float32 or workspace.device != x.device or workspace.numel() < floats \
+            or not workspace.is_contiguous():
+        raise ValueError(f"convnext_block: the workspace must be {floats} contiguous f32 on {x.device}")
+    else:
+        u_out = workspace.data_ptr() + 4 * b * h * w * c
+    out = torch.empty_like(x)
+    stream = _raw_stream(x.device.index) if _raw_stream else torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.convnext_block_tf32(
+            x.data_ptr(), *(t.data_ptr() for t in args.values()), workspace.data_ptr(), out.data_ptr(),
+            u_out, b, h, w, c, sms, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"convnext_block_tf32 launch failed: CUDA error {rc}")
+    return out
+
+
 def _launch(
     x: torch.Tensor, p: Dict[str, torch.Tensor], tf32: bool = False, workspace: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Launch the f32 kernel on a CUDA tensor (``tf32``: its single-pass
     TF32 entry); raises on what it does not take. ``workspace``: an f32
-    buffer of at least ``convnext_block_f32_workspace(B, H, W, C, SMs)``
-    floats for the kernel's scratch, which then holds the LayerNorm output
+    buffer for the kernel's scratch, which then holds the LayerNorm output
     h (B H W x C) and the GELU output u (B H W x 4C) after the call, the
     operands of the two projections (``chip_smoke.py`` holds each projection
-    against its twin on them); else one is allocated."""
+    against its twin on them; the TF32 entry's u is the GELU's f32 output,
+    which it rounds to TF32 for the second product): at least
+    ``convnext_block_f32_workspace(B, H, W, C, SMs)`` floats, or for
+    ``tf32`` ``tf32_workspace_floats(B, H, W, C, device, keep_u=True)``;
+    else one is allocated."""
     global LAUNCHES, LAUNCHES_TF32
     _nvcc.check_activation("convnext_block x", x, x.device, (torch.float32,))
     b, h, w, c = x.shape
     if c > MAX_CHANNELS or h > 65535 or b > 65535:
         raise ValueError(f"convnext_block: unsupported shape {tuple(x.shape)}")
+    if tf32:
+        out = _launch_tf32(x, p, workspace)
+        LAUNCHES_TF32 += 1
+        return out
     shapes = _param_shapes(c)
     for name, shape in shapes.items():
         _nvcc.check_param(name, p[name], shape, x.device)
@@ -491,9 +601,8 @@ def _launch(
     elif workspace.dtype != torch.float32 or workspace.device != x.device or workspace.numel() < floats \
             or not workspace.is_contiguous():
         raise ValueError(f"convnext_block: the workspace must be {floats} contiguous f32 on {x.device}")
-    entry = lib.convnext_block_tf32 if tf32 else lib.convnext_block_f32
     with torch.cuda.device(x.device):
-        rc = entry(
+        rc = lib.convnext_block_f32(
             x.data_ptr(), q["dwconv.weight"].data_ptr(), q["dwconv.bias"].data_ptr(),
             q["ln.weight"].data_ptr(), q["ln.bias"].data_ptr(),
             q["mlp_up.weight"].data_ptr(), q["mlp_up.bias"].data_ptr(),
@@ -502,9 +611,6 @@ def _launch(
             b, h, w, c, sms, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"convnext_block_{'tf32' if tf32 else 'f32'} launch failed: CUDA error {rc}")
-    if tf32:
-        LAUNCHES_TF32 += 1
-    else:
-        LAUNCHES += 1
+        raise RuntimeError(f"convnext_block_f32 launch failed: CUDA error {rc}")
+    LAUNCHES += 1
     return out

@@ -1,6 +1,7 @@
 // The ConvNeXt block in bf16 for Hopper (sm_90a), NHWC, the body of the
 // block's bf16 libraries (convnext_block.cu built with
-// -DCONVNEXT_BLOCK_BF16; the f32 library does not include this file):
+// -DCONVNEXT_BLOCK_BF16; the f32 library includes this file only for the
+// helpers block_tf32.cuh shares, and launches none of its kernels):
 //
 //   h = LN(dwconv7x7(x) + dw_b)                        (dw_ln_pairs_kernel)
 //   out = x + scale * (W2 . GELU(W1 . h + b1) + b2)    (the MLP, below)

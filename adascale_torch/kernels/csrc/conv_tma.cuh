@@ -1,13 +1,20 @@
-// The bf16 implicit-GEMM convolution of the neck level 0 and the heads
+// The implicit-GEMM convolution of the bf16 neck level 0 and heads
 // (fpn_neck_l0.cu; fpn_heads.cu and precise_heads.cu through fpn_head.cuh)
-// for Hopper (sm_90a), on a warp-specialised main loop fed by TMA:
+// and of the precise heads' single-pass TF32 entry, for Hopper (sm_90a), on
+// a warp-specialised main loop fed by TMA:
 //
 //   acc[m][n] = sum_{t, c} x[b, i + oy_t, j + ox_t, c] * w[t][c][n]
 //
 // conv_gemm.cuh's sums (its Taps: a 1x1, a 3x3, or one phase of the heads'
-// collapsed 2x2), from bf16 operands into f32 sums. conv_gemm.cuh keeps the
-// f32 loop (3xTF32) and the loop of the wide bf16 paths, which split the
-// features into slices and run a chunk of flattened pixels at a time.
+// collapsed 2x2), into f32 sums from bf16 operands or, for f32 operands
+// (Loop's T = float), from one TF32 product a product: x rounded to TF32
+// (to nearest, ties away, conv_gemm::round_tf32) in registers after its
+// ldmatrix, w rounded when it was packed (packing.pack_sw128_tf32), so that
+// the tensor core, which drops the low 13 bits of an f32 operand, reads the
+// rounded values. conv_gemm.cuh keeps the 3xTF32 loop, the other
+// single-pass TF32 entries' loop and the loop of the wide bf16 paths, which
+// split the features into slices and run a chunk of flattened pixels at a
+// time.
 //
 // Design:
 //   * A block is persistent: one a multiprocessor, it walks units, each one
@@ -18,7 +25,8 @@
 //     registers from the producer (40) to the consumers (232), which hold
 //     up to 100 sums a thread through the epilogue.
 //   * Pixel tiles are 2-D, kBW = 16 columns by BH rows of one image. For
-//     each 64 channels (128 bytes) of K the producer brings one halo box of
+//     each 128 bytes of K (64 bf16 or 32 f32 channels: Loop's KC) the
+//     producer brings one halo box of
 //     the tile, (16 + KW - 1) columns by (BH + KH - 1) rows, by one TMA copy
 //     of a 4-D tensor map over x (C, W, H, B) at the taps' origin: TMA's
 //     zero fill past the map's edges is the convolution's zero padding, and
@@ -30,9 +38,10 @@
 //   * A tap's A goes from the box to registers by ldmatrix (the box is in
 //     TMA's 128-byte swizzle: the 16-byte piece j of row r sits at j ^ r %
 //     8), the products are wgmma with A from registers and B from shared
-//     memory. B (NB rows by 64 channels for each tap and chunk) comes by one
+//     memory. B (NB rows by KC channels for each tap and chunk) comes by one
 //     bulk copy a stage through its own ring, packed once per parameter set
-//     in the same swizzle (kernels/packing.py::pack_sw128); a weight set
+//     in the same swizzle (kernels/packing.py::pack_sw128, and
+//     pack_sw128_tf32 for f32); a weight set
 //     that fits (the neck's 1x1) is brought once and stays (B_RESIDENT).
 //     K walks the chunks, and within a chunk the taps.
 //   * Both rings run on full and empty mbarriers. The consumers keep one
@@ -48,8 +57,15 @@
 // A pixel's sums run over its taps and chunks in one order wherever its tile
 // falls and whatever B is, so a batch gives each image's bits alone.
 //
+// With f32 operands a k8 step's A fragment (rows g and g + 8, K t and t + 4
+// of thread (g, t)) is what ldmatrix .x4 of b16 pairs gives from four 8 x 4
+// f32 matrices, so the same addressing serves both types: each 128-byte row
+// is 4 k8 steps of TF32 or 4 k16 steps of bf16, and K keeps its natural
+// order in x and in the packed weights.
+//
 // A wait on a copy that never lands traps instead of hanging the card. x
-// needs C % 8 == 0 and 16-byte alignment (the wrappers check it).
+// needs C % 8 == 0 (bf16) or C % 4 == 0 (f32) and 16-byte alignment (the
+// wrappers check it).
 
 #pragma once
 
@@ -64,7 +80,7 @@ using conv_gemm::bf16;
 using conv_gemm::fence_regs;
 using conv_gemm::mbar_wait;
 
-constexpr int kKC = 64;                    // channels a stage: one 128-byte row
+constexpr int kKC = 64;                    // bf16 channels a stage: one 128-byte row
 constexpr int kRow = 128;                  // bytes a swizzled row
 constexpr int kBW = 16;                    // pixel columns of a tile
 constexpr int kConsumers = 256;            // two consumer warpgroups
@@ -144,20 +160,25 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// The tensor map of an NHWC bf16 map x (B, H, W, C) as (C, W, H, B), in
-// boxes of 64 channels by box_w columns by box_h rows of one image, with
-// the 128-byte swizzle and zeros past its edges.
-inline cudaError_t make_map_nhwc(CUtensorMap* map, const bf16* x, int B, int H, int W, int C,
+// The tensor map of an NHWC map x (B, H, W, C) of bf16 or f32 as (C, W, H,
+// B), in boxes of 128 bytes of channels by box_w columns by box_h rows of
+// one image, with the 128-byte swizzle and zeros past its edges.
+template <typename T>
+inline cudaError_t make_map_nhwc(CUtensorMap* map, const T* x, int B, int H, int W, int C,
                                  int box_w, int box_h) {
   const auto encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr cuuint64_t e = sizeof(T);
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {kKC, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * e, (cuuint64_t)W * C * e,
+                                 (cuuint64_t)H * W * C * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(kRow / e), (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = encode(map,
+                            std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4, const_cast<T*>(x), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -215,14 +236,66 @@ __device__ __forceinline__ void wgmma_rs_n104(float (&d)[K], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int NW, int K>
+// wgmma.mma_async m64nNk8 TF32, A from registers (this warp's 16 rows by 8
+// K: rows g and g + 8, K t and t + 4, each an f32 already rounded to TF32)
+// and B from shared memory through a 64-bit descriptor, f32 sums; d as
+// above.
+template <int K>
+__device__ __forceinline__ void wgmma_rs_tf32_n96(float (&d)[K], const uint32_t* a, uint64_t db,
+                                                  int scale_d) {
+  static_assert(K >= 48, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
+      "}, {%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_rs_tf32_n104(float (&d)[K], const uint32_t* a, uint64_t db,
+                                                   int scale_d) {
+  static_assert(K >= 52, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51"
+      "}, {%52,%53,%54,%55}, %56, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x NW) of one warpgroup += A . B for a 32-byte K step of operands of
+// type T (16 bf16, or 8 f32 as TF32), for the two widths the kernels use.
+template <int NW, typename T = bf16, int K>
 __device__ __forceinline__ void wgmma_rs(float (&d)[K], const uint32_t* a, uint64_t db,
                                          int scale_d) {
-  if constexpr (NW == 96) {
-    wgmma_rs_n96(d, a, db, scale_d);
+  static_assert(NW == 96 || NW == 104, "wgmma width");
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (NW == 96) wgmma_rs_tf32_n96(d, a, db, scale_d);
+    else wgmma_rs_tf32_n104(d, a, db, scale_d);
   } else {
-    static_assert(NW == 104, "wgmma width");
-    wgmma_rs_n104(d, a, db, scale_d);
+    if constexpr (NW == 96) wgmma_rs_n96(d, a, db, scale_d);
+    else wgmma_rs_n104(d, a, db, scale_d);
   }
 }
 
@@ -272,11 +345,15 @@ __device__ __forceinline__ Unit unit_of(const Geo& g, int u) {
 // A main loop's shape: BH tile rows (a 128-pixel tile at 8, 64 at 4), the
 // window (KH x KW taps), NB B rows a tap and chunk, the wgmma widths N0 + N1
 // of a warpgroup, SPLIT_N (both warpgroups the same 64 pixels, features
-// NB / 2 each), the depths of the A and B rings, and whether B stays in
-// shared memory (B_CHUNKS taps x chunks of it, in place of the B ring).
+// NB / 2 each), the depths of the A and B rings, whether B stays in
+// shared memory (B_CHUNKS taps x chunks of it, in place of the B ring), and
+// the operands' type T (bf16; or f32, one TF32 product a product), whose KC
+// channels fill a 128-byte row.
 template <int BH_, int KH_, int KW_, int NB_, int N0_, int N1_, bool SPLIT_N_, int SA_, int SB_,
-          int B_CHUNKS_ = 0>
+          int B_CHUNKS_ = 0, typename T_ = bf16>
 struct Loop {
+  using T = T_;
+  static constexpr int KC = kRow / (int)sizeof(T);
   static constexpr int BH = BH_, KH = KH_, KW = KW_, TAPS = KH * KW;
   static constexpr int NB = NB_, N0 = N0_, N1 = N1_;
   static constexpr bool SPLIT_N = SPLIT_N_;
@@ -346,9 +423,9 @@ __device__ __forceinline__ int claim(uint32_t empty0, uint32_t it) {
 // copy into the B ring (or, once, all of B into the resident area). w
 // holds each set's B, set-major, then tap-major, then chunk, B_BYTES each.
 template <class L, class TapsOf>
-__device__ __forceinline__ void produce(const CUtensorMap* map, const bf16* w, const Geo& g,
+__device__ __forceinline__ void produce(const CUtensorMap* map, const typename L::T* w, const Geo& g,
                                         TapsOf taps_of, uint32_t ring, uint32_t bars) {
-  constexpr int kElems = L::B_BYTES / 2;
+  constexpr int kElems = L::B_BYTES / (int)sizeof(typename L::T);
   const int nk = L::TAPS * g.chunks;
   if constexpr (L::B_RESIDENT) {
     const uint32_t bres = L::b_ring(ring), bar = L::resident(bars);
@@ -361,11 +438,11 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const bf16* w, c
   for (int un = blockIdx.x; un < units; un += gridDim.x) {
     const Unit u = unit_of<L::BH>(g, un);
     const conv_gemm::Taps t = taps_of(u.set);
-    const bf16* wb = w + (long long)u.set * nk * kElems;
+    const typename L::T* wb = w + (long long)u.set * nk * kElems;
     for (int c = 0; c < g.chunks; ++c) {
       const int sa = claim<L::SA>(L::empty_a(bars, 0), ia++);
       mbar_expect(L::full_a(bars, sa), L::A_TX);
-      tma_load_4d(ring + sa * L::A_BYTES, map, c * kKC, u.w0 + t.ox0, u.h0 + t.oy0, u.b,
+      tma_load_4d(ring + sa * L::A_BYTES, map, c * L::KC, u.w0 + t.ox0, u.h0 + t.oy0, u.b,
                   L::full_a(bars, sa));
       if constexpr (!L::B_RESIDENT) {
         for (int tap = 0; tap < L::TAPS; ++tap) {
@@ -397,6 +474,7 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t bars, int chunks
   // lane % 8) of the tile, K group 2 q + lane / 16 of k16 step q.
   const int prow = (hrow + warp) * L::BOX_W + 8 * (lane / 8 % 2) + lane % 8;
   const int kgrp = lane / 16;
+  constexpr int kSteps = kRow / 32;  // 32-byte K steps a row: k16 of bf16, k8 of TF32
   constexpr uint64_t kSecond = (uint64_t)(L::N0 * kRow) >> 4;  // the second width's first row
   const int nk = L::TAPS * chunks;
   uint32_t a0[16], a1[16];
@@ -410,7 +488,11 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t bars, int chunks
     const int r = prow + (tap / L::KW) * L::BOX_W + tap % L::KW;
     const uint32_t row = ring + sa * L::A_BYTES + r * kRow;
 #pragma unroll
-    for (int q = 0; q < kKC / 16; ++q) ldmatrix_x4(a + 4 * q, row + (((2 * q + kgrp) ^ (r & 7)) << 4));
+    for (int q = 0; q < kSteps; ++q) ldmatrix_x4(a + 4 * q, row + (((2 * q + kgrp) ^ (r & 7)) << 4));
+    if constexpr (std::is_same<typename L::T, float>::value) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = conv_gemm::round_tf32(__uint_as_float(a[i]));
+    }
     if (tap == L::TAPS - 1) {  // the box's rows are in registers
       if (lead) mbar_arrive(L::empty_a(bars, sa));
       ++cur.a;
@@ -433,10 +515,11 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t bars, int chunks
     fence_regs(acc1);
     conv_gemm::wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < kKC / 16; ++q) {
+    for (int q = 0; q < kSteps; ++q) {
       const int scale = k > 0 || q > 0;
-      wgmma_rs<L::N0>(acc0, a + 4 * q, db + q * kK16Sw128, scale);
-      if constexpr (L::N1 > 0) wgmma_rs<L::N1>(acc1, a + 4 * q, db + kSecond + q * kK16Sw128, scale);
+      wgmma_rs<L::N0, typename L::T>(acc0, a + 4 * q, db + q * kK16Sw128, scale);
+      if constexpr (L::N1 > 0)
+        wgmma_rs<L::N1, typename L::T>(acc1, a + 4 * q, db + kSecond + q * kK16Sw128, scale);
     }
     conv_gemm::wgmma_commit();
     keep_regs(a);
@@ -486,8 +569,9 @@ cudaError_t persistent_grid(int smem, long long units, int* grid) {
   return cudaSuccess;
 }
 
-// The geometry of x (B, H, W, C) in tiles of BH rows with `sets` weight sets.
-inline Geo make_geo(int B, int H, int W, int C, int BH, int sets) {
+// The geometry of x (B, H, W, C) in tiles of BH rows with `sets` weight
+// sets, K in chunks of kc channels (128 bytes of the operand type).
+inline Geo make_geo(int B, int H, int W, int C, int BH, int sets, int kc) {
   Geo g;
   g.B = B;
   g.H = H;
@@ -496,13 +580,13 @@ inline Geo make_geo(int B, int H, int W, int C, int BH, int sets) {
   g.tiles_h = (H + BH - 1) / BH;
   g.tiles = B * g.tiles_h * g.tiles_w;
   g.sets = sets;
-  g.chunks = (C + kKC - 1) / kKC;
+  g.chunks = (C + kc - 1) / kc;
   return g;
 }
 
 // The tensor map of x for loop L: boxes of L's halo.
 template <class L>
-cudaError_t make_map(CUtensorMap* map, const bf16* x, int B, int H, int W, int C) {
+cudaError_t make_map(CUtensorMap* map, const typename L::T* x, int B, int H, int W, int C) {
   return make_map_nhwc(map, x, B, H, W, C, L::BOX_W, L::BOX_H);
 }
 

@@ -54,11 +54,22 @@
 //
 // matmul_precision "default" / "high" (the JAX engine's
 // jax.default_matmul_precision scope; XLA computes an f32 product on a GPU
-// there as one TF32 pass) is the entry convnext_block_tf32: the same
-// kernels templated on the number of passes, gemm_tf32_kernel issuing one
-// mma a product on operands rounded as the split's hi part, f32 sums.
-// Bound: the projections at 495 TFLOP/s, a third of the 3xTF32 bound's
-// products, the depthwise unchanged.
+// there as one TF32 pass) is the entry convnext_block_tf32, this file built
+// with -DCONVNEXT_BLOCK_TF32 (a library of its own, compiled beside the
+// others), with a Hopper design of its own (block_tf32.cuh): the depthwise
+// + LN below, then the
+// MLP on TF32 wgmma, both operands of each product rounded to TF32 (to
+// nearest, ties away) and f32 sums: for C <= 192 one kernel with the 4C
+// hidden on chip (GEMM 1 from shared memory, GELU, u rounded into
+// registers, GEMM 2 with A from registers), wider two TMA-fed wgmma GEMMs
+// with u through memory and a split of GEMM 2 chosen for one image (so the
+// entry is batch-invariant). W1 and W2 come packed and rounded once per
+// parameter set (kernels/packing.py::pack_block_tf32). It replaced these
+// kernels run at one pass (gemm_tf32_kernel: mma.sync, operands rounded on
+// every fragment load, u through memory): on mma.sync the products could
+// not reach the 495 TFLOP/s TF32 rate, which only wgmma does. Bound: the
+// projections at 495 TFLOP/s, a third of the 3xTF32 bound's products, the
+// depthwise unchanged.
 //
 // C must be a multiple of 4 (16-byte copies), C <= 1536; pixels, channels
 // and hidden units are masked.
@@ -85,8 +96,9 @@
 // The bf16 entry points are this file built with -DCONVNEXT_BLOCK_BF16 and
 // -DCONVNEXT_BLOCK_BF16_MODULE=0 or 1 (the Pallas or the module mode), two
 // libraries of their own (kernels/convnext_block.py::build_bf16), so that
-// the three compile in parallel; each holds only its own instantiations,
-// and only they include block_bf16.cuh. C must be a multiple of 8 (16-byte
+// the four compile in parallel; each holds only its own instantiations,
+// and only they launch block_bf16.cuh's kernels (the f32 library includes
+// it for the helpers block_tf32.cuh shares). C must be a multiple of 8 (16-byte
 // copies of bf16). Bound: the projections at the 989 TFLOP/s dense bf16
 // rate, the depthwise at the 67 TFLOP/s f32 peak: 0.012-0.02 ms a block at
 // the stages of a 1024x768 page.
@@ -100,7 +112,10 @@
 
 #ifdef CONVNEXT_BLOCK_BF16  // the bf16 libraries: the block in block_bf16.cuh
 #include "block_bf16.cuh"
-#else  // the f32 library
+#else  // the f32 libraries: 3xTF32, or (CONVNEXT_BLOCK_TF32) the single-pass TF32 entry
+#ifdef CONVNEXT_BLOCK_TF32
+#include "block_tf32.cuh"
+#endif
 
 namespace {
 
@@ -354,13 +369,11 @@ struct GemmTile {
 
 // One K stage (32) of products for a warp: part = A[rows, 32] · B[cols,
 // 32]^T over MT m16 tiles and NT n8 tiles, into a fresh tile (see gemm_body
-// for the fragment order and why the tile is fresh). PASSES 3: the 3xTF32
-// split of both operands (f32 accuracy, matmul_precision "highest"); 1: one
-// TF32 product of the operands rounded as split_tf32's hi part ("default" /
-// "high", as XLA computes an f32 product on a GPU there). A and B point at
-// the warp's first row of A and of B; lda and kLd are their row strides in
-// floats.
-template <int MT, int NT, int PASSES>
+// for the fragment order and why the tile is fresh), as the 3xTF32 split of
+// both operands (f32 accuracy, matmul_precision "highest"). A and B point
+// at the warp's first row of A and of B; lda and kLd are their row strides
+// in floats.
+template <int MT, int NT>
 __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
                                           const float* __restrict__ Bs, float (&part)[MT][NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -376,35 +389,23 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const float2 v = *reinterpret_cast<const float2*>(Bs + (j * 8 + g) * kLd + kk + 2 * t);
-      if constexpr (PASSES == 3) {
-        split_tf32(v.x, bh[j][0], bl[j][0]);
-        split_tf32(v.y, bh[j][1], bl[j][1]);
-      } else {
-        bh[j][0] = round_tf32(v.x);
-        bh[j][1] = round_tf32(v.y);
-      }
+      split_tf32(v.x, bh[j][0], bl[j][0]);
+      split_tf32(v.y, bh[j][1], bl[j][1]);
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const float2 v0 = *reinterpret_cast<const float2*>(As + (i * 16 + g) * lda + kk + 2 * t);
       const float2 v1 = *reinterpret_cast<const float2*>(As + (i * 16 + g + 8) * lda + kk + 2 * t);
       uint32_t ah[4], al[4];
-      if constexpr (PASSES == 3) {
-        split_tf32(v0.x, ah[0], al[0]);
-        split_tf32(v1.x, ah[1], al[1]);
-        split_tf32(v0.y, ah[2], al[2]);
-        split_tf32(v1.y, ah[3], al[3]);
-        // The small products first, then hi * hi.
+      split_tf32(v0.x, ah[0], al[0]);
+      split_tf32(v1.x, ah[1], al[1]);
+      split_tf32(v0.y, ah[2], al[2]);
+      split_tf32(v1.y, ah[3], al[3]);
+      // The small products first, then hi * hi.
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);
+      for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], al, bh[j][0], bh[j][1]);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);
-      } else {
-        ah[0] = round_tf32(v0.x);
-        ah[1] = round_tf32(v1.x);
-        ah[2] = round_tf32(v0.y);
-        ah[3] = round_tf32(v1.y);
-      }
+      for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bl[j][0], bl[j][1]);
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ah, bh[j][0], bh[j][1]);
     }
@@ -427,15 +428,11 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ As, int lda,
 // The tensor core rounds its f32 accumulator toward zero after each mma, a
 // bias that grows with K; so each K stage (32) is summed into a fresh
 // register tile and added to the running sum with an ordinary f32 add.
-//
-// The body of gemm_3xtf32_kernel (PASSES 3) and gemm_tf32_kernel (1), two
-// kernel names so that a profiler trace tells them apart.
-template <int BN, int EPI, int PASSES>
-__device__ __forceinline__ void gemm_body(const float* __restrict__ A, const float* __restrict__ Bw,
-                                          int M, int N, int K, int k_span,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ scale, float* __restrict__ out) {
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
+                                   int M, int N, int K, int k_span,
+                                   const float* __restrict__ bias, const float* __restrict__ x,
+                                   const float* __restrict__ scale, float* __restrict__ out) {
   using T = GemmTile<BN>;
   constexpr int BM = T::BM, MT = T::MT, NT = T::NT;
   extern __shared__ __align__(16) float smem[];
@@ -493,7 +490,7 @@ __device__ __forceinline__ void gemm_body(const float* __restrict__ A, const flo
     const float* As = smem + (kt % kStages) * T::STAGE + (wm * T::WM) * kLd;
     const float* Bs = As - (wm * T::WM) * kLd + BM * kLd + (wn * T::WN) * kLd;
     float part[MT][NT][4];
-    mma_stage<MT, NT, PASSES>(As, kLd, Bs, part);
+    mma_stage<MT, NT>(As, kLd, Bs, part);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -530,20 +527,6 @@ __device__ __forceinline__ void gemm_body(const float* __restrict__ A, const flo
   }
 }
 
-#define GEMM_PARAMS                                                                           \
-  const float *__restrict__ A, const float *__restrict__ Bw, int M, int N, int K, int k_span, \
-      const float *__restrict__ bias, const float *__restrict__ x,                            \
-      const float *__restrict__ scale, float *__restrict__ out
-template <int BN, int EPI>
-__global__ void __launch_bounds__(kThreads, 2) gemm_3xtf32_kernel(GEMM_PARAMS) {
-  gemm_body<BN, EPI, 3>(A, Bw, M, N, K, k_span, bias, x, scale, out);
-}
-template <int BN, int EPI>
-__global__ void __launch_bounds__(kThreads, 2) gemm_tf32_kernel(GEMM_PARAMS) {
-  gemm_body<BN, EPI, 1>(A, Bw, M, N, K, k_span, bias, x, scale, out);
-}
-#undef GEMM_PARAMS
-
 // Adds the split partials in split order, then the residual epilogue.
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const float4* __restrict__ partial, const float4* __restrict__ x,
@@ -566,12 +549,12 @@ reduce_kernel(const float4* __restrict__ partial, const float4* __restrict__ x,
                        xv.w + (s.w + bias[c + 3]) * scale[c + 3]);
 }
 
-template <int BN, int EPI, int PASSES>
+template <int BN, int EPI>
 cudaError_t launch_gemm(const float* A, const float* Bw, int M, int N, int K, int splits,
                         int k_span, const float* bias, const float* x, const float* scale,
                         float* out, cudaStream_t stream) {
   constexpr size_t smem = GemmTile<BN>::SMEM_BYTES;
-  const auto kernel = PASSES == 3 ? gemm_3xtf32_kernel<BN, EPI> : gemm_tf32_kernel<BN, EPI>;
+  const auto kernel = gemm_3xtf32_kernel<BN, EPI>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -581,6 +564,18 @@ cudaError_t launch_gemm(const float* A, const float* Bw, int M, int N, int K, in
 }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// Adds `splits` partials of the (M, C) output in split order, then the
+// residual epilogue: reduce_kernel on the stream.
+cudaError_t reduce_splits(const float* partial, const float* x, const float* b2,
+                          const float* scale, float* out, long long M, int C, int splits,
+                          cudaStream_t stream) {
+  const long long n4 = M * C / 4;
+  reduce_kernel<<<(unsigned)cdiv(n4, kThreads), kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<const float4*>(x), b2, scale,
+      reinterpret_cast<float4*>(out), n4, C, splits);
+  return cudaGetLastError();
+}
 
 // Share of the card's block slots (two per SM) that `blocks` blocks keep
 // busy over the waves they need.
@@ -621,64 +616,43 @@ Plan make_plan(long long M, int C, int sms) {
   return p;
 }
 
-template <int PASSES>
+#ifndef CONVNEXT_BLOCK_TF32  // the 3xTF32 entry's GEMMs
 cudaError_t run_gemm1(const float* h, const float* w1, const float* b1, float* u, int M, int C,
                       const Plan& p, cudaStream_t stream) {
   const int N = 4 * C, K = C;
   if (p.bn1 == 128)
-    return launch_gemm<128, kGelu, PASSES>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
-  return launch_gemm<96, kGelu, PASSES>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
+    return launch_gemm<128, kGelu>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
+  return launch_gemm<96, kGelu>(h, w1, M, N, K, 1, K, b1, nullptr, nullptr, u, stream);
 }
 
-template <int BN, int PASSES>
+template <int BN>
 cudaError_t gemm2_tiles(const float* u, const float* w2, const float* b2, const float* x,
                         const float* scale, float* partial, float* out, int M, int C,
                         const Plan& p, cudaStream_t stream) {
   const int N = C, K = 4 * C;
   if (p.splits == 1)
-    return launch_gemm<BN, kResidual, PASSES>(u, w2, M, N, K, 1, K, b2, x, scale, out, stream);
-  return launch_gemm<BN, kPartial, PASSES>(u, w2, M, N, K, p.splits, p.k_span, nullptr, nullptr,
-                                           nullptr, partial, stream);
+    return launch_gemm<BN, kResidual>(u, w2, M, N, K, 1, K, b2, x, scale, out, stream);
+  return launch_gemm<BN, kPartial>(u, w2, M, N, K, p.splits, p.k_span, nullptr, nullptr, nullptr,
+                                   partial, stream);
 }
 
-template <int PASSES>
 cudaError_t run_gemm2(const float* u, const float* w2, const float* b2, const float* x,
                       const float* scale, float* partial, float* out, int M, int C,
                       const Plan& p, cudaStream_t stream) {
-  cudaError_t e =
-      p.bn2 == 128
-          ? gemm2_tiles<128, PASSES>(u, w2, b2, x, scale, partial, out, M, C, p, stream)
-          : gemm2_tiles<96, PASSES>(u, w2, b2, x, scale, partial, out, M, C, p, stream);
+  cudaError_t e = p.bn2 == 128
+                      ? gemm2_tiles<128>(u, w2, b2, x, scale, partial, out, M, C, p, stream)
+                      : gemm2_tiles<96>(u, w2, b2, x, scale, partial, out, M, C, p, stream);
   if (e != cudaSuccess || p.splits == 1) return e;
-  const long long n4 = (long long)M * C / 4;
-  reduce_kernel<<<(unsigned)cdiv(n4, kThreads), kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(partial), reinterpret_cast<const float4*>(x), b2, scale,
-      reinterpret_cast<float4*>(out), n4, C, p.splits);
-  return cudaGetLastError();
+  return reduce_splits(partial, x, b2, scale, out, M, C, p.splits, stream);
 }
 
-// The f32 entries' body: the depthwise + LN, then the two GEMMs with PASSES
-// TF32 products a product.
-template <int PASSES>
-int run_block_f32(const float* x, const float* dw_w, const float* dw_b, const float* ln_g,
-                  const float* ln_b, const float* w1, const float* b1, const float* w2,
-                  const float* b2, const float* scale, float* workspace, float* out, int B, int H,
-                  int W, int C, int sms, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxC || C % 4 || H > 65535 || B > 65535 ||
-      sms <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  if (cdiv(M, kBM) > 65535) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(M, C, sms);
-  float* h = workspace;
-  float* u = h + M * C;
-  float* partial = u + M * 4 * C;
-  cudaError_t e =
-      run_dw_ln<float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
-  if (e == cudaSuccess) e = run_gemm1<PASSES>(h, w1, b1, u, (int)M, C, p, stream);
-  if (e == cudaSuccess)
-    e = run_gemm2<PASSES>(u, w2, b2, x, scale, partial, out, (int)M, C, p, stream);
-  return (int)e;
+#endif  // CONVNEXT_BLOCK_TF32
+
+// The shapes both f32 entries take: C % 4 == 0, C <= kMaxC, and the grids'
+// limits.
+bool valid_f32(int B, int H, int W, int C, int sms) {
+  return B > 0 && H > 0 && W > 0 && C > 0 && C <= kMaxC && C % 4 == 0 && H <= 65535 && B <= 65535 &&
+         sms > 0;
 }
 
 }  // namespace
@@ -762,6 +736,8 @@ extern "C" int convnext_block_bf16(const void* x, const float* dw_w, const float
 
 #else
 
+#ifndef CONVNEXT_BLOCK_TF32
+
 // Floats of scratch that convnext_block_f32 needs for this shape on a card
 // with `sms` multiprocessors: h (M x C), the hidden u (M x 4C), then the
 // GEMM 2 split partials.
@@ -782,20 +758,85 @@ extern "C" int convnext_block_f32(const float* x, const float* dw_w, const float
                                   const float* b1, const float* w2, const float* b2,
                                   const float* scale, float* workspace, float* out, int B,
                                   int H, int W, int C, int sms, cudaStream_t stream) {
-  return run_block_f32<3>(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, workspace, out, B, H,
-                          W, C, sms, stream);
+  if (!valid_f32(B, H, W, C, sms)) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  if (cdiv(M, kBM) > 65535) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(M, C, sms);
+  float* h = workspace;
+  float* u = h + M * C;
+  float* partial = u + M * 4 * C;
+  cudaError_t e =
+      run_dw_ln<float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
+  if (e == cudaSuccess) e = run_gemm1(h, w1, b1, u, (int)M, C, p, stream);
+  if (e == cudaSuccess) e = run_gemm2(u, w2, b2, x, scale, partial, out, (int)M, C, p, stream);
+  return (int)e;
+}
+
+#else
+
+// Floats of scratch that convnext_block_tf32 needs for this shape on a card
+// with `sms` multiprocessors: h (M x C), then, for the two-GEMM form
+// (C > 192), u (M x 4C) and GEMM 2's split partials.
+extern "C" long long convnext_block_tf32_workspace(int B, int H, int W, int C, int sms) {
+  const long long M = (long long)B * H * W;
+  return M * C + block_tf32::workspace_floats(M, C, block_tf32::plan((long long)H * W, C, sms));
+}
+
+// The packed layout convnext_block_tf32 reads for width C: the fused form's
+// wgmma width (kernels/packing.py::pack_block_tf32 packs W1 and W2 as one
+// buffer of hidden chunks), or 0 for the two-GEMM form.
+extern "C" int convnext_block_tf32_fused_width(int C) {
+  return C <= block_tf32::kFusedMaxC ? block_tf32::fused_width(C) : 0;
+}
+
+// The rest of that layout, which kernels/convnext_block.py::build holds
+// against packing.py at load: the fused form's widest C and its hidden
+// units a chunk at the widths 96, 128 and 192, then the two-GEMM form's tile
+// (output columns by K), into out[0..5].
+extern "C" void convnext_block_tf32_layout(int* out) {
+  out[0] = block_tf32::kFusedMaxC;
+  out[1] = block_tf32::fused_hidden(96);
+  out[2] = block_tf32::fused_hidden(128);
+  out[3] = block_tf32::fused_hidden(192);
+  out[4] = block_tf32::kBN;
+  out[5] = block_tf32::kBK;
 }
 
 // As convnext_block_f32, the projections as one TF32 product a product
-// (matmul_precision "default" / "high"): both operands rounded to TF32 as
-// the 3xTF32 split's hi part, f32 sums.
+// (matmul_precision "default" / "high"): both operands rounded to TF32 (to
+// nearest, ties away), f32 sums, on block_tf32.cuh's MLP. w1 and w2 are
+// packed for C as convnext_block_tf32_fused_width(C) says
+// (kernels/packing.py::pack_block_tf32; the fused form reads w1 alone);
+// workspace holds convnext_block_tf32_workspace(B, H, W, C, sms) floats;
+// u_out is null when serving, or M x 4C floats that receive the GELU's
+// output u before its rounding to TF32 (the operand of the second product,
+// which round_tf32 makes of it bit for bit): the fused form keeps u on chip
+// and writes it only there. Returns cudaGetLastError() after the launches
+// (0 on success).
 extern "C" int convnext_block_tf32(const float* x, const float* dw_w, const float* dw_b,
                                    const float* ln_g, const float* ln_b, const float* w1,
                                    const float* b1, const float* w2, const float* b2,
-                                   const float* scale, float* workspace, float* out, int B,
-                                   int H, int W, int C, int sms, cudaStream_t stream) {
-  return run_block_f32<1>(x, dw_w, dw_b, ln_g, ln_b, w1, b1, w2, b2, scale, workspace, out, B, H,
-                          W, C, sms, stream);
+                                   const float* scale, float* workspace, float* out, float* u_out,
+                                   int B, int H, int W, int C, int sms, cudaStream_t stream) {
+  if (!valid_f32(B, H, W, C, sms)) return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  const block_tf32::Plan p = block_tf32::plan((long long)H * W, C, sms);
+  if (!p.fused && cdiv(M, block_tf32::kBM) > 65535) return (int)cudaErrorInvalidValue;
+  float* h = workspace;
+  // The depthwise + LN: run_dw_ln's tiles for C <= 192 (named here, so that
+  // this library builds only those), the row strips above.
+  cudaError_t e =
+      C <= 128   ? launch_dw_ln<4, 16, 4, float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream)
+      : p.fused ? launch_dw_ln<2, 16, 8, float, float, false>(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream)
+                : block_tf32::run_dw_ln_rows(x, dw_w, dw_b, ln_g, ln_b, h, B, H, W, C, stream);
+  if (e != cudaSuccess) return (int)e;
+  auto reduce = [&](const float* partial, int splits) {
+    return reduce_splits(partial, x, b2, scale, out, M, C, splits, stream);
+  };
+  return (int)block_tf32::run_mlp(h, w1, b1, w2, b2, scale, x, h + M * C, out, u_out, M, C, p,
+                                  reduce, stream);
 }
+
+#endif  // CONVNEXT_BLOCK_TF32
 
 #endif  // CONVNEXT_BLOCK_BF16

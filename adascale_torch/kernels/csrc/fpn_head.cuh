@@ -59,6 +59,12 @@
 // either way. Heads that fit the tile run heads_tma_kernel (below) on
 // conv_tma.cuh's persistent, TMA-fed loop; wider ones the two passes above
 // on conv_gemm.cuh's mainloop_bf16.
+//
+// The single-pass TF32 entries (matmul_precision "default" / "high"): the
+// rough heads' on the main loop above at PASSES 1; the precise heads' (where
+// they fit the tile) on heads_tma_kernel with f32 operands, x rounded to
+// TF32 in registers and the taps rounded when packed
+// (packing.pack_sw128_tf32), 32 channels a box row (launch_heads_tma).
 
 #pragma once
 
@@ -334,38 +340,45 @@ int launch_heads(const T* x, const T* w, const float* vec, const float* w2, cons
 }
 
 // ---------------------------------------------------------------------------
-// bf16, one pass (F <= N): on conv_tma.cuh's loop.
+// One pass (F <= N) on conv_tma.cuh's loop: bf16, or f32 operands at one
+// TF32 product a product.
 //
 // A unit is one (head, phase) of a 128-pixel tile (8 rows x 16 columns of
 // one image): each consumer warpgroup takes 4 of the rows by all N features
-// (N0 + N1 wgmma widths), over ceil(C / 64) chunks of the phase's 2x2
-// window, one 9 x 17 halo box a chunk serving its 4 taps. The epilogue runs
+// (N0 + N1 wgmma widths), over ceil(C / KC) chunks of the phase's 2x2
+// window (KC = 64 bf16 or 32 f32 channels: 128 bytes), one 9 x 17 halo box
+// a chunk serving its 4 taps. In f32 a box and a B stage hold the bytes
+// they hold in bf16 (half the channels), so the shared memory is the same;
+// what a unit takes in doubles. That ingress bounds the f32 kernel: at the
+// flagship's 256x208x384 the 6656 units bring 9.8 GB into the
+// multiprocessors (B 1.23 MB a unit, A 0.24 MB), ~1.5 ms at ~28 bytes a
+// cycle an SM, above the products' 1.02 ms. The epilogue runs
 // on the accumulators' registers: bias, LayerNorm over the head's F
 // features (a row's features lie in its quad), GELU (rounded to bf16 where
 // ROUND_Y), the projection to M <= 4 outputs, and the interleaved write;
 // the producer meanwhile loads the next unit. Every head's vectors sit in
 // shared memory for the block's life.
 
-template <int N>
+template <typename T, int N>
 using HeadsLoop =
-    conv_tma::Loop<8, 2, 2, N, Layout<bf16, N>::N0, Layout<bf16, N>::N1, false, 2, 6>;
+    conv_tma::Loop<8, 2, 2, N, Layout<bf16, N>::N0, Layout<bf16, N>::N1, false, 2, 6, 0, T>;
 
-template <int N>
+template <typename T, int N>
 constexpr int heads_tma_smem() {
-  return HeadsLoop<N>::HEAD + kMaxHeads * (3 + kMaxOut) * N * 4;
+  return HeadsLoop<T, N>::HEAD + kMaxHeads * (3 + kMaxOut) * N * 4;
 }
 
 // x through xmap (B, H, W, C as conv_tma::make_map, boxes of HeadsLoop's
-// halo); w (heads, 4 phases, 4 taps, ceil(C/64) chunks, N/8, 8 rows, 128
-// bytes of K in the 128-byte swizzle); vec, w2, b2 and out as
-// heads_kernel's.
-template <int N, bool ROUND_Y>
+// halo); w (heads, 4 phases, 4 taps, ceil(C/KC) chunks, N/8, 8 rows, 128
+// bytes of K in the 128-byte swizzle; f32 rounded to TF32); vec, w2, b2 and
+// out as heads_kernel's.
+template <typename T, int N, bool ROUND_Y>
 __global__ void __launch_bounds__(conv_tma::kThreads, 1)
-heads_tma_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ w,
+heads_tma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ w,
                  const float* __restrict__ vec, const float* __restrict__ w2,
                  const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes,
                  conv_tma::Geo g, int heads, int Mtot) {
-  using L = HeadsLoop<N>;
+  using L = HeadsLoop<T, N>;
   constexpr int N0 = L::N0, N1 = L::N1, kV = (3 + kMaxOut) * N;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -474,17 +487,14 @@ heads_tma_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restric
   }
 }
 
-// The bf16 C entry points' body: the one-pass heads on conv_tma.cuh's loop;
-// heads wider than the tile through launch_heads' two passes.
-template <int N, bool ROUND_Y>
-int launch_heads_bf16(const bf16* x, const bf16* w, const float* vec, const float* w2,
-                      const float* b2, float* out, float* ws, int chunk, const int* F,
-                      const int* M, int heads, int slices, int B, int H, int W, int C,
-                      cudaStream_t stream) {
-  if (slices != 1)
-    return launch_heads<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads, slices, B,
-                                          H, W, C, stream);
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || heads <= 0 || heads > kMaxHeads)
+// The one-pass heads on conv_tma.cuh's loop (F <= N), operands of type T:
+// bf16, or f32 at one TF32 product a product.
+template <typename T, int N, bool ROUND_Y>
+int launch_heads_tma(const T* x, const T* w, const float* vec, const float* w2, const float* b2,
+                     float* out, const int* F, const int* M, int heads, int B, int H, int W, int C,
+                     cudaStream_t stream) {
+  constexpr int kVec = 16 / (int)sizeof(T);  // channels a 16-byte copy
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec || heads <= 0 || heads > kMaxHeads)
     return (int)cudaErrorInvalidValue;
   HeadSizes sizes{};
   int mtot = 0;
@@ -495,21 +505,34 @@ int launch_heads_bf16(const bf16* x, const bf16* w, const float* vec, const floa
     sizes.moff[h] = mtot;
     mtot += M[h];
   }
-  using L = HeadsLoop<N>;
-  constexpr int smem = heads_tma_smem<N>();
+  using L = HeadsLoop<T, N>;
+  constexpr int smem = heads_tma_smem<T, N>();
   static_assert(smem <= conv_tma::kSmemLimit, "shared memory");
-  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 4 * heads);
+  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 4 * heads, L::KC);
   if ((long long)g.tiles * g.sets >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   int grid = 0;
-  cudaError_t e = conv_tma::persistent_grid<heads_tma_kernel<N, ROUND_Y>>(
+  cudaError_t e = conv_tma::persistent_grid<heads_tma_kernel<T, N, ROUND_Y>>(
       smem, (long long)g.tiles * g.sets, &grid);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap map;
   e = conv_tma::make_map<L>(&map, x, B, H, W, C);
   if (e != cudaSuccess) return (int)e;
-  heads_tma_kernel<N, ROUND_Y><<<grid, conv_tma::kThreads, smem, stream>>>(
+  heads_tma_kernel<T, N, ROUND_Y><<<grid, conv_tma::kThreads, smem, stream>>>(
       map, w, vec, w2, b2, out, sizes, g, heads, mtot);
   return (int)cudaGetLastError();
+}
+
+// The bf16 C entry points' body: the one-pass heads on conv_tma.cuh's loop;
+// heads wider than the tile through launch_heads' two passes.
+template <int N, bool ROUND_Y>
+int launch_heads_bf16(const bf16* x, const bf16* w, const float* vec, const float* w2,
+                      const float* b2, float* out, float* ws, int chunk, const int* F,
+                      const int* M, int heads, int slices, int B, int H, int W, int C,
+                      cudaStream_t stream) {
+  if (slices != 1)
+    return launch_heads<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads, slices, B,
+                                          H, W, C, stream);
+  return launch_heads_tma<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, F, M, heads, B, H, W, C, stream);
 }
 
 }  // namespace fpn_head

@@ -494,7 +494,7 @@ neck_step2_tma_kernel(const __grid_constant__ CUtensorMap tmap, const bf16* __re
 template <class L, auto kernel, typename... Args>
 cudaError_t launch_step(const bf16* x, int B, int H, int W, int C, int smem, cudaStream_t stream,
                         Args... args) {
-  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 1);
+  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 1, L::KC);
   int grid = 0;
   cudaError_t e = conv_tma::persistent_grid<kernel>(smem, g.tiles, &grid);
   if (e != cudaSuccess) return e;

@@ -106,7 +106,7 @@ def build() -> ctypes.CDLL:
 
 def pack_heads(
     heads: Sequence[Params], n: int, slices: int = 1, dtype: torch.dtype = torch.float32,
-    round_w2: bool = False,
+    round_w2: bool = False, tf32_sw128: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The heads' parameters in the kernel's layouts (``csrc/fpn_head.cuh``)
     for ``slices`` tiles of ``n`` features and ``dtype`` operands, zero past
@@ -118,7 +118,10 @@ def pack_heads(
       ``packing.pack_kmajor_bf16``'s one bf16 tile (n/8, 4, 8, 8), in wgmma's
       K-major core-matrix order; one slice (its axis dropped) is the
       one-pass kernel's layout, which in bf16 is ``packing.pack_sw128``'s
-      instead: (heads, 4 phases, 4 taps, ceil(C/64) chunks, n/8, 8, 8, 8);
+      instead: (heads, 4 phases, 4 taps, ceil(C/64) chunks, n/8, 8, 8, 8),
+      and with ``tf32_sw128`` (f32, one slice: a single-pass TF32 entry on
+      the TMA-fed loop) ``packing.pack_sw128_tf32``'s: (heads, 4 phases, 4
+      taps, ceil(C/32) chunks, n/8, 8, 8, 4), rounded to TF32;
     - ``vec`` (heads, 3, fp): smoothing bias, LN scale, LN bias;
     - ``w2`` (heads, MAX_OUT, fp), rounded to bf16 values where ``round_w2``
       (the precise heads in bf16), and ``b2`` (heads, MAX_OUT)."""
@@ -147,7 +150,7 @@ def pack_heads(
             b2[k, :m] = p["step2.bias"]
         if round_w2:
             w2 = w2.to(torch.bfloat16).float()
-        w = packing.pack_for(packing.split_slices(taps, slices, 1), dtype, one_pass)
+        w = packing.pack_for(packing.split_slices(taps, slices, 1), dtype, one_pass, tf32_sw128)
         if one_pass:
             w = w.squeeze(1)
     return {"w": w, "vec": vec, "w2": w2, "b2": b2}
@@ -155,15 +158,15 @@ def pack_heads(
 
 def packed_heads(
     heads: Sequence[Params], n: int, slices: int = 1, dtype: torch.dtype = torch.float32,
-    round_w2: bool = False,
+    round_w2: bool = False, tf32_sw128: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """``pack_heads(...)``, packed once per parameter set and layout
     (``packing.cached``: kept while the first head's conv weight lives,
     repacked when any parameter's version or storage changes)."""
     tensors = [p[name] for p in heads for name in PARAM_NAMES]
     return packing.cached(
-        tensors, ("heads", n, slices, dtype, round_w2),
-        lambda: pack_heads(heads, n, slices, dtype, round_w2),
+        tensors, ("heads", n, slices, dtype, round_w2, tf32_sw128),
+        lambda: pack_heads(heads, n, slices, dtype, round_w2, tf32_sw128),
     )
 
 
@@ -184,10 +187,13 @@ def run_heads_kernel(
     wrapper: str,
     round_y: bool = False,
     tf32: bool = False,
+    tf32_tma: bool = False,
 ) -> List[torch.Tensor]:
     """Check, pack (once per parameter set) and launch a heads library on a
     CUDA tensor, f32 or bf16 (``round_y`` for the precise heads), an f32
-    ``x`` through the single-pass TF32 entry where ``tf32``. Returns each
+    ``x`` through the single-pass TF32 entry where ``tf32`` (its taps in
+    ``packing.pack_sw128_tf32``'s layout where ``tf32_tma`` and the heads
+    fit one tile: the entry runs the TMA-fed loop there). Returns each
     head's (B, 2H, 2W, M) f32 output, a view into one packed map. Raises
     where a gradient is wanted (``_nvcc.refuse_grad``, naming ``wrapper``)."""
     _nvcc.check_activation(f"{prefix} x", x, x.device, tuple(_nvcc.CHANNEL_MULTIPLE))
@@ -217,7 +223,8 @@ def run_heads_kernel(
     tile = getattr(lib, f"{prefix}_tile_width")()
     slices = -(-max(widths) // tile)
     bf16 = x.dtype == torch.bfloat16
-    packed = packed_heads(heads, tile, slices, x.dtype, round_w2=bf16 and round_y)
+    swizzled = tf32_tma and tf32 and not bf16 and slices == 1
+    packed = packed_heads(heads, tile, slices, x.dtype, round_w2=bf16 and round_y, tf32_sw128=swizzled)
     nh = len(heads)
     out = torch.empty(b, 2 * h, 2 * w, sum(outs), dtype=torch.float32, device=x.device)
     chunk = wide_chunk_pixels(nh, slices * tile, b * h * w) if slices > 1 else 0

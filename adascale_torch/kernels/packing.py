@@ -8,12 +8,16 @@ the bf16 B of the wide (sliced) neck and heads, one bf16 tile a chunk in the
 same order (8 bf16 a core-matrix row, K in its natural order);
 ``pack_sw128(taps)`` as the bf16 B of their one-pass kernels
 (``csrc/conv_tma.cuh``), per 64-deep chunk n rows of 128 bytes in the
-128-byte swizzle. ``split_slices(taps, slices)`` cuts the output
+128-byte swizzle, and ``pack_sw128_tf32(taps)`` as the f32 B of the
+precise heads' single-pass TF32 entry on that loop, per 32-deep chunk,
+rounded to TF32. ``split_slices(taps, slices)`` cuts the output
 features into the slices a wide kernel launches one block each for, before
 packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
 for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and
 ``pack_block_bf16(w1, w2)`` packs that block's two projections in the form
-its kernel takes for their width. ``cached(tensors, tag, pack)``
+its kernel takes for their width; ``pack_block_tf32(w1, w2)`` does the same,
+rounded to TF32, for the block's single-pass TF32 entry
+(``csrc/block_tf32.cuh``). ``cached(tensors, tag, pack)``
 keeps what ``pack()`` built while ``tensors[0]`` lives, and reuses it while
 every tensor it was packed from is unchanged. The heads (``fpn_heads``,
 ``precise_heads``) and the neck level 0 (``fpn_neck``) pack through both.
@@ -74,6 +78,26 @@ def pack_kmajor_bf16(taps: torch.Tensor) -> torch.Tensor:
     t = taps.reshape(*lead, k // KC, KC // 8, 8, n // 8, 8)
     t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
     return t.to(torch.bfloat16).contiguous()
+
+
+def pack_sw128_tf32(taps: torch.Tensor) -> torch.Tensor:
+    """``taps`` (..., K, n), K a multiple of 32 (zero past the real
+    channels) and n of 8, rounded to TF32 (``utils.precision.round_tf32``)
+    as f32 (..., K/32 chunks, n/8, 8, 8, 4): each chunk's n rows of 32 K
+    (128 bytes), 8 rows to a 1024-byte group, the 16-byte piece j of row r
+    holding K 4 (j ^ r) .. 4 (j ^ r) + 3, the layout TMA's 128-byte swizzle
+    gives a box of 32 f32 channels, K in its natural order. Element (k, n)
+    of chunk k // 32 sits at [n // 8, n % 8, ((k % 32) // 4) ^ (n % 8),
+    k % 4]. The single-pass TF32 kernels read it with ``wgmma``, which
+    drops an f32 operand's low 13 bits, so the values are rounded here."""
+    *lead, k, n = taps.shape
+    if k % KC or n % 8:
+        raise ValueError(f"pack_sw128_tf32: K={k}, n={n}; want K % {KC} == 0 and n % 8 == 0")
+    nl = len(lead)
+    t = taps.float().reshape(*lead, k // KC, 8, 4, n // 8, 8)  # (chunk, K group, K, row group, row)
+    t = t.permute(*range(nl + 1), nl + 3, nl + 4, nl + 1, nl + 2)  # (chunk, row group, row, K group, K)
+    rows = torch.arange(8)
+    return tf32_round(t[..., rows[:, None], rows[:, None] ^ rows[None, :], :]).contiguous()
 
 
 def pack_sw128(taps: torch.Tensor) -> torch.Tensor:
@@ -150,14 +174,90 @@ def pack_block_bf16(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tenso
             "w2": pack_core_kmajor(w2, *BLOCK_TILE).reshape(-1)}
 
 
-def pack_for(taps: torch.Tensor, dtype: torch.dtype, one_pass: bool = False) -> torch.Tensor:
-    """``pack_kmajor`` (f32), or for bf16 ``pack_sw128`` (the one-pass
-    kernels; K padded to 64) or ``pack_kmajor_bf16`` (the sliced ones), by
-    the kernel's operand type."""
+# The TF32 block's forms (csrc/block_tf32.cuh): the fused form's widest C
+# and wgmma widths are bf16's; its hidden units a chunk by width (at 192
+# two stages of f32 W1 and W2 chunks fit beside the h rows only at 32); the
+# two-GEMM form's tile of output columns by K (one 128-byte row of f32).
+BLOCK_TF32_HIDDEN = {96: 64, 128: 64, 192: 32}
+BLOCK_TF32_TILE = (128, 32)
+
+
+def pack_core_kmajor_tf32(w: torch.Tensor, rows: int, depth: int) -> torch.Tensor:
+    """An (N, K) operand rounded to TF32 (``utils.precision.round_tf32``),
+    zero-padded to multiples of ``rows`` and ``depth``, as f32 tiles
+    (N/rows, K/depth, rows/8, depth/4, 8, 4): tile (i, j) holds rows
+    [rows i, rows (i + 1)) by K [depth j, depth (j + 1)) in wgmma's
+    no-swizzle K-major core-matrix order for 4-byte elements (row group, K
+    group of 4, row, K in group)."""
+    n, k = w.shape
+    if rows % 8 or depth % 4:
+        raise ValueError(f"pack_core_kmajor_tf32: tiles {rows} x {depth}; want rows % 8 == 0 and depth % 4 == 0")
+    np_, kp = -(-n // rows) * rows, -(-k // depth) * depth
+    t = torch.nn.functional.pad(w.float(), (0, kp - k, 0, np_ - n))
+    t = t.reshape(np_ // rows, rows // 8, 8, kp // depth, depth // 4, 4)
+    return tf32_round(t.permute(0, 3, 1, 4, 2, 5)).contiguous()
+
+
+def kslot_columns(k: int) -> torch.Tensor:
+    """The column order that puts, in each group of 8 of ``k`` columns,
+    column ``KSLOT[s]`` at slot s: the K order of an operand that meets an
+    accumulator turned into a TF32 A fragment (thread t of a quad holds
+    columns 2t and 2t + 1 of each 8, which its fragment takes as K slots t
+    and t + 4)."""
+    if k % 8:
+        raise ValueError(f"kslot_columns: {k} columns, want a multiple of 8")
+    return torch.tensor([8 * (i // 8) + KSLOT[i % 8] for i in range(k)])
+
+
+def pack_tiles_sw128_tf32(w: torch.Tensor) -> torch.Tensor:
+    """An (N, K) operand, zero-padded to multiples of ``BLOCK_TF32_TILE``,
+    as flat f32 tiles (N/128, K/32, 16, 8, 8, 4): for each 128-row tile and
+    32-deep K chunk, ``pack_sw128_tf32``'s 128 rows of 128 bytes in the
+    128-byte swizzle, rounded to TF32."""
+    n, k = w.shape
+    bn, bk = BLOCK_TF32_TILE
+    np_, kp = -(-n // bn) * bn, -(-k // bk) * bk
+    t = pack_sw128_tf32(torch.nn.functional.pad(w.float(), (0, kp - k, 0, np_ - n)).t())
+    t = t.reshape(kp // bk, np_ // bn, bn // 8, 8, 8, 4).permute(1, 0, 2, 3, 4, 5)
+    return t.contiguous().reshape(-1)
+
+
+def pack_block_tf32(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The TF32 ConvNeXt block's W1 (4C, C) and W2 (C, 4C), nn.Linear's
+    layouts, rounded to TF32 and packed for its kernel (f32, flat):
+
+    - C <= ``BLOCK_FUSED_MAX_C`` (the fused form, C padded to CP =
+      ``block_fused_width(C)``, NH = ``BLOCK_TF32_HIDDEN[CP]`` hidden units
+      a chunk): ``w1`` holds, per chunk, the chunk's W1 rows as one NH x CP
+      core-matrix tile (``pack_core_kmajor_tf32``), then W2's columns of
+      those units as one CP x NH tile whose K (the hidden units) is in
+      ``kslot_columns`` order within each 8, zero past C and 4C; ``w2`` is
+      empty.
+    - wider: ``w1`` and ``w2`` each by ``pack_tiles_sw128_tf32``.
+    """
+    c = w1.shape[1]
+    cp = block_fused_width(c)
+    if cp:
+        nh = BLOCK_TF32_HIDDEN[cp]
+        hidden = -(-4 * c // nh) * nh
+        w2p = torch.nn.functional.pad(w2.float(), (0, hidden - 4 * c))[:, kslot_columns(hidden)]
+        up = pack_core_kmajor_tf32(w1, nh, cp).reshape(-1, nh * cp)
+        down = pack_core_kmajor_tf32(w2p, cp, nh).reshape(-1, cp * nh)
+        return {"w1": torch.stack([up, down], 1).reshape(-1), "w2": up.new_empty(0)}
+    return {"w1": pack_tiles_sw128_tf32(w1), "w2": pack_tiles_sw128_tf32(w2)}
+
+
+def pack_for(
+    taps: torch.Tensor, dtype: torch.dtype, one_pass: bool = False, tf32_sw128: bool = False
+) -> torch.Tensor:
+    """``pack_kmajor`` (f32; ``pack_sw128_tf32`` for a one-pass kernel's
+    single-pass TF32 entry on the TMA-fed loop, ``tf32_sw128``), or for bf16
+    ``pack_sw128`` (the one-pass kernels; K padded to 64) or
+    ``pack_kmajor_bf16`` (the sliced ones), by the kernel's operand type."""
     if dtype == torch.bfloat16:
         return pack_sw128(taps) if one_pass else pack_kmajor_bf16(taps)
     if dtype == torch.float32:
-        return pack_kmajor(taps)
+        return pack_sw128_tf32(taps) if one_pass and tf32_sw128 else pack_kmajor(taps)
     raise ValueError(f"no packed layout for {dtype}")
 
 

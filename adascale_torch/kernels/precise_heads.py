@@ -19,8 +19,11 @@ TMA-fed loop of ``csrc/conv_tma.cuh``, ``fpn_head.cuh::heads_tma_kernel``); head
 wider than the 200-wide tile (base 256-258, large 384-386) run split into
 slices of it. Inside a ``utils.precision.matmul_precision("default")`` or
 ``("high")`` scope an f32 ``x`` on the card launches the single-pass entry
-``precise_heads_tf32`` (as the rough heads'; 1.02 ms at 495 TFLOP/s;
-counted in ``LAUNCHES_TF32``), whose plain twin is
+``precise_heads_tf32`` (1.02 ms at 495 TFLOP/s; counted in
+``LAUNCHES_TF32``): where the heads fit the tile, the bf16 entry's
+persistent TMA-fed loop on f32 operands (x rounded to TF32 in registers,
+the taps rounded and packed by ``packing.pack_sw128_tf32``); wider heads
+as the rough heads' TF32 entry. Its plain twin is
 ``fused_precise_heads_plain(..., tf32=True)``.
 """
 from __future__ import annotations
@@ -78,7 +81,8 @@ def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.
     if x.device.type == "cpu":
         return fused_precise_heads_plain(x, heads)
     tf32 = x.dtype == torch.float32 and tf32_products()
-    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True, tf32=tf32)
+    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True, tf32=tf32,
+                            tf32_tma=True)
     if x.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
     elif tf32:

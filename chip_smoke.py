@@ -236,16 +236,26 @@ that reads it. Phases, each announced with its elapsed seconds:
      unrounded operands (<= TF32_F64_BAR, >= TF32_PASS_RATIO times the
      3xTF32 entry's error), its ms beside the 3xTF32 entry's, the twin's
      and the bound (products at 495 TFLOP/s, the depthwise at 67, bytes at
-     3.35 TB/s); detect() on page_0 at "highest", "default" and "high" for
-     the FPN module path, the FPN fused configuration and the UPerNeXt one
+     3.35 TB/s), the block's stages on its own h and u (its fused form
+     keeps u on chip and writes it for this check through its store-u
+     pointer) and its GELUs' floor on the f32 pipes printed beside its
+     bound (an estimate, GELU_INSTRUCTIONS; not in the kernels line);
+     TF32_INVARIANCE_CASES (the block at B = 4 on the rough pass's stage
+     shapes, the precise heads at B = 4): each image bit for bit as alone;
+     detect() on page_0 at "highest", "default" and "high" for the FPN
+     module path, the FPN fused configuration and the UPerNeXt one
      (f32; "highest" reused from phases 4, 5 and 9 where they ran): exact
      launches (the TF32 entries only at "default"), an engine at "high"
      equal to one at "default" bit for bit in both passes, "default"
      against "highest" at TF32_MASK_BAR, TF32_POLYGON_BAR and TF32_F1_TOL
      (char F1 against page_0's ground truth), the fused rough and precise
-     forwards at B = 16 at both precisions; the fused bf16 detect() at
+     forwards at B = 16 at both precisions and their device ms by kernel at
+     "default" (``tf32_trace``: the block's and precise heads' wgmma
+     designs must be the kernels that ran); the fused bf16 detect() at
      "highest" (phase bf16's, where it ran) and
-     "default" against the JAX bf16 reference (phase bf16's bars);
+     "default" against the JAX bf16 reference (phase bf16's bars); phase
+     6's chunked page, phase 10's tiled page and phase 11's detect_many,
+     fused at "default", their launches counted (the TF32 entries alone);
      ``tools/eval_checkpoint.evaluate`` of the FPN flagship on
      TF32_EVAL_PAGES pages of its steps.json, fused, f32 and bf16;
  tools. ``python -m adascale_torch demo`` (run in this process by
@@ -453,7 +463,16 @@ WIDTH_BATCH, WIDTH_HW = 2, (64, 48)
 WIDTH_GROUP = ("base", 8, (192, 192))
 
 
+# Empty torch.profiler traces taken again (kernel_device_ms), by the phase
+# that was running: printed at the end, so that a run that loses more
+# traces than another shows where.
+TRACE_RETRIES: dict = {}
+PHASE = ["start"]
+
+
 def stamp(phase: str) -> None:
+    if phase.startswith("phase "):
+        PHASE[0] = phase.split(":")[0][len("phase "):]
     print(f"[{time.perf_counter() - T0:8.2f}s] {phase}", flush=True)
 
 
@@ -635,7 +654,7 @@ def check_kernel(label: str, kernel, plain, args, exact_args, work, reps: int = 
             "rel64": rel64}
 
 
-def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int = 3):
+def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int = 6):
     """Device ms per call of each kernel that ``fn`` runs on the card, by its
     name in a torch.profiler trace of ``reps`` warm calls. The profiler
     loses launches now and then (a run of every phase lost about half of
@@ -643,7 +662,7 @@ def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int =
     ``tools/kernel_ms.py`` does: ``once_a_call``, each kernel launches once
     a call, so its mean launch is its ms a call, which a partial loss does
     not bias; a trace that kept no launch is taken again, up to ``tries``
-    times. A kernel whose launches in the trace are not a whole multiple
+    times (each counted in TRACE_RETRIES under the running phase). A kernel whose launches in the trace are not a whole multiple
     of ``reps`` is printed, so that every loss shows."""
     import torch
     from torch.autograd import DeviceType
@@ -660,6 +679,7 @@ def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int =
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if events:
             break
+        TRACE_RETRIES[PHASE[0]] = TRACE_RETRIES.get(PHASE[0], 0) + 1
         print(f"torch.profiler kept no launch of {reps} calls; tracing again", flush=True)
     ms = {}
     for event in events:
@@ -771,14 +791,16 @@ def check_blocks(gen, device):
 
 def build_all():
     """Build the kernel libraries, one nvcc each, started together: the four
-    kernels' f32 libraries (the neck's and heads' hold their bf16 entries
-    too) and the block's two bf16 libraries (Pallas and module mode)."""
+    kernels' f32 libraries (the neck's and heads' hold their bf16 and TF32
+    entries too), the block's TF32 library and its two bf16 libraries
+    (Pallas and module mode)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from adascale_torch.kernels import _nvcc, convnext_block
 
     modules = kernel_modules()
     builds = {name: m.build for name, m in modules.items()}
+    builds["convnext_block_tf32"] = convnext_block.build_tf32
     builds["convnext_block_bf16"] = lambda: convnext_block.build_bf16(False)
     builds["convnext_block_bf16_module"] = lambda: convnext_block.build_bf16(True)
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -962,8 +984,8 @@ def fused_detect_checked(engine, image, ref, blocks_per_pass: int, min_chunks: i
 KERNEL_GROUPS = {
     "heads": ("heads_kernel", "heads_tma_kernel"),
     "neck_l0": ("neck_step1_", "neck_step2_"),
-    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "gemm_tf32_kernel", "reduce_kernel", "dw_ln_pairs_kernel", "mlp_fused_kernel",
-               "gemm_wgmma_kernel", "reduce_bf16_kernel"),
+    "blocks": ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel", "dw_ln_pairs_kernel", "mlp_fused_kernel",
+               "gemm_wgmma_kernel", "reduce_bf16_kernel", "mlp_fused_tf32_kernel", "gemm_tf32_wgmma_kernel"),
 }
 
 
@@ -2784,6 +2806,19 @@ TF32_F64_BAR = 1e-2
 # about 7 times the twin's own spread above.
 TF32_HELD_TOL = 1e-3
 TF32_PASS_RATIO = 10.0
+# The TF32 block's and precise heads' batch invariance at "default": each
+# image of a B = 4 batch bit for bit as it comes out alone, at the rough
+# pass's stage shapes (the block) and the precise heads' shape.
+TF32_INVARIANCE_CASES = [("convnext_block", (4, *shape)) for shape, _ in STAGE_SHAPES] + [
+    ("precise_heads", (4, *shape)) for shape, _ in PRECISE_HEAD_SHAPES[:1]
+]
+# The block's exact-erf GELUs run on the f32 pipes, one a hidden unit (4C a
+# pixel): an estimate of 20 instructions each (erff's branch-free
+# polynomial, the GELU's multiplies, the bias and the TF32 rounding) at the
+# H100 SXM's 33.5e12 f32 instructions a second (half the 67 TFLOP/s of
+# fused multiply-adds). Printed beside the block's bound, which counts only
+# its products and depthwise.
+GELU_INSTRUCTIONS = 20
 
 
 def tf32_twin_spread(name: str, args):
@@ -2836,8 +2871,7 @@ def block_tf32_stages(x, p):
 
     b, h, w, c = x.shape
     m = b * h * w
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ws = torch.empty(K.build().convnext_block_f32_workspace(b, h, w, c, sms), device=x.device)
+    ws = torch.empty(K.tf32_workspace_floats(b, h, w, c, x.device, keep_u=True), device=x.device)
     with matmul_precision("default"):
         out = K._launch(x, p, True, ws)
     hk, uk = ws[: m * c].view(b, h, w, c), ws[m * c : 5 * m * c].view(b, h, w, 4 * c)
@@ -2871,7 +2905,7 @@ def neck_tf32_stages(f0, u, p):
 
 
 def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: float, flops_simt: float,
-                      nbytes: float, stages=None, spread=None, reps: int = 10) -> dict:
+                      nbytes: float, stages=None, spread=None, reps: int = 10, gelus: float = 0.0) -> dict:
     """A kernel's single-pass TF32 entry (``kernel`` called inside
     ``matmul_precision("default")``) against its TF32 plain twin
     (``plain(*args, tf32=True)``) and against ``plain`` on ``exact_args``
@@ -2883,7 +2917,8 @@ def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: flo
     Prints and returns the errors, the TF32 entry's, the 3xTF32 entry's and
     the twin's ms, and the bound's two parts (``flops_tc`` products at the
     dense TF32 rate plus ``flops_simt`` at the f32 SIMT rate; ``nbytes`` at
-    the memory rate)."""
+    the memory rate); beside them, where the kernel takes ``gelus`` exact
+    GELUs, their floor on the f32 pipes (GELU_INSTRUCTIONS each)."""
     import torch
 
     from adascale_torch.utils.precision import matmul_precision
@@ -2913,6 +2948,7 @@ def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: flo
     rel64_3 = max(float((g.double() - e).abs().max()) for g, e in zip(got3, exact)) / scale
     t_ops = (flops_tc / PEAK_TF32_FLOPS + flops_simt / PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    gelu_ms = gelus * GELU_INSTRUCTIONS / (PEAK_F32_FLOPS / 2) * 1e3
     print(
         f"{label} TF32: against its TF32 twin "
         + " ".join(f"{name}={v:.3e}" for name, v in staged.items())
@@ -2920,7 +2956,8 @@ def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: flo
         + f" max_abs_err={err:.3e} rel_vs_f64 tf32={rel64:.3e} 3xtf32={rel64_3:.3e} "
         f"ratio={rel64 / max(rel64_3, 1e-30):.1f} kernel_ms={ms:.4f} kernel_3xtf32_ms={ms3:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={max(t_ops, t_bytes):.4f} "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}, 1 TF32 pass)",
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}, 1 TF32 pass)"
+        + (f" gelu_simt_floor_ms={gelu_ms:.4f}" if gelus else ""),
         flush=True,
     )
     worst = max(staged.values())
@@ -2933,7 +2970,7 @@ def check_tf32_kernel(label: str, kernel, plain, args, exact_args, flops_tc: flo
             f"{label} TF32: error against f64 {rel64} < {TF32_PASS_RATIO} x the 3xTF32 entry's {rel64_3}")
     return {"max_abs_err": err, "rel": worst, "end_to_end": rel, "twin_spread": rel_spread, "ms": ms,
             "ms_3xtf32": ms3, "plain_ms": plain_ms, "t_ops": t_ops, "t_bytes": t_bytes, "rel64": rel64,
-            "rel64_3xtf32": rel64_3}
+            "rel64_3xtf32": rel64_3, "gelu_ms": gelu_ms}
 
 
 def check_tf32_kernels(gen, device) -> dict:
@@ -2975,8 +3012,14 @@ def check_tf32_kernels(gen, device) -> dict:
         block_rows.append((check_tf32_kernel(
             f"convnext_block {h}x{w}x{c}", K.convnext_block, K.convnext_block_plain, (x, p),
             (x.double(), double(p)), npix * 16 * c * c, npix * 2 * 49 * c, nbytes, stages=block_tf32_stages,
-            spread=lambda a: tf32_twin_spread("convnext_block", a)), blocks))
+            spread=lambda a: tf32_twin_spread("convnext_block", a), gelus=npix * 4 * c), blocks))
     rows["convnext_block_tf32"] = total(block_rows)
+    # An estimate (GELU_INSTRUCTIONS), kept out of the kernels line, whose
+    # numbers are measured or, for bound_ms, computed from the work.
+    gelu_ms = sum(n * r["gelu_ms"] for r, n in block_rows if n)
+    print(f"convnext_block TF32, one one-chunk detect()'s {sum(n for _, n in block_rows)} calls: "
+          f"kernel_ms={rows['convnext_block_tf32']['ms']:.4f} bound_ms={rows['convnext_block_tf32']['bound_ms']:.4f} "
+          f"gelu_simt_floor_ms={gelu_ms:.4f} (an estimate: {GELU_INSTRUCTIONS} f32 instructions a GELU)", flush=True)
 
     neck_rows = []
     for (h, w, c0, cm, co), calls in NECK_SHAPES:
@@ -3007,6 +3050,70 @@ def check_tf32_kernels(gen, device) -> dict:
                                                 0.0, nbytes), calls))
         rows[f"{name}_tf32"] = total(head_rows)
     return rows
+
+
+def check_tf32_invariance(gen, device) -> None:
+    """TF32_INVARIANCE_CASES at "default": each image of the batch bit for
+    bit as the TF32 entry gives it alone (the block's split plan and the
+    heads' tile walk do not move with B)."""
+    import torch
+
+    from adascale_torch.kernels import convnext_block as K
+    from adascale_torch.kernels import precise_heads
+    from adascale_torch.utils.precision import matmul_precision
+
+    for name, (b, h, w, c) in TF32_INVARIANCE_CASES:
+        x = torch.randn(b, h, w, c, generator=gen).to(device)
+        if name == "convnext_block":
+            p = random_block_params(c, gen, device)
+            run = lambda t: [K.convnext_block(t, p)]  # noqa: E731
+        else:
+            heads = [random_head_params(c, m, gen, device) for m in PRECISE_OUT]
+            run = lambda t: precise_heads.fused_precise_heads(t, heads)  # noqa: E731
+        with matmul_precision("default"):
+            batch = run(x)
+            alone = [run(x[i : i + 1].contiguous()) for i in range(b)]
+        same = all(torch.equal(y[i : i + 1], a[k]) for i, a in enumerate(alone) for k, y in enumerate(batch))
+        print(f"tf32 {name} B={b} {h}x{w}x{c}: each image of the batch bit for bit as alone: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"tf32 {name} at B={b}, {(h, w, c)}: a batch's image differs from the image alone")
+
+
+def tf32_trace(engine, image, result) -> dict:
+    """The fused engine's rough and precise forwards at "default" on
+    page_0's inputs: device ms a call by kernel name (torch.profiler, 3
+    calls), printed; the block's and the precise heads' TF32 launches must
+    be the wgmma designs' (mlp_fused_tf32_kernel and gemm_tf32_wgmma_kernel
+    in both passes, no gemm_tf32_kernel; the precise heads'
+    heads_tma_kernel, no heads_kernel, in the precise pass)."""
+    import torch
+
+    from adascale_torch.utils.precision import matmul_precision
+
+    x_rough, x_precise = forward_inputs(image, result, engine.device)
+    out = {}
+    for which, x in (("rough", x_rough), ("precise", x_precise)):
+        def forward(x=x, which=which):
+            with torch.inference_mode(), matmul_precision("default"):
+                return engine._forward(x, which)
+
+        ms = kernel_device_ms(forward, reps=3)
+        names = {}
+        for key, v in ms.items():
+            if kernel_group(key):  # the kernel's name and template arguments
+                name = re.search(r"\w+_kernel(<[^>]*>)?", key).group(0)
+                names[name] = names.get(name, 0.0) + v
+        print(f"tf32 fused {which} forward at default, device ms a call by kernel (torch.profiler, 3 calls): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in sorted(names.items(), key=lambda kv: -kv[1])), flush=True)
+        found = " ".join(names)
+        missing = [k for k in ("mlp_fused_tf32_kernel", "gemm_tf32_wgmma_kernel") if k not in found]
+        if which == "precise" and "heads_tma_kernel<float" not in found:
+            missing.append("heads_tma_kernel<float")
+        stale = [k for k in ("gemm_tf32_kernel",) + (("heads_kernel",) if which == "precise" else ()) if k in found]
+        if missing or stale:
+            raise AssertionError(f"tf32 fused {which} forward: kernels {missing} missing, {stale} present")
+        out[which] = names
+    return out
 
 
 # detect() on page_0 at "default" against "highest" (f32): the rough mask
@@ -3095,7 +3202,7 @@ def check_tf32_detects(image, highest: dict) -> tuple:
     "highest" (phase bf16's, where it ran) and "default", each against the
     JAX bf16 reference at phase bf16's bars (its height map nearer the
     reference than the f32 fused run's at the same precision). Returns the
-    launches by path and the numbers."""
+    launches by path, the numbers and the fused FPN engine at "default"."""
     import numpy as np
 
     from adascale_torch.inference.eval import evaluate_char_detection, match_polygons
@@ -3148,8 +3255,9 @@ def check_tf32_detects(image, highest: dict) -> tuple:
                           "height_equal": equal_height}
         if label == "fpn_fused":
             numbers[label].update(tf32_forward_ms(label, {"highest": engine, "default": default}, image, hi))
+            numbers[label]["device_ms_by_kernel"] = tf32_trace(default, image, hi)
         if label == "fpn_fused":
-            f32_fused = {"highest": hi, "default": de}
+            f32_fused, fused_default = {"highest": hi, "default": de}, default
 
     ref = np.load(FPN_FUSED_BF16_REFERENCE)
     engine = engine_for(load_npz(WEIGHTS), compute_dtype="bfloat16", use_pallas_backbone=True,
@@ -3189,7 +3297,56 @@ def check_tf32_detects(image, highest: dict) -> tuple:
     }
     print(f"tf32 bf16 fused, \"default\" against \"highest\": {json.dumps(numbers['bf16_fused_default_vs_highest'])}",
           flush=True)
-    return by_path, numbers
+    return by_path, numbers, fused_default
+
+
+def check_tf32_paths(engine) -> dict:
+    """Phase tf32, three more fused paths at "default", counted, through
+    ``engine`` (the fused FPN flagship's at "default", its weights packed by
+    check_tf32_detects): phase 6's page with its precise stack cut into
+    chunks, phase 10's tiled page and phase 11's detect_many, each launching
+    the TF32 entries alone, as many times as the path launches the f32 ones
+    at "highest". Returns the launches by path."""
+    import copy
+
+    import numpy as np
+
+    from adascale_torch import BatchedAdaptiveScalingInference
+
+    chunk_ref, tiled_ref = np.load(MULTICHUNK_REFERENCE), np.load(TILED_BAND_REFERENCE)
+    blocks = sum(n for _, n in engine.config.model.backbone_spec())
+
+    def variant(**fields):  # the same model and weights, other engine fields (read at call time)
+        other = copy.copy(engine)
+        other.config = dataclasses.replace(engine.config, **fields)
+        return other
+
+    def want(chunks):
+        out = dict.fromkeys(KERNEL_NAMES, 0)
+        out.update(convnext_block_tf32=blocks * (1 + chunks), fpn_neck_l0_tf32=1 + chunks, fpn_heads_tf32=1,
+                   precise_heads_tf32=chunks)
+        return out
+
+    by_path = {}
+    chunked = variant(precise_stacked_image_max_area=int(chunk_ref["precise_stacked_image_max_area"]))
+    result, by_path["detect_tf32_fused_chunks"] = counted(
+        lambda: chunked.detect(np.load(os.path.join(ROOT, str(chunk_ref["page"])))["image"]))
+    chunks = result["num_precise_chunks"]
+    if chunks < 2 or by_path["detect_tf32_fused_chunks"] != want(chunks):
+        raise AssertionError(f"tf32 chunked detect: {chunks} chunks, LAUNCHES {by_path['detect_tf32_fused_chunks']}")
+    tiled = variant(precise_band_recall_center_dist_ratio=float(tiled_ref["precise_band_recall_center_dist_ratio"]))
+    image = np.concatenate([np.load(os.path.join(ROOT, str(p)))["image"] for p in tiled_ref["pages"]], axis=1)
+    result, by_path["tiled_tf32_band_detect"] = counted(lambda: tiled.detect(image, tiled=True))
+    if by_path["tiled_tf32_band_detect"] != want(result["num_precise_chunks"]):
+        raise AssertionError(f"tf32 tiled detect: LAUNCHES {by_path['tiled_tf32_band_detect']}")
+    pages = [np.load(p)["image"] for p in SHIFT_PAGES] + [np.zeros(BLANK_SHAPE, np.uint8)]
+    _, by_path["detect_many_tf32"] = counted(lambda: BatchedAdaptiveScalingInference(engine).detect_many(pages))
+    many = dict.fromkeys(KERNEL_NAMES, 0)
+    many.update({f"{k}_tf32": v for k, v in MANY_LAUNCHES.items()})
+    if by_path["detect_many_tf32"] != many:
+        raise AssertionError(f"tf32 detect_many: LAUNCHES {by_path['detect_many_tf32']} != {many}")
+    print(f"tf32 fused paths at default, launches: {json.dumps(by_path)}", flush=True)
+    return by_path
 
 
 def check_tf32_eval() -> dict:
@@ -4478,9 +4635,15 @@ def main() -> None:
         stamp("phase tf32: matmul_precision \"default\" / \"high\" (single-pass TF32)")
         phase_t = time.perf_counter()
         rows.update(check_tf32_kernels(gen, device))
+        stamp("tf32: the block's and the precise heads' batch invariance at \"default\"")
+        invariance_t = time.perf_counter()
+        check_tf32_invariance(gen, device)
+        print(f"tf32 batch invariance: {time.perf_counter() - invariance_t:.2f} s", flush=True)
         stamp("tf32: detect() at \"default\" and \"high\" against \"highest\"")
-        tf32_paths, tf32_numbers = check_tf32_detects(image, highest)
+        tf32_paths, tf32_numbers, fused_default = check_tf32_detects(image, highest)
         by_path.update(tf32_paths)
+        stamp("tf32: the chunked, tiled and batched fused paths at \"default\"")
+        by_path.update(check_tf32_paths(fused_default))
         stamp("tf32: eval_checkpoint.evaluate on the flagship")
         tf32_numbers["eval_checkpoint"] = check_tf32_eval()
         print("tf32 numbers: " + json.dumps(tf32_numbers), flush=True)
@@ -4509,6 +4672,8 @@ def main() -> None:
         "detect_base_random_bfloat16": bf16_names,
         "detect_tf32_fpn_module": ["convnext_block_tf32"], "detect_tf32_upernext_fused": ["convnext_block_tf32"],
         "detect_tf32_fpn_fused": [f"{k}_tf32" for k in KERNEL_NAMES], "detect_tf32_bf16_fused": bf16_names,
+        **dict.fromkeys(("detect_tf32_fused_chunks", "tiled_tf32_band_detect", "detect_many_tf32"),
+                        [f"{k}_tf32" for k in KERNEL_NAMES]),
         **TOOLS_PATH_KERNELS,
     }
     for path, launches in by_path.items():
@@ -4516,6 +4681,7 @@ def main() -> None:
         if missing:
             raise AssertionError(f"path {path}: kernels {missing} were not launched ({launches})")
     print("launches by path: " + json.dumps(by_path), flush=True)
+    print("torch.profiler empty traces taken again, by phase: " + json.dumps(TRACE_RETRIES), flush=True)
 
     stamp("done")
     print(smi_line(), flush=True)

@@ -45,6 +45,20 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   traced calls reach), also through the operator, the two alternately in
   one process (``FORWARD_ROUNDS`` rounds each, the median), so that the
   operator's dispatch cost shows beside the same process's direct calls;
+- ``--only block_tf32``: the block's single-pass TF32 entry
+  (``convnext_block(x, p)`` inside ``matmul_precision("default")``) at the
+  eight stage shapes of both passes, each launch by name (depthwise + LN,
+  the GEMMs or the fused MLP, the split reduction), summed per pass and
+  over both (36 blocks), with the 3xTF32 entry's call on the same inputs
+  beside each (``call_3xtf32_ms``);
+- ``--only heads_tf32``: the heads' single-pass TF32 entries (the precise
+  heads over (1, 256, 208, 384), the rough over (1, 240, 192, 384)) inside
+  ``matmul_precision("default")``, each launch by name, with the 3xTF32
+  entry's call beside them;
+- ``--only forwards_tf32``: the flagship's f32 rough and precise forwards
+  at ``matmul_precision("default")`` (the single-pass TF32 entries), module
+  path and fused (weights from ``--weights``), on random inputs of
+  page_0's shapes at B = 1 and per page at B = 16;
 - ``--only l2``: the read rate the card gives from L2 and from device
   memory: a copy kernel written for this (``L2_READ_SOURCE``, on no path
   of the port; built by ``nvcc`` into ``tools/_build/``) reads a buffer of
@@ -53,7 +67,8 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host|heads_bf16|neck_bf16|forwards_bf16|forwards|l2]
+        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|heads_bf16|neck_bf16|
+                forwards_bf16|forwards_tf32|forwards|l2]
         [--weights NPZ]
 
 For each case it prints one JSON line with:
@@ -124,6 +139,10 @@ HEADS_KERNELS = ("heads_",)
 BLOCK_KERNELS = ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel")
 # The bf16 block's launches, whatever its design names them.
 BLOCK_BF16_KERNELS = ("dw_ln_", "gemm_", "mlp_", "reduce_bf16_kernel")
+# The TF32 block's launches, whatever its design names them (the mma.sync
+# design's gemm_tf32_kernel, or the wgmma design's dw_ln_rows_kernel,
+# mlp_fused_tf32_kernel and gemm_tf32_wgmma_kernel).
+BLOCK_TF32_KERNELS = ("dw_ln_", "gemm_", "mlp_", "reduce_kernel")
 
 
 def randn(gen: torch.Generator, *shape, scale=1.0, shift=0.0):
@@ -239,7 +258,8 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
-                                           "heads_bf16", "neck_bf16", "forwards_bf16", "forwards", "l2"))
+                                           "block_tf32", "heads_tf32", "heads_bf16", "neck_bf16",
+                                           "forwards_bf16", "forwards_tf32", "forwards", "l2"))
     parser.add_argument("--weights", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "examples/flagship_training/flagship_fpn_params.f16.npz"))
@@ -264,8 +284,17 @@ def main() -> None:
     if args.only == "l2":
         l2_rate(args, card)
         return
+    if args.only == "block_tf32":
+        block_tf32(convnext_block, gen, args, card)
+        return
+    if args.only == "heads_tf32":
+        heads_tf32(fpn_heads, precise_heads, gen, args, card)
+        return
     if args.only == "forwards_bf16":
         forwards_bf16(gen, args, card)
+        return
+    if args.only == "forwards_tf32":
+        forwards_tf32(gen, args, card)
         return
     if args.only == "forwards":
         forwards(convnext_block, gen, args, card)
@@ -364,6 +393,63 @@ def block_bf16(convnext_block, gen: torch.Generator, args, card: str) -> None:
     for (mode, which), t in totals.items():
         print(json.dumps({"label": args.label, "kernel": "convnext_block_bf16", "mode": mode, "pass": which,
                           "blocks": 36 if which == "both" else 18, **t, "card": card}), flush=True)
+
+
+def at_default(fn):
+    """``fn`` called inside ``matmul_precision("default")``: the single-pass
+    TF32 entries."""
+    from adascale_torch.utils.precision import matmul_precision
+
+    def call():
+        with matmul_precision("default"):
+            return fn()
+
+    return call
+
+
+def block_tf32(convnext_block, gen: torch.Generator, args, card: str) -> None:
+    """The block's TF32 entry at both passes' stage shapes, each launch by
+    name, summed per pass and over both; the 3xTF32 entry's call beside."""
+    totals = {}
+    for which, shapes in BLOCK_BF16_SHAPES.items():
+        for shape, blocks in zip(shapes, STAGE_BLOCKS):
+            p, x = block_params(shape[-1], gen), randn(gen, *shape)
+            fn = at_default(lambda x=x, p=p: convnext_block.convnext_block(x, p))
+            kernel, launches, other = device_ms(fn, args.reps, BLOCK_TF32_KERNELS)
+            line = {"label": args.label, "kernel": "convnext_block_tf32", "pass": which, "shape": list(shape),
+                    "blocks": blocks, "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel,
+                    "launches_ms": launches, "other_device_ms": other,
+                    "call_3xtf32_ms": call_ms(lambda x=x, p=p: convnext_block.convnext_block(x, p), args.reps),
+                    "card": card}
+            print(json.dumps(line), flush=True)
+            for key in (which, "both"):
+                t = totals.setdefault(key, {"kernel_ms": 0.0, "call_ms": 0.0, "call_3xtf32_ms": 0.0,
+                                            "launches_ms": {}})
+                for k in ("kernel_ms", "call_ms", "call_3xtf32_ms"):
+                    t[k] += blocks * line[k]
+                for name, ms in launches.items():
+                    t["launches_ms"][name] = t["launches_ms"].get(name, 0.0) + blocks * ms
+    for which, t in totals.items():
+        print(json.dumps({"label": args.label, "kernel": "convnext_block_tf32", "pass": which,
+                          "blocks": 36 if which == "both" else 18, **t, "card": card}), flush=True)
+
+
+def heads_tf32(fpn_heads, precise_heads, gen: torch.Generator, args, card: str) -> None:
+    """The heads' TF32 entries at the flagship's shapes, each launch by
+    name; the 3xTF32 entry's call beside."""
+    for name, shape, outs, wrapper in (
+        ("precise_heads_tf32", PRECISE_SHAPE, PRECISE_OUT, precise_heads.fused_precise_heads),
+        ("fpn_heads_tf32", ROUGH_SHAPE, ROUGH_OUT, lambda x, heads: fpn_heads.fused_rough_heads(x, *heads)),
+    ):
+        heads = [head_params(shape[-1], m, gen) for m in outs]
+        x = randn(gen, *shape)
+        fn3 = lambda x=x, heads=heads, wrapper=wrapper: wrapper(x, heads)  # noqa: E731
+        fn = at_default(fn3)
+        kernel, launches, other = device_ms(fn, args.reps, HEADS_KERNELS)
+        print(json.dumps({"label": args.label, "kernel": name, "shape": list(shape),
+                          "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel, "launches_ms": launches,
+                          "other_device_ms": other, "call_3xtf32_ms": call_ms(fn3, args.reps), "card": card}),
+              flush=True)
 
 
 def wrapper_host_us(fn, n: int = 200) -> float:
@@ -478,6 +564,32 @@ def forwards_bf16(gen: torch.Generator, args, card: str) -> None:
             many = call_ms(lambda: engine._forward(xb, which), 2) / 16
             print(json.dumps({"label": args.label, "forward": f"{which}_bf16_fused", "shape": list(shape),
                               "b1_ms": one, "b16_ms_per_page": many, "card": card}), flush=True)
+
+
+def forwards_tf32(gen: torch.Generator, args, card: str) -> None:
+    """The flagship's f32 rough and precise forwards inside
+    ``matmul_precision("default")``, module path and fused, at B = 1 and B
+    = 16, on random inputs of page_0's shapes: CUDA events, warm, the median
+    of three runs."""
+    from adascale_torch import AdaptiveScalingConfig, AdaptiveScalingInference, AdaptiveScalingInferenceConfig
+    from adascale_torch.utils.params import load_npz
+
+    params = load_npz(args.weights)
+    for fused in (False, True):
+        cfg = AdaptiveScalingInferenceConfig(
+            model=AdaptiveScalingConfig(size="tiny", neck_head_type="fpn"), use_pallas_neck_heads=fused,
+            device="cuda",
+        )
+        engine = AdaptiveScalingInference(cfg, params=params)
+        for which, shape in (("rough", (1, 960, 768, 3)), ("precise", (1, 1024, 832, 3))):
+            x = randn(gen, *shape)
+            xb = x.expand(16, *shape[1:]).contiguous()
+            with torch.inference_mode():
+                one = call_ms(at_default(lambda: engine._forward(x, which)), args.reps)
+                many = call_ms(at_default(lambda: engine._forward(xb, which)), 2) / 16
+            print(json.dumps({"label": args.label, "forward": f"{which}_tf32_{'fused' if fused else 'module'}",
+                              "shape": list(shape), "b1_ms": one, "b16_ms_per_page": many, "card": card}),
+                  flush=True)
 
 
 # --only forwards: rounds of each route, alternately; the median is kept.
