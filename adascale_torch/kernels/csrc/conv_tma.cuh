@@ -1,7 +1,7 @@
 // The implicit-GEMM convolution of the bf16 neck level 0 and heads
 // (fpn_neck_l0.cu; fpn_heads.cu and precise_heads.cu through fpn_head.cuh)
-// and of the precise heads' single-pass TF32 entry, for Hopper (sm_90a), on
-// a warp-specialised main loop fed by TMA:
+// and of their single-pass TF32 entries, for Hopper (sm_90a), on a
+// warp-specialised main loop fed by TMA:
 //
 //   acc[m][n] = sum_{t, c} x[b, i + oy_t, j + ox_t, c] * w[t][c][n]
 //
@@ -11,10 +11,9 @@
 // (to nearest, ties away, conv_gemm::round_tf32) in registers after its
 // ldmatrix, w rounded when it was packed (packing.pack_sw128_tf32), so that
 // the tensor core, which drops the low 13 bits of an f32 operand, reads the
-// rounded values. conv_gemm.cuh keeps the 3xTF32 loop, the other
-// single-pass TF32 entries' loop and the loop of the wide bf16 paths, which
-// split the features into slices and run a chunk of flattened pixels at a
-// time.
+// rounded values. conv_gemm.cuh keeps the 3xTF32 loop and the loop of the
+// wide bf16 and TF32 paths, which split the features into slices and run a
+// chunk of flattened pixels at a time.
 //
 // Design:
 //   * A block is persistent: one a multiprocessor, it walks units, each one
@@ -134,6 +133,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "%3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// Asks for `bytes` (a multiple of 16) from p (16-byte aligned) to be
+// brought into L2, without waiting for them.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
 }
 
 // Registers a thread of this warpgroup may hold from here on (all its
@@ -284,14 +289,34 @@ __device__ __forceinline__ void wgmma_rs_tf32_n104(float (&d)[K], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <int K>
+__device__ __forceinline__ void wgmma_rs_tf32_n48(float (&d)[K], const uint32_t* a, uint64_t db,
+                                                  int scale_d) {
+  static_assert(K >= 24, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23"
+      "}, {%24,%25,%26,%27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d (64 x NW) of one warpgroup += A . B for a 32-byte K step of operands of
-// type T (16 bf16, or 8 f32 as TF32), for the two widths the kernels use.
+// type T (16 bf16, or 8 f32 as TF32), for the widths the kernels use (48
+// only in TF32).
 template <int NW, typename T = bf16, int K>
 __device__ __forceinline__ void wgmma_rs(float (&d)[K], const uint32_t* a, uint64_t db,
                                          int scale_d) {
-  static_assert(NW == 96 || NW == 104, "wgmma width");
-  if constexpr (std::is_same<T, float>::value) {
-    if constexpr (NW == 96) wgmma_rs_tf32_n96(d, a, db, scale_d);
+  constexpr bool kTF32 = std::is_same<T, float>::value;
+  static_assert(NW == 96 || NW == 104 || (kTF32 && NW == 48), "wgmma width");
+  if constexpr (kTF32) {
+    if constexpr (NW == 48) wgmma_rs_tf32_n48(d, a, db, scale_d);
+    else if constexpr (NW == 96) wgmma_rs_tf32_n96(d, a, db, scale_d);
     else wgmma_rs_tf32_n104(d, a, db, scale_d);
   } else {
     if constexpr (NW == 96) wgmma_rs_n96(d, a, db, scale_d);

@@ -60,11 +60,11 @@
 // conv_tma.cuh's persistent, TMA-fed loop; wider ones the two passes above
 // on conv_gemm.cuh's mainloop_bf16.
 //
-// The single-pass TF32 entries (matmul_precision "default" / "high"): the
-// rough heads' on the main loop above at PASSES 1; the precise heads' (where
-// they fit the tile) on heads_tma_kernel with f32 operands, x rounded to
-// TF32 in registers and the taps rounded when packed
-// (packing.pack_sw128_tf32), 32 channels a box row (launch_heads_tma).
+// The single-pass TF32 entries (matmul_precision "default" / "high"): where
+// the heads fit the tile, heads_tma_kernel with f32 operands (the rough
+// heads at N = 192, the precise at 200), x rounded to TF32 in registers and
+// the taps rounded when packed (packing.pack_sw128_tf32), 32 channels a box
+// row (launch_heads_tma); wider heads the two passes above at PASSES 1.
 
 #pragma once
 
@@ -350,9 +350,10 @@ int launch_heads(const T* x, const T* w, const float* vec, const float* w2, cons
 // a chunk serving its 4 taps. In f32 a box and a B stage hold the bytes
 // they hold in bf16 (half the channels), so the shared memory is the same;
 // what a unit takes in doubles. That ingress bounds the f32 kernel: at the
-// flagship's 256x208x384 the 6656 units bring 9.8 GB into the
-// multiprocessors (B 1.23 MB a unit, A 0.24 MB), ~1.5 ms at ~28 bytes a
-// cycle an SM, above the products' 1.02 ms. The epilogue runs
+// flagship's 256x208x384 the precise heads' 6656 units bring 9.8 GB into
+// the multiprocessors (B 1.23 MB a unit, A 0.24 MB), ~1.5 ms at ~28 bytes
+// a cycle an SM, above the products' 1.02 ms; at 240x192x384 the rough
+// heads' 2880 units 4.1 GB (B 1.18 MB), ~0.62 ms against 0.44. The epilogue runs
 // on the accumulators' registers: bias, LayerNorm over the head's F
 // features (a row's features lie in its quad), GELU (rounded to bf16 where
 // ROUND_Y), the projection to M <= 4 outputs, and the interleaved write;

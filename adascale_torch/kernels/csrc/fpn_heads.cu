@@ -20,6 +20,24 @@
 // 495 TFLOP/s dense TF32 (700 W); in bf16 one product each: 0.22 ms at 989
 // TFLOP/s dense bf16; against well under 0.1 ms for its bytes. The bf16
 // body is fpn_head.cuh's heads_tma_kernel on conv_tma.cuh's loop.
+//
+// The single-pass TF32 entry (matmul_precision "default" / "high"; one TF32
+// product a product: 0.44 ms at 495 TFLOP/s) runs the same persistent,
+// TMA-fed heads_tma_kernel on f32 operands where the heads fit the tile, as
+// the precise heads' TF32 entry does (precise_heads.cu): halo boxes of x,
+// 32 channels a 128-byte row, by TMA in the 128-byte swizzle; A from the
+// box by ldmatrix and rounded to TF32 in registers; B, the collapsed taps
+// rounded to TF32 once per parameter set and packed in the same swizzle
+// (packing.pack_sw128_tf32), through its own ring; RS wgmma.m64n96k8 twice
+// (N = 96 + 96); the LayerNorm, GELU and projection on the accumulators'
+// registers. It replaced conv_gemm.cuh's cp.async loop at one pass (A
+// copied once a tap and rounded on each use, each 32-deep chunk a fresh
+// tile, the epilogue read back through shared memory): 1.43-1.52 ms on an
+// H100 (PERF.md). What bounds it now is the bytes a multiprocessor takes
+// in: at 240x192 the 2880 units (360 tiles x 8 (head, phase)) take in 4.1
+// GB, B 1.18 MB and A 0.24 MB a unit, ~0.62 ms at ~28 bytes a cycle an SM,
+// above the products' 0.44 ms. Wider heads keep the cp.async loop
+// (launch_heads, two passes).
 
 #include "fpn_head.cuh"
 
@@ -46,14 +64,21 @@ extern "C" int fpn_heads_f32(const float* x, const float* w, const float* vec, c
 }
 
 // As fpn_heads_f32, the products as one TF32 product a product
-// (matmul_precision "default" / "high"): x rounded to TF32 in registers,
-// only the packed weights' hi part read.
+// (matmul_precision "default" / "high"): x rounded to TF32 in registers.
+// One slice: fpn_head.cuh's heads_tma_kernel on f32 operands, w as it
+// takes them (packing.pack_sw128_tf32: (heads, 4 phases, 4 taps, ceil(C/32)
+// chunks, N/8, 8 rows, 128 bytes of K in the 128-byte swizzle), rounded to
+// TF32); wider heads: launch_heads at one pass, w as fpn_heads_f32's (only
+// the hi part read).
 extern "C" int fpn_heads_tf32(const float* x, const float* w, const float* vec, const float* w2,
                               const float* b2, float* out, float* ws, int chunk, const int* F,
                               const int* M, int heads, int slices, int B, int H, int W, int C,
                               cudaStream_t stream) {
-  return fpn_head::launch_heads<float, kN, false, 1>(x, w, vec, w2, b2, out, ws, chunk, F, M,
-                                                     heads, slices, B, H, W, C, stream);
+  if (slices != 1)
+    return fpn_head::launch_heads<float, kN, false, 1>(x, w, vec, w2, b2, out, ws, chunk, F, M,
+                                                       heads, slices, B, H, W, C, stream);
+  return fpn_head::launch_heads_tma<float, kN, false>(x, w, vec, w2, b2, out, F, M, heads, B, H, W,
+                                                      C, stream);
 }
 
 // As fpn_heads_f32 with x and w in bf16 (C % 8 == 0); with one slice, w

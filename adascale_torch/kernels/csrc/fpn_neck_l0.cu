@@ -19,9 +19,19 @@
 // dense TF32 (700 W): 0.206 ms at 240x192, 0.238 ms at 256x208, against
 // ~0.03 ms for its bytes (f0, u and z0 once). Bound by operations.
 //
-// matmul_precision "default" / "high": the entry fpn_neck_l0_tf32, the same
-// launches with one TF32 product a product (conv_gemm.cuh, PASSES 1), a
-// third of the products: 0.069 ms at 240x192 at 495 TFLOP/s.
+// matmul_precision "default" / "high": the entry fpn_neck_l0_tf32, one TF32
+// product a product, a third of the products: 0.069 ms at 240x192 at 495
+// TFLOP/s. Where each step's features fit its tile (the flagship's), both
+// steps run the bf16 entry's persistent, TMA-fed kernels below at T = float
+// (neck_step1_tma_kernel, neck_step2_tma_kernel): f0 and t by TMA in halo
+// boxes of 32 channels, rounded to TF32 in registers after ldmatrix; W1 and
+// W2 rounded to TF32 and packed once (packing.pack_sw128_tf32), W1 resident
+// in shared memory for C0 <= 96. That replaced the split-free launches
+// below at one pass (A copied once a tap and rounded on each use, each
+// 32-deep chunk a fresh register tile, the epilogue read back through
+// shared memory, all of W2's hi and lo through L2 for every 128-pixel
+// tile). What bounds the TF32 steps now is bytes: step1's memory
+// traffic and step2's ingress into the multiprocessors (below).
 //
 // Design: two launches of the implicit GEMM of conv_gemm.cuh (3xTF32 wgmma,
 // B packed once per parameter set by the wrapper), where the TPU kernel
@@ -60,7 +70,8 @@
 // its tile runs on conv_tma.cuh's persistent, TMA-fed loop (below); a
 // wider one the split form on conv_gemm.cuh's mainloop_bf16. One bf16
 // product a product: 0.034 ms at 240x192 (0.040 ms at 256x208) at 989
-// TFLOP/s dense bf16.
+// TFLOP/s dense bf16. The TF32 entry shares both: the TMA-fed kernels at
+// T = float, the split form at PASSES 1.
 
 #include <cuda_runtime.h>
 
@@ -246,7 +257,8 @@ ln_gelu_rows(const float* __restrict__ ws, const float* __restrict__ vec,
   }
 }
 
-template <typename T, int PASSES = 3>
+// The 3xTF32 entry's body: both steps on conv_gemm.cuh's loop.
+template <typename T>
 int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w2,
              const float* vec2, T* t, T* out, float* ws, int B, int H, int W, int C0, int Cm,
              int Co, cudaStream_t stream) {
@@ -264,14 +276,14 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
   constexpr size_t smem1 = kSmem1<T>, smem2 = kSmem2<T>;
   cudaError_t e;
   if (s1 == 1) {
-    e = allow_smem(neck_step1_kernel<T, false, PASSES>, smem1);
+    e = allow_smem(neck_step1_kernel<T, false>, smem1);
     if (e != cudaSuccess) return (int)e;
-    neck_step1_kernel<T, false, PASSES><<<grid1, kThreads, smem1, stream>>>(f0, w1, vec1, u, t, ws,
-                                                                      (int)npix, H, W, C0, Cm);
+    neck_step1_kernel<T, false><<<grid1, kThreads, smem1, stream>>>(f0, w1, vec1, u, t, ws, (int)npix,
+                                                              H, W, C0, Cm);
   } else {
-    e = allow_smem(neck_step1_kernel<T, true, PASSES>, smem1);
+    e = allow_smem(neck_step1_kernel<T, true>, smem1);
     if (e != cudaSuccess) return (int)e;
-    neck_step1_kernel<T, true, PASSES><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
+    neck_step1_kernel<T, true><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
         f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -280,14 +292,14 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (s2 == 1) {
-    e = allow_smem(neck_step2_kernel<T, false, PASSES>, smem2);
+    e = allow_smem(neck_step2_kernel<T, false>, smem2);
     if (e != cudaSuccess) return (int)e;
-    neck_step2_kernel<T, false, PASSES><<<grid2, kThreads, smem2, stream>>>(t, w2, vec2, out, ws,
-                                                                      (int)npix, H, W, Cm, Co);
+    neck_step2_kernel<T, false><<<grid2, kThreads, smem2, stream>>>(t, w2, vec2, out, ws, (int)npix,
+                                                              H, W, Cm, Co);
   } else {
-    e = allow_smem(neck_step2_kernel<T, true, PASSES>, smem2);
+    e = allow_smem(neck_step2_kernel<T, true>, smem2);
     if (e != cudaSuccess) return (int)e;
-    neck_step2_kernel<T, true, PASSES><<<dim3(grid2, s2), kThreads, smem2, stream>>>(
+    neck_step2_kernel<T, true><<<dim3(grid2, s2), kThreads, smem2, stream>>>(
         t, w2, vec2, out, ws, (int)npix, H, W, Cm, Co);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -298,27 +310,65 @@ int run_neck(const T* f0, const T* u, const T* w1, const float* vec1, const T* w
 }
 
 // ---------------------------------------------------------------------------
-// bf16, one pass (Cm <= kMid, Co <= kNB): both steps on conv_tma.cuh's loop,
-// persistent, t through device memory.
+// One pass (Cm <= kMid, Co <= kNB) on conv_tma.cuh's loop, persistent, t
+// through device memory, operands of type T: bf16, or f32 at one TF32
+// product a product (the TF32 entry).
 //   * step1: a unit is a 64-pixel tile (4 rows x 16 columns); both consumer
-//     warpgroups hold its 64 rows, each half of the kMid features. W1 (at
-//     most kMaxC0 input channels, ceil(C0 / 64) chunks of kMid x 64) is
-//     brought once and stays in shared memory; the A ring streams the
-//     tile's chunks. The unit's u is read into registers before its
-//     products, so its latency hides behind them. The epilogue on the
-//     registers: bias, the LayerNorm's two sums over a row (each
-//     warpgroup's half through shared memory), GELU, + u -> t.
+//     warpgroups hold its 64 rows, each half of the kMid features. W1
+//     (kW1Chunks chunks of kMid x 128 bytes, 144 KB: C0 <= kMaxC0<T>, 192
+//     bf16 or 96 f32 channels) is brought once and stays in shared memory;
+//     the A ring streams the tile's chunks. The epilogue on the registers:
+//     bias, the LayerNorm's two sums over a row (each warpgroup's half
+//     through shared memory), GELU, + u -> t. In bf16 the unit's u (48
+//     registers of pairs) is read before its products, so its latency hides
+//     behind them. In f32 it would be 96 registers beside the 96
+//     accumulators, over the 168 a thread of a 384-thread block gets, so:
+//     one lane a tile row asks for the unit's u to be brought into L2 (a
+//     bulk prefetch) before the products; the GELUs are taken in place in
+//     the accumulators; u then comes in four batches of 12 pairs, each
+//     batch's loads issued together (the first before the LayerNorm's
+//     sums), added and stored. On an H100 at 240x192 step1 took 0.125 ms
+//     with the GELUs computed beside u's batch (256 bytes of spills) and
+//     0.102 in place (36 bytes); the in-place form without the prefetch
+//     took 0.142. t is written unrounded in f32: step2 rounds it where it
+//     reads it.
 //   * step2: a unit is a 128-pixel tile (8 rows x 16 columns), a warpgroup
-//     each 64 rows by all kNB features, K = ceil(Cm / 64) chunks of the
-//     3x3, one 10 x 18 halo box a chunk serving its 9 taps, W2 through a
-//     ring of 8 stages; the epilogue: bias, LayerNorm, GELU -> out.
+//     each 64 rows by all kNB features, K = ceil(Cm / KC) chunks of the
+//     3x3 (KC: 64 bf16 or 32 f32 channels, a 128-byte row), one 10 x 18
+//     halo box a chunk serving its 9 taps (in f32 each tap's rows rounded to
+//     TF32 after their ldmatrix), W2 through a ring of 8 stages (in f32
+//     rounded to TF32 and packed once, packing.pack_sw128_tf32), the
+//     features as one 96-wide wgmma (bf16) or two 48-wide ones (f32, kN2);
+//     the epilogue: bias, LayerNorm, GELU -> out.
+// What bounds the f32 steps on an H100 is the bytes: step1's f0, u and t
+// (159 MB at 240x192, ~48 us at 3.35 TB/s), and what step2's
+// multiprocessors take in, W2 for every tile (1.33 MB in f32) and 12 halo
+// boxes of 23 KB (0.58 GB at 240x192, ~88 us at ~28 bytes a cycle an SM,
+// above its products' 62 us at 495 TFLOP/s). In f32 a step1 with C0 >
+// kMaxC0<float> and Cm <= kMid (no model of the repo has one) keeps
+// conv_gemm.cuh's neck_step1_kernel at one pass, its W1 packed as that
+// kernel reads it (kernels/fpn_neck.py::pack_neck); in bf16 it is refused.
 
-constexpr int kMaxC0 = 192;  // step1's widest input held in shared memory
-using Neck1Loop = conv_tma::Loop<4, 1, 1, kMid, 96, 96, true, 4, 2, kMaxC0 / conv_tma::kKC>;
-using Neck2Loop = conv_tma::Loop<8, 3, 3, kNB, kNB, 0, false, 2, 8>;
-constexpr int kNeck1Smem = Neck1Loop::HEAD + 3 * kMid * 4 + 2 * 2 * 64 * 4;
-constexpr int kNeck2Smem = Neck2Loop::HEAD + 3 * kNB * 4;
-static_assert(kNeck1Smem <= conv_tma::kSmemLimit && kNeck2Smem <= conv_tma::kSmemLimit,
+constexpr int kW1Chunks = 3;  // step1's chunks of W1 held in shared memory
+template <typename T>
+using Neck1Loop = conv_tma::Loop<4, 1, 1, kMid, 96, 96, true, 4, 2, kW1Chunks, T>;
+// step2's wgmma widths: bf16 one 96-wide product a K step; f32 two 48-wide
+// ones on two accumulators, with which ptxas keeps the wgmmas in flight
+// (one 96-wide accumulator chain had them serialised, C7513, and step2
+// took 0.154 against 0.133 ms at 240x192 on an H100).
+template <typename T>
+constexpr int kN2 = std::is_same<T, float>::value ? kNB / 2 : kNB;
+template <typename T>
+using Neck2Loop = conv_tma::Loop<8, 3, 3, kNB, kN2<T>, kNB - kN2<T>, false, 2, 8, 0, T>;
+// step1's widest input held in shared memory: 192 bf16 or 96 f32 channels.
+template <typename T>
+constexpr int kMaxC0 = kW1Chunks * Neck1Loop<T>::KC;
+template <typename T>
+constexpr int kNeck1Smem = Neck1Loop<T>::HEAD + 3 * kMid * 4 + 2 * 2 * 64 * 4;
+template <typename T>
+constexpr int kNeck2Smem = Neck2Loop<T>::HEAD + 3 * kNB * 4;
+static_assert(kNeck1Smem<bf16> <= conv_tma::kSmemLimit && kNeck2Smem<bf16> <= conv_tma::kSmemLimit &&
+                  kNeck1Smem<float> <= conv_tma::kSmemLimit && kNeck2Smem<float> <= conv_tma::kSmemLimit,
               "shared memory");
 
 // The flattened pixel of tile row `row` of unit u, or -1 past the map.
@@ -329,14 +379,16 @@ __device__ __forceinline__ long long tile_pixel(const conv_tma::Geo& g, const co
   return ((long long)u.b * g.H + h) * g.W + x;
 }
 
-// f0 through fmap (B, H, W, C0, boxes of 16 x 4); w1 (1 tap, ceil(C0/64)
-// chunks, kMid/8, 8 rows, 128 bytes of K in the 128-byte swizzle); vec1 (3,
-// kMid); u and t (B, H, W, Cm).
+// f0 through fmap (B, H, W, C0, boxes of 16 x 4); w1 (1 tap, ceil(C0/KC)
+// chunks, kMid/8, 8 rows, 128 bytes of K in the 128-byte swizzle; f32
+// rounded to TF32); vec1 (3, kMid); u and t (B, H, W, Cm).
+template <typename T>
 __global__ void __launch_bounds__(conv_tma::kThreads, 1)
-neck_step1_tma_kernel(const __grid_constant__ CUtensorMap fmap, const bf16* __restrict__ w1,
-                      const float* __restrict__ vec1, const bf16* __restrict__ u,
-                      bf16* __restrict__ t, int Cm, conv_tma::Geo g) {
-  using L = Neck1Loop;
+neck_step1_tma_kernel(const __grid_constant__ CUtensorMap fmap, const T* __restrict__ w1,
+                      const float* __restrict__ vec1, const T* __restrict__ u,
+                      T* __restrict__ t, int Cm, conv_tma::Geo g) {
+  using L = Neck1Loop<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
@@ -356,20 +408,42 @@ neck_step1_tma_kernel(const __grid_constant__ CUtensorMap fmap, const bf16* __re
   const int nb0 = (kMid / 2) * wg, row0 = 16 * warp + lane / 4;
   const float inv_f = 1.0f / Cm;
   float acc0[48], acc1[48];
-  uint32_t uv[2][24];  // the unit's u, as bf16 pairs in the accumulators' order
+  uint32_t uv[2][24];  // bf16: the unit's u, as bf16 pairs in the accumulators' order
+  float2 ub[12];       // f32: a batch of u, 12 pairs in the accumulators' order
   conv_tma::Cursor cur;
   mbar_wait(L::resident(bars), 0);
   for (int un = blockIdx.x; un < g.tiles; un += gridDim.x) {
     const conv_tma::Unit tile = conv_tma::unit_of<4>(g, un);
     const long long pix[2] = {tile_pixel(g, tile, row0), tile_pixel(g, tile, row0 + 8)};
-    // u of rows past the map and features past Cm: any valid pair, unused.
+    if constexpr (kF32) {
+      // The tile's u into L2, a tile row (warp) at a time, while the
+      // products run.
+      if (wg == 0 && lane == 0 && tile.b < g.B && tile.h0 + warp < g.H)
+        conv_tma::prefetch_l2(u + (((long long)tile.b * g.H + tile.h0 + warp) * g.W + tile.w0) * Cm,
+                              (uint32_t)min(conv_tma::kBW, g.W - tile.w0) * Cm * sizeof(T));
+    } else {
+      // u of rows past the map and features past Cm: any valid pair, unused.
 #pragma unroll
-    for (int i = 0; i < 96; i += 2) {
-      const int n = nb0 + 96 * (i / 48) + 8 * (i % 48 / 4) + 2 * t4, r = (i >> 1) & 1;
-      const long long at = (pix[r] < 0 ? 0 : pix[r]) * Cm + (n < Cm ? n : 0);
-      uv[i / 48][i % 48 / 2] = __ldg(reinterpret_cast<const unsigned*>(u + at));
+      for (int i = 0; i < 96; i += 2) {
+        const int n = nb0 + 96 * (i / 48) + 8 * (i % 48 / 4) + 2 * t4, r = (i >> 1) & 1;
+        const long long at = (pix[r] < 0 ? 0 : pix[r]) * Cm + (n < Cm ? n : 0);
+        uv[i / 48][i % 48 / 2] = __ldg(reinterpret_cast<const unsigned*>(u + at));
+      }
     }
+    // f32: batch k of u (registers 24 (k % 2) .. + 23 of accumulator k / 2)
+    // into ub, its loads issued together; for rows past the map and
+    // features past Cm any valid pair, unused.
+    const T* urow[2] = {u + (pix[0] < 0 ? 0 : pix[0]) * Cm, u + (pix[1] < 0 ? 0 : pix[1]) * Cm};
+    auto load_batch = [&](int k) {
+#pragma unroll
+      for (int j = 0; j < 12; ++j) {
+        const int i = 24 * (k % 2) + 2 * j;
+        const int n = nb0 + 96 * (k / 2) + 8 * (i / 4) + 2 * t4;
+        ub[j] = __ldg(reinterpret_cast<const float2*>(urow[(i >> 1) & 1] + (n < Cm ? n : 0)));
+      }
+    };
     conv_tma::consume<L>(ring, bars, g.chunks, cur, 0, nb0, acc0, acc1);
+    if constexpr (kF32) load_batch(0);
     float part[2] = {0.0f, 0.0f};
     auto add_bias = [&](float(&a)[48], int n0) {
 #pragma unroll
@@ -409,32 +483,67 @@ neck_step1_tma_kernel(const __grid_constant__ CUtensorMap fmap, const bf16* __re
     square(acc1, nb0 + 96);
     row_sums(1, sq);
     const float rstd[2] = {rsqrtf(sq[0] * inv_f + kEps), rsqrtf(sq[1] * inv_f + kEps)};
-    auto store = [&](float(&a)[48], const uint32_t(&ua)[24], int n0) {
+    if constexpr (kF32) {
+      // The GELUs first, in place, so that fewer registers are live beside
+      // u's batch; then u's batches, added and stored.
+      auto in_place = [&](float(&a)[48], int n0) {
 #pragma unroll
-      for (int i = 0; i < 48; i += 2) {
-        const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
-        const float2 ga = *reinterpret_cast<const float2*>(sv + kMid + n);
-        const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kMid + n);
-        const float2 up = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ua[i / 2]));
-        const float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x) + up.x;
-        const float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y) + up.y;
-        // Cm % 8 == 0: a pair is all in or all out.
-        if (pix[r] >= 0 && n < Cm) store_pair(t + pix[r] * Cm + n, y0, y1);
-      }
-    };
-    store(acc0, uv[0], nb0);
-    store(acc1, uv[1], nb0 + 96);
+        for (int i = 0; i < 48; i += 2) {
+          const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+          const float2 ga = *reinterpret_cast<const float2*>(sv + kMid + n);
+          const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kMid + n);
+          a[i] = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x);
+          a[i + 1] = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
+        }
+      };
+      in_place(acc0, nb0);
+      in_place(acc1, nb0 + 96);
+      // Registers 24 (k % 2) .. + 23 of a (features from n0) + u's batch k.
+      auto add_store = [&](float(&a)[48], int n0, int k) {
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          const int i = 24 * (k % 2) + 2 * j;
+          const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+          // Cm % 4 == 0: a pair is all in or all out.
+          if (pix[r] >= 0 && n < Cm) store_pair(t + pix[r] * Cm + n, a[i] + ub[j].x, a[i + 1] + ub[j].y);
+        }
+      };
+      add_store(acc0, nb0, 0);
+      load_batch(1);
+      add_store(acc0, nb0, 1);
+      load_batch(2);
+      add_store(acc1, nb0 + 96, 2);
+      load_batch(3);
+      add_store(acc1, nb0 + 96, 3);
+    } else {
+      auto store = [&](float(&a)[48], const uint32_t(&ua)[24], int n0) {
+#pragma unroll
+        for (int i = 0; i < 48; i += 2) {
+          const int n = n0 + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+          const float2 ga = *reinterpret_cast<const float2*>(sv + kMid + n);
+          const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kMid + n);
+          const float2 up = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ua[i / 2]));
+          const float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x) + up.x;
+          const float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y) + up.y;
+          // Cm % 8 == 0: a pair is all in or all out.
+          if (pix[r] >= 0 && n < Cm) store_pair(t + pix[r] * Cm + n, y0, y1);
+        }
+      };
+      store(acc0, uv[0], nb0);
+      store(acc1, uv[1], nb0 + 96);
+    }
   }
 }
 
-// t through tmap (B, H, W, Cm, boxes of 18 x 10); w2 (9 taps, ceil(Cm/64)
-// chunks, kNB/8, 8 rows, 128 bytes of K in the 128-byte swizzle); vec2 (3,
-// kNB); out (B, H, W, Co).
+// t through tmap (B, H, W, Cm, boxes of 18 x 10); w2 (9 taps, ceil(Cm/KC)
+// chunks, kNB/8, 8 rows, 128 bytes of K in the 128-byte swizzle; f32
+// rounded to TF32); vec2 (3, kNB); out (B, H, W, Co).
+template <typename T>
 __global__ void __launch_bounds__(conv_tma::kThreads, 1)
-neck_step2_tma_kernel(const __grid_constant__ CUtensorMap tmap, const bf16* __restrict__ w2,
-                      const float* __restrict__ vec2, bf16* __restrict__ out, int Co,
+neck_step2_tma_kernel(const __grid_constant__ CUtensorMap tmap, const T* __restrict__ w2,
+                      const float* __restrict__ vec2, T* __restrict__ out, int Co,
                       conv_tma::Geo g) {
-  using L = Neck2Loop;
+  using L = Neck2Loop<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
@@ -452,48 +561,56 @@ neck_step2_tma_kernel(const __grid_constant__ CUtensorMap tmap, const bf16* __re
   const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32, t4 = lane % 4;
   const int row0 = 64 * wg + 16 * warp + lane / 4;
   const float inv_f = 1.0f / Co;
-  float acc[kNB / 2], none[1];
+  constexpr int K0 = L::N0 / 2, K1 = L::N1 > 0 ? L::N1 / 2 : 1;
+  float acc0[K0], acc1[K1];
   conv_tma::Cursor cur;
   for (int un = blockIdx.x; un < g.tiles; un += gridDim.x) {
     const conv_tma::Unit tile = conv_tma::unit_of<8>(g, un);
-    conv_tma::consume<L>(ring, bars, g.chunks, cur, 4 * wg, 0, acc, none);
+    conv_tma::consume<L>(ring, bars, g.chunks, cur, 4 * wg, 0, acc0, acc1);
+    // Register i of an accumulator from feature n0 holds feature n0 + 8 (i /
+    // 4) + 2 t4 + i % 2 of row (i / 2) % 2; `each` runs f over both
+    // accumulators' pairs.
+    auto each = [&](auto f) {
+      auto pairs = [&](auto& a, int n0) {
+#pragma unroll
+        for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2)
+          f(a, i, n0 + 8 * (i / 4) + 2 * t4, (i >> 1) & 1);
+      };
+      pairs(acc0, 0);
+      if constexpr (L::N1 > 0) pairs(acc1, L::N0);
+    };
     float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < kNB / 2; i += 2) {
-      const float2 bias = *reinterpret_cast<const float2*>(sv + 8 * (i / 4) + 2 * t4);
-      acc[i] += bias.x;
-      acc[i + 1] += bias.y;
-      sum[(i >> 1) & 1] += acc[i] + acc[i + 1];
-    }
+    each([&](auto& a, int i, int n, int r) {
+      const float2 bias = *reinterpret_cast<const float2*>(sv + n);
+      a[i] += bias.x;
+      a[i + 1] += bias.y;
+      sum[r] += a[i] + a[i + 1];
+    });
     const float mean[2] = {quad_sum(sum[0]) * inv_f, quad_sum(sum[1]) * inv_f};
-#pragma unroll
-    for (int i = 0; i < kNB / 2; i += 2) {
-      const int n = 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
-      const float d0 = acc[i] - mean[r], d1 = acc[i + 1] - mean[r];
+    each([&](auto& a, int i, int n, int r) {
+      const float d0 = a[i] - mean[r], d1 = a[i + 1] - mean[r];
       sq[r] = fmaf(d0, n < Co ? d0 : 0.0f, sq[r]);
       sq[r] = fmaf(d1, n + 1 < Co ? d1 : 0.0f, sq[r]);
-    }
+    });
     const float rstd[2] = {rsqrtf(quad_sum(sq[0]) * inv_f + kEps),
                            rsqrtf(quad_sum(sq[1]) * inv_f + kEps)};
     const long long pix[2] = {tile_pixel(g, tile, row0), tile_pixel(g, tile, row0 + 8)};
-#pragma unroll
-    for (int i = 0; i < kNB / 2; i += 2) {
-      const int n = 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+    each([&](auto& a, int i, int n, int r) {
       const float2 ga = *reinterpret_cast<const float2*>(sv + kNB + n);
       const float2 be = *reinterpret_cast<const float2*>(sv + 2 * kNB + n);
-      const float y0 = gelu_exact((acc[i] - mean[r]) * rstd[r] * ga.x + be.x);
-      const float y1 = gelu_exact((acc[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
+      const float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x);
+      const float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
       // Co % 4 == 0: a pair is all in or all out.
       if (pix[r] >= 0 && n < Co) store_pair(out + pix[r] * Co + n, y0, y1);
-    }
+    });
   }
 }
 
 // Launches a persistent one-pass step on x (B, H, W, C) through its loop's
 // tensor map.
 template <class L, auto kernel, typename... Args>
-cudaError_t launch_step(const bf16* x, int B, int H, int W, int C, int smem, cudaStream_t stream,
-                        Args... args) {
+cudaError_t launch_step(const typename L::T* x, int B, int H, int W, int C, int smem,
+                        cudaStream_t stream, Args... args) {
   const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 1, L::KC);
   int grid = 0;
   cudaError_t e = conv_tma::persistent_grid<kernel>(smem, g.tiles, &grid);
@@ -505,46 +622,63 @@ cudaError_t launch_step(const bf16* x, int B, int H, int W, int C, int smem, cud
   return cudaGetLastError();
 }
 
-// The bf16 entry's body: each step on conv_tma.cuh's loop where its
-// features fit one tile, else run_neck's split form with ln_gelu_rows.
-int run_neck_bf16(const bf16* f0, const bf16* u, const bf16* w1, const float* vec1,
-                  const bf16* w2, const float* vec2, bf16* t, bf16* out, float* ws, int B, int H,
-                  int W, int C0, int Cm, int Co, cudaStream_t stream) {
+// The bf16 and TF32 entries' body: each step on conv_tma.cuh's loop where
+// its features fit one tile (step1: and C0 <= kMaxC0<T>), else
+// conv_gemm.cuh's kernels at PASSES: the split form with ln_gelu_rows, or
+// (f32, C0 > kMaxC0<float>, Cm <= kMid) step1's one-pass neck_step1_kernel;
+// a bf16 step1 with C0 > kMaxC0<bf16> and Cm <= kMid is refused.
+template <typename T, int PASSES>
+int run_neck_tma(const T* f0, const T* u, const T* w1, const float* vec1, const T* w2,
+                 const float* vec2, T* t, T* out, float* ws, int B, int H, int W, int C0, int Cm,
+                 int Co, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kVec = 16 / (int)sizeof(T);  // channels a 16-byte copy
   const int s1 = (Cm + kMid - 1) / kMid, s2 = (Co + kNB - 1) / kNB;
-  if (B <= 0 || H <= 0 || W <= 0 || C0 <= 0 || Cm <= 0 || Co <= 0 || C0 % 8 || Cm % 8 || Co % 4 ||
-      s1 > kMaxSlices || s2 > kMaxSlices || H > 32767 || W > 32767 ||
-      ((s1 > 1 || s2 > 1) && ws == nullptr) || (s1 == 1 && C0 > kMaxC0))
+  if (B <= 0 || H <= 0 || W <= 0 || C0 <= 0 || Cm <= 0 || Co <= 0 || C0 % kVec || Cm % kVec ||
+      Co % 4 || s1 > kMaxSlices || s2 > kMaxSlices || H > 32767 || W > 32767 ||
+      ((s1 > 1 || s2 > 1) && ws == nullptr) || (!kF32 && s1 == 1 && C0 > kMaxC0<T>))
     return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
   if (npix > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const unsigned grid1 = (unsigned)((npix + kBM1 - 1) / kBM1);
   const unsigned rows = (unsigned)((npix + kThreads / 32 - 1) / (kThreads / 32));
+  constexpr size_t smem1 = kSmem1<T>, smem2 = kSmem2<T>;
   cudaError_t e;
-  if (s1 == 1) {
-    e = launch_step<Neck1Loop, neck_step1_tma_kernel>(f0, B, H, W, C0, kNeck1Smem, stream, w1, vec1,
-                                                      u, t, Cm);
+  if (s1 == 1 && C0 <= kMaxC0<T>) {
+    e = launch_step<Neck1Loop<T>, neck_step1_tma_kernel<T>>(f0, B, H, W, C0, kNeck1Smem<T>, stream,
+                                                            w1, vec1, u, t, Cm);
+  } else if (s1 == 1) {
+    if constexpr (kF32) {
+      e = allow_smem(neck_step1_kernel<T, false, PASSES>, smem1);
+      if (e != cudaSuccess) return (int)e;
+      neck_step1_kernel<T, false, PASSES><<<grid1, kThreads, smem1, stream>>>(
+          f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
+      e = cudaGetLastError();
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   } else {
-    constexpr size_t smem1 = kSmem1<bf16>;
-    e = allow_smem(neck_step1_kernel<bf16, true>, smem1);
+    e = allow_smem(neck_step1_kernel<T, true, PASSES>, smem1);
     if (e != cudaSuccess) return (int)e;
-    neck_step1_kernel<bf16, true><<<dim3((unsigned)((npix + kBM1 - 1) / kBM1), s1), kThreads, smem1,
-                                    stream>>>(f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
+    neck_step1_kernel<T, true, PASSES><<<dim3(grid1, s1), kThreads, smem1, stream>>>(
+        f0, w1, vec1, u, t, ws, (int)npix, H, W, C0, Cm);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    ln_gelu_rows<bf16><<<rows, kThreads, 0, stream>>>(ws, vec1, u, t, (int)npix, Cm, s1 * kMid);
+    ln_gelu_rows<T><<<rows, kThreads, 0, stream>>>(ws, vec1, u, t, (int)npix, Cm, s1 * kMid);
     e = cudaGetLastError();
   }
   if (e != cudaSuccess) return (int)e;
   if (s2 == 1)
-    return (int)launch_step<Neck2Loop, neck_step2_tma_kernel>(t, B, H, W, Cm, kNeck2Smem, stream,
-                                                              w2, vec2, out, Co);
-  constexpr size_t smem2 = kSmem2<bf16>;
-  e = allow_smem(neck_step2_kernel<bf16, true>, smem2);
+    return (int)launch_step<Neck2Loop<T>, neck_step2_tma_kernel<T>>(t, B, H, W, Cm, kNeck2Smem<T>,
+                                                                    stream, w2, vec2, out, Co);
+  e = allow_smem(neck_step2_kernel<T, true, PASSES>, smem2);
   if (e != cudaSuccess) return (int)e;
-  neck_step2_kernel<bf16, true><<<dim3((unsigned)((npix + kBM2 - 1) / kBM2), s2), kThreads, smem2,
-                                  stream>>>(t, w2, vec2, out, ws, (int)npix, H, W, Cm, Co);
+  neck_step2_kernel<T, true, PASSES><<<dim3((unsigned)((npix + kBM2 - 1) / kBM2), s2), kThreads,
+                                       smem2, stream>>>(t, w2, vec2, out, ws, (int)npix, H, W, Cm,
+                                                        Co);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ln_gelu_rows<bf16><<<rows, kThreads, 0, stream>>>(ws, vec2, nullptr, out, (int)npix, Co, s2 * kNB);
+  ln_gelu_rows<T><<<rows, kThreads, 0, stream>>>(ws, vec2, nullptr, out, (int)npix, Co, s2 * kNB);
   return (int)cudaGetLastError();
 }
 
@@ -573,12 +707,16 @@ extern "C" int fpn_neck_l0_f32(const float* f0, const float* u, const float* w1,
 
 // As fpn_neck_l0_f32, the products as one TF32 product a product
 // (matmul_precision "default" / "high"): f0 and t rounded to TF32 in
-// registers, only the packed weights' hi parts read.
+// registers. A step that fits its tile (step1: C0 <= tf32_max_c0) runs on
+// conv_tma.cuh's loop, its w1 / w2 as the one-pass kernels take them
+// (packing.pack_sw128_tf32: 32-channel chunks of 128-byte rows in the
+// 128-byte swizzle, rounded to TF32); any other step as fpn_neck_l0_f32's,
+// its weights packed as there, only their hi parts read.
 extern "C" int fpn_neck_l0_tf32(const float* f0, const float* u, const float* w1,
                                 const float* vec1, const float* w2, const float* vec2, float* t,
                                 float* out, float* ws, int B, int H, int W, int C0, int Cm, int Co,
                                 cudaStream_t stream) {
-  return run_neck<float, 1>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
+  return run_neck_tma<float, 1>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
 }
 
 // As fpn_neck_l0_f32 with f0, u, t, out and the packed w1, w2 in bf16 (C0 %
@@ -588,9 +726,11 @@ extern "C" int fpn_neck_l0_bf16(const __nv_bfloat16* f0, const __nv_bfloat16* u,
                                 const __nv_bfloat16* w2, const float* vec2, __nv_bfloat16* t,
                                 __nv_bfloat16* out, float* ws, int B, int H, int W, int C0,
                                 int Cm, int Co, cudaStream_t stream) {
-  return run_neck_bf16(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
+  return run_neck_tma<bf16, 3>(f0, u, w1, vec1, w2, vec2, t, out, ws, B, H, W, C0, Cm, Co, stream);
 }
 
-// The widest C0 of the bf16 one-pass step1 (its W1 stays in shared memory).
-extern "C" int fpn_neck_l0_bf16_max_c0() { return kMaxC0; }
+// The widest C0 of the one-pass step1 (its W1 stays in shared memory), bf16
+// and TF32.
+extern "C" int fpn_neck_l0_bf16_max_c0() { return kMaxC0<bf16>; }
+extern "C" int fpn_neck_l0_tf32_max_c0() { return kMaxC0<float>; }
 

@@ -29,11 +29,15 @@ on the persistent, TMA-fed loop of ``csrc/conv_tma.cuh``
 its plain twin is ``heads_phase_form(..., kernel=True)``. Inside a
 ``utils.precision.matmul_precision("default")`` or ``("high")`` scope an
 f32 ``x`` on the card launches the single-pass entry ``fpn_heads_tf32`` (one
-TF32 ``wgmma`` a product on ``x`` and the collapsed taps rounded to TF32,
-only the packed taps' hi part read; 0.44 ms at 495 TFLOP/s; counted in
-``LAUNCHES_TF32``), whose plain twin is ``heads_phase_form(..., tf32=True)``. Heads wider than
-the kernel's tile (192 features; the base and large backbones' 256 and 384)
-run split into slices of the tile (``csrc/fpn_head.cuh``).
+TF32 ``wgmma`` a product on ``x`` and the collapsed taps rounded to TF32;
+0.44 ms at 495 TFLOP/s; counted in ``LAUNCHES_TF32``): where the heads fit
+the tile, the bf16 entry's persistent TMA-fed loop on f32 operands (``x``
+rounded to TF32 in registers, the taps rounded and packed by
+``packing.pack_sw128_tf32``), as the precise heads' TF32 entry; its plain
+twin is ``heads_phase_form(..., tf32=True)``. Heads wider than the kernel's
+tile (192 features; the base and large backbones' 256 and 384) run split
+into slices of the tile (``csrc/fpn_head.cuh``), the TF32 entry there on
+the cp.async loop at one pass, only the packed taps' hi part read.
 
 Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
 ``step1.conv.weight`` (F, C, 3, 3), ``step1.conv.bias``, ``step1.ln.weight``,
@@ -119,8 +123,8 @@ def pack_heads(
       K-major core-matrix order; one slice (its axis dropped) is the
       one-pass kernel's layout, which in bf16 is ``packing.pack_sw128``'s
       instead: (heads, 4 phases, 4 taps, ceil(C/64) chunks, n/8, 8, 8, 8),
-      and with ``tf32_sw128`` (f32, one slice: a single-pass TF32 entry on
-      the TMA-fed loop) ``packing.pack_sw128_tf32``'s: (heads, 4 phases, 4
+      and with ``tf32_sw128`` (f32, one slice: the single-pass TF32 entries
+      on the TMA-fed loop) ``packing.pack_sw128_tf32``'s: (heads, 4 phases, 4
       taps, ceil(C/32) chunks, n/8, 8, 8, 4), rounded to TF32;
     - ``vec`` (heads, 3, fp): smoothing bias, LN scale, LN bias;
     - ``w2`` (heads, MAX_OUT, fp), rounded to bf16 values where ``round_w2``
@@ -187,13 +191,12 @@ def run_heads_kernel(
     wrapper: str,
     round_y: bool = False,
     tf32: bool = False,
-    tf32_tma: bool = False,
 ) -> List[torch.Tensor]:
     """Check, pack (once per parameter set) and launch a heads library on a
     CUDA tensor, f32 or bf16 (``round_y`` for the precise heads), an f32
     ``x`` through the single-pass TF32 entry where ``tf32`` (its taps in
-    ``packing.pack_sw128_tf32``'s layout where ``tf32_tma`` and the heads
-    fit one tile: the entry runs the TMA-fed loop there). Returns each
+    ``packing.pack_sw128_tf32``'s layout where the heads fit one tile: the
+    entry runs the TMA-fed loop there). Returns each
     head's (B, 2H, 2W, M) f32 output, a view into one packed map. Raises
     where a gradient is wanted (``_nvcc.refuse_grad``, naming ``wrapper``)."""
     _nvcc.check_activation(f"{prefix} x", x, x.device, tuple(_nvcc.CHANNEL_MULTIPLE))
@@ -223,7 +226,7 @@ def run_heads_kernel(
     tile = getattr(lib, f"{prefix}_tile_width")()
     slices = -(-max(widths) // tile)
     bf16 = x.dtype == torch.bfloat16
-    swizzled = tf32_tma and tf32 and not bf16 and slices == 1
+    swizzled = tf32 and not bf16 and slices == 1
     packed = packed_heads(heads, tile, slices, x.dtype, round_w2=bf16 and round_y, tf32_sw128=swizzled)
     nh = len(heads)
     out = torch.empty(b, 2 * h, 2 * w, sum(outs), dtype=torch.float32, device=x.device)

@@ -29,10 +29,15 @@ pass for the LayerNorm (``csrc/fpn_neck_l0.cu``).
 
 Inside a ``utils.precision.matmul_precision("default")`` or ``("high")``
 scope an f32 call on the card launches the single-pass entry
-``fpn_neck_l0_tf32`` (one TF32 ``wgmma`` a product, reading only the packed
-weights' hi part; 0.069 ms at 240x192 at 495 TFLOP/s; counted in
-``LAUNCHES_TF32``), whose plain twin is ``fused_neck_l0_plain(...,
-tf32=True)``.
+``fpn_neck_l0_tf32`` (one TF32 ``wgmma`` a product; 0.069 ms at 240x192 at
+495 TFLOP/s; counted in ``LAUNCHES_TF32``), whose plain twin is
+``fused_neck_l0_plain(..., tf32=True)``: where a step's features fit its
+tile (step1: and C0 <= ``TF32_MAX_C0``, W1 held in shared memory), the bf16
+entry's persistent TMA-fed kernels on f32 operands (``f0`` and ``t`` rounded
+to TF32 in registers, W1 and W2 rounded and packed by
+``packing.pack_sw128_tf32``, ``pack_neck(..., tf32_sw128=True)``); any
+other step as the 3xTF32 entry's kernels at one pass, reading only the
+packed weights' hi part.
 
 ``fpn_neck_forward_fused(neck, features)`` is the counterpart of
 ``adascale/ops/pallas/fpn_neck.py::fpn_neck_forward_fused``: the port's
@@ -75,6 +80,9 @@ EPS = 1e-6
 MID_WIDTH, OUT_WIDTH = 384, 96
 # The most slices a step takes (csrc/fpn_neck_l0.cu kMaxSlices).
 MAX_SLICES = 4
+# The widest C0 whose W1 the TF32 entry's one-pass step1 holds in shared
+# memory (csrc/fpn_neck_l0.cu kMaxC0<float>; ``build`` checks the library's).
+TF32_MAX_C0 = 96
 PARAM_NAMES = (
     "step1_0.conv.weight", "step1_0.conv.bias", "step1_0.ln.weight", "step1_0.ln.bias",
     "step2_0.conv.weight", "step2_0.conv.bias", "step2_0.ln.weight", "step2_0.ln.bias",
@@ -94,8 +102,11 @@ def build() -> ctypes.CDLL:
         widths.append(getattr(lib, f"fpn_neck_l0_{name}")())
     if tuple(widths[:2]) != (MID_WIDTH, OUT_WIDTH):
         raise RuntimeError(f"fpn_neck_l0: library tiles {widths[:2]} != {(MID_WIDTH, OUT_WIDTH)}")
-    lib.fpn_neck_l0_bf16_max_c0.argtypes = []
-    lib.fpn_neck_l0_bf16_max_c0.restype = ctypes.c_int
+    for name in ("bf16_max_c0", "tf32_max_c0"):
+        getattr(lib, f"fpn_neck_l0_{name}").argtypes = []
+        getattr(lib, f"fpn_neck_l0_{name}").restype = ctypes.c_int
+    if lib.fpn_neck_l0_tf32_max_c0() != TF32_MAX_C0:
+        raise RuntimeError(f"fpn_neck_l0: library TF32 C0 limit {lib.fpn_neck_l0_tf32_max_c0()} != {TF32_MAX_C0}")
     return lib
 
 
@@ -135,7 +146,9 @@ def slices(cm: int, co: int) -> tuple:
     return -(-cm // MID_WIDTH), -(-co // OUT_WIDTH)
 
 
-def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+def pack_neck(
+    p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32, tf32_sw128: bool = False
+) -> Dict[str, torch.Tensor]:
     """The level-0 parameters in the kernel's layouts (``csrc/fpn_neck_l0.cu``)
     for ``dtype`` operands, zero past the real widths and past the input
     channels, with s1, s2 = ``slices(Cm, Co)``:
@@ -146,9 +159,13 @@ def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) ->
       8, 4), for bf16 ``packing.pack_kmajor_bf16``'s tile (MID_WIDTH/8, 4,
       8, 8), in wgmma's K-major core-matrix order; in bf16 with one slice
       (the one-pass kernel) ``packing.pack_sw128``'s 64-channel chunks
-      (MID_WIDTH/8, 8, 8, 8) instead;
+      (MID_WIDTH/8, 8, 8, 8) instead; with ``tf32_sw128`` (f32: the
+      single-pass TF32 entry), one slice and C0 <= ``TF32_MAX_C0`` (its
+      one-pass step1) ``packing.pack_sw128_tf32``'s 32-channel chunks
+      (MID_WIDTH/8, 8, 8, 4), rounded to TF32;
     - ``w2`` (s2 slices, 9 taps, ceil(Cm/32) chunks, ...; likewise): the 3x3, tap
-      3 ky + kx as (Cm, s2 OUT_WIDTH), the same way;
+      3 ky + kx as (Cm, s2 OUT_WIDTH), the same way (``tf32_sw128`` with one
+      slice: ``pack_sw128_tf32``'s (OUT_WIDTH/8, 8, 8, 4));
     - ``vec1`` (3, s1 MID_WIDTH) and ``vec2`` (3, s2 OUT_WIDTH): conv bias,
       LN scale, LN bias of step1 and step2."""
     w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
@@ -174,20 +191,24 @@ def pack_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) ->
             vec1[k, :cm] = p[f"step1_0.{part}"]
             vec2[k, :co] = p[f"step2_0.{part}"]
         # One slice (its axis dropped) is the one-pass kernels' layout.
-        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype, s1 == 1)
-        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype, s2 == 1)
+        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype, s1 == 1,
+                               tf32_sw128 and c0 <= TF32_MAX_C0)
+        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype, s2 == 1, tf32_sw128)
         return {
             "w1": w1p.squeeze(0) if s1 == 1 else w1p, "vec1": vec1,
             "w2": w2p.squeeze(0) if s2 == 1 else w2p, "vec2": vec2,
         }
 
 
-def packed_neck(p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    """``pack_neck(p, dtype)``, packed once per parameter set and dtype
-    (``packing.cached``: kept while ``step1_0.conv.weight`` lives, repacked
-    when any parameter's version or storage changes)."""
+def packed_neck(
+    p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32, tf32_sw128: bool = False
+) -> Dict[str, torch.Tensor]:
+    """``pack_neck(p, dtype, tf32_sw128)``, packed once per parameter set
+    and layout (``packing.cached``: kept while ``step1_0.conv.weight``
+    lives, repacked when any parameter's version or storage changes)."""
     return packing.cached(
-        [p[name] for name in PARAM_NAMES], ("neck", dtype), lambda: pack_neck(p, dtype)
+        [p[name] for name in PARAM_NAMES], ("neck", dtype, tf32_sw128),
+        lambda: pack_neck(p, dtype, tf32_sw128),
     )
 
 
@@ -223,7 +244,8 @@ def fused_neck_l0(
         raise ValueError(f"fused_neck_l0: widths {cm}/{co}; the kernel takes {max_mid}/{max_out}, Co % 4 == 0")
     if f0.dtype == torch.bfloat16 and cm <= MID_WIDTH and c0 > lib.fpn_neck_l0_bf16_max_c0():
         raise ValueError(f"fused_neck_l0: bf16 C0={c0}; the one-pass kernel takes C0 <= {lib.fpn_neck_l0_bf16_max_c0()}")
-    packed = packed_neck(p, f0.dtype)
+    tf32 = f0.dtype == torch.float32 and tf32_products()
+    packed = packed_neck(p, f0.dtype, tf32_sw128=tf32)
     s1, s2 = slices(cm, co)
     if t is None:
         t = torch.empty_like(u)
@@ -232,7 +254,6 @@ def fused_neck_l0(
     out = torch.empty(b, h, w, co, dtype=f0.dtype, device=f0.device)
     ws_cols = max(s1 * MID_WIDTH if s1 > 1 else 0, s2 * OUT_WIDTH if s2 > 1 else 0)
     ws = torch.empty(b * h * w * ws_cols, dtype=torch.float32, device=f0.device) if ws_cols else None
-    tf32 = f0.dtype == torch.float32 and tf32_products()
     entry = "fpn_neck_l0_" + ("bf16" if f0.dtype == torch.bfloat16 else "tf32" if tf32 else "f32")
     with torch.cuda.device(f0.device):
         rc = getattr(lib, entry)(

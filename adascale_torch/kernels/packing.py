@@ -8,9 +8,9 @@ the bf16 B of the wide (sliced) neck and heads, one bf16 tile a chunk in the
 same order (8 bf16 a core-matrix row, K in its natural order);
 ``pack_sw128(taps)`` as the bf16 B of their one-pass kernels
 (``csrc/conv_tma.cuh``), per 64-deep chunk n rows of 128 bytes in the
-128-byte swizzle, and ``pack_sw128_tf32(taps)`` as the f32 B of the
-precise heads' single-pass TF32 entry on that loop, per 32-deep chunk,
-rounded to TF32. ``split_slices(taps, slices)`` cuts the output
+128-byte swizzle, and ``pack_sw128_tf32(taps)`` as the f32 B of their
+single-pass TF32 entries on that loop, per 32-deep chunk, rounded to
+TF32. ``split_slices(taps, slices)`` cuts the output
 features into the slices a wide kernel launches one block each for, before
 packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
 for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and

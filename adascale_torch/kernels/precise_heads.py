@@ -22,8 +22,8 @@ slices of it. Inside a ``utils.precision.matmul_precision("default")`` or
 ``precise_heads_tf32`` (1.02 ms at 495 TFLOP/s; counted in
 ``LAUNCHES_TF32``): where the heads fit the tile, the bf16 entry's
 persistent TMA-fed loop on f32 operands (x rounded to TF32 in registers,
-the taps rounded and packed by ``packing.pack_sw128_tf32``); wider heads
-as the rough heads' TF32 entry. Its plain twin is
+the taps rounded and packed by ``packing.pack_sw128_tf32``), as the rough
+heads' TF32 entry; wider heads on the cp.async loop at one pass. Its plain twin is
 ``fused_precise_heads_plain(..., tf32=True)``.
 """
 from __future__ import annotations
@@ -81,8 +81,7 @@ def fused_precise_heads(x: torch.Tensor, heads: Sequence[Params]) -> List[torch.
     if x.device.type == "cpu":
         return fused_precise_heads_plain(x, heads)
     tf32 = x.dtype == torch.float32 and tf32_products()
-    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True, tf32=tf32,
-                            tf32_tma=True)
+    outs = run_heads_kernel(build, "precise_heads", x, heads, "fused_precise_heads", round_y=True, tf32=tf32)
     if x.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
     elif tf32:

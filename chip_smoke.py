@@ -241,7 +241,8 @@ that reads it. Phases, each announced with its elapsed seconds:
      pointer) and its GELUs' floor on the f32 pipes printed beside its
      bound (an estimate, GELU_INSTRUCTIONS; not in the kernels line);
      TF32_INVARIANCE_CASES (the block at B = 4 on the rough pass's stage
-     shapes, the precise heads at B = 4): each image bit for bit as alone;
+     shapes, the precise and rough heads and the rough neck's level 0 at
+     B = 4): each image bit for bit as alone;
      detect() on page_0 at "highest", "default" and "high" for the FPN
      module path, the FPN fused configuration and the UPerNeXt one
      (f32; "highest" reused from phases 4, 5 and 9 where they ran): exact
@@ -250,7 +251,7 @@ that reads it. Phases, each announced with its elapsed seconds:
      against "highest" at TF32_MASK_BAR, TF32_POLYGON_BAR and TF32_F1_TOL
      (char F1 against page_0's ground truth), the fused rough and precise
      forwards at B = 16 at both precisions and their device ms by kernel at
-     "default" (``tf32_trace``: the block's and precise heads' wgmma
+     "default" (``tf32_trace``: the block's, heads' and neck's Hopper
      designs must be the kernels that ran); the fused bf16 detect() at
      "highest" (phase bf16's, where it ran) and
      "default" against the JAX bf16 reference (phase bf16's bars); phase
@@ -2806,11 +2807,14 @@ TF32_F64_BAR = 1e-2
 # about 7 times the twin's own spread above.
 TF32_HELD_TOL = 1e-3
 TF32_PASS_RATIO = 10.0
-# The TF32 block's and precise heads' batch invariance at "default": each
-# image of a B = 4 batch bit for bit as it comes out alone, at the rough
-# pass's stage shapes (the block) and the precise heads' shape.
+# The TF32 entries' batch invariance at "default": each image of a B = 4
+# batch bit for bit as it comes out alone, at the rough pass's stage shapes
+# (the block), the precise and rough heads' shapes and the rough neck's
+# level 0 (H, W, C0, Cm, Co).
 TF32_INVARIANCE_CASES = [("convnext_block", (4, *shape)) for shape, _ in STAGE_SHAPES] + [
     ("precise_heads", (4, *shape)) for shape, _ in PRECISE_HEAD_SHAPES[:1]
+] + [("fpn_heads", (4, *shape)) for shape, _ in ROUGH_HEAD_SHAPES[:1]] + [
+    ("fpn_neck_l0", (4, *shape)) for shape, _ in NECK_SHAPES[:1]
 ]
 # The block's exact-erf GELUs run on the f32 pipes, one a hidden unit (4C a
 # pixel): an estimate of 20 instructions each (erff's branch-free
@@ -3055,37 +3059,48 @@ def check_tf32_kernels(gen, device) -> dict:
 def check_tf32_invariance(gen, device) -> None:
     """TF32_INVARIANCE_CASES at "default": each image of the batch bit for
     bit as the TF32 entry gives it alone (the block's split plan and the
-    heads' tile walk do not move with B)."""
+    heads' and the neck's tile walks do not move with B)."""
     import torch
 
     from adascale_torch.kernels import convnext_block as K
-    from adascale_torch.kernels import precise_heads
+    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
     from adascale_torch.utils.precision import matmul_precision
 
-    for name, (b, h, w, c) in TF32_INVARIANCE_CASES:
-        x = torch.randn(b, h, w, c, generator=gen).to(device)
+    for name, (b, h, w, c, *widths) in TF32_INVARIANCE_CASES:
+        xs = [torch.randn(b, h, w, c, generator=gen).to(device)]
         if name == "convnext_block":
             p = random_block_params(c, gen, device)
             run = lambda t: [K.convnext_block(t, p)]  # noqa: E731
+        elif name == "fpn_neck_l0":
+            cm, co = widths
+            p = random_neck_params(c, cm, co, gen, device)
+            xs.append(torch.randn(b, h, w, cm, generator=gen).to(device))
+            run = lambda f0, u: [fpn_neck.fused_neck_l0(f0, u, p)]  # noqa: E731
+        elif name == "fpn_heads":
+            heads = [random_head_params(c, m, gen, device) for m in (1, 1)]
+            run = lambda t: list(fpn_heads.fused_rough_heads(t, *heads))  # noqa: E731
         else:
             heads = [random_head_params(c, m, gen, device) for m in PRECISE_OUT]
             run = lambda t: precise_heads.fused_precise_heads(t, heads)  # noqa: E731
         with matmul_precision("default"):
-            batch = run(x)
-            alone = [run(x[i : i + 1].contiguous()) for i in range(b)]
+            batch = run(*xs)
+            alone = [run(*(x[i : i + 1].contiguous() for x in xs)) for i in range(b)]
         same = all(torch.equal(y[i : i + 1], a[k]) for i, a in enumerate(alone) for k, y in enumerate(batch))
-        print(f"tf32 {name} B={b} {h}x{w}x{c}: each image of the batch bit for bit as alone: {same}", flush=True)
+        shape = "x".join(map(str, (h, w, c, *widths)))
+        print(f"tf32 {name} B={b} {shape}: each image of the batch bit for bit as alone: {same}", flush=True)
         if not same:
-            raise AssertionError(f"tf32 {name} at B={b}, {(h, w, c)}: a batch's image differs from the image alone")
+            raise AssertionError(f"tf32 {name} at B={b}, {shape}: a batch's image differs from the image alone")
 
 
 def tf32_trace(engine, image, result) -> dict:
     """The fused engine's rough and precise forwards at "default" on
     page_0's inputs: device ms a call by kernel name (torch.profiler, 3
-    calls), printed; the block's and the precise heads' TF32 launches must
-    be the wgmma designs' (mlp_fused_tf32_kernel and gemm_tf32_wgmma_kernel
-    in both passes, no gemm_tf32_kernel; the precise heads'
-    heads_tma_kernel, no heads_kernel, in the precise pass)."""
+    calls), printed; every TF32 launch must be the Hopper designs' (in both
+    passes the block's mlp_fused_tf32_kernel and gemm_tf32_wgmma_kernel, no
+    gemm_tf32_kernel; the heads' heads_tma_kernel on f32, 192 wide in the
+    rough pass and 200 in the precise, no heads_kernel; the neck's
+    neck_step1_tma_kernel and neck_step2_tma_kernel on f32, no
+    neck_step1_kernel or neck_step2_kernel)."""
     import torch
 
     from adascale_torch.utils.precision import matmul_precision
@@ -3106,10 +3121,12 @@ def tf32_trace(engine, image, result) -> dict:
         print(f"tf32 fused {which} forward at default, device ms a call by kernel (torch.profiler, 3 calls): "
               + ", ".join(f"{k}={v:.4f}" for k, v in sorted(names.items(), key=lambda kv: -kv[1])), flush=True)
         found = " ".join(names)
-        missing = [k for k in ("mlp_fused_tf32_kernel", "gemm_tf32_wgmma_kernel") if k not in found]
-        if which == "precise" and "heads_tma_kernel<float" not in found:
-            missing.append("heads_tma_kernel<float")
-        stale = [k for k in ("gemm_tf32_kernel",) + (("heads_kernel",) if which == "precise" else ()) if k in found]
+        wanted = ("mlp_fused_tf32_kernel", "gemm_tf32_wgmma_kernel",
+                  f"heads_tma_kernel<float, {192 if which == 'rough' else 200}",
+                  "neck_step1_tma_kernel<float", "neck_step2_tma_kernel<float")
+        missing = [k for k in wanted if k not in found]
+        stale = [k for k in ("gemm_tf32_kernel", "heads_kernel", "neck_step1_kernel", "neck_step2_kernel")
+                 if k in found]
         if missing or stale:
             raise AssertionError(f"tf32 fused {which} forward: kernels {missing} missing, {stale} present")
         out[which] = names
@@ -4635,7 +4652,7 @@ def main() -> None:
         stamp("phase tf32: matmul_precision \"default\" / \"high\" (single-pass TF32)")
         phase_t = time.perf_counter()
         rows.update(check_tf32_kernels(gen, device))
-        stamp("tf32: the block's and the precise heads' batch invariance at \"default\"")
+        stamp("tf32: the TF32 entries' batch invariance at \"default\"")
         invariance_t = time.perf_counter()
         check_tf32_invariance(gen, device)
         print(f"tf32 batch invariance: {time.perf_counter() - invariance_t:.2f} s", flush=True)

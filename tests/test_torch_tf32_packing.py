@@ -1,25 +1,27 @@
 """The single-pass TF32 entries' weight packing on the CPU (no kernel runs
 here): the ConvNeXt block's (``adascale_torch/kernels/packing.py``
 ``pack_core_kmajor_tf32``, ``pack_tiles_sw128_tf32``, ``pack_block_tf32``,
-the layouts ``csrc/block_tf32.cuh`` reads) and the precise heads'
+the layouts ``csrc/block_tf32.cuh`` reads), the rough and precise heads'
 (``pack_sw128_tf32`` through ``fpn_heads.pack_heads(..., tf32_sw128=True)``,
-the layout ``fpn_head.cuh::heads_tma_kernel`` reads in f32). Each layout
-element by element against an index-by-index reimplementation, zero past
-the real widths, with a round trip back to nn.Linear's and the conv's
-weights; every packed value equal bit for bit to
-``utils.precision.round_tf32`` of its source (``wgmma`` drops an f32
-operand's low 13 bits, so the packs hold rounded values); W2's K order
-against the accumulator-to-A fragment map of the fused form, written out
-here; emulations of the fused form's chunk walk and of the heads' TMA tile
-walk from the packs against the TF32 twins; and the wrappers' reuse of a
-parameter set's pack."""
+the layout ``fpn_head.cuh::heads_tma_kernel`` reads in f32) and the neck
+level 0's (``fpn_neck.pack_neck(..., tf32_sw128=True)``, the layouts
+``fpn_neck_l0.cu``'s one-pass steps read in f32). Each layout element by
+element against an index-by-index reimplementation, zero past the real
+widths, with a round trip back to nn.Linear's and the conv's weights; every
+packed value equal bit for bit to ``utils.precision.round_tf32`` of its
+source (``wgmma`` drops an f32 operand's low 13 bits, so the packs hold
+rounded values); W2's K order against the accumulator-to-A fragment map of
+the fused form, written out here; emulations of the fused form's chunk
+walk and of the heads' and the neck's TMA tile walks from the packs
+against the TF32 twins; and the wrappers' reuse of a parameter set's pack,
+each layout kept apart."""
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from adascale_torch.kernels import convnext_block as K
-from adascale_torch.kernels import fpn_heads, packing
+from adascale_torch.kernels import fpn_heads, fpn_neck, packing
 from adascale_torch.kernels.packing import (
     BLOCK_FUSED_MAX_C, BLOCK_TF32_HIDDEN, BLOCK_TF32_TILE, KSLOT, block_fused_width, kslot_columns,
     pack_block_tf32, pack_core_kmajor_tf32, pack_sw128_tf32, pack_tiles_sw128_tf32,
@@ -29,6 +31,7 @@ from adascale_torch.utils.precision import round_tf32
 
 PRECISE_OUTS = (1, 2, 4, 4)
 PRECISE_WIDTH = 200  # csrc/precise_heads.cu's tile
+ROUGH_WIDTH = 192  # csrc/fpn_heads.cu's tile
 
 
 def _randn(rng, *shape, scale=1.0):
@@ -282,24 +285,44 @@ def _unswizzle_tf32(w):
     return t.reshape(*lead, chunks * 32, nb * 8)
 
 
+def _rough_heads(c, seed=10):
+    """The two rough heads (char mask, char height): F = 192 at C = 384,
+    here (C + 1) // 2, one output each."""
+    rng = np.random.default_rng(seed)
+    f = (c + 1) // 2
+    return [{
+        "step1.conv.weight": _randn(rng, f, c, 3, 3, scale=(9 * c) ** -0.5),
+        "step1.conv.bias": _randn(rng, f, scale=0.1), "step1.ln.weight": 1 + _randn(rng, f, scale=0.1),
+        "step1.ln.bias": _randn(rng, f, scale=0.1), "step2.weight": _randn(rng, 1, f, scale=f ** -0.5),
+        "step2.bias": _randn(rng, 1, scale=0.1),
+    } for _ in range(2)]
+
+
+# The heads libraries' TF32 one-pass packs: (heads, tile width).
+HEADS_LIBRARIES = {"precise": (_precise_heads, PRECISE_WIDTH), "rough": (_rough_heads, ROUGH_WIDTH)}
+
+
+@pytest.mark.parametrize("library", list(HEADS_LIBRARIES))
 @pytest.mark.parametrize("c", [32, 40])
-def test_heads_tf32_pack_unpacks_to_rounded_phase_taps(c):
-    """The precise heads' TF32 one-pass pack: per (head, phase, tap)
-    ceil(C / 32) chunks of 200 rows in the 128-byte swizzle, unswizzling to
-    round_tf32 of the collapsed taps bit for bit, zero past C and past each
-    head's F; the other packed parts as the f32 entry's."""
-    heads = _precise_heads(c)
-    packed = fpn_heads.pack_heads(heads, PRECISE_WIDTH, tf32_sw128=True)
+def test_heads_tf32_pack_unpacks_to_rounded_phase_taps(c, library):
+    """Each heads library's TF32 one-pass pack (the precise heads' 200-wide
+    tile, the rough heads' 192): per (head, phase, tap) ceil(C / 32) chunks
+    of N rows in the 128-byte swizzle, unswizzling to round_tf32 of the
+    collapsed taps bit for bit, zero past C and past each head's F; the
+    other packed parts as the f32 entry's."""
+    make, width = HEADS_LIBRARIES[library]
+    heads = make(c)
+    packed = fpn_heads.pack_heads(heads, width, tf32_sw128=True)
     w = packed["w"]
     chunks = -(-c // 32)
-    assert w.dtype == torch.float32 and w.shape == (4, 4, 4, chunks, PRECISE_WIDTH // 8, 8, 8, 4)
+    assert w.dtype == torch.float32 and w.shape == (len(heads), 4, 4, chunks, width // 8, 8, 8, 4)
     got = _unswizzle_tf32(w)
     for k, p in enumerate(heads):
         f = p["step1.conv.weight"].shape[0]
         want = round_tf32(phase_tap_weights(p["step1.conv.weight"]))
         assert torch.equal(_bits(got[k, :, :, :c, :f]), _bits(want))
         assert not got[k, :, :, c:].any() and not got[k, :, :, :, f:].any()
-    f32 = fpn_heads.pack_heads(heads, PRECISE_WIDTH)
+    f32 = fpn_heads.pack_heads(heads, width)
     for name in ("vec", "w2", "b2"):
         assert torch.equal(packed[name], f32[name])
 
@@ -398,3 +421,165 @@ def test_heads_pack_cache_keys_the_tf32_layout():
     assert packing.PACKS == packs + 1
     km = fpn_heads.packed_heads(heads, PRECISE_WIDTH)
     assert km["w"].shape != sw["w"].shape and packing.PACKS == packs + 2
+
+
+def _neck_params(c0, cm, co, seed=11):
+    """Level-0 parameters from numpy, at the scales of a trained neck."""
+    rng = np.random.default_rng(seed)
+    return {
+        "step1_0.conv.weight": _randn(rng, cm, c0, scale=c0 ** -0.5),
+        "step1_0.conv.bias": _randn(rng, cm, scale=0.1),
+        "step1_0.ln.weight": 1 + _randn(rng, cm, scale=0.1), "step1_0.ln.bias": _randn(rng, cm, scale=0.1),
+        "step2_0.conv.weight": _randn(rng, co, cm, 3, 3, scale=(9 * cm) ** -0.5),
+        "step2_0.conv.bias": _randn(rng, co, scale=0.1),
+        "step2_0.ln.weight": 1 + _randn(rng, co, scale=0.1), "step2_0.ln.bias": _randn(rng, co, scale=0.1),
+    }
+
+
+def _neck_taps(p):
+    """W1 as (1 tap, C0, Cm) and the 3x3 as (9 taps, Cm, Co), tap 3 ky + kx."""
+    w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
+    co, cm = w2.shape[:2]
+    return w1.t()[None], w2.permute(2, 3, 1, 0).reshape(9, cm, co)
+
+
+# (C0, Cm, Co): the micro widths, a ragged chunk and width, the flagship's.
+NECK_TF32_SHAPES = [(8, 32, 8), (40, 72, 12), (96, 384, 96)]
+
+
+@pytest.mark.parametrize("widths", NECK_TF32_SHAPES, ids=["micro", "ragged", "flagship"])
+def test_neck_tf32_pack_index_by_index_and_round_trip(widths):
+    """The neck's TF32 one-pass packs: W1 as ceil(C0 / 32) chunks of
+    MID_WIDTH rows and the 3x3's nine taps as ceil(Cm / 32) chunks of
+    OUT_WIDTH rows, each chunk pack_sw128_tf32's element map of the padded
+    taps (written out here), round_tf32 of the source bit for bit, zero past
+    C0, Cm and Co; unswizzled, the rounded conv weights; the vectors as the
+    3xTF32 entry's."""
+    c0, cm, co = widths
+    p = _neck_params(c0, cm, co)
+    packed = fpn_neck.pack_neck(p, tf32_sw128=True)
+    mid, out = fpn_neck.MID_WIDTH, fpn_neck.OUT_WIDTH
+    k1, k2 = -(-c0 // 32), -(-cm // 32)
+    assert packed["w1"].shape == (1, k1, mid // 8, 8, 8, 4) and packed["w2"].shape == (9, k2, out // 8, 8, 8, 4)
+    taps1, taps2 = _neck_taps(p)
+    for key, taps, k, n in (("w1", taps1, 32 * k1, mid), ("w2", taps2, 32 * k2, out)):
+        got = packed[key]
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        for tap in range(taps.shape[0]):
+            padded = np.zeros((k, n), np.float32)
+            padded[: taps.shape[1], : taps.shape[2]] = round_tf32(taps[tap]).numpy()
+            want = _expected_sw128_tf32(padded)
+            assert np.array_equal(got[tap].contiguous().view(torch.int32).numpy(), want.view(np.int32))
+    # Round trip to the conv weights.
+    w1 = _unswizzle_tf32(packed["w1"])[0]
+    assert torch.equal(_bits(w1[:c0, :cm]), _bits(round_tf32(p["step1_0.conv.weight"].t())))
+    assert not w1[c0:].any() and not w1[:, cm:].any()
+    w2 = _unswizzle_tf32(packed["w2"])
+    assert not w2[:, cm:].any() and not w2[:, :, co:].any()
+    back = w2[:, :cm, :co].reshape(3, 3, cm, co).permute(3, 2, 0, 1)
+    assert torch.equal(_bits(back), _bits(round_tf32(p["step2_0.conv.weight"])))
+    f32 = fpn_neck.pack_neck(p)
+    for key in ("vec1", "vec2"):
+        assert torch.equal(packed[key], f32[key])
+
+
+@pytest.mark.parametrize("widths", [(104, 64, 8), (8, 512, 8), (8, 64, 128)],
+                         ids=["wide_c0", "wide_mid", "wide_out"])
+def test_neck_tf32_pack_keeps_the_split_layouts_by_shape(widths):
+    """A step the one-pass kernels do not take keeps the 3xTF32 entry's
+    layout in the TF32 pack (its kernels read only the hi part): step1 where
+    C0 > TF32_MAX_C0 or Cm > MID_WIDTH, step2 where Co > OUT_WIDTH; the
+    other step takes the swizzled TF32 layout where it fits its tile."""
+    c0, cm, co = widths
+    p = _neck_params(c0, cm, co, 12)
+    packed, f32 = fpn_neck.pack_neck(p, tf32_sw128=True), fpn_neck.pack_neck(p)
+    s1, s2 = fpn_neck.slices(cm, co)
+    one_pass1 = s1 == 1 and c0 <= fpn_neck.TF32_MAX_C0
+    assert fpn_neck.TF32_MAX_C0 == 96
+    assert torch.equal(packed["w1"], f32["w1"]) != one_pass1
+    assert torch.equal(packed["w2"], f32["w2"]) != (s2 == 1)
+    taps1, taps2 = _neck_taps(p)
+    if one_pass1:
+        assert torch.equal(_bits(_unswizzle_tf32(packed["w1"])[0, :c0, :cm]), _bits(round_tf32(taps1[0])))
+    if s2 == 1:
+        assert torch.equal(_bits(_unswizzle_tf32(packed["w2"])[:, :cm, :co]), _bits(round_tf32(taps2)))
+
+
+@pytest.mark.parametrize("shape", [(2, 11, 21, 40, 72, 12), (1, 4, 16, 8, 32, 8)], ids=["ragged", "one_tile"])
+def test_emulated_neck_tf32_tma_tile_walk_matches_the_tf32_twin(shape):
+    """The neck's TF32 entry as its one-pass kernels walk it in f32. step1:
+    units of 4 x 16 pixels, per 32-channel chunk one f0 box (TMA's zero fill
+    past the edges and past C0) rounded to TF32 times W1's resident chunk,
+    then bias, LN, GELU and + u -> t, unrounded. step2: units of 8 x 16
+    pixels, per 32-channel chunk of t one 10 x 18 halo box at (-1, -1), each
+    of the 9 taps' shifted rows rounded to TF32 times that tap's chunk of
+    W2; then bias, LN and GELU. Against ``fused_neck_l0_plain(...,
+    tf32=True)``: step1 against the twin's t, and step2, run on the twin's
+    t, against the twin's output, each within 1e-5 of the largest value
+    (the f32 sums run in another order)."""
+    b, h, wd, c0, cm, co = shape
+    p = _neck_params(c0, cm, co, 13)
+    rng = np.random.default_rng(14)
+    f0, u = _randn(rng, b, h, wd, c0), _randn(rng, b, h, wd, cm)
+    packed = fpn_neck.pack_neck(p, tf32_sw128=True)
+    w1 = _unswizzle_tf32(packed["w1"])[0]  # (chunks * 32, MID_WIDTH)
+    w2 = _unswizzle_tf32(packed["w2"])  # (9, chunks * 32, OUT_WIDTH)
+    vec1, vec2 = packed["vec1"], packed["vec2"]
+
+    def ln_gelu(z, vec, n):
+        return F.gelu(F.layer_norm(z[:, :n] + vec[0, :n], (n,), vec[1, :n], vec[2, :n], eps=fpn_neck.EPS))
+
+    t = torch.zeros(b, h, wd, cm)
+    for bb in range(b):
+        for y0 in range(0, h, 4):
+            for x0 in range(0, wd, 16):
+                acc = torch.zeros(64, fpn_neck.MID_WIDTH)
+                for ch in range(w1.shape[0] // 32):
+                    a = round_tf32(_box(f0, bb, y0, x0, 32 * ch, 4, 16).reshape(64, 32))
+                    acc += a @ w1[32 * ch : 32 * ch + 32]
+                y = ln_gelu(acc, vec1, cm)
+                for r in range(64):
+                    i, j = y0 + r // 16, x0 + r % 16
+                    if i < h and j < wd:
+                        t[bb, i, j] = y[r] + u[bb, i, j]
+    with torch.no_grad():
+        want = fpn_neck.fused_neck_l0_plain(f0, u, p, tf32=True)
+        a = F.gelu(F.layer_norm(
+            F.linear(round_tf32(f0), round_tf32(p["step1_0.conv.weight"]), p["step1_0.conv.bias"]),
+            (cm,), p["step1_0.ln.weight"], p["step1_0.ln.bias"], eps=fpn_neck.EPS))
+        t_twin = a + u
+    assert float((t - t_twin).abs().max()) <= 1e-5 * float(t_twin.abs().max())
+    out = torch.zeros(b, h, wd, co)
+    for bb in range(b):
+        for y0 in range(0, h, 8):
+            for x0 in range(0, wd, 16):
+                acc = torch.zeros(128, fpn_neck.OUT_WIDTH)
+                for ch in range(w2.shape[1] // 32):
+                    box = _box(t_twin, bb, y0 - 1, x0 - 1, 32 * ch, 10, 18)
+                    for tap in range(9):
+                        dy, dx = divmod(tap, 3)
+                        a = round_tf32(box[dy : dy + 8, dx : dx + 16].reshape(128, 32))
+                        acc += a @ w2[tap, 32 * ch : 32 * ch + 32]
+                y = ln_gelu(acc, vec2, co)
+                for r in range(128):
+                    i, j = y0 + r // 16, x0 + r % 16
+                    if i < h and j < wd:
+                        out[bb, i, j] = y[r]
+    assert out.shape == want.shape
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_neck_pack_cache_keys_the_tf32_layout():
+    """packed_neck keeps the TF32 one-pass layout and the 3xTF32 entry's
+    apart: each is built once for a parameter set and reused, and an f32
+    model served at "highest" and then at "default" reads each its own."""
+    p = _neck_params(96, 384, 96, 15)
+    packs = packing.PACKS
+    sw = fpn_neck.packed_neck(p, tf32_sw128=True)
+    assert fpn_neck.packed_neck(p, tf32_sw128=True) is sw
+    assert packing.PACKS == packs + 1
+    km = fpn_neck.packed_neck(p)
+    assert km["w1"].shape != sw["w1"].shape and km["w2"].shape != sw["w2"].shape
+    assert packing.PACKS == packs + 2
+    assert torch.equal(fpn_neck.packed_neck(p, tf32_sw128=True)["w2"], fpn_neck.pack_neck(p, tf32_sw128=True)["w2"])
+    assert torch.equal(fpn_neck.packed_neck(p)["w2"], fpn_neck.pack_neck(p)["w2"])

@@ -55,6 +55,11 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   heads over (1, 256, 208, 384), the rough over (1, 240, 192, 384)) inside
   ``matmul_precision("default")``, each launch by name, with the 3xTF32
   entry's call beside them;
+- ``--only neck_tf32``: the neck level 0's single-pass TF32 entry at the
+  rough pass's 240x192 and the precise pass's 256x208 (96 -> 384 -> 96)
+  inside ``matmul_precision("default")``, its two launches by name and as
+  ``step1_ms`` / ``step2_ms``, with the 3xTF32 entry's call beside them,
+  and a line summing both shapes;
 - ``--only forwards_tf32``: the flagship's f32 rough and precise forwards
   at ``matmul_precision("default")`` (the single-pass TF32 entries), module
   path and fused (weights from ``--weights``), on random inputs of
@@ -67,8 +72,8 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|heads_bf16|neck_bf16|
-                forwards_bf16|forwards_tf32|forwards|l2]
+        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|neck_tf32|heads_bf16|
+                neck_bf16|forwards_bf16|forwards_tf32|forwards|l2]
         [--weights NPZ]
 
 For each case it prints one JSON line with:
@@ -258,7 +263,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
-                                           "block_tf32", "heads_tf32", "heads_bf16", "neck_bf16",
+                                           "block_tf32", "heads_tf32", "neck_tf32", "heads_bf16", "neck_bf16",
                                            "forwards_bf16", "forwards_tf32", "forwards", "l2"))
     parser.add_argument("--weights", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -289,6 +294,9 @@ def main() -> None:
         return
     if args.only == "heads_tf32":
         heads_tf32(fpn_heads, precise_heads, gen, args, card)
+        return
+    if args.only == "neck_tf32":
+        neck_tf32(fpn_neck, gen, args, card)
         return
     if args.only == "forwards_bf16":
         forwards_bf16(gen, args, card)
@@ -450,6 +458,30 @@ def heads_tf32(fpn_heads, precise_heads, gen: torch.Generator, args, card: str) 
                           "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel, "launches_ms": launches,
                           "other_device_ms": other, "call_3xtf32_ms": call_ms(fn3, args.reps), "card": card}),
               flush=True)
+
+
+def neck_tf32(fpn_neck, gen: torch.Generator, args, card: str) -> None:
+    """The neck's TF32 entry at both passes' level-0 shapes, each launch by
+    name and by step; the 3xTF32 entry's call beside; then both shapes
+    summed, as one page's fused forwards launch them."""
+    c0, cm, co = NECK_WIDTHS
+    total = {"kernel_ms": 0.0, "step1_ms": 0.0, "step2_ms": 0.0, "call_ms": 0.0, "call_3xtf32_ms": 0.0}
+    for shape in NECK_SHAPES:
+        p = neck_params(c0, cm, co, gen)
+        f0, u = randn(gen, *shape, c0), randn(gen, *shape, cm)
+        fn3 = lambda f0=f0, u=u, p=p: fpn_neck.fused_neck_l0(f0, u, p)  # noqa: E731
+        fn = at_default(fn3)
+        kernel, launches, other = device_ms(fn, args.reps, NECK_KERNELS)
+        line = {"label": args.label, "kernel": "fpn_neck_l0_tf32", "shape": [*shape, c0, cm, co],
+                "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel, "launches_ms": launches,
+                **{f"{step}_ms": sum(ms for name, ms in launches.items() if f"neck_{step}_" in name)
+                   for step in ("step1", "step2")},
+                "other_device_ms": other, "call_3xtf32_ms": call_ms(fn3, args.reps), "card": card}
+        print(json.dumps(line), flush=True)
+        for k in total:
+            total[k] += line[k]
+    print(json.dumps({"label": args.label, "kernel": "fpn_neck_l0_tf32", "shapes": "both", **total, "card": card}),
+          flush=True)
 
 
 def wrapper_host_us(fn, n: int = 200) -> float:
