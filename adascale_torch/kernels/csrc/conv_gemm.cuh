@@ -26,7 +26,8 @@
 //     once in wgmma's no-swizzle K-major core-matrix order, so the copy is
 //     one contiguous run.
 //   * The products are wgmma.m64nNk8.f32.tf32.tf32 with A from registers and
-//     B from shared memory, N = 96 or 104 a wgmma. Each A value is split in
+//     B from shared memory, N = 96 or 104 a wgmma (64 or 72 in the wide heads'
+//     narrower slices). Each A value is split in
 //     registers into a TF32 hi and lo with integer rounding (cvt.rna.tf32
 //     runs on the quarter-rate conversion pipe); B's split was done by the
 //     wrapper. Per 8-deep K step: a_lo.b_hi, a_hi.b_lo, a_hi.b_hi (a_lo.b_lo,
@@ -46,9 +47,9 @@
 //     the ring, then ln_stats a row at a time), so their GELUs do not need
 //     the accumulators' registers.
 //
-// The bf16 main loop (mainloop_bf16; the wide neck and heads, whose
-// features run in slices over chunks of flattened pixels; conv_tma.cuh has
-// the one-pass kernels' loop) computes the same sums from bf16 operands, one wgmma.m64nNk16.f32.bf16.bf16 a 16-deep step (no split: a
+// The bf16 main loop (mainloop_bf16; the wide neck, whose features run in
+// slices over chunks of flattened pixels; conv_tma.cuh has the loop of the
+// one-pass kernels and of the wide heads) computes the same sums from bf16 operands, one wgmma.m64nNk16.f32.bf16.bf16 a 16-deep step (no split: a
 // bf16 product is exact in f32). Its stage holds B (NB x 32, packed by the
 // wrapper in the same core-matrix order, 8 bf16 a core-matrix row, K in its
 // natural order) and A (BM x 32) laid out in core matrices too: one 16-byte
@@ -247,16 +248,66 @@ __device__ __forceinline__ void wgmma_n104(float (&d)[K], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc_b), "r"(scale_d));
 }
 
-// d (64 x NW) of one warpgroup += A (64 x 8) . B (NW x 8), for the two
-// widths the kernels use.
+template <int K>
+__device__ __forceinline__ void wgmma_n64(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
+                                          int scale_d) {
+  static_assert(K >= 32, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 desc;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "mov.b32 h, 64;\n"
+      "mov.b64 desc, {%36, h};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, desc, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc_b), "r"(scale_d));
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_n72(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
+                                          int scale_d) {
+  static_assert(K >= 36, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 desc;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "mov.b32 h, 64;\n"
+      "mov.b64 desc, {%40, h};\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35"
+      "}, {%36,%37,%38,%39}, desc, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(desc_b), "r"(scale_d));
+}
+
+// d (64 x NW) of one warpgroup += A (64 x 8) . B (NW x 8), for the widths
+// the kernels use (64 and 72: the wide heads' slices of 128 and 136).
 template <int NW, int K>
 __device__ __forceinline__ void wgmma(float (&d)[K], const uint32_t (&a)[4], uint32_t desc_b,
                                       int scale_d) {
   if constexpr (NW == 96) {
     wgmma_n96(d, a, desc_b, scale_d);
-  } else {
-    static_assert(NW == 104, "wgmma width");
+  } else if constexpr (NW == 104) {
     wgmma_n104(d, a, desc_b, scale_d);
+  } else if constexpr (NW == 64) {
+    wgmma_n64(d, a, desc_b, scale_d);
+  } else {
+    static_assert(NW == 72, "wgmma width");
+    wgmma_n72(d, a, desc_b, scale_d);
   }
 }
 
@@ -307,6 +358,42 @@ __device__ __forceinline__ void chunk_products(float (&part)[K], const float* As
   fence_regs(part);
 }
 
+// chunk_products for both widths at once: part0 (NW0 features from hi and
+// lo) and part1 (NW1 from hi + second and lo + second), replaced, from one
+// read and split of A a step, so that the chunk drains the tensor cores
+// once, not once a width. PASSES 3.
+template <int NW0, int NW1, int K0, int K1, class AfterFirst>
+__device__ __forceinline__ void chunk_products2(float (&part0)[K0], float (&part1)[K1], const float* As,
+                                                uint32_t hi, uint32_t lo, uint32_t second,
+                                                AfterFirst after_first) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int k8 = 0; k8 < kKC / 8; ++k8) {
+    uint32_t(&h)[4] = ah[k8 % 2];
+    uint32_t(&l)[4] = al[k8 % 2];
+    if (k8 >= 2) wgmma_wait<1>();
+    const float2 v0 = *reinterpret_cast<const float2*>(As + 8 * k8);
+    const float2 v1 = *reinterpret_cast<const float2*>(As + 8 * kLdA + 8 * k8);
+    const uint32_t step = 16 * k8;  // 256 bytes a K step
+    split_tf32(v0.x, h[0], l[0]);
+    split_tf32(v1.x, h[1], l[1]);
+    split_tf32(v0.y, h[2], l[2]);
+    split_tf32(v1.y, h[3], l[3]);
+    wgmma_fence();
+    wgmma<NW0>(part0, l, hi + step, k8 > 0);
+    wgmma<NW0>(part0, h, lo + step, 1);
+    wgmma<NW0>(part0, h, hi + step, 1);
+    wgmma<NW1>(part1, l, hi + second + step, k8 > 0);
+    wgmma<NW1>(part1, h, lo + second + step, 1);
+    wgmma<NW1>(part1, h, hi + second + step, 1);
+    wgmma_commit();
+    if (k8 == 0) after_first();
+  }
+  wgmma_wait<0>();
+  fence_regs(part0);
+  fence_regs(part1);
+}
+
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -330,8 +417,11 @@ __device__ __forceinline__ int quad_row() {
 // shared memory before the call is visible to all after it. Each chunk's
 // successor STAGES - 1 on is loaded while the chunk's first products run.
 // PASSES (chunk_products): 3 for 3xTF32, 1 for one TF32 product, which
-// copies only the hi B tile of each chunk.
-template <int BM, int NB, int STAGES, int N0, int N1, int PASSES, int K0, int K1>
+// copies only the hi B tile of each chunk. BOTH (3xTF32, two widths): both
+// widths' products of a chunk at once (chunk_products2), in a second fresh
+// tile, for kernels with the registers for it (the wide heads' cluster
+// form).
+template <int BM, int NB, int STAGES, int N0, int N1, int PASSES, bool BOTH = false, int K0, int K1>
 __device__ __forceinline__ void mainloop(const float* __restrict__ x, const float* __restrict__ w,
                                          int npix, int H, int W, int C, Taps taps, int m0,
                                          unsigned char* smem, uint32_t bars, int arow, int nb0,
@@ -405,6 +495,19 @@ __device__ __forceinline__ void mainloop(const float* __restrict__ x, const floa
     const uint32_t lo = hi + (R::B_BYTES >> 4);
     // The next load goes into chunk kt-1's stage; issuing it behind the
     // first products keeps its address work off the tensor cores' path.
+    if constexpr (BOTH) {
+      static_assert(PASSES == 3 && N1 > 0, "both widths");
+      float part1[N1 / 2];
+      chunk_products2<N0, N1>(part, part1, As, hi, lo, (N0 / 8) * kRowGroup, [&] {
+        load(kt + STAGES - 1);
+        cp_async_commit();
+      });
+#pragma unroll
+      for (int i = 0; i < K0; ++i) acc0[i] += part[i];
+#pragma unroll
+      for (int i = 0; i < K1; ++i) acc1[i] += part1[i];
+      continue;
+    }
     chunk_products<N0, PASSES>(part, As, hi, lo, [&] {
       load(kt + STAGES - 1);
       cp_async_commit();
@@ -681,15 +784,16 @@ __device__ __forceinline__ void mainloop_bf16(const bf16* __restrict__ x,
 }
 
 // The main loop for operands of type T (float: PASSES TF32 products a
-// product, 3 or 1; bf16: one product).
-template <typename T, int BM, int NB, int STAGES, int N0, int N1, int PASSES = 3, int K0, int K1>
+// product, 3 or 1, BOTH as mainloop's; bf16: one product).
+template <typename T, int BM, int NB, int STAGES, int N0, int N1, int PASSES = 3, bool BOTH = false, int K0,
+          int K1>
 __device__ __forceinline__ void conv_mainloop(const T* __restrict__ x, const T* __restrict__ w,
                                               int npix, int H, int W, int C, Taps taps, int m0,
                                               unsigned char* smem, uint32_t bars, int arow,
                                               int nb0, float (&acc0)[K0], float (&acc1)[K1]) {
   if constexpr (std::is_same<T, float>::value)
-    mainloop<BM, NB, STAGES, N0, N1, PASSES>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
-                                             acc0, acc1);
+    mainloop<BM, NB, STAGES, N0, N1, PASSES, BOTH>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
+                                                   acc0, acc1);
   else
     mainloop_bf16<BM, NB, STAGES, N0, N1>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
                                           acc0, acc1);

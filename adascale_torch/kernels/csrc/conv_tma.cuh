@@ -12,8 +12,10 @@
 // ldmatrix, w rounded when it was packed (packing.pack_sw128_tf32), so that
 // the tensor core, which drops the low 13 bits of an f32 operand, reads the
 // rounded values. conv_gemm.cuh keeps the 3xTF32 loop and the loop of the
-// wide bf16 and TF32 paths, which split the features into slices and run a
-// chunk of flattened pixels at a time.
+// wide neck's bf16 and TF32 paths, which split the features into slices
+// and run a chunk of flattened pixels at a time. The wide heads run this
+// loop on a thread-block cluster, one CTA a slice of the features
+// (fpn_head.cuh; the cluster helpers below).
 //
 // Design:
 //   * A block is persistent: one a multiprocessor, it walks units, each one
@@ -306,20 +308,100 @@ __device__ __forceinline__ void wgmma_rs_tf32_n48(float (&d)[K], const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <int K>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[K], const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  static_assert(K >= 32, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[K], const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  static_assert(K >= 36, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35"
+      "}, {%36,%37,%38,%39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[K], const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  static_assert(K >= 32, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_rs_tf32_n72(float (&d)[K], const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  static_assert(K >= 36, "accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35"
+      "}, {%36,%37,%38,%39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d (64 x NW) of one warpgroup += A . B for a 32-byte K step of operands of
 // type T (16 bf16, or 8 f32 as TF32), for the widths the kernels use (48
-// only in TF32).
+// only in TF32; 64 and 72 in the wide heads' narrower slices).
 template <int NW, typename T = bf16, int K>
 __device__ __forceinline__ void wgmma_rs(float (&d)[K], const uint32_t* a, uint64_t db,
                                          int scale_d) {
   constexpr bool kTF32 = std::is_same<T, float>::value;
-  static_assert(NW == 96 || NW == 104 || (kTF32 && NW == 48), "wgmma width");
+  static_assert(NW == 64 || NW == 72 || NW == 96 || NW == 104 || (kTF32 && NW == 48), "wgmma width");
   if constexpr (kTF32) {
     if constexpr (NW == 48) wgmma_rs_tf32_n48(d, a, db, scale_d);
+    else if constexpr (NW == 64) wgmma_rs_tf32_n64(d, a, db, scale_d);
+    else if constexpr (NW == 72) wgmma_rs_tf32_n72(d, a, db, scale_d);
     else if constexpr (NW == 96) wgmma_rs_tf32_n96(d, a, db, scale_d);
     else wgmma_rs_tf32_n104(d, a, db, scale_d);
   } else {
-    if constexpr (NW == 96) wgmma_rs_n96(d, a, db, scale_d);
+    if constexpr (NW == 64) wgmma_rs_n64(d, a, db, scale_d);
+    else if constexpr (NW == 72) wgmma_rs_n72(d, a, db, scale_d);
+    else if constexpr (NW == 96) wgmma_rs_n96(d, a, db, scale_d);
     else wgmma_rs_n104(d, a, db, scale_d);
   }
 }
@@ -442,14 +524,16 @@ __device__ __forceinline__ int claim(uint32_t empty0, uint32_t it) {
   return s;
 }
 
-// The producer (one thread): for each unit of this block, in order, each
-// chunk's halo box by TMA at the window's origin (oy0, ox0 of the set's
-// Taps) into the A ring, and after it each tap's B of the chunk by a bulk
-// copy into the B ring (or, once, all of B into the resident area). w
-// holds each set's B, set-major, then tap-major, then chunk, B_BYTES each.
+// The producer (one thread): for each unit of this block (units first,
+// first + step, ...), in order, each chunk's halo box by TMA at the
+// window's origin (oy0, ox0 of the set's Taps) into the A ring, and after
+// it each tap's B of the chunk by a bulk copy into the B ring (or, once,
+// all of B into the resident area). w holds each set's B, set-major, then
+// tap-major, then chunk, B_BYTES each.
 template <class L, class TapsOf>
 __device__ __forceinline__ void produce(const CUtensorMap* map, const typename L::T* w, const Geo& g,
-                                        TapsOf taps_of, uint32_t ring, uint32_t bars) {
+                                        TapsOf taps_of, uint32_t ring, uint32_t bars, int first,
+                                        int step) {
   constexpr int kElems = L::B_BYTES / (int)sizeof(typename L::T);
   const int nk = L::TAPS * g.chunks;
   if constexpr (L::B_RESIDENT) {
@@ -460,7 +544,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const typename L
   }
   uint32_t ia = 0, ib = 0;
   const int units = g.tiles * g.sets;
-  for (int un = blockIdx.x; un < units; un += gridDim.x) {
+  for (int un = first; un < units; un += step) {
     const Unit u = unit_of<L::BH>(g, un);
     const conv_gemm::Taps t = taps_of(u.set);
     const typename L::T* wb = w + (long long)u.set * nk * kElems;
@@ -479,6 +563,13 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const typename L
       }
     }
   }
+}
+
+// produce() over the units of a persistent grid of single blocks.
+template <class L, class TapsOf>
+__device__ __forceinline__ void produce(const CUtensorMap* map, const typename L::T* w, const Geo& g,
+                                        TapsOf taps_of, uint32_t ring, uint32_t bars) {
+  produce<L>(map, w, g, taps_of, ring, bars, blockIdx.x, gridDim.x);
 }
 
 // The consumers' place in the rings, across units.
@@ -591,6 +682,110 @@ cudaError_t persistent_grid(int smem, long long units, int* grid) {
     if (dev < 32) __atomic_store_n(&fit[dev], blocks, __ATOMIC_RELEASE);
   }
   *grid = (int)(units < blocks ? units : blocks);
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: CTAs of one cluster, on neighbouring
+// multiprocessors, read and write each other's shared memory (shared::cluster
+// addresses from mapa) and arrive on each other's mbarriers.
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// This CTA's cluster, and the clusters of the grid (1-D clusters along x).
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+// Every thread of every CTA of the cluster: the writes before it (to any
+// CTA's shared memory) are seen by the reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The shared::cluster address of this CTA's shared address saddr in the CTA
+// of the cluster with the given rank.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t saddr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_peer(uint32_t caddr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(caddr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 ld_peer2(uint32_t caddr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(caddr) : "memory");
+  return v;
+}
+// Stores v at caddr (a peer's shared memory) and completes its bytes on the
+// peer's mbarrier at cbar (both shared::cluster addresses of one CTA).
+__device__ __forceinline__ void st_peer(uint32_t caddr, float2 v, uint32_t cbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(caddr),
+               "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(cbar)
+               : "memory");
+}
+__device__ __forceinline__ void st_peer(uint32_t caddr, float4 v, uint32_t cbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   caddr),
+               "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+               "r"(__float_as_uint(v.w)), "r"(cbar)
+               : "memory");
+}
+// mbar_wait for a phase that peers' st_peer completes: acquires at cluster
+// scope, so that their stores are seen; traps instead of hanging.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  for (int tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1 << 24)) __trap();
+  }
+}
+
+// Clusters of `size` CTAs to launch for `units` units of a persistent
+// kernel: as many as fit on the card at once (found once a device and
+// size), no more than the units. cfg holds the launch's block, shared
+// memory and cluster dimension.
+template <auto kernel>
+cudaError_t persistent_clusters(cudaLaunchConfig_t cfg, int size, long long units, int* clusters) {
+  static int fit[32][8];  // clusters at once, a device and size
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (size <= 0 || size >= 8) return cudaErrorInvalidValue;
+  int n = dev < 32 ? __atomic_load_n(&fit[dev][size], __ATOMIC_ACQUIRE) : 0;
+  if (n == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.dynamicSmemBytes);
+    if (e != cudaSuccess) return e;
+    cfg.gridDim = dim3(size);
+    e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (n <= 0) return cudaErrorInvalidConfiguration;
+    if (dev < 32) __atomic_store_n(&fit[dev][size], n, __ATOMIC_RELEASE);
+  }
+  *clusters = (int)(units < n ? units : n);
   return cudaSuccess;
 }
 

@@ -40,15 +40,19 @@
 //     interleaved (B, 2H, 2W, Mtot) write, each head at its own channel
 //     offset.
 //   * Heads wider than the tile (F > N: the base and large backbones' 256-258
-//     and 384-386) split F into `slices` tiles of N: each block runs the
-//     same main loop over one slice and stores its pre-LN sums plus the bias
-//     (f32) to a workspace (heads, 4 phases, pixels, slices x N); then
-//     heads_ln_kernel, a warp per (head, phase, pixel), takes the LayerNorm
-//     over the F features, the GELU, the projection and the interleaved
-//     write. The two passes go over the pixels a chunk at a time, so the
-//     workspace holds one chunk, whatever the batch (the wrapper sizes it).
-//     The flagship's widths keep the one-pass kernel.
-//
+//     and 384-386) split F into `slices` slices of NS features (NS = N, or
+//     the library's narrower slice where `slices` of it hold F, with no
+//     padding: 128 rough, 136 precise at the base widths), and the slices
+//     of one (head, phase, pixel tile) are the CTAs of one thread-block
+//     cluster (heads_cluster_kernel; heads_cluster_tma_kernel for bf16 and
+//     the single-pass TF32 entries below): each runs the main loop over its
+//     slice, and the LayerNorm's statistics (each slice's row sum and
+//     squared deviations from its own mean over its real features, the
+//     feature index global) and the projection's partial dots cross the
+//     cluster through distributed shared memory, combined in rank order so
+//     that every CTA gets the same bits; rank 0 adds b2 and writes. One
+//     launch, no workspace.
+
 // bf16 (the JAX package's compute_dtype="bfloat16"): x and the collapsed
 // taps in bf16 (collapsed in f32, then rounded, as the Pallas kernel packs
 // them), products accumulated in f32, the bias, LayerNorm, GELU and
@@ -57,14 +61,14 @@
 // weights the wrapper rounds to bf16, as the Pallas precise-heads kernel
 // does (the rough heads' projection stays f32 there). The outputs are f32
 // either way. Heads that fit the tile run heads_tma_kernel (below) on
-// conv_tma.cuh's persistent, TMA-fed loop; wider ones the two passes above
-// on conv_gemm.cuh's mainloop_bf16.
+// conv_tma.cuh's persistent, TMA-fed loop; wider ones its cluster form,
+// heads_cluster_tma_kernel.
 //
 // The single-pass TF32 entries (matmul_precision "default" / "high"): where
 // the heads fit the tile, heads_tma_kernel with f32 operands (the rough
 // heads at N = 192, the precise at 200), x rounded to TF32 in registers and
 // the taps rounded when packed (packing.pack_sw128_tf32), 32 channels a box
-// row (launch_heads_tma); wider heads the two passes above at PASSES 1.
+// row (launch_heads_tma); wider heads heads_cluster_tma_kernel on f32.
 
 #pragma once
 
@@ -103,7 +107,10 @@ struct Layout {
   // The ring, or the epilogue tile over it where the tile is larger (bf16).
   static constexpr int BASE = R::BYTES > TILE_BYTES ? R::BYTES : TILE_BYTES;
   static constexpr size_t SMEM_BYTES = (size_t)BASE + VEC_BYTES + 8 * kStages;
-  static_assert(N % 8 == 0 && (N0 == 96 || N0 == 104) && N1 == 96, "head width");
+  // The tiles (96 + 96, 104 + 96) and the wide heads' narrower slices (64 +
+  // 64, 72 + 64).
+  static_assert(N % 8 == 0 && (((N0 == 96 || N0 == 104) && N1 == 96) || ((N0 == 64 || N0 == 72) && N1 == 64)),
+                "head width");
   static_assert(BASE % 16 == 0, "epilogue vectors");
 };
 
@@ -213,130 +220,255 @@ heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// The wide heads' first pass over the n pixels from p0: block (head,
-// slice, phase) x tile runs the main loop over its slice's N features and
-// stores z = acc + bias (f32) to ws (heads, 4 phases, chunk, slices N),
-// pixel p0 + r at row r. w (heads, slices, 4 phases, ...) as heads_kernel's
-// per slice; vec (heads, 3, slices N).
-template <typename T, int N, int PASSES = 3>
-__global__ void __launch_bounds__(kThreads, 1)
-heads_sums_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const float* __restrict__ vec, float* __restrict__ ws, int slices, int p0,
-                  int n, int chunk, int H, int W, int C) {
-  using L = Layout<T, N>;
-  constexpr int N0 = L::N0, N1 = L::N1;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int phase = blockIdx.x % 4, slice = (blockIdx.x / 4) % slices;
-  const int head = blockIdx.x / (4 * slices);
-  const int pa = phase / 2, pb = phase % 2;
-  const int r0 = blockIdx.y * kBM;
-  const int nk = 4 * ((C + kKC - 1) / kKC);
-  const T* wb = w + (long long)((head * slices + slice) * 4 + phase) * nk * kParts<T> * N * kKC;
-  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + L::R::BYTES;
-  const int arow = 64 * (tid / 128);
-  float acc0[N0 / 2], acc1[N1 / 2];
-  conv_mainloop<T, kBM, N, kStages, N0, N1, PASSES>(x, wb, p0 + n, H, W, C,
-                                                    Taps{4, 2, pa - 1, pb - 1}, p0 + r0, smem,
-                                                    bars, arow, 0, acc0, acc1);
-  const int fp = slices * N;
-  float* wsb = ws + (long long)(head * 4 + phase) * chunk * fp;
-  const float* bias = vec + (long long)head * 3 * fp;
-  const int t4 = tid % 4, r = r0 + arow + quad_row();
-  store_sums(acc0, wsb, r, n, fp, slice * N, t4, bias);
-  store_sums(acc1, wsb, r, n, fp, slice * N + N0, t4, bias);
-}
-
-// The wide heads' second pass over heads_sums_kernel's chunk: warp w of
-// block (x, head * 4 + phase) takes pixel p0 + 8 x + w: LayerNorm over the
-// head's F sums, GELU (rounded to bf16 where ROUND_Y), the projection and
-// the interleaved write. vec (heads, 3, fp), w2 (heads, kMaxOut, fp), b2
-// (heads, kMaxOut).
-template <bool ROUND_Y>
-__global__ void __launch_bounds__(kThreads)
-heads_ln_kernel(const float* __restrict__ ws, const float* __restrict__ vec,
-                const float* __restrict__ w2, const float* __restrict__ b2,
-                float* __restrict__ out, HeadSizes sizes, int fp, int p0, int n, int chunk,
-                int H, int W, int Mtot) {
-  const int head = blockIdx.y / 4, phase = blockIdx.y % 4;
-  const int r = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (r >= n) return;
-  const int m = p0 + r;
-  int F, M, moff;
-  head_sizes(sizes, head, F, M, moff);
-  const float* z = ws + ((long long)blockIdx.y * chunk + r) * fp;
-  const float* g = vec + (long long)head * 3 * fp + fp;
-  const float* wp = w2 + (long long)head * kMaxOut * fp;
-  float rstd;
-  const float mean = warp_ln_stats(z, F, rstd);
-  float dot[kMaxOut] = {};
-  for (int n = lane; n < F; n += 32) {
-    float y = gelu_exact((z[n] - mean) * rstd * g[n] + g[fp + n]);
-    if constexpr (ROUND_Y) y = round_bf16(y);
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) dot[o] = fmaf(y, wp[o * fp + n], dot[o]);
-  }
-  float mine = 0.0f;
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    const float v = warp_sum(dot[o]);
-    if (lane == o) mine = v + __ldg(b2 + head * kMaxOut + o);
-  }
-  if (lane < M) out[out_pixel(m, H, W, phase / 2, phase % 2) * Mtot + moff + lane] = mine;
-}
-
-// The C entry points' body: checks, head sizes, one launch (where the
-// heads are split into slices, two a chunk of `chunk` pixels, a multiple of
-// kBM; ws then holds heads x 4 x chunk x slices N floats). PASSES as
-// heads_kernel's.
-template <typename T, int N, bool ROUND_Y, int PASSES = 3>
-int launch_heads(const T* x, const T* w, const float* vec, const float* w2, const float* b2,
-                 float* out, float* ws, int chunk, const int* F, const int* M, int heads,
-                 int slices, int B, int H, int W, int C, cudaStream_t stream) {
-  using L = Layout<T, N>;
-  constexpr int kVec = std::is_same<T, float>::value ? 4 : 8;  // channels a 16-byte copy
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec || H > 32767 || W > 32767 ||
-      heads <= 0 || heads > kMaxHeads || slices <= 0 || slices > kMaxSlices ||
-      (slices > 1 && (ws == nullptr || chunk <= 0 || chunk % kBM)))
-    return (int)cudaErrorInvalidValue;
-  HeadSizes sizes{};
-  int mtot = 0;
+// The heads' sizes from the C entry points' arrays: false where a head is
+// not 0 < F <= fcap, 0 < M <= kMaxOut; mtot is the sum of M.
+inline bool fill_sizes(const int* F, const int* M, int heads, int fcap, HeadSizes& sizes, int& mtot) {
+  sizes = HeadSizes{};
+  mtot = 0;
   for (int h = 0; h < heads; ++h) {
-    if (F[h] <= 0 || F[h] > slices * N || M[h] <= 0 || M[h] > kMaxOut)
-      return (int)cudaErrorInvalidValue;
+    if (F[h] <= 0 || F[h] > fcap || M[h] <= 0 || M[h] > kMaxOut) return false;
     sizes.F[h] = F[h];
     sizes.M[h] = M[h];
     sizes.moff[h] = mtot;
     mtot += M[h];
   }
+  return true;
+}
+
+// The C entry points' body for one tile (F <= N): checks, head sizes, one
+// launch. PASSES as heads_kernel's.
+template <typename T, int N, bool ROUND_Y, int PASSES = 3>
+int launch_heads(const T* x, const T* w, const float* vec, const float* w2, const float* b2,
+                 float* out, const int* F, const int* M, int heads, int B, int H, int W, int C,
+                 cudaStream_t stream) {
+  using L = Layout<T, N>;
+  constexpr int kVec = std::is_same<T, float>::value ? 4 : 8;  // channels a 16-byte copy
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec || H > 32767 || W > 32767 ||
+      heads <= 0 || heads > kMaxHeads)
+    return (int)cudaErrorInvalidValue;
+  HeadSizes sizes;
+  int mtot;
+  if (!fill_sizes(F, M, heads, N, sizes, mtot)) return (int)cudaErrorInvalidValue;
   const long long npix = (long long)B * H * W;
   const long long tiles = (npix + kBM - 1) / kBM;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  if (slices == 1) {
-    cudaError_t e = allow_smem(heads_kernel<T, N, ROUND_Y, PASSES>, L::SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid(4 * heads, (unsigned)tiles);
-    heads_kernel<T, N, ROUND_Y, PASSES><<<grid, kThreads, L::SMEM_BYTES, stream>>>(
-        x, w, vec, w2, b2, out, sizes, (int)npix, H, W, C, mtot);
-    return (int)cudaGetLastError();
-  }
-  constexpr size_t smem = (size_t)L::R::BYTES + 8 * kStages;
-  cudaError_t e = allow_smem(heads_sums_kernel<T, N, PASSES>, smem);
+  cudaError_t e = allow_smem(heads_kernel<T, N, ROUND_Y, PASSES>, L::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  for (int p0 = 0; p0 < npix; p0 += chunk) {
-    const int n = (int)std::min<long long>(chunk, npix - p0);
-    heads_sums_kernel<T, N, PASSES><<<dim3(4 * heads * slices, (n + kBM - 1) / kBM), kThreads,
-                                      smem, stream>>>(x, w, vec, ws, slices, p0, n, chunk, H, W,
-                                                      C);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int rows = (n + kThreads / 32 - 1) / (kThreads / 32);
-    heads_ln_kernel<ROUND_Y><<<dim3(rows, 4 * heads), kThreads, 0, stream>>>(
-        ws, vec, w2, b2, out, sizes, slices * N, p0, n, chunk, H, W, mtot);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  const dim3 grid(4 * heads, (unsigned)tiles);
+  heads_kernel<T, N, ROUND_Y, PASSES><<<grid, kThreads, L::SMEM_BYTES, stream>>>(
+      x, w, vec, w2, b2, out, sizes, (int)npix, H, W, C, mtot);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Heads wider than one tile: `slices` CTAs of one thread-block cluster a
+// (head, phase, pixel tile), CTA (cluster rank) r computing features
+// r N .. r N + N - 1 of every head (N here the slice width), w packed slice
+// by slice, (slices, heads, 4 phases, ...) with each slice in its one-tile
+// layout; vec (heads, 3, slices N) and w2 (heads, kMaxOut, slices N) as
+// one tile's of slices N features. Each CTA keeps its slice's vectors.
+// Per pixel row each slice's sum of z = acc + bias and sum of squared
+// deviations from its own mean over its real features (feature r N + n
+// counts while it is below F) cross the cluster, and every CTA combines
+// them in rank order (combine_stats), so that all compute the same mean
+// and rstd bit for bit, with one exchange; then the slices' partial dots of
+// the projection go to rank 0, which adds them in rank order, adds b2 and
+// writes the interleaved output.
+
+// A row's LayerNorm statistics from each slice's (sum, sum of squared
+// deviations from the slice's own mean) over its real features, slice k
+// holding n_k = clamp(F - k N, 0, N) of them (stat(k)): the mean over F and
+// 1 / sqrt(var + eps), the slices combined in rank order (the pairwise
+// update of Chan, Golub and LeVeque), so that every CTA computes the same
+// bits from the same partials.
+template <class Stat>
+__device__ __forceinline__ float2 combine_stats(Stat stat, int slices, int F, int N) {
+  float s = 0.0f;
+  for (int k = 0; k < slices; ++k) s += stat(k).x;
+  const float mean = s / F;
+  float m2 = 0.0f;
+  for (int k = 0; k < slices; ++k) {
+    const float2 v = stat(k);
+    const int n = min(max(F - k * N, 0), N);
+    const float d = n > 0 ? v.x / n - mean : 0.0f;
+    m2 += v.y + n * d * d;
   }
-  return (int)cudaSuccess;
+  return make_float2(mean, rsqrtf(m2 / F + kEps));
+}
+
+// The 3xTF32 (f32) form, on conv_gemm.cuh's main loop: a CTA is one slice
+// of one (head, phase, 128-pixel tile), the grid (4 heads slices, tiles)
+// in clusters of (slices, 1, 1). All 256 threads are consumers, so each
+// exchange is a cluster barrier: every CTA writes its rows' partials to its
+// own shared memory, the cluster syncs, and each reads its peers' through
+// ld.shared::cluster. The epilogue reads the tile back from shared memory,
+// as heads_kernel's.
+constexpr int kXchgF32Floats = (2 + kMaxOut) * kBM;  // (sum, squared deviations), then dots, a row
+
+template <int N>
+constexpr size_t heads_cluster_smem() {
+  // The tile's layout, then the exchange on a 16-byte boundary.
+  return (size_t)Layout<float, N>::BASE + Layout<float, N>::VEC_BYTES + 32 + 4 * kXchgF32Floats;
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+heads_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ vec, const float* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes, int npix,
+                     int H, int W, int C, int Mtot, int heads) {
+  using L = Layout<float, N>;
+  constexpr int N0 = L::N0, N1 = L::N1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int rank = conv_tma::cluster_rank(), slices = conv_tma::cluster_size();
+  const int set = blockIdx.x / slices, head = set / 4, phase = set % 4;
+  const int pa = phase / 2, pb = phase % 2;
+  const int m0 = blockIdx.y * kBM;
+  const int nk = 4 * ((C + kKC - 1) / kKC);
+  const int fp = slices * N, n0 = rank * N;  // the features of the head, of this slice's first
+  const float* wb = w + (long long)(rank * heads * 4 + set) * nk * kParts<float> * N * kKC;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // This slice's bias, LN scale, LN bias (N each) and projection (kMaxOut x
+  // N), after the ring; then the ring's mbarriers; then the exchange.
+  float* sv = reinterpret_cast<float*>(smem + L::BASE);
+  for (int i = tid; i < 3 * N; i += kThreads) sv[i] = vec[(head * 3 + i / N) * fp + n0 + i % N];
+  for (int i = tid; i < kMaxOut * N; i += kThreads)
+    sv[3 * N + i] = w2[(head * kMaxOut + i / N) * fp + n0 + i % N];
+  const uint32_t bars = sbase + L::BASE + L::VEC_BYTES;
+  float* xs = reinterpret_cast<float*>(smem + L::BASE + L::VEC_BYTES + 32);
+  const uint32_t xaddr = sbase + L::BASE + L::VEC_BYTES + 32;
+
+  const int arow = 64 * (tid / 128);
+  float acc0[N0 / 2], acc1[N1 / 2];
+  // Both widths' products of a chunk at once (the registers allow it here).
+  conv_mainloop<float, kBM, N, kStages, N0, N1, 3, true>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1},
+                                                         m0, smem, bars, arow, 0, acc0, acc1);
+
+  int F, M, moff;
+  head_sizes(sizes, head, F, M, moff);
+  // z = acc + bias over the ring, which both warpgroups have finished with.
+  __syncthreads();
+  float* z = reinterpret_cast<float*>(smem);
+  const int t4 = tid % 4, row0 = arow + quad_row();
+  store_pairs(acc0, z + row0 * L::LDZ, L::LDZ, 0, t4, sv);
+  store_pairs(acc1, z + row0 * L::LDZ, L::LDZ, N0, t4, sv);
+  __syncwarp();  // a row's features come from the four threads of its quad
+  // Each of this thread's two rows: this slice's sum of z (zero past F) and
+  // squared deviations from its own mean over its real features.
+  const int nr = min(max(F - n0, 0), N);
+  float2 st[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* zr = z + (row0 + 8 * r) * L::LDZ + 2 * t4;
+    float sum = 0.0f;
+#pragma unroll 5
+    for (int j = 0; j < N / 8; ++j) sum += zr[8 * j] + zr[8 * j + 1];
+    st[r].x = quad_sum(sum);
+    const float ml = nr > 0 ? st[r].x / nr : 0.0f;
+    float sq = 0.0f;
+#pragma unroll 5
+    for (int j = 0; j < N / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t4;
+      const float d0 = zr[8 * j] - ml, d1 = zr[8 * j + 1] - ml;
+      if (n < F) sq = fmaf(d0, d0, sq);
+      if (n + 1 < F) sq = fmaf(d1, d1, sq);
+    }
+    st[r].y = quad_sum(sq);
+    if (t4 == 0) *reinterpret_cast<float2*>(xs + 2 * (row0 + 8 * r)) = st[r];
+  }
+  conv_tma::cluster_sync();
+  float mean[2], rstd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint32_t a = xaddr + 8 * (row0 + 8 * r);
+    const float2 m = combine_stats(
+        [&](int k) { return k == rank ? st[r] : conv_tma::ld_peer2(conv_tma::peer_addr(a, k)); }, slices, F, N);
+    mean[r] = m.x;
+    rstd[r] = m.y;
+  }
+  // GELU and this slice's part of the projection, to xs; the LN scale and
+  // bias and the projection are zero past F, the projection and b2 past M.
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const float mu = r ? mean[1] : mean[0], rs = r ? rstd[1] : rstd[0];
+    const float* zr = z + (row0 + 8 * r) * L::LDZ + 2 * t4;
+    float dot[kMaxOut] = {};
+#pragma unroll 2
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * t4 + e;
+        const float y = gelu_exact((zr[8 * j + e] - mu) * rs * sv[N + n] + sv[2 * N + n]);
+#pragma unroll
+        for (int o = 0; o < kMaxOut; ++o) dot[o] = fmaf(y, sv[(3 + o) * N + n], dot[o]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kMaxOut; ++o) dot[o] = quad_sum(dot[o]);
+    if (t4 == 0)
+      *reinterpret_cast<float4*>(xs + 2 * kBM + kMaxOut * (row0 + 8 * r)) = make_float4(dot[0], dot[1], dot[2], dot[3]);
+  }
+  conv_tma::cluster_sync();
+  if (rank == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      float mine = 0.0f;  // thread t4 keeps output channel t4, the slices' dots in rank order
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        if (t4 != o) continue;
+        const int i = 2 * kBM + kMaxOut * row + o;
+        float t = xs[i];
+        for (int k = 1; k < slices; ++k) t += conv_tma::ld_peer(conv_tma::peer_addr(xaddr + 4 * i, k));
+        mine = t + __ldg(b2 + head * kMaxOut + o);
+      }
+      const int m = m0 + row;
+      if (m < npix && t4 < M) out[out_pixel(m, H, W, pa, pb) * Mtot + moff + t4] = mine;
+    }
+  }
+  conv_tma::cluster_sync();  // no CTA leaves while rank 0 reads its dots
+}
+
+// The cluster launch of a wide kernel: `slices` CTAs a cluster along x.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int slices, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = slices;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// The 3xTF32 wide heads: checks and one cluster launch. sizes and mtot as
+// fill_sizes gives them for F <= slices N.
+template <int N>
+int launch_heads_cluster(const float* x, const float* w, const float* vec, const float* w2,
+                         const float* b2, float* out, const HeadSizes& sizes, int mtot, int heads,
+                         int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 4 || H > 32767 || W > 32767)
+    return (int)cudaErrorInvalidValue;
+  const long long npix = (long long)B * H * W;
+  const long long tiles = (npix + kBM - 1) / kBM;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = heads_cluster_smem<N>();
+  static_assert(smem <= conv_tma::kSmemLimit, "shared memory");
+  cudaError_t e = allow_smem(heads_cluster_kernel<N>, smem);
+  if (e != cudaSuccess) return (int)e;
+  ClusterLaunch launch(dim3(4 * heads * slices, (unsigned)tiles), kThreads, smem, slices, stream);
+  e = cudaLaunchKernelEx(&launch.cfg, heads_cluster_kernel<N>, x, w, vec, w2, b2, out, sizes, (int)npix, H, W,
+                         C, mtot, heads);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -497,15 +629,9 @@ int launch_heads_tma(const T* x, const T* w, const float* vec, const float* w2, 
   constexpr int kVec = 16 / (int)sizeof(T);  // channels a 16-byte copy
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec || heads <= 0 || heads > kMaxHeads)
     return (int)cudaErrorInvalidValue;
-  HeadSizes sizes{};
-  int mtot = 0;
-  for (int h = 0; h < heads; ++h) {
-    if (F[h] <= 0 || F[h] > N || M[h] <= 0 || M[h] > kMaxOut) return (int)cudaErrorInvalidValue;
-    sizes.F[h] = F[h];
-    sizes.M[h] = M[h];
-    sizes.moff[h] = mtot;
-    mtot += M[h];
-  }
+  HeadSizes sizes;
+  int mtot;
+  if (!fill_sizes(F, M, heads, N, sizes, mtot)) return (int)cudaErrorInvalidValue;
   using L = HeadsLoop<T, N>;
   constexpr int smem = heads_tma_smem<T, N>();
   static_assert(smem <= conv_tma::kSmemLimit, "shared memory");
@@ -523,17 +649,290 @@ int launch_heads_tma(const T* x, const T* w, const float* vec, const float* w2, 
   return (int)cudaGetLastError();
 }
 
-// The bf16 C entry points' body: the one-pass heads on conv_tma.cuh's loop;
-// heads wider than the tile through launch_heads' two passes.
-template <int N, bool ROUND_Y>
-int launch_heads_bf16(const bf16* x, const bf16* w, const float* vec, const float* w2,
-                      const float* b2, float* out, float* ws, int chunk, const int* F,
-                      const int* M, int heads, int slices, int B, int H, int W, int C,
-                      cudaStream_t stream) {
-  if (slices != 1)
-    return launch_heads<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads, slices, B,
-                                          H, W, C, stream);
-  return launch_heads_tma<bf16, N, ROUND_Y>(x, w, vec, w2, b2, out, F, M, heads, B, H, W, C, stream);
+// The cluster form of heads_tma_kernel (heads wider than one tile; the
+// slices and the exchange as heads_cluster_kernel's): a persistent grid of
+// clusters of `slices` CTAs, each cluster walking units (head, phase) of a
+// tile, all its CTAs the same units in the same order, CTA r the main loop
+// of its slice's B (its producer reading w's slice r) and the epilogue on
+// its accumulators. The producer warpgroup runs a unit ahead, so the
+// consumers exchange through mbarriers and never a cluster barrier: a
+// consumer thread of each quad stores its rows' partials into every peer's
+// shared memory by st.async, which completes their bytes on the peer's
+// mbarrier of that exchange (each slice's LayerNorm statistics; the dots to
+// rank 0 only), and waits on its own. A peer's partials land in slot
+// (peer - rank - 1) mod slices, so that a buffer holds slices - 1 of them.
+// The statistics are double-buffered by unit parity: a peer stores unit
+// i + 2's into the buffer of unit i only after it has received this CTA's
+// statistics of unit i + 1 from every row, which each warp sends after
+// reading unit i's. The dots need one buffer: a peer stores unit i + 1's
+// only after it has received rank 0's statistics of unit i + 1, which rank
+// 0 sends after reading unit i's dots. So no buffer is overwritten before it
+// is read and no mbarrier phase completes before every thread has waited
+// on the one before it. The cluster syncs once after the barriers are set
+// and once before any CTA leaves.
+constexpr int kXchgStat = 2 * (kMaxSlices - 1) * kBM;  // floats: (sum, squared deviations) a row by slot
+constexpr int kXchgDot = 2 * kXchgStat;                // floats: the two statistics buffers, then kMaxOut
+                                                       // dots a row by slot
+constexpr int kXchgBytes = 4 * (kXchgDot + kMaxOut * (kMaxSlices - 1) * kBM);
+
+template <typename T, int N>
+constexpr int heads_cluster_tma_smem() {
+  return heads_tma_smem<T, N>() + kXchgBytes + 8 * 3;  // the exchange, then its three mbarriers
+}
+
+template <typename T, int N, bool ROUND_Y>
+__global__ void __launch_bounds__(conv_tma::kThreads, 1)
+heads_cluster_tma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ w,
+                         const float* __restrict__ vec, const float* __restrict__ w2,
+                         const float* __restrict__ b2, float* __restrict__ out, HeadSizes sizes,
+                         conv_tma::Geo g, int heads, int Mtot) {
+  using L = HeadsLoop<T, N>;
+  constexpr int N0 = L::N0, N1 = L::N1, kV = (3 + kMaxOut) * N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int rank = conv_tma::cluster_rank(), slices = conv_tma::cluster_size();
+  const int fp = slices * N, n0 = rank * N;  // the features of a head, of this slice's first
+  const uint32_t ring = conv_tma::ring_base(smem), bars = ring + L::RING;
+  // Each head's bias, LN scale, LN bias (N each), then its projection
+  // (kMaxOut x N), this slice's.
+  float* sv = conv_tma::after_ring<L>(smem, ring);
+  for (int i = tid; i < heads * kV; i += conv_tma::kThreads) {
+    const int h = i / kV, j = i - h * kV, k = j / N, n = n0 + j - k * N;
+    sv[i] = k < 3 ? vec[(h * 3 + k) * fp + n] : w2[(h * kMaxOut + k - 3) * fp + n];
+  }
+  float* xs = sv + kMaxHeads * kV;
+  const uint32_t xaddr = static_cast<uint32_t>(__cvta_generic_to_shared(xs));
+  const uint32_t bstat = xaddr + kXchgBytes, bdot = bstat + 16;  // the statistics' two, the dots'
+  if (tid == 0) {
+    conv_gemm::mbar_init(bstat, 1);
+    conv_gemm::mbar_init(bstat + 8, 1);
+    conv_gemm::mbar_init(bdot, 1);
+  }
+  conv_tma::init_bars<L>(bars);  // its fence covers the three above
+  conv_tma::cluster_sync();      // every CTA's barriers are set before a peer stores to them
+  const int units = g.tiles * g.sets;
+  if (tid >= conv_tma::kConsumers) {
+    conv_tma::producer_regs();
+    auto taps_of = [](int set) {
+      const int phase = set % 4;
+      return Taps{4, 2, phase / 2 - 1, phase % 2 - 1};
+    };
+    if (tid == conv_tma::kConsumers) {
+      constexpr int kElems = L::B_BYTES / (int)sizeof(T);
+      conv_tma::produce<L>(&xmap, w + (long long)rank * g.sets * L::TAPS * g.chunks * kElems, g, taps_of,
+                           ring, bars, conv_tma::cluster_index(), conv_tma::cluster_count());
+    }
+  } else {
+    conv_tma::consumer_regs();
+    const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32, t4 = lane % 4;
+    const int row0 = 64 * wg + 16 * warp + lane / 4;  // the tile row of this thread's first
+    const uint32_t peer_bytes = (uint32_t)(slices - 1) * kBM * 4;  // a float a row from each peer
+    auto slot = [&](int from, int to) { return (from - to - 1 + slices) % slices; };
+    float acc0[N0 / 2], acc1[N1 / 2];
+    conv_tma::Cursor cur;
+    uint32_t it = 0;  // this CTA's units so far: the statistics' buffer it & 1, its phase it >> 1 & 1
+    for (int un = conv_tma::cluster_index(); un < units; un += conv_tma::cluster_count(), ++it) {
+      const conv_tma::Unit u = conv_tma::unit_of<8>(g, un);
+      const uint32_t buf = it & 1, sbar = bstat + 8 * buf;
+      conv_tma::consume<L>(ring, bars, g.chunks, cur, 4 * wg, 0, acc0, acc1);
+      if (tid == 0) {  // this unit's phase of each exchange: the peers' bytes
+        conv_tma::mbar_expect(sbar, 2 * peer_bytes);
+        if (rank == 0) conv_tma::mbar_expect(bdot, kMaxOut * peer_bytes);
+      }
+      const int head = u.set / 4, phase = u.set % 4, pa = phase / 2, pb = phase % 2;
+      int F, M, moff;
+      head_sizes(sizes, head, F, M, moff);
+      const float* hv = sv + head * kV;
+      // z = acc + bias; register i holds feature n0 + 8 (i / 4) + 2 t4 + i % 2
+      // of row (i / 2) % 2 (counted from the slice's first, n0).
+      float sum[2] = {0.0f, 0.0f};
+      auto add_bias = [&](auto& a, int nb) {
+#pragma unroll
+        for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+          const float2 bias = *reinterpret_cast<const float2*>(hv + nb + 8 * (i / 4) + 2 * t4);
+          a[i] += bias.x;
+          a[i + 1] += bias.y;
+          sum[(i >> 1) & 1] += a[i] + a[i + 1];
+        }
+      };
+      add_bias(acc0, 0);
+      add_bias(acc1, N0);
+      // This slice's (sum, squared deviations from its own mean over its
+      // real features) of each row, to every peer; then the statistics of
+      // all slices (combine_stats).
+      const int nr = min(max(F - n0, 0), N);
+      float2 st[2];
+      float ml[2], sq[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        st[r].x = conv_gemm::quad_sum(sum[r]);
+        ml[r] = nr > 0 ? st[r].x / nr : 0.0f;
+      }
+      auto square = [&](auto& a, int nb) {
+#pragma unroll
+        for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+          const int n = n0 + nb + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+          const float d0 = a[i] - ml[r], d1 = a[i + 1] - ml[r];
+          sq[r] = fmaf(d0, n < F ? d0 : 0.0f, sq[r]);
+          sq[r] = fmaf(d1, n + 1 < F ? d1 : 0.0f, sq[r]);
+        }
+      };
+      square(acc0, 0);
+      square(acc1, N0);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) st[r].y = conv_gemm::quad_sum(sq[r]);
+      for (int j = 0; j < slices - 1; ++j) {
+        if (t4 == j) {
+          const int peer = (rank + 1 + j) % slices;
+          const uint32_t cbar = conv_tma::peer_addr(sbar, peer);
+          const uint32_t dst = xaddr + 8 * ((buf * (kMaxSlices - 1) + slot(rank, peer)) * kBM + row0);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) conv_tma::st_peer(conv_tma::peer_addr(dst + 8 * 8 * r, peer), st[r], cbar);
+        }
+      }
+      conv_tma::mbar_wait_cluster(sbar, it >> 1 & 1);
+      float mean[2], rstd[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2* peers = reinterpret_cast<const float2*>(xs) + buf * (kMaxSlices - 1) * kBM + row0 + 8 * r;
+        const float2 m =
+            combine_stats([&](int k) { return k == rank ? st[r] : peers[slot(k, rank) * kBM]; }, slices, F, N);
+        mean[r] = m.x;
+        rstd[r] = m.y;
+      }
+      // GELU and this slice's part of the projection; the LN scale and bias
+      // and the projection are zero past F, the projection and b2 past M.
+      float dot[2][kMaxOut] = {};
+      auto project = [&](auto& a, int nb) {
+#pragma unroll
+        for (int i = 0; i < (int)(sizeof(a) / sizeof(float)); i += 2) {
+          const int n = nb + 8 * (i / 4) + 2 * t4, r = (i >> 1) & 1;
+          const float2 ga = *reinterpret_cast<const float2*>(hv + N + n);
+          const float2 be = *reinterpret_cast<const float2*>(hv + 2 * N + n);
+          float y0 = gelu_exact((a[i] - mean[r]) * rstd[r] * ga.x + be.x);
+          float y1 = gelu_exact((a[i + 1] - mean[r]) * rstd[r] * ga.y + be.y);
+          if constexpr (ROUND_Y) {
+            y0 = round_bf16(y0);
+            y1 = round_bf16(y1);
+          }
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o) {
+            const float2 p = *reinterpret_cast<const float2*>(hv + (3 + o) * N + n);
+            dot[r][o] = fmaf(y1, p.y, fmaf(y0, p.x, dot[r][o]));
+          }
+        }
+      };
+      project(acc0, 0);
+      project(acc1, N0);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int o = 0; o < kMaxOut; ++o) dot[r][o] = conv_gemm::quad_sum(dot[r][o]);
+      if (rank != 0) {  // the dots to rank 0
+        if (t4 == 0) {
+          const uint32_t cbar = conv_tma::peer_addr(bdot, 0);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            conv_tma::st_peer(
+                conv_tma::peer_addr(xaddr + 4 * (kXchgDot + kMaxOut * (slot(rank, 0) * kBM + row0 + 8 * r)), 0),
+                make_float4(dot[r][0], dot[r][1], dot[r][2], dot[r][3]), cbar);
+        }
+        continue;
+      }
+      conv_tma::mbar_wait_cluster(bdot, it & 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mine = 0.0f;  // thread t4 keeps output channel t4, the slices' dots in rank order
+#pragma unroll
+        for (int o = 0; o < kMaxOut; ++o) {
+          float t = dot[r][o];
+          for (int k = 1; k < slices; ++k) t += xs[kXchgDot + kMaxOut * (slot(k, 0) * kBM + row0 + 8 * r) + o];
+          if (t4 == o) mine = t + __ldg(b2 + head * kMaxOut + o);
+        }
+        const int row = row0 + 8 * r;
+        const int h = u.h0 + row / conv_tma::kBW, x = u.w0 + row % conv_tma::kBW;
+        if (u.b < g.B && h < g.H && x < g.W && t4 < M)
+          out[(((long long)u.b * 2 * g.H + 2 * h + pa) * 2 * g.W + 2 * x + pb) * Mtot + moff + t4] =
+              mine;
+      }
+    }
+  }
+  __syncwarp();
+  conv_tma::cluster_sync();  // no CTA leaves while a peer may still store to it
+}
+
+// The TMA-fed wide heads: checks and one launch of a persistent grid of
+// clusters. sizes and mtot as fill_sizes gives them for F <= slices N.
+template <typename T, int N, bool ROUND_Y>
+int launch_heads_cluster_tma(const T* x, const T* w, const float* vec, const float* w2,
+                             const float* b2, float* out, const HeadSizes& sizes, int mtot, int heads,
+                             int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  constexpr int kVec = 16 / (int)sizeof(T);  // channels a 16-byte copy
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % kVec) return (int)cudaErrorInvalidValue;
+  using L = HeadsLoop<T, N>;
+  constexpr int smem = heads_cluster_tma_smem<T, N>();
+  static_assert(smem <= conv_tma::kSmemLimit, "shared memory");
+  const conv_tma::Geo g = conv_tma::make_geo(B, H, W, C, L::BH, 4 * heads, L::KC);
+  if ((long long)g.tiles * g.sets >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = conv_tma::make_map<L>(&map, x, B, H, W, C);
+  if (e != cudaSuccess) return (int)e;
+  ClusterLaunch launch(dim3(slices), conv_tma::kThreads, smem, slices, stream);
+  int clusters = 0;
+  e = conv_tma::persistent_clusters<heads_cluster_tma_kernel<T, N, ROUND_Y>>(
+      launch.cfg, slices, (long long)g.tiles * g.sets, &clusters);
+  if (e != cudaSuccess) return (int)e;
+  launch.cfg.gridDim = dim3(clusters * slices);
+  e = cudaLaunchKernelEx(&launch.cfg, heads_cluster_tma_kernel<T, N, ROUND_Y>, map, w, vec, w2, b2, out,
+                         sizes, g, heads, mtot);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The width of each slice for heads whose widest has F = fmax, in a library
+// of tile width n and narrower slice ns: n where one tile holds them;
+// else ns where ceil(fmax / n) slices of ns hold them (the base widths),
+// else n.
+inline int slice_width(int fmax, int ns, int n) {
+  if (fmax <= n) return n;
+  return (fmax + n - 1) / n * ns >= fmax ? ns : n;
+}
+
+// The C entry points' body, operands of type T (f32: PASSES TF32 products
+// a product, 3 or 1; bf16): one launch. w packed for `slices` slices of
+// slice_width(max F, NS, N) features (the wrapper asks the library for
+// it); one slice, a tile of N: heads_kernel (3xTF32) or heads_tma_kernel;
+// more: their cluster forms at that width.
+template <typename T, int N, int NS, bool ROUND_Y, int PASSES>
+int launch_entry(const T* x, const T* w, const float* vec, const float* w2, const float* b2, float* out,
+                 const int* F, const int* M, int heads, int slices, int B, int H, int W, int C,
+                 cudaStream_t stream) {
+  constexpr bool kCpAsync = std::is_same<T, float>::value && PASSES == 3;  // conv_gemm.cuh's loop
+  if (heads <= 0 || heads > kMaxHeads || slices <= 0 || slices > kMaxSlices) return (int)cudaErrorInvalidValue;
+  int fmax = 0;
+  for (int h = 0; h < heads; ++h) fmax = std::max(fmax, F[h]);
+  const int width = slice_width(fmax, NS, N);
+  if (fmax <= 0 || slices != (fmax + width - 1) / width) return (int)cudaErrorInvalidValue;
+  if (slices == 1) {
+    if constexpr (kCpAsync)
+      return launch_heads<float, N, false>(x, w, vec, w2, b2, out, F, M, heads, B, H, W, C, stream);
+    else
+      return launch_heads_tma<T, N, ROUND_Y>(x, w, vec, w2, b2, out, F, M, heads, B, H, W, C, stream);
+  }
+  HeadSizes sizes;
+  int mtot;
+  if (!fill_sizes(F, M, heads, slices * width, sizes, mtot)) return (int)cudaErrorInvalidValue;
+  if constexpr (kCpAsync) {
+    if (width == NS)
+      return launch_heads_cluster<NS>(x, w, vec, w2, b2, out, sizes, mtot, heads, slices, B, H, W, C, stream);
+    return launch_heads_cluster<N>(x, w, vec, w2, b2, out, sizes, mtot, heads, slices, B, H, W, C, stream);
+  } else {
+    if (width == NS)
+      return launch_heads_cluster_tma<T, NS, ROUND_Y>(x, w, vec, w2, b2, out, sizes, mtot, heads, slices, B, H,
+                                                      W, C, stream);
+    return launch_heads_cluster_tma<T, N, ROUND_Y>(x, w, vec, w2, b2, out, sizes, mtot, heads, slices, B, H, W,
+                                                   C, stream);
+  }
 }
 
 }  // namespace fpn_head

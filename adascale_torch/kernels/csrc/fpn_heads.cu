@@ -10,9 +10,9 @@
 // into one 384-wide operand to fill its 128-wide matrix unit and wrote four
 // phase maps that XLA interleaved; here each block owns one head's 192
 // features (its LayerNorm stays inside the block) and the kernel writes the
-// interleaved map itself. Wider heads (base 256, large 384) go through the
-// two-pass split of fpn_head.cuh. The height head's softplus runs outside,
-// in f32.
+// interleaved map itself. Wider heads (base 256, large 384) run as slices
+// of one thread-block cluster a pixel tile (fpn_head.cuh, below). The
+// height head's softplus runs outside, in f32.
 //
 // What bounds it: 4 phases x 4 taps x C x 2F x 2 flops per low-resolution
 // pixel, 4.72 MFLOP at the flagship's C = 384, F = 192; at 240x192 that is
@@ -36,57 +36,70 @@
 // H100 (PERF.md). What bounds it now is the bytes a multiprocessor takes
 // in: at 240x192 the 2880 units (360 tiles x 8 (head, phase)) take in 4.1
 // GB, B 1.18 MB and A 0.24 MB a unit, ~0.62 ms at ~28 bytes a cycle an SM,
-// above the products' 0.44 ms. Wider heads keep the cp.async loop
-// (launch_heads, two passes).
+// above the products' 0.44 ms.
+//
+// Wider heads (F > 192: the base backbone's 256, the large one's 384) run
+// in one launch as the cluster forms of the same kernels
+// (heads_cluster_tma_kernel for bf16 and TF32, heads_cluster_kernel for
+// 3xTF32): the 2 slices of a (head, phase, tile), 128 features each at
+// base (no padding; wgmma widths 64 + 64) and 192 at large, are the 2 CTAs
+// of one cluster, whose LayerNorm sums and projection cross the cluster
+// through distributed shared memory. Each CTA takes in the tile's halo box
+// and its slice's B: at base on page_0's 240x192 level 0, 3.9 GB in bf16
+// and 7.8 GB in TF32 against products of 0.39 and 0.78 ms; at large 8.2 and
+// 16.3 GB against 0.88 and 1.76 ms, so the bytes bound it (PERF.md's row 2w
+// has the times). The cluster replaced a two-pass split (pre-LN sums of every
+// slice through an f32 workspace, then a second kernel for the LayerNorm)
+// on conv_gemm.cuh's cp.async loop.
 
 #include "fpn_head.cuh"
 
 namespace {
-constexpr int kN = 192;  // head width a block: wgmma widths 96 + 96
+constexpr int kN = 192;   // head width a block: wgmma widths 96 + 96
+constexpr int kNS = 128;  // the narrower slice of wider heads: wgmma widths 64 + 64
 }
 
-// The fused tile's width, and the widest head (kMaxSlices tiles).
+// The fused tile's width, the widest head (kMaxSlices tiles), and the width
+// of each slice for heads whose widest has F = fmax: the tile where it
+// holds them; else ceil(fmax / tile) slices of 128 where they hold them
+// (the base backbone's), or of the tile (fpn_head::slice_width).
 extern "C" int fpn_heads_tile_width() { return kN; }
 extern "C" int fpn_heads_max_width() { return fpn_head::kMaxSlices * kN; }
+extern "C" int fpn_heads_slice_width(int fmax) { return fpn_head::slice_width(fmax, kNS, kN); }
 
 // x (B, H, W, C) and out (B, 2H, 2W, sum M) f32 contiguous; the packed
-// weights as fpn_head::heads_kernel takes them with N = fpn_heads_tile_width(),
-// per slice; where slices > 1, ws is scratch of heads x 4 x chunk x slices N
-// floats, the two passes taking `chunk` pixels (a multiple of 128) at a
-// time (else ws may be null and chunk is unused). Returns
-// cudaGetLastError() after the launches (0 on success).
+// weights for `slices` slices of fpn_heads_slice_width(max F) features, as
+// fpn_head::heads_kernel takes them per slice (slice-major); F and M the
+// heads' sizes. One launch: with one slice fpn_head::heads_kernel, with
+// more its cluster form, heads_cluster_kernel. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int fpn_heads_f32(const float* x, const float* w, const float* vec, const float* w2,
-                             const float* b2, float* out, float* ws, int chunk, const int* F,
-                             const int* M, int heads, int slices, int B, int H, int W, int C,
-                             cudaStream_t stream) {
-  return fpn_head::launch_heads<float, kN, false>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads,
-                                                  slices, B, H, W, C, stream);
+                             const float* b2, float* out, const int* F, const int* M, int heads,
+                             int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  return fpn_head::launch_entry<float, kN, kNS, false, 3>(x, w, vec, w2, b2, out, F, M, heads, slices,
+                                                          B, H, W, C, stream);
 }
 
 // As fpn_heads_f32, the products as one TF32 product a product
-// (matmul_precision "default" / "high"): x rounded to TF32 in registers.
-// One slice: fpn_head.cuh's heads_tma_kernel on f32 operands, w as it
-// takes them (packing.pack_sw128_tf32: (heads, 4 phases, 4 taps, ceil(C/32)
-// chunks, N/8, 8 rows, 128 bytes of K in the 128-byte swizzle), rounded to
-// TF32); wider heads: launch_heads at one pass, w as fpn_heads_f32's (only
-// the hi part read).
+// (matmul_precision "default" / "high"): fpn_head.cuh's heads_tma_kernel
+// on f32 operands (x rounded to TF32 in registers), or with more than one
+// slice its cluster form, heads_cluster_tma_kernel; w as it takes them
+// (packing.pack_sw128_tf32, per slice: (heads, 4 phases, 4 taps,
+// ceil(C/32) chunks, N/8, 8 rows, 128 bytes of K in the 128-byte swizzle),
+// rounded to TF32).
 extern "C" int fpn_heads_tf32(const float* x, const float* w, const float* vec, const float* w2,
-                              const float* b2, float* out, float* ws, int chunk, const int* F,
-                              const int* M, int heads, int slices, int B, int H, int W, int C,
-                              cudaStream_t stream) {
-  if (slices != 1)
-    return fpn_head::launch_heads<float, kN, false, 1>(x, w, vec, w2, b2, out, ws, chunk, F, M,
-                                                       heads, slices, B, H, W, C, stream);
-  return fpn_head::launch_heads_tma<float, kN, false>(x, w, vec, w2, b2, out, F, M, heads, B, H, W,
-                                                      C, stream);
+                              const float* b2, float* out, const int* F, const int* M, int heads,
+                              int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  return fpn_head::launch_entry<float, kN, kNS, false, 1>(x, w, vec, w2, b2, out, F, M, heads, slices,
+                                                          B, H, W, C, stream);
 }
 
-// As fpn_heads_f32 with x and w in bf16 (C % 8 == 0); with one slice, w
-// as fpn_head::heads_tma_kernel takes it (packing.pack_sw128's chunks).
+// As fpn_heads_f32 with x and w in bf16 (C % 8 == 0), w as
+// fpn_head::heads_tma_kernel takes it (packing.pack_sw128's chunks, per
+// slice).
 extern "C" int fpn_heads_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* vec,
-                              const float* w2, const float* b2, float* out, float* ws, int chunk,
-                              const int* F, const int* M, int heads, int slices, int B, int H,
-                              int W, int C, cudaStream_t stream) {
-  return fpn_head::launch_heads_bf16<kN, false>(x, w, vec, w2, b2, out, ws, chunk, F, M, heads,
-                                                slices, B, H, W, C, stream);
+                              const float* w2, const float* b2, float* out, const int* F, const int* M,
+                              int heads, int slices, int B, int H, int W, int C, cudaStream_t stream) {
+  return fpn_head::launch_entry<__nv_bfloat16, kN, kNS, false, 1>(x, w, vec, w2, b2, out, F, M, heads,
+                                                                slices, B, H, W, C, stream);
 }

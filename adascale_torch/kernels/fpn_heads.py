@@ -35,9 +35,13 @@ the tile, the bf16 entry's persistent TMA-fed loop on f32 operands (``x``
 rounded to TF32 in registers, the taps rounded and packed by
 ``packing.pack_sw128_tf32``), as the precise heads' TF32 entry; its plain
 twin is ``heads_phase_form(..., tf32=True)``. Heads wider than the kernel's
-tile (192 features; the base and large backbones' 256 and 384) run split
-into slices of the tile (``csrc/fpn_head.cuh``), the TF32 entry there on
-the cp.async loop at one pass, only the packed taps' hi part read.
+tile (192 features; the base and large backbones' 256 and 384) run in one
+launch as the cluster forms of the same kernels (``csrc/fpn_head.cuh``):
+the features split into ``slices`` slices (the library's
+``fpn_heads_slice_width``: 128 at base, 192 at large), each pixel tile's
+slices the CTAs of one thread-block cluster, which share the LayerNorm's
+sums and the projection through distributed shared memory; the taps are
+packed slice by slice in the one-tile layout of the entry.
 
 Each head's ``p`` holds the port's ``FpnHead.state_dict()`` names:
 ``step1.conv.weight`` (F, C, 3, 3), ``step1.conv.bias``, ``step1.ln.weight``,
@@ -68,12 +72,6 @@ LAUNCHES_TF32 = 0
 
 MAX_HEADS = 4
 MAX_OUT = 4
-# Heads wider than the tile run in two passes through an f32 workspace of
-# their pre-LN sums, a chunk of pixels at a time (csrc/fpn_head.cuh): the
-# chunk is the most pixels, in tiles of TILE_ROWS, whose sums fit in
-# WIDE_WORKSPACE_BYTES, so the workspace does not grow with the batch.
-WIDE_WORKSPACE_BYTES = 1 << 29
-TILE_ROWS = 128
 PARAM_NAMES = (
     "step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias",
     "step2.weight", "step2.bias",
@@ -84,13 +82,12 @@ Params = Dict[str, torch.Tensor]
 
 def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     """Declare the C signatures of a heads library (``<prefix>_f32``,
-    ``<prefix>_tf32``, ``<prefix>_bf16``, ``<prefix>_tile_width`` and
-    ``<prefix>_max_width``)."""
+    ``<prefix>_tf32``, ``<prefix>_bf16``, ``<prefix>_tile_width``,
+    ``<prefix>_max_width`` and ``<prefix>_slice_width``)."""
     for dtype in ("f32", "tf32", "bf16"):
         fn = getattr(lib, f"{prefix}_{dtype}")
         fn.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int]
+            [ctypes.c_void_p] * 6
             + [ctypes.POINTER(ctypes.c_int)] * 2
             + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
@@ -100,6 +97,9 @@ def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
         width = getattr(lib, f"{prefix}_{name}")
         width.argtypes = []
         width.restype = ctypes.c_int
+    slice_width = getattr(lib, f"{prefix}_slice_width")
+    slice_width.argtypes = [ctypes.c_int]
+    slice_width.restype = ctypes.c_int
     return lib
 
 
@@ -113,26 +113,26 @@ def pack_heads(
     round_w2: bool = False, tf32_sw128: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The heads' parameters in the kernel's layouts (``csrc/fpn_head.cuh``)
-    for ``slices`` tiles of ``n`` features and ``dtype`` operands, zero past
-    each head's F and M and past C (fp = slices n):
+    for ``slices`` slices of ``n`` features and ``dtype`` operands, zero
+    past each head's F and M and past C (fp = slices n):
 
-    - ``w`` (heads, slices, 4 phases, 4 taps, ceil(C/32) chunks, ...): the
-      collapsed taps of each slice, for f32 ``packing.pack_kmajor``'s TF32
-      ``hi`` and ``lo`` of each 32-channel chunk (2, n/8, 8, 8, 4), for bf16
-      ``packing.pack_kmajor_bf16``'s one bf16 tile (n/8, 4, 8, 8), in wgmma's
-      K-major core-matrix order; one slice (its axis dropped) is the
-      one-pass kernel's layout, which in bf16 is ``packing.pack_sw128``'s
-      instead: (heads, 4 phases, 4 taps, ceil(C/64) chunks, n/8, 8, 8, 8),
-      and with ``tf32_sw128`` (f32, one slice: the single-pass TF32 entries
-      on the TMA-fed loop) ``packing.pack_sw128_tf32``'s: (heads, 4 phases, 4
-      taps, ceil(C/32) chunks, n/8, 8, 8, 4), rounded to TF32;
+    - ``w`` (slices, heads, 4 phases, 4 taps, chunks, ...): the collapsed
+      taps of each slice in the one-tile layout of the entry (a slice's
+      part is what one tile of its features packs to; one slice drops the
+      axis): for f32 (the 3xTF32 entry, ``heads_kernel`` and its cluster
+      form) ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` of each
+      32-channel chunk (2, n/8, 8, 8, 4) in wgmma's K-major core-matrix
+      order; for bf16 (``heads_tma_kernel`` and its cluster form)
+      ``packing.pack_sw128``'s 64-channel chunks (n/8, 8, 8, 8) in the
+      128-byte swizzle; with ``tf32_sw128`` (f32: the single-pass TF32
+      entries, on the same TMA-fed kernels) ``packing.pack_sw128_tf32``'s
+      32-channel chunks (n/8, 8, 8, 4), rounded to TF32;
     - ``vec`` (heads, 3, fp): smoothing bias, LN scale, LN bias;
     - ``w2`` (heads, MAX_OUT, fp), rounded to bf16 values where ``round_w2``
       (the precise heads in bf16), and ``b2`` (heads, MAX_OUT)."""
     ref = heads[0]["step1.conv.weight"]
     c, nh = ref.shape[1], len(heads)
-    one_pass = slices == 1
-    kc = packing.KC_TMA if one_pass and dtype == torch.bfloat16 else KC
+    kc = packing.KC_TMA if dtype == torch.bfloat16 else KC
     chunks = -(-c // kc)
     fp = slices * n
     if n % 8:
@@ -154,9 +154,9 @@ def pack_heads(
             b2[k, :m] = p["step2.bias"]
         if round_w2:
             w2 = w2.to(torch.bfloat16).float()
-        w = packing.pack_for(packing.split_slices(taps, slices, 1), dtype, one_pass, tf32_sw128)
-        if one_pass:
-            w = w.squeeze(1)
+        w = packing.pack_for(packing.split_slices(taps, slices, 0), dtype, True, tf32_sw128)
+        if slices == 1:
+            w = w.squeeze(0)
     return {"w": w, "vec": vec, "w2": w2, "b2": b2}
 
 
@@ -174,15 +174,6 @@ def packed_heads(
     )
 
 
-def wide_chunk_pixels(heads: int, fp: int, npix: int) -> int:
-    """Pixels a pass of the wide heads takes at a time: the most tiles of
-    ``TILE_ROWS`` whose ``heads`` x 4 phases x ``fp`` f32 sums fit in
-    ``WIDE_WORKSPACE_BYTES`` (at least one tile), and no more than ``npix``
-    needs."""
-    fit = max(1, WIDE_WORKSPACE_BYTES // (heads * 4 * fp * 4 * TILE_ROWS))
-    return TILE_ROWS * min(fit, -(-npix // TILE_ROWS))
-
-
 def run_heads_kernel(
     build: Callable[[], ctypes.CDLL],
     prefix: str,
@@ -195,8 +186,10 @@ def run_heads_kernel(
     """Check, pack (once per parameter set) and launch a heads library on a
     CUDA tensor, f32 or bf16 (``round_y`` for the precise heads), an f32
     ``x`` through the single-pass TF32 entry where ``tf32`` (its taps in
-    ``packing.pack_sw128_tf32``'s layout where the heads fit one tile: the
-    entry runs the TMA-fed loop there). Returns each
+    ``packing.pack_sw128_tf32``'s layout: the entry runs the TMA-fed loop).
+    Heads wider than the tile run in ``slices`` slices of the width the
+    library gives (``<prefix>_slice_width``), one cluster of CTAs a pixel
+    tile, in the same launch. Returns each
     head's (B, 2H, 2W, M) f32 output, a view into one packed map. Raises
     where a gradient is wanted (``_nvcc.refuse_grad``, naming ``wrapper``)."""
     _nvcc.check_activation(f"{prefix} x", x, x.device, tuple(_nvcc.CHANNEL_MULTIPLE))
@@ -223,30 +216,25 @@ def run_heads_kernel(
         widths.append(f)
         outs.append(m)
     _nvcc.refuse_grad(wrapper, x, *(p[name] for p in heads for name in PARAM_NAMES))
-    tile = getattr(lib, f"{prefix}_tile_width")()
-    slices = -(-max(widths) // tile)
+    width = getattr(lib, f"{prefix}_slice_width")(max(widths))
+    slices = -(-max(widths) // width)
     bf16 = x.dtype == torch.bfloat16
-    swizzled = tf32 and not bf16 and slices == 1
-    packed = packed_heads(heads, tile, slices, x.dtype, round_w2=bf16 and round_y, tf32_sw128=swizzled)
+    packed = packed_heads(heads, width, slices, x.dtype, round_w2=bf16 and round_y, tf32_sw128=tf32 and not bf16)
     nh = len(heads)
     out = torch.empty(b, 2 * h, 2 * w, sum(outs), dtype=torch.float32, device=x.device)
-    chunk = wide_chunk_pixels(nh, slices * tile, b * h * w) if slices > 1 else 0
-    ws = (
-        torch.empty(nh * 4 * chunk * slices * tile, dtype=torch.float32, device=x.device)
-        if slices > 1 else None
-    )
     f_arr = (ctypes.c_int * nh)(*widths)
     m_arr = (ctypes.c_int * nh)(*outs)
     entry = f"{prefix}_{'bf16' if bf16 else 'tf32' if tf32 else 'f32'}"
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), packed["w"].data_ptr(), packed["vec"].data_ptr(), packed["w2"].data_ptr(),
-            packed["b2"].data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(), chunk,
-            f_arr, m_arr, nh, slices, b, h, w, c, torch.cuda.current_stream().cuda_stream,
+            packed["b2"].data_ptr(), out.data_ptr(), f_arr, m_arr, nh, slices, b, h, w, c,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         # 1 (invalid value): a shape the kernel does not take, such as more
-        # than 65535 tiles of 128 pixels or a side over 32767.
+        # than 65535 tiles of 128 pixels or a side over 32767 (the 3xTF32
+        # entry).
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return list(out.split(outs, dim=-1))
 

@@ -4,15 +4,15 @@ and the cache that packs them once per parameter set.
 ``pack_kmajor(taps)`` lays a (..., K, n) weight operand out as the kernels'
 f32 B: per 32-deep K chunk a TF32 ``hi`` and ``lo = tf32(w - hi)``, each in
 wgmma's no-swizzle K-major core-matrix order; ``pack_kmajor_bf16(taps)`` as
-the bf16 B of the wide (sliced) neck and heads, one bf16 tile a chunk in the
+the bf16 B of the wide (sliced) neck, one bf16 tile a chunk in the
 same order (8 bf16 a core-matrix row, K in its natural order);
-``pack_sw128(taps)`` as the bf16 B of their one-pass kernels
-(``csrc/conv_tma.cuh``), per 64-deep chunk n rows of 128 bytes in the
-128-byte swizzle, and ``pack_sw128_tf32(taps)`` as the f32 B of their
-single-pass TF32 entries on that loop, per 32-deep chunk, rounded to
-TF32. ``split_slices(taps, slices)`` cuts the output
-features into the slices a wide kernel launches one block each for, before
-packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
+``pack_sw128(taps)`` as the bf16 B of the kernels on the TMA-fed loop
+(``csrc/conv_tma.cuh``: the one-pass neck and all heads), per 64-deep chunk
+n rows of 128 bytes in the 128-byte swizzle, and ``pack_sw128_tf32(taps)``
+as the f32 B of their single-pass TF32 entries on that loop, per 32-deep
+chunk, rounded to TF32. ``split_slices(taps, slices)`` cuts the output
+features into the slices a wide kernel gives one block each (the wide
+heads: one CTA of a cluster each), before packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
 for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and
 ``pack_block_bf16(w1, w2)`` packs that block's two projections in the form
 its kernel takes for their width; ``pack_block_tf32(w1, w2)`` does the same,
@@ -248,16 +248,18 @@ def pack_block_tf32(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tenso
 
 
 def pack_for(
-    taps: torch.Tensor, dtype: torch.dtype, one_pass: bool = False, tf32_sw128: bool = False
+    taps: torch.Tensor, dtype: torch.dtype, tma: bool = False, tf32_sw128: bool = False
 ) -> torch.Tensor:
-    """``pack_kmajor`` (f32; ``pack_sw128_tf32`` for a one-pass kernel's
-    single-pass TF32 entry on the TMA-fed loop, ``tf32_sw128``), or for bf16
-    ``pack_sw128`` (the one-pass kernels; K padded to 64) or
-    ``pack_kmajor_bf16`` (the sliced ones), by the kernel's operand type."""
+    """``pack_kmajor`` (f32; ``pack_sw128_tf32`` for a single-pass TF32
+    entry on the TMA-fed loop, ``tma`` and ``tf32_sw128``), or for bf16
+    ``pack_sw128`` (the kernels on the TMA-fed loop, ``tma``: the one-pass
+    neck steps and every heads kernel; K padded to 64) or
+    ``pack_kmajor_bf16`` (the wide neck's, on ``conv_gemm.cuh``), by the
+    kernel's operand type and loop."""
     if dtype == torch.bfloat16:
-        return pack_sw128(taps) if one_pass else pack_kmajor_bf16(taps)
+        return pack_sw128(taps) if tma else pack_kmajor_bf16(taps)
     if dtype == torch.float32:
-        return pack_sw128_tf32(taps) if one_pass and tf32_sw128 else pack_kmajor(taps)
+        return pack_sw128_tf32(taps) if tma and tf32_sw128 else pack_kmajor(taps)
     raise ValueError(f"no packed layout for {dtype}")
 
 

@@ -16,14 +16,17 @@ three TF32 products each, 3.07 ms on an H100 SXM (495 TFLOP/s dense TF32,
 GELU output and projection rounded to bf16 before the projection, as the
 Pallas kernel's compute-dtype projection; 0.51 ms at 989 TFLOP/s; on the
 TMA-fed loop of ``csrc/conv_tma.cuh``, ``fpn_head.cuh::heads_tma_kernel``); heads
-wider than the 200-wide tile (base 256-258, large 384-386) run split into
-slices of it. Inside a ``utils.precision.matmul_precision("default")`` or
-``("high")`` scope an f32 ``x`` on the card launches the single-pass entry
+wider than the 200-wide tile (base 256-258, large 384-386) run in one launch
+as the kernels' cluster forms, in two slices of 136 (base) or 200 (large)
+features, each pixel tile's slices on one thread-block cluster
+(``fpn_heads.run_heads_kernel``). Inside a
+``utils.precision.matmul_precision("default")`` or ``("high")`` scope an
+f32 ``x`` on the card launches the single-pass entry
 ``precise_heads_tf32`` (1.02 ms at 495 TFLOP/s; counted in
-``LAUNCHES_TF32``): where the heads fit the tile, the bf16 entry's
-persistent TMA-fed loop on f32 operands (x rounded to TF32 in registers,
-the taps rounded and packed by ``packing.pack_sw128_tf32``), as the rough
-heads' TF32 entry; wider heads on the cp.async loop at one pass. Its plain twin is
+``LAUNCHES_TF32``): the bf16 entry's persistent TMA-fed loop on f32
+operands (x rounded to TF32 in registers, the taps rounded and packed by
+``packing.pack_sw128_tf32``), as the rough heads' TF32 entry, wider heads
+on its cluster form. Its plain twin is
 ``fused_precise_heads_plain(..., tf32=True)``.
 """
 from __future__ import annotations

@@ -219,13 +219,24 @@ that reads it. Phases, each announced with its elapsed seconds:
      within MANY_POINT_TOL); adascale_torch.tools.bf16_drift's numbers for
      the flagship on page_0 in the fused configuration;
  widths. the neck and both heads kernels at the base and large backbones'
-     widths (neck 512 / 768 -> 128 / 192, heads 256-258 / 384-386, split
-     into slices of the kernels' tiles) on random weights against their
-     plain twins, f32 at REL_TOL and bf16 at BF16_TOL, and both heads at
-     the base widths at a tiled group's batch (WIDTH_GROUP: their
-     workspace in several chunks of pixels); a fused detect() of a
-     random-init base model on page_0, f32 and bf16, runs to the end with
-     the neck and heads kernels launched;
+     widths (neck 512 / 768 -> 128 / 192, heads 256-258 / 384-386, wider
+     than the kernels' tiles: the neck split into slices, the heads in
+     slices on one thread-block cluster a pixel tile) on random weights
+     against their plain twins in all three precisions (f32 at REL_TOL;
+     the single-pass TF32 entries inside matmul_precision("default")
+     against their TF32 twins at TF32_TWIN_TOL, the neck stage by stage;
+     bf16 at BF16_TOL), and both heads at the base widths at a tiled
+     group's batch (WIDTH_GROUP); both heads at the base and large widths
+     at the page shapes (WIDTH_PAGE_HW), timed with their bounds and the
+     trace's kernel names (one cluster kernel launch a call, no two-pass
+     kernel); each heads kernel at the base widths at B = 4 bit for bit
+     against each image alone (TF32 and bf16); fused detect()s of a
+     random-init base model on page_0 (f32, "default" and bf16) and of a
+     random-init large model (bf16) run to the end with the neck and
+     heads kernels launched; the kernels line carries the wide heads'
+     rows (<name>_wide[_tf32|_bf16], the base widths at the page shape);
+     the page shapes run in a fresh interpreter (WIDTH_PAGE_SCRIPT), whose
+     torch.profiler keeps its traces;
  tf32. matmul_precision "default" / "high" (one TF32 pass a product): each
      f32 kernel's single-pass TF32 entry (inside
      ``utils.precision.matmul_precision("default")``) at the flagship's
@@ -454,14 +465,23 @@ MANY_BF16_POLYGON_BAR = 0.99
 BF16_FORWARD_TOL = 3e-2
 # Widths phase: the base and large backbones' neck and head widths (C0, the
 # neck's Cm = backbone group[-2], Co = Cm / 4, heads' F = (Cm + M) // 2), on
-# random weights at B = 2 and a 64x48 level 0; the fused detect() of a
-# random-init base model on page_0.
+# random weights at B = 2 and a 64x48 level 0; the fused detect()s of
+# random-init base and large models on page_0.
 WIDTH_PRESETS = {"base": (128, 512), "large": (192, 768)}
 WIDTH_BATCH, WIDTH_HW = 2, (64, 48)
 # The heads of the base widths again at a tiled group's batch (8 tiles of
-# 768, a 192x192 level 0), where the wide heads' workspace takes several
-# chunks of pixels (kernels/fpn_heads.py::wide_chunk_pixels).
+# 768, a 192x192 level 0).
 WIDTH_GROUP = ("base", 8, (192, 192))
+# The wide heads at the page shapes, B = 1 (page_0's rough level 0, and a
+# precise stack of 1024x832), timed in each precision; and at B = 4 on a
+# ragged map, bit for bit against each image alone.
+WIDTH_PAGE_HW = {"fpn_heads": (240, 192), "precise_heads": (256, 208)}
+WIDTH_INVARIANCE = (4, (60, 44))
+# The wide heads' kernels (one launch a call: a pixel tile's feature slices
+# on one thread-block cluster), and the two-pass design's, which they
+# replaced and which must not run.
+WIDE_HEADS_KERNELS = ("heads_cluster_tma_kernel", "heads_cluster_kernel")
+STALE_WIDE_KERNELS = ("heads_sums_kernel", "heads_ln_kernel")
 
 
 # Empty torch.profiler traces taken again (kernel_device_ms), by the phase
@@ -655,15 +675,16 @@ def check_kernel(label: str, kernel, plain, args, exact_args, work, reps: int = 
             "rel64": rel64}
 
 
-def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int = 6):
+def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int = 6, match: str = ""):
     """Device ms per call of each kernel that ``fn`` runs on the card, by its
     name in a torch.profiler trace of ``reps`` warm calls. The profiler
     loses launches now and then (a run of every phase lost about half of
     phase bf16's; a trace may keep none), and this reads a trace as
     ``tools/kernel_ms.py`` does: ``once_a_call``, each kernel launches once
     a call, so its mean launch is its ms a call, which a partial loss does
-    not bias; a trace that kept no launch is taken again, up to ``tries``
-    times (each counted in TRACE_RETRIES under the running phase). A kernel whose launches in the trace are not a whole multiple
+    not bias; a trace that kept no launch (none whose name holds ``match``,
+    where given) is taken again, up to ``tries`` times (each counted in
+    TRACE_RETRIES under the running phase). A kernel whose launches in the trace are not a whole multiple
     of ``reps`` is printed, so that every loss shows."""
     import torch
     from torch.autograd import DeviceType
@@ -678,7 +699,7 @@ def kernel_device_ms(fn, reps: int = 10, once_a_call: bool = False, tries: int =
             torch.cuda.synchronize()
         # Host-side entries carry their kernels' time too: device ones only.
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if events:
+        if any(match in e.key for e in events):
             break
         TRACE_RETRIES[PHASE[0]] = TRACE_RETRIES.get(PHASE[0], 0) + 1
         print(f"torch.profiler kept no launch of {reps} calls; tracing again", flush=True)
@@ -2629,15 +2650,13 @@ def check_bf16(params, image, gen, device) -> tuple:
     return rows, by_path, fused
 
 
-def widths_bound_ms(name: str, b: int, h: int, w: int, c0: int, cm: int, co: int, heads, dtype):
+def widths_bound_ms(name: str, b: int, h: int, w: int, c0: int, cm: int, co: int, heads, precision: str):
     """(bound ms, what bounds it) of a neck or heads call of phase widths:
     the operations at the kernel's rate (f32: three TF32 products a product
-    at the dense TF32 peak; bf16: the dense bf16 peak) against the bytes
-    (each input read once, each output written once, activations and
-    weights in the kernel's operand type, the vectors and the heads' f32
-    maps) at the memory rate, as phases 3b and bf16 count them."""
-    import torch
-
+    at the dense TF32 peak; "tf32": one; bf16: the dense bf16 peak) against
+    the bytes (each input read once, each output written once, activations
+    and weights in the kernel's operand type, the vectors and the heads'
+    f32 maps) at the memory rate, as phases 3b and bf16 count them."""
     npix = b * h * w
     if name == "fpn_neck_l0":
         flops, f32_bytes = neck_work(b, h, w, c0, cm, co)
@@ -2647,99 +2666,253 @@ def widths_bound_ms(name: str, b: int, h: int, w: int, c0: int, cm: int, co: int
         fsum = sum(p["step1.conv.weight"].shape[0] for p in heads)
         outs = sum(p["step2.weight"].shape[0] for p in heads)
         bf16_bytes = 2 * (npix * cm + 16 * cm * fsum) + 4 * (4 * npix * outs)
-    if dtype == torch.bfloat16:
+    if precision == "bf16":
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, bf16_bytes / PEAK_BYTES * 1e3
     else:
-        t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS * 1e3, f32_bytes / PEAK_BYTES * 1e3
+        passes = 3 if precision == "f32" else 1
+        t_ops, t_bytes = passes * flops / PEAK_TF32_FLOPS * 1e3, f32_bytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def widths_call(kernel, precision: str):
+    """``kernel`` as phase widths calls it in ``precision``: f32 at
+    "highest", "tf32" inside ``matmul_precision("default")`` (the
+    single-pass TF32 entries), bf16 on bf16 inputs (the caller's)."""
+    from adascale_torch.utils.precision import matmul_precision
+
+    if precision != "tf32":
+        return kernel
+
+    def call(*a):
+        with matmul_precision("default"):
+            return kernel(*a)
+
+    return call
+
+
+def check_width_case(label: str, name: str, kernel, plain, a, precision: str, bound) -> dict:
+    """One kernel call of phase widths against its plain twin in
+    ``precision`` (f32 at REL_TOL; "tf32" against the TF32 twin at
+    TF32_TWIN_TOL, the neck stage by stage on its own t as phase tf32 holds
+    it; bf16 at BF16_TOL), launched once, counted under its entry's name;
+    prints and returns the error and the kernel, plain and bound ms."""
+    import torch
+
+    call = widths_call(kernel, precision)
+    twin = (lambda *v: plain(*v, tf32=True)) if precision == "tf32" else plain
+    got, launches = counted(lambda: call(*a))
+    want = twin(*a)
+    gs, ws = ([v] if torch.is_tensor(v) else list(v) for v in (got, want))
+    err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(gs, ws))
+    rel = err / max(float(w_.float().abs().max()) for w_ in ws)
+    staged = {}
+    if precision == "tf32" and name == "fpn_neck_l0":
+        staged = {stage: float((k - t_).abs().max()) / float(t_.abs().max()) for stage, k, t_ in neck_tf32_stages(*a)}
+    ms = cuda_ms(lambda: call(*a), reps=3)
+    plain_ms = cuda_ms(lambda: twin(*a), reps=3)
+    t_bound, by = bound
+    print(
+        f"{label} {precision} at {tuple(a[0].shape)}: max_abs_err={err:.3e} rel={rel:.3e} "
+        + " ".join(f"{k}={v:.3e}" for k, v in staged.items())
+        + f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={t_bound:.4f} ({by}) "
+        f"share_of_bound={t_bound / ms:.3f} LAUNCHES={launches}",
+        flush=True,
+    )
+    key = {"f32": name, "tf32": f"{name}_tf32", "bf16": f"{name}_bf16"}[precision]
+    tol = {"f32": REL_TOL, "tf32": TF32_TWIN_TOL, "bf16": BF16_TOL}[precision]
+    worst = max(staged.values()) if staged else rel
+    if launches.get(key) != 1 or not worst <= tol:
+        raise AssertionError(f"{label} {precision}: rel {rel} {staged} > {tol} or {launches}")
+    return {"max_abs_err": err, "rel": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bound, "bound_by": by}
+
+
+def wide_heads_cases(x, rough, precise):
+    """(name, kernel, plain, args of a dtype, heads) of both heads over x."""
+    from adascale_torch.kernels import fpn_heads, precise_heads
+
+    return [
+        ("fpn_heads", fpn_heads.fused_rough_heads, fpn_heads.fused_rough_heads_plain,
+         lambda d: (x.to(d), *rough), rough),
+        ("precise_heads", precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain,
+         lambda d: (x.to(d), precise), precise),
+    ]
+
+
+def widths_page(gen, device) -> tuple:
+    """Both heads at the base and large widths at the page shapes
+    (WIDTH_PAGE_HW, B = 1) in each precision: ``check_width_case`` and the
+    device ms a call by kernel name from a torch.profiler trace. Returns
+    (the kernels line's rows, the base widths', by "<name>_wide[_tf32|_bf16]";
+    the kernel names, by "preset|name|precision")."""
+    import torch
+
+    dtype_of = {"f32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16}
+    rows, names = {}, {}
+    for preset, (_, cm) in WIDTH_PRESETS.items():
+        rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
+        precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
+        for name in ("fpn_heads", "precise_heads"):
+            h, w = WIDTH_PAGE_HW[name]
+            x = torch.randn(1, h, w, cm, generator=gen).to(device)
+            _, kernel, plain, args, heads = next(c for c in wide_heads_cases(x, rough, precise) if c[0] == name)
+            for precision in dtype_of:
+                a = args(dtype_of[precision])
+                row = check_width_case(f"widths page {preset} {name}", name, kernel, plain, a, precision,
+                                       widths_bound_ms(name, 1, h, w, 0, cm, 0, heads, precision))
+                traced = kernel_device_ms(lambda: widths_call(kernel, precision)(*a), reps=3, once_a_call=True,
+                                          match="heads_")
+                found = {short_kernel_name(k): v for k, v in traced.items() if "heads_" in k}
+                print(f"widths page {preset} {name} {precision}: device ms a call by kernel (torch.profiler, "
+                      f"3 calls): " + ", ".join(f"{k}={v:.4f}" for k, v in found.items()), flush=True)
+                names[f"{preset}|{name}|{precision}"] = found
+                if preset == "base":
+                    suffix = {"f32": "", "tf32": "_tf32", "bf16": "_bf16"}[precision]
+                    rows[f"{name}_wide{suffix}"] = {**row, "device_ms": sum(found.values()),
+                                                    "shape": [1, h, w, cm]}
+            del x
+    return rows, names
+
+
+# widths_page in a fresh interpreter (argv[1]: the generator's seed): late
+# in a run of every phase torch.profiler keeps almost no trace (once 30
+# traces of one call in a row kept no launch), and a new process's keeps
+# them. Its last line is WIDTH_PAGE and the result as JSON.
+WIDTH_PAGE_SCRIPT = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from adascale_torch.utils.precision import pin_full_f32
+
+pin_full_f32()
+cs.PHASE[0] = "widths"
+rows, names = cs.widths_page(torch.Generator().manual_seed(int(sys.argv[1])), torch.device("cuda", 0))
+print("WIDTH_PAGE " + json.dumps({"rows": rows, "names": names, "retries": cs.TRACE_RETRIES}), flush=True)
+"""
+
+
+def widths_page_fresh(seed: int) -> tuple:
+    """``widths_page`` run by WIDTH_PAGE_SCRIPT in a fresh interpreter
+    within 300 s, its output printed here. Returns its (rows, names), the
+    names keyed (preset, name, precision); its empty traces count in
+    TRACE_RETRIES."""
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", WIDTH_PAGE_SCRIPT, str(seed)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    print("\n".join(line for line in lines if not line.startswith("WIDTH_PAGE ")), flush=True)
+    result = [line for line in lines if line.startswith("WIDTH_PAGE ")]
+    if proc.returncode or not result:
+        print(proc.stderr[-8000:], flush=True)
+        raise AssertionError(f"widths page: the fresh interpreter ended with exit code {proc.returncode}")
+    out = json.loads(result[-1][len("WIDTH_PAGE "):])
+    for phase, n in out["retries"].items():
+        TRACE_RETRIES[phase] = TRACE_RETRIES.get(phase, 0) + n
+    return out["rows"], {tuple(key.split("|")): found for key, found in out["names"].items()}
 
 
 def check_widths(gen, device) -> dict:
     """Phase widths: the neck and both heads kernels at the base and large
-    backbones' widths on random weights (B = 2, a 64x48 level 0) against
-    their plain twins, f32 at REL_TOL and bf16 at BF16_TOL, and the heads at
-    the base widths at a tiled group's batch (WIDTH_GROUP, several workspace
-    chunks); then a fused
-    detect() of a random-init base model on page_0, which must run to the
-    end (its polygons are not checked: the weights are random). Returns the
-    launches of that detect()."""
+    backbones' widths on random weights (B = 2, a 64x48 level 0), and the
+    heads at the base widths at a tiled group's batch (WIDTH_GROUP), against
+    their plain twins in all three precisions (``check_width_case``); both
+    heads at the base and large widths at the page shapes (WIDTH_PAGE_HW,
+    B = 1), timed, with the trace's kernel names (the wide heads' cluster
+    kernels, one launch a call; not the two-pass kernels); each heads
+    kernel at the base widths at B = 4 bit for bit against each image alone
+    (bf16 and TF32); then fused detect()s of random-init models on page_0
+    (base at f32, "default" and bf16; large at bf16), each of which must run
+    to the end (their polygons are not checked: the weights are random).
+    Returns (the kernels line's wide heads rows, the detects' launches)."""
     import numpy as np
     import torch
 
-    from adascale_torch.kernels import fpn_heads, fpn_neck, precise_heads
+    from adascale_torch.kernels import fpn_neck
     from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
     from adascale_torch.utils.params import jax_from_state_dict
 
+    precisions = ("f32", "tf32", "bf16")
+    dtype_of = {"f32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16}
     runs = [(preset, WIDTH_BATCH, WIDTH_HW, False) for preset in WIDTH_PRESETS]
     runs.append((*WIDTH_GROUP, True))
     for preset, b, (h, w), heads_only in runs:
         c0, cm = WIDTH_PRESETS[preset]
         co = cm // 4
+        rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
+        precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
+        x = torch.randn(b, h, w, cm, generator=gen).to(device)
+        cases = wide_heads_cases(x, rough, precise)
         if not heads_only:
             p = random_neck_params(c0, cm, co, gen, device)
             f0 = torch.randn(b, h, w, c0, generator=gen).to(device)
             u = torch.randn(b, h, w, cm, generator=gen).to(device)
-        rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
-        precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
-        x = torch.randn(b, h, w, cm, generator=gen).to(device)
-        cases = [
-            ("fpn_neck_l0", fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain, lambda d: (f0.to(d), u.to(d), p)),
-            ("fpn_heads", fpn_heads.fused_rough_heads, fpn_heads.fused_rough_heads_plain,
-             lambda d: (x.to(d), *rough)),
-            ("precise_heads", precise_heads.fused_precise_heads, precise_heads.fused_precise_heads_plain,
-             lambda d: (x.to(d), precise)),
-        ]
-        for name, kernel, plain, args in cases[1:] if heads_only else cases:
-            heads = rough if name == "fpn_heads" else precise
-            fp = max(q["step1.conv.weight"].shape[0] for q in heads)
-            tile = {"fpn_heads": 192, "precise_heads": 200}.get(name)
-            chunks = (
-                -(-b * h * w // fpn_heads.wide_chunk_pixels(len(heads), -(-fp // tile) * tile, b * h * w))
-                if tile else None
-            )
-            if heads_only and not chunks > 1:
-                raise AssertionError(f"widths group {name}: {chunks} workspace chunk(s), wanted several")
-            for dtype, tol in ((torch.float32, REL_TOL), (torch.bfloat16, BF16_TOL)):
-                a = args(dtype)
-                got, launches = counted(lambda: kernel(*a))
-                want = plain(*a)
-                gs, ws = ([v] if torch.is_tensor(v) else list(v) for v in (got, want))
-                err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(gs, ws))
-                rel = err / max(float(w_.float().abs().max()) for w_ in ws)
-                ms = cuda_ms(lambda: kernel(*a), reps=3)
-                plain_ms = cuda_ms(lambda: plain(*a), reps=3)
-                bound, by = widths_bound_ms(name, b, h, w, c0, cm, co, heads, dtype)
-                print(
-                    f"widths {preset} {name} {dtype} (C0 {c0}, Cm {cm}, Co {co}, heads F "
-                    f"{[q['step1.conv.weight'].shape[0] for q in heads]}) "
-                    f"at {tuple(a[0].shape)}: max_abs_err={err:.3e} rel={rel:.3e} kernel_ms={ms:.4f} "
-                    f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
-                    f"workspace_chunks={chunks} LAUNCHES={launches}",
-                    flush=True,
-                )
-                key = name if dtype == torch.float32 else f"{name}_bf16"
-                if launches.get(key) != 1 or not rel <= tol:
-                    raise AssertionError(f"widths {preset} {name} {dtype}: rel {rel} > {tol} or {launches}")
+            cases.insert(0, ("fpn_neck_l0", fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain,
+                             lambda d: (f0.to(d), u.to(d), p), ()))
+        for name, kernel, plain, args, heads in cases:
+            widths = [q["step1.conv.weight"].shape[0] for q in heads] or (c0, cm, co)
+            for precision in precisions:
+                check_width_case(f"widths {preset} {name} {widths}", name, kernel, plain, args(dtype_of[precision]),
+                                 precision, widths_bound_ms(name, b, h, w, c0, cm, co, heads, precision))
 
-    stamp("widths: fused detect() of a random-init base model on page_0")
-    torch.manual_seed(0)
-    model = AdaptiveScaling(AdaptiveScalingConfig(size="base", neck_head_type="fpn"))
-    params = jax_from_state_dict(model.state_dict())
-    image = np.load(SHIFT_PAGES[0])["image"]
+    stamp("widths: the wide heads at the page shapes, B = 1, in each precision (a fresh interpreter)")
+    rows, names = widths_page_fresh(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+    # Every wide call ran one launch of a cluster kernel and none of the
+    # two-pass design's.
+    wrong = {key: list(found) for key, found in names.items()
+             if len(found) != 1 or not any(k.startswith(WIDE_HEADS_KERNELS) for k in found)
+             or any(k.startswith(STALE_WIDE_KERNELS) for k in found)}
+    if wrong:
+        raise AssertionError(f"widths page: wide heads calls not one cluster kernel launch: {wrong}")
+
+    stamp("widths: the wide heads at B = 4 against each image alone (base, bf16 and TF32)")
+    b, (h, w) = WIDTH_INVARIANCE
+    cm = WIDTH_PRESETS["base"][1]
+    rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
+    precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
+    x = torch.randn(b, h, w, cm, generator=gen).to(device)
+    for name, kernel, _, args, _ in wide_heads_cases(x, rough, precise):
+        for precision in ("tf32", "bf16"):
+            call = widths_call(kernel, precision)
+            xb, *rest = args(dtype_of[precision])
+            batch = [batch_out for batch_out in call(xb, *rest)]
+            alone = [list(call(xb[i : i + 1].contiguous(), *rest)) for i in range(b)]
+            same = all(torch.equal(y[i : i + 1], a_[k]) for i, a_ in enumerate(alone) for k, y in enumerate(batch))
+            print(f"widths base {name} {precision} B={b} {h}x{w}x{cm}: each image of the batch bit for bit as "
+                  f"alone: {same}", flush=True)
+            if not same:
+                raise AssertionError(f"widths base {name} {precision} at B={b}: a batch's image differs")
+
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        engine = engine_for(params, size="base", compute_dtype=dtype, use_pallas_neck_heads=True)
-        result, launches = counted(lambda: engine.detect(image))
-        print(
-            f"widths: fused detect() of a random-init base model ({dtype}): ran to the end, "
-            f"{len(result['char_polygons'])} polygons, {len(result['regions'])} regions, LAUNCHES={launches}",
-            flush=True,
-        )
-        suffix = "" if dtype == "float32" else "_bf16"
-        if not launches.get(f"fpn_neck_l0{suffix}") or not launches.get(f"fpn_heads{suffix}"):
-            raise AssertionError(f"base detect() ({dtype}) did not launch the neck and heads: {launches}")
-        out[f"detect_base_random_{dtype}"] = launches
-    return out
+    image = np.load(SHIFT_PAGES[0])["image"]
+    # (dtype, matmul_precision or None for the config's own, the path's
+    # name) of each size's detect().
+    for size, runs_of in (("base", (("float32", None, "float32"), ("float32", "default", "default"),
+                                    ("bfloat16", None, "bfloat16"))),
+                          ("large", (("bfloat16", None, "bfloat16"),))):
+        stamp(f"widths: fused detect() of a random-init {size} model on page_0")
+        torch.manual_seed(0)
+        model = AdaptiveScaling(AdaptiveScalingConfig(size=size, neck_head_type="fpn"))
+        params = jax_from_state_dict(model.state_dict())
+        del model
+        for dtype, precision, label in runs_of:
+            engine = engine_for(params, size=size, compute_dtype=dtype, use_pallas_neck_heads=True,
+                                **({"matmul_precision": precision} if precision else {}))
+            result, launches = counted(lambda: engine.detect(image))
+            print(
+                f"widths: fused detect() of a random-init {size} model ({dtype}, {label}): ran to the "
+                f"end, {len(result['char_polygons'])} polygons, {len(result['regions'])} regions, "
+                f"LAUNCHES={launches}",
+                flush=True,
+            )
+            suffix = {"float32": "", "default": "_tf32", "bfloat16": "_bf16"}[label]
+            if not launches.get(f"fpn_neck_l0{suffix}") or not launches.get(f"fpn_heads{suffix}"):
+                raise AssertionError(f"{size} detect() ({dtype}, {precision}) did not launch the neck and heads: "
+                                     f"{launches}")
+            out[f"detect_{size}_random_{label}"] = launches
+            del engine
+        del params
+        torch.cuda.empty_cache()
+    return rows, out
 
 
 def check_grad_refusal(gen, device) -> None:
@@ -4646,7 +4819,11 @@ def main() -> None:
 
     if "widths" in phases:
         stamp("phase widths: the neck and heads kernels at the base and large widths")
-        by_path.update(check_widths(gen, device))
+        phase_t = time.perf_counter()
+        wide_rows, wide_paths = check_widths(gen, device)
+        rows.update(wide_rows)
+        by_path.update(wide_paths)
+        print(f"phase widths: {time.perf_counter() - phase_t:.2f} s", flush=True)
 
     if "tf32" in phases:
         stamp("phase tf32: matmul_precision \"default\" / \"high\" (single-pass TF32)")
@@ -4686,7 +4863,9 @@ def main() -> None:
         "detect_bf16_fpn_module": ["convnext_block_bf16"],
         "detect_bf16_upernext_fused": ["convnext_block_bf16"],
         "detect_bf16_fpn_fused": bf16_names, "detect_many_bf16": bf16_names,
-        "detect_base_random_bfloat16": bf16_names,
+        "detect_base_random_bfloat16": bf16_names, "detect_base_random_default": [f"{k}_tf32" for k in KERNEL_NAMES],
+        # A random large model's precise pass need not find regions.
+        "detect_large_random_bfloat16": bf16_names[:3],
         "detect_tf32_fpn_module": ["convnext_block_tf32"], "detect_tf32_upernext_fused": ["convnext_block_tf32"],
         "detect_tf32_fpn_fused": [f"{k}_tf32" for k in KERNEL_NAMES], "detect_tf32_bf16_fused": bf16_names,
         **dict.fromkeys(("detect_tf32_fused_chunks", "tiled_tf32_band_detect", "detect_many_tf32"),
@@ -4724,11 +4903,19 @@ def main() -> None:
         "fpn_neck_l0_tf32": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_tf32_fpn_fused"),
         "fpn_heads_tf32": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_tf32_fpn_fused"),
         "precise_heads_tf32": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_tf32_fpn_fused"),
+        # The heads wider than one tile (the base and large backbones': each
+        # pixel tile's feature slices on one thread-block cluster), on the
+        # fused detect() of a random-init base model in each precision; the
+        # numbers at the base widths at the page shapes (phase widths).
+        **{f"{k}_wide{s}": ("fpn_head.cuh", replaces, f"detect_base_random_{path}")
+           for k, replaces in (("fpn_heads", "adascale/ops/pallas/fpn_heads.py:200"),
+                               ("precise_heads", "adascale/ops/pallas/precise_heads.py:144"))
+           for s, path in (("", "float32"), ("_tf32", "default"), ("_bf16", "bfloat16"))},
     }
     kernels = []
     for kernel, (source, replaces, main_path) in sources.items():
         kernel_name = {"convnext_block_trainable": "convnext_block", "convnext_block_op": "convnext_block",
-                       "convnext_block_trainable_bf16": "convnext_block_bf16"}.get(kernel, kernel)
+                       "convnext_block_trainable_bf16": "convnext_block_bf16"}.get(kernel, kernel.replace("_wide", ""))
         entry = {
             "name": kernel,
             "route": "cuda",

@@ -339,3 +339,199 @@ def test_emulated_tma_tile_walk_matches_plain(which, shape):
         assert g.shape == tuple(wt.shape)
         rel = float((g - wt).abs().max()) / float(wt.abs().max())
         assert rel <= (2e-3 if round_y else 1e-5), rel
+
+
+# The wide heads (csrc/fpn_head.cuh heads_cluster_tma_kernel and
+# heads_cluster_kernel): heads wider than one tile in `slices` slices of NS
+# features, packed slice by slice (slice-major) in the one-tile layout of
+# the entry; the CTAs of one thread-block cluster a (head, phase, pixel
+# tile), CTA r computing slice r, their LayerNorm statistics and partial
+# dots combined in rank order. Widths: F = (Cm + M) // 2 of the
+# base (Cm 512) and large (Cm 768) backbones; slice widths the libraries'
+# (fpn_heads.cu 128 / 192, precise_heads.cu 136 / 200).
+WIDE_CM = {"base": 512, "large": 768}
+WIDE_SLICE = {("rough", "base"): 128, ("rough", "large"): 192,
+              ("precise", "base"): 136, ("precise", "large"): 200}
+WIDE_C = 72  # input channels: a partial last chunk in bf16 (64) and TF32 (32)
+
+
+def _wide_heads(which, size, seed):
+    """The rough (1, 1) or precise (1, 2, 4, 4) heads at a backbone's
+    widths over WIDE_C input channels, every parameter off its init."""
+    rng = np.random.default_rng(seed)
+    heads = []
+    for m in ((1, 1) if which == "rough" else OUTS):
+        f = (WIDE_CM[size] + m) // 2
+        heads.append({
+            "step1.conv.weight": torch.from_numpy(rng.standard_normal((f, WIDE_C, 3, 3)).astype(np.float32) / 25),
+            "step1.conv.bias": torch.from_numpy(rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step1.ln.weight": torch.from_numpy(1 + rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step1.ln.bias": torch.from_numpy(rng.standard_normal(f).astype(np.float32) * 0.1),
+            "step2.weight": torch.from_numpy(rng.standard_normal((m, f)).astype(np.float32) / f ** 0.5),
+            "step2.bias": torch.from_numpy(rng.standard_normal(m).astype(np.float32) * 0.1),
+        })
+    return heads
+
+
+def _unswizzle_any(w):
+    """(..., chunks, n/8, 8 rows, 8 pieces, e) in the 128-byte swizzle (e = 8
+    bf16 or 4 f32 a 16-byte piece) -> (..., chunks * 8 e, n) f32: piece j of
+    row r holds K group j ^ r."""
+    *lead, chunks, nb, _, _, e = w.shape
+    rows = torch.arange(8)
+    t = w[..., rows[:, None], rows[:, None] ^ rows[None, :], :]  # (.., row, K group, K)
+    nl = len(lead)
+    t = t.permute(*range(nl), nl, nl + 3, nl + 4, nl + 1, nl + 2)
+    return t.reshape(*lead, chunks * 8 * e, nb * 8).float()
+
+
+def _box_of(x, b, y0, x0, c0, kc):
+    """The TMA halo box (9 rows by 17 columns by kc channels) of image b of x
+    at (c0, x0, y0), zero past the map's edges and past C."""
+    _, h, w, c = x.shape
+    out = torch.zeros(9, 17, kc)
+    ys, xs = slice(max(y0, 0), min(y0 + 9, h)), slice(max(x0, 0), min(x0 + 17, w))
+    if ys.start < ys.stop and xs.start < xs.stop and c0 < c:
+        part = x[b, ys, xs, c0 : min(c0 + kc, c)]
+        out[ys.start - y0 : ys.stop - y0, xs.start - x0 : xs.stop - x0, : part.shape[-1]] = part
+    return out
+
+
+def _emulate_cluster(x, heads, ns, tf32, round_y):
+    """Each head's (B, 2H, 2W, M) output from the wide heads' packing, as the
+    cluster kernel walks it: every CTA of a cluster the same units (head,
+    phase) u % sets of tile u // sets; CTA r per chunk (64 bf16 or 32 TF32
+    channels) one halo box, each tap's rows (rounded to TF32 in TF32) times
+    its slice's unswizzled B, f32 sums; then z = acc + bias of its slice;
+    each slice's row sum and squared deviations from its own mean over its
+    features below F (r ns + n < F), combined in rank order into the mean
+    and variance over F; each slice's GELU (rounded to bf16 where round_y)
+    and partial projection, added in rank order, plus b2."""
+    fmax = max(p["step1.conv.weight"].shape[0] for p in heads)
+    slices = -(-fmax // ns)
+    dtype = torch.float32 if tf32 else torch.bfloat16
+    packed = K.pack_heads(heads, ns, slices, dtype, round_w2=round_y, tf32_sw128=tf32)
+    assert packed["w"].shape[:2] == (slices, len(heads))
+    kc = 32 if tf32 else 64
+    bt = _unswizzle_any(packed["w"])  # (slices, heads, 4, 4, K, ns)
+    b, h, wd, _ = x.shape
+    sets, chunks = 4 * len(heads), packed["w"].shape[4]
+    tiles_h, tiles_w = -(-h // 8), -(-wd // 16)
+    outs = [p["step2.weight"].shape[0] for p in heads]
+    out = torch.zeros(b, 2 * h, 2 * wd, sum(outs))
+    xf = x.float()
+    for un in range(b * tiles_h * tiles_w * sets):
+        s, tile = un % sets, un // sets
+        bb, rem = divmod(tile, tiles_h * tiles_w)
+        h0, w0 = 8 * (rem // tiles_w), 16 * (rem % tiles_w)
+        head, phase = divmod(s, 4)
+        pa, pb = divmod(phase, 2)
+        m, f = heads[head]["step2.weight"].shape
+        vec, w2 = packed["vec"][head], packed["w2"][head]
+        zs = []
+        for r in range(slices):
+            acc = torch.zeros(128, ns)
+            for ch in range(chunks):
+                box = _box_of(xf, bb, h0 + pa - 1, w0 + pb - 1, kc * ch, kc)
+                for tap in range(4):
+                    dy, dx = divmod(tap, 2)
+                    a = box[dy : dy + 8, dx : dx + 16].reshape(128, kc)
+                    acc += (tf32_round(a) if tf32 else a) @ bt[r, head, phase, tap, kc * ch : kc * ch + kc]
+            zs.append(acc + vec[0, r * ns : (r + 1) * ns])
+        # Each slice's (sum, squared deviations from its own mean over its n
+        # real features), combined in rank order (Chan et al.'s update).
+        stats = []
+        for r, z in enumerate(zs):
+            n = min(max(f - r * ns, 0), ns)
+            real = (torch.arange(r * ns, (r + 1) * ns) < f).float()
+            s_r = z.sum(1)
+            m_r = s_r / n if n else torch.zeros(128)
+            stats.append((s_r, (((z - m_r[:, None]) * real) ** 2).sum(1), n, m_r))
+        total = torch.zeros(128)
+        for s_r, _, _, _ in stats:
+            total = total + s_r
+        mean = total / f
+        m2 = torch.zeros(128)
+        for _, q_r, n, m_r in stats:
+            m2 = m2 + q_r + n * (m_r - mean) ** 2
+        rstd = torch.rsqrt(m2 / f + 1e-6)
+        dot = torch.zeros(128, m)
+        for r, z in enumerate(zs):
+            cols = slice(r * ns, (r + 1) * ns)
+            y = torch.nn.functional.gelu((z - mean[:, None]) * rstd[:, None] * vec[1, cols] + vec[2, cols])
+            if round_y:
+                y = y.to(torch.bfloat16).float()
+            dot = dot + y @ w2[:m, cols].T
+        proj = dot + packed["b2"][head, :m]
+        moff = sum(outs[:head])
+        for row in range(128):
+            i, j = h0 + row // 16, w0 + row % 16
+            if i < h and j < wd:
+                out[bb, 2 * i + pa, 2 * j + pb, moff : moff + m] = proj[row]
+    return list(out.split(outs, dim=-1))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "tf32"])
+@pytest.mark.parametrize("size", list(WIDE_CM))
+@pytest.mark.parametrize("which", ["rough", "precise"])
+def test_emulated_cluster_walk_matches_plain(which, size, precision):
+    """The wide heads' cluster walk (``_emulate_cluster``) at the base and
+    large widths, on a ragged map (tiles past the right and bottom edges,
+    a partial last chunk of C), reproduces the plain phase form of its
+    precision (bf16: ``heads_phase_form(..., kernel=True)``; TF32:
+    ``heads_phase_form(..., tf32=True)``) within 1e-5 of the largest value
+    (the f32 sums run in another order), 2e-3 in the bf16 precise heads
+    (where that can flip a bf16 rounding of the GELU output), as the
+    one-tile walk is held."""
+    heads = _wide_heads(which, size, 11)
+    ns = WIDE_SLICE[(which, size)]
+    assert max(p["step1.conv.weight"].shape[0] for p in heads) > ns  # two slices
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((1, 11, 21, WIDE_C)).astype(np.float32))
+    tf32 = precision == "tf32"
+    round_y = which == "precise" and not tf32
+    if not tf32:
+        x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        got = _emulate_cluster(x, heads, ns, tf32, round_y)
+        want = heads_phase_form(x, heads, kernel=not tf32, round_y=round_y, tf32=tf32)
+    for g, wt in zip(got, want):
+        assert g.shape == tuple(wt.shape)
+        rel = float((g - wt).abs().max()) / float(wt.abs().max())
+        assert rel <= (2e-3 if round_y else 1e-5), rel
+
+
+@pytest.mark.parametrize("precision", ["f32", "tf32", "bf16"])
+@pytest.mark.parametrize("which", ["rough", "precise"])
+def test_wide_slice_packs_unpack_to_phase_taps(which, precision):
+    """The base widths' packs at the narrower slice widths (128 rough, 136
+    precise), slice-major: slice r unpacks to the collapsed taps of features
+    r ns .. r ns + ns - 1 (f32: TF32 hi + lo; TF32: rounded; bf16: in bf16),
+    zero past C and past each head's F; vec and w2 hold slices ns features."""
+    heads = _wide_heads(which, "base", 13)
+    ns = WIDE_SLICE[(which, "base")]
+    slices = 2
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    packed = K.pack_heads(heads, ns, slices, dtype, tf32_sw128=precision == "tf32")
+    w = packed["w"]
+    if precision == "f32":
+        hi, lo = (torch.stack(t) for t in zip(*(_unpack(w[r]) for r in range(slices))))
+        got = hi.double() + lo.double()
+    else:
+        got = _unswizzle_any(w)
+    assert got.shape[:4] == (slices, len(heads), 4, 4) and got.shape[-1] == ns
+    for k, p in enumerate(heads):
+        f = p["step1.conv.weight"].shape[0]
+        taps = phase_tap_weights(p["step1.conv.weight"])
+        for r in range(slices):
+            lo_f, hi_f = r * ns, min(f, (r + 1) * ns)
+            part = got[r, k, :, :, :WIDE_C, : hi_f - lo_f]
+            want = taps[..., lo_f:hi_f]
+            if precision == "f32":
+                torch.testing.assert_close(part, want.double(), rtol=2.0 ** -21, atol=0)
+            elif precision == "tf32":
+                assert torch.equal(part, tf32_round(want))
+            else:
+                assert torch.equal(part, want.to(torch.bfloat16).float())
+            assert not got[r, k, :, :, WIDE_C:].any() and not got[r, k, ..., hi_f - lo_f :].any()
+    assert packed["vec"].shape == (len(heads), 3, slices * ns) and packed["w2"].shape == (len(heads), K.MAX_OUT, slices * ns)

@@ -4,10 +4,11 @@ where the kernels split the features into slices of their tiles: the port's
 fused functions (their plain twins on the CPU) against the Flax ``FpnNeck``,
 ``FpnHead`` and ``forward_rough_from_features`` /
 ``forward_precise_from_features`` on random-init weights from a seed, at
-small spatial shapes, f32 at 1e-3 (the full-model bar). Also the packed
-layouts of a sliced neck and heads: each slice is the one-pass layout of its
-features. The kernels themselves run only on the card (``chip_smoke.py``
-phase widths)."""
+small spatial shapes, f32 at 1e-3 (the full-model bar), and the heads'
+single-pass TF32 twins (``matmul_precision("default")``'s form) against the
+same Flax heads at TF32_TOL. Also the packed layouts of a sliced neck and
+heads: each slice is the one-pass layout of its features. The kernels
+themselves run only on the card (``chip_smoke.py`` phase widths)."""
 import numpy as np
 import pytest
 import torch
@@ -26,11 +27,17 @@ from adascale_torch.kernels import packing
 from adascale_torch.kernels import precise_heads as KP
 from adascale_torch.models.adaptive_scaling import AdaptiveScaling, AdaptiveScalingConfig
 from adascale_torch.models.fpn import FpnHead, FpnNeck
-from adascale_torch.ops.fused_upsample import phase_tap_weights
 from adascale_torch.utils.params import state_dict_from_jax
 
 TOL = 1e-3
+# The TF32 twin (x and the collapsed taps rounded to TF32, 10 mantissa
+# bits) against Flax at "highest": a product's rounding error of ~2^-11,
+# through a LayerNorm.
+TF32_TOL = 1e-2
 PRESETS = ["base", "large"]
+# The Flax heads' inputs, parameters and outputs by (size, outs), kept by
+# test_fused_heads_match_flax for the TF32 case (one interpret call each).
+_FLAX_HEADS = {}
 
 
 @pytest.fixture(autouse=True)
@@ -81,20 +88,30 @@ def test_fused_neck_matches_flax(size):
     _close(got.numpy(), want)
 
 
+def _flax_heads(size, outs):
+    """(x, the port's head parameters, the Flax heads' outputs) at ``size``'s
+    widths, computed once per (size, outs)."""
+    if (size, outs) not in _FLAX_HEADS:
+        c = _group(size)[-2]
+        x = np.random.default_rng(3).standard_normal((1, 6, 5, c)).astype(np.float32)
+        heads, want = [], []
+        for k, m in enumerate(outs):
+            flax_head = FlaxFpnHead(out_channels=m, upsampling_factor=2)
+            tree = _perturbed(flax_head.init(jax.random.PRNGKey(k), jnp.asarray(x))["params"], 4 + k)
+            head = FpnHead(c, m, 2)
+            head.load_state_dict(state_dict_from_jax(tree), strict=True)
+            heads.append(KH.head_params(head))
+            with jax.default_matmul_precision("highest"):
+                want.append(np.asarray(flax_head.apply({"params": tree}, jnp.asarray(x))))
+        _FLAX_HEADS[(size, outs)] = (x, heads, want)
+    return _FLAX_HEADS[(size, outs)]
+
+
 @pytest.mark.parametrize("size", PRESETS)
 @pytest.mark.parametrize("outs", [(1, 1), (1, 2, 4, 4)], ids=["rough", "precise"])
 def test_fused_heads_match_flax(size, outs):
     c = _group(size)[-2]
-    x = np.random.default_rng(3).standard_normal((1, 6, 5, c)).astype(np.float32)
-    heads, want = [], []
-    for k, m in enumerate(outs):
-        flax_head = FlaxFpnHead(out_channels=m, upsampling_factor=2)
-        tree = _perturbed(flax_head.init(jax.random.PRNGKey(k), jnp.asarray(x))["params"], 4 + k)
-        head = FpnHead(c, m, 2)
-        head.load_state_dict(state_dict_from_jax(tree), strict=True)
-        heads.append(KH.head_params(head))
-        with jax.default_matmul_precision("highest"):
-            want.append(flax_head.apply({"params": tree}, jnp.asarray(x)))
+    x, heads, want = _flax_heads(size, outs)
     with torch.no_grad():
         xt = torch.from_numpy(x)
         got = KH.fused_rough_heads(xt, *heads) if len(outs) == 2 else KP.fused_precise_heads(xt, heads)
@@ -103,6 +120,28 @@ def test_fused_heads_match_flax(size, outs):
     )
     for g, w in zip(got, want):
         _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("outs", [(1, 1), (1, 2, 4, 4)], ids=["rough", "precise"])
+def test_fused_heads_tf32_twin_matches_flax(outs):
+    """The wide heads' single-pass TF32 twin (``fused_*_heads_plain(...,
+    tf32=True)``, what the TF32 entries compute) at the base widths against
+    the Flax heads at "highest" (the outputs of test_fused_heads_match_flax)
+    within TF32_TOL, and farther from them than the f32 twin (it rounds)."""
+    x, heads, want = _flax_heads("base", outs)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        if len(outs) == 2:
+            got = KH.fused_rough_heads_plain(xt, *heads, tf32=True)
+            f32 = KH.fused_rough_heads_plain(xt, *heads)
+        else:
+            got = KP.fused_precise_heads_plain(xt, heads, tf32=True)
+            f32 = KP.fused_precise_heads_plain(xt, heads)
+    for g, f, w in zip(got, f32, want):
+        scale = np.abs(w).max()
+        err = np.abs(g.numpy().astype(np.float64) - w).max() / scale
+        assert err <= TF32_TOL, err
+        assert err > np.abs(f.numpy().astype(np.float64) - w).max() / scale
 
 
 @pytest.mark.parametrize("size", PRESETS)
@@ -135,10 +174,10 @@ def test_forward_from_features_fused_matches_flax(size, which):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sliced_heads_pack_is_the_one_pass_pack_of_each_slice(dtype):
     """Heads of F = 258 in two slices of 200: slice s of the packed operand
-    is the one-pass pack of features 200 s .. 200 s + 199 (zero past F); in
-    bf16, where the one-pass kernel reads 64-channel swizzled chunks
-    (``packing.pack_sw128``), the K-major pack of that slice's collapsed
-    taps that the sliced kernel reads (``packing.pack_kmajor_bf16``)."""
+    (slice-major, the layout of the cluster kernels, one CTA a slice) is the
+    one-pass pack of features 200 s .. 200 s + 199 (zero past F), in bf16
+    ``packing.pack_sw128``'s swizzled 64-channel chunks as the one-pass
+    kernel's."""
     rng = np.random.default_rng(8)
     c, f, m = 32, 258, 4
     p = {
@@ -155,13 +194,8 @@ def test_sliced_heads_pack_is_the_one_pass_pack_of_each_slice(dtype):
         for name in ("step1.conv.weight", "step1.conv.bias", "step1.ln.weight", "step1.ln.bias"):
             part[name] = p[name][lo:hi]
         part["step2.weight"] = p["step2.weight"][:, lo:hi]
-        if dtype == torch.float32:
-            one = KH.pack_heads([part], 200, slices=1, dtype=dtype)["w"]
-        else:
-            taps = torch.zeros(1, 4, 4, c, 200)
-            taps[0, ..., : hi - lo] = phase_tap_weights(part["step1.conv.weight"])
-            one = packing.pack_kmajor_bf16(taps)
-        assert torch.equal(packed["w"][:, s], one)
+        one = KH.pack_heads([part], 200, slices=1, dtype=dtype)["w"]
+        assert torch.equal(packed["w"][s], one)
     assert packed["vec"].shape == (1, 3, 400) and packed["w2"].shape == (1, KH.MAX_OUT, 400)
     assert torch.equal(packed["vec"][0, 0, :f], p["step1.conv.bias"])
 
@@ -200,25 +234,3 @@ def test_bf16_pack_is_kmajor_core_matrices():
     assert packed.dtype == torch.bfloat16 and packed.shape == (2, 2, 4, 8, 8)
     for k, n in [(0, 0), (9, 3), (31, 15), (40, 8), (63, 7)]:
         assert packed[k // 32, n // 8, (k % 32) // 8, n % 8, k % 8] == taps[k, n].to(torch.bfloat16)
-
-
-@pytest.mark.parametrize("size", PRESETS)
-@pytest.mark.parametrize("which", ["rough", "precise"])
-def test_wide_heads_workspace_is_one_chunk_at_any_batch(size, which):
-    """The wide heads' workspace (heads x 4 phases x chunk x slices x tile
-    f32) holds one chunk of pixels in whole tiles, within
-    WIDE_WORKSPACE_BYTES, from one tile of pixels up to the largest group
-    of tiles that tiled.max_group_batch lets through (64 tiles of 768, a
-    192x192 level 0 each)."""
-    from adascale_torch.inference.tiled import max_group_batch
-
-    heads = 2 if which == "rough" else 4
-    f = _group(size)[-2] // 2 + 2
-    tile = {"rough": 192, "precise": 200}[which]
-    fp = -(-f // tile) * tile
-    group = max_group_batch((768, 768)) * 192 * 192
-    for npix in (1, 127, 128, 6144, group):
-        chunk = KH.wide_chunk_pixels(heads, fp, npix)
-        assert chunk % KH.TILE_ROWS == 0 and KH.TILE_ROWS <= chunk < npix + KH.TILE_ROWS, (npix, chunk)
-        assert heads * 4 * chunk * fp * 4 <= max(KH.WIDE_WORKSPACE_BYTES, heads * 4 * KH.TILE_ROWS * fp * 4)
-    assert -(-group // KH.wide_chunk_pixels(heads, fp, group)) > 1

@@ -55,6 +55,18 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   heads over (1, 256, 208, 384), the rough over (1, 240, 192, 384)) inside
   ``matmul_precision("default")``, each launch by name, with the 3xTF32
   entry's call beside them;
+- ``--only heads_wide``: the rough and precise heads at the widths of the
+  ``base`` and ``large`` backbones (C = Cm = 512 / 768, F = (C + M) // 2),
+  wider than one tile, B = 1 at the page shapes (the rough heads over
+  240x192, the precise over 256x208), in all three precisions (f32 at
+  "highest", its single-pass TF32 entry at "default", bf16): the device
+  ms a call (each kernel's mean launch times its launches a call, summed,
+  whatever the design's launches a call; ``launches_per_call`` says how
+  many launches the trace kept), each launch by
+  name, the wrapper call's ms, and the bound (the products at the
+  precision's dense rate: 989 TFLOP/s bf16, 495 TF32, three TF32 products
+  a product for f32; against the bytes at 3.35 TB/s) with the kernel's
+  share of it;
 - ``--only neck_tf32``: the neck level 0's single-pass TF32 entry at the
   rough pass's 240x192 and the precise pass's 256x208 (96 -> 384 -> 96)
   inside ``matmul_precision("default")``, its two launches by name and as
@@ -72,8 +84,8 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|neck_tf32|heads_bf16|
-                neck_bf16|forwards_bf16|forwards_tf32|forwards|l2]
+        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|heads_wide|neck_tf32|
+                heads_bf16|neck_bf16|forwards_bf16|forwards_tf32|forwards|l2]
         [--weights NPZ]
 
 For each case it prints one JSON line with:
@@ -138,6 +150,12 @@ BLOCK_BF16_SHAPES = {
     "precise": ((1, 256, 208, 96), (1, 128, 104, 192), (1, 64, 52, 384), (1, 32, 26, 768)),
 }
 STAGE_BLOCKS = (3, 3, 9, 3)
+# The heads at the base and large backbones' widths (C = Cm; F = (C + M)
+# // 2, wider than one tile) at the page shapes, B = 1.
+WIDE_PRESETS = {"base": 512, "large": 768}
+WIDE_PAGE_HW = {"fpn_heads": (240, 192), "precise_heads": (256, 208)}
+# Dense peaks of one H100 SXM (700 W), FLOP/s and bytes/s.
+PEAK_BF16, PEAK_TF32, PEAK_BYTES = 989e12, 495e12, 3.35e12
 # Kernel-name patterns of each wrapper's launches (each design's names).
 NECK_KERNELS = ("neck_step1_", "neck_step2_")
 HEADS_KERNELS = ("heads_",)
@@ -263,7 +281,8 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
-                                           "block_tf32", "heads_tf32", "neck_tf32", "heads_bf16", "neck_bf16",
+                                           "block_tf32", "heads_tf32", "heads_wide", "neck_tf32", "heads_bf16",
+                                           "neck_bf16",
                                            "forwards_bf16", "forwards_tf32", "forwards", "l2"))
     parser.add_argument("--weights", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -297,6 +316,9 @@ def main() -> None:
         return
     if args.only == "neck_tf32":
         neck_tf32(fpn_neck, gen, args, card)
+        return
+    if args.only == "heads_wide":
+        heads_wide(fpn_heads, precise_heads, gen, args, card)
         return
     if args.only == "forwards_bf16":
         forwards_bf16(gen, args, card)
@@ -458,6 +480,74 @@ def heads_tf32(fpn_heads, precise_heads, gen: torch.Generator, args, card: str) 
                           "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel, "launches_ms": launches,
                           "other_device_ms": other, "call_3xtf32_ms": call_ms(fn3, args.reps), "card": card}),
               flush=True)
+
+
+def device_ms_a_call(fn, reps: int, patterns, tries: int = 3):
+    """(kernel ms, ms by kernel name, launches a call) of ``fn``: for each
+    kernel matching ``patterns`` in a trace of ``reps`` warm calls, its mean
+    launch times its launches a call (its launches over ``reps``, rounded:
+    the profiler loses launches now and then, and a lost launch must not
+    read as a faster call), summed, for a call that may launch a kernel
+    several times. A trace that kept no such launch is taken again; a
+    kernel whose launches are not a whole multiple of ``reps`` is printed,
+    and ``launches a call`` counts what the trace kept."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and any(p in e.key for p in patterns)]
+        if events:
+            break
+        print(f"torch.profiler kept no launch matching {patterns}; tracing again", file=sys.stderr, flush=True)
+    else:
+        raise AssertionError(f"no launch matching {patterns} in {tries} traces")
+    by_name, launches = {}, 0
+    for event in events:
+        if event.count % reps:
+            print(f"torch.profiler kept {event.count} launches of {event.key[:80]} over {reps} calls",
+                  file=sys.stderr, flush=True)
+        name = short_name(event.key)
+        per_call = max(1, round(event.count / reps))
+        by_name[name] = by_name.get(name, 0.0) + event.device_time_total / 1e3 / event.count * per_call
+        launches += event.count
+    return sum(by_name.values()), by_name, launches / reps
+
+
+def heads_wide(fpn_heads, precise_heads, gen: torch.Generator, args, card: str) -> None:
+    """Rows 2w and 4w: both heads at the base and large widths at the page
+    shapes, B = 1, f32, TF32 ("default") and bf16, every kernel of a call
+    summed (``device_ms_a_call``); the bound and the share of it."""
+    for preset, c in WIDE_PRESETS.items():
+        for name, outs, wrapper in (
+            ("precise_heads", PRECISE_OUT, precise_heads.fused_precise_heads),
+            ("fpn_heads", ROUGH_OUT, lambda x, heads: fpn_heads.fused_rough_heads(x, *heads)),
+        ):
+            h, w = WIDE_PAGE_HW[name]
+            heads = [head_params(c, m, gen) for m in outs]
+            x32 = randn(gen, 1, h, w, c)
+            widths = [p["step1.conv.weight"].shape[0] for p in heads]
+            flops = h * w * 4 * sum(2 * 4 * c * f + 2 * f * m for f, m in zip(widths, outs))
+            for precision in ("f32", "tf32", "bf16"):
+                x = x32.to(torch.bfloat16) if precision == "bf16" else x32
+                fn = lambda x=x, heads=heads, wrapper=wrapper: wrapper(x, heads)  # noqa: E731
+                if precision == "tf32":
+                    fn = at_default(fn)
+                t_ops = {"f32": 3 * flops / PEAK_TF32, "tf32": flops / PEAK_TF32, "bf16": flops / PEAK_BF16}[precision]
+                nbytes = x.element_size() * h * w * c + 4 * 4 * h * w * sum(outs)
+                bound = max(t_ops, nbytes / PEAK_BYTES) * 1e3
+                kernel, launches, per_call = device_ms_a_call(fn, args.reps, HEADS_KERNELS)
+                print(json.dumps({
+                    "label": args.label, "kernel": f"{name}_wide", "preset": preset, "precision": precision,
+                    "shape": [1, h, w, c], "widths": widths, "call_ms": call_ms(fn, args.reps),
+                    "kernel_ms": kernel, "launches_ms": launches, "launches_per_call": per_call,
+                    "bound_ms": bound, "share_of_bound": bound / kernel, "card": card,
+                }), flush=True)
+            del x32, heads
+            torch.cuda.empty_cache()
 
 
 def neck_tf32(fpn_neck, gen: torch.Generator, args, card: str) -> None:
