@@ -47,25 +47,12 @@
 //     the ring, then ln_stats a row at a time), so their GELUs do not need
 //     the accumulators' registers.
 //
-// The bf16 main loop (mainloop_bf16; the wide neck, whose features run in
-// slices over chunks of flattened pixels; conv_tma.cuh has the loop of the
-// one-pass kernels and of the wide heads) computes the same sums from bf16 operands, one wgmma.m64nNk16.f32.bf16.bf16 a 16-deep step (no split: a
-// bf16 product is exact in f32). Its stage holds B (NB x 32, packed by the
-// wrapper in the same core-matrix order, 8 bf16 a core-matrix row, K in its
-// natural order) and A (BM x 32) laid out in core matrices too: one 16-byte
-// cp.async (8 channels of one pixel) is one core-matrix row, so A is read
-// by wgmma from shared memory through a descriptor like B, and no register
-// holds it. cp.async writes through the generic proxy, so each thread
-// fences its copies to the async proxy before the barrier that precedes the
-// products. The products accumulate straight into the running sums, with
-// no fresh register tile a 32-deep chunk: on an H100 the tile changed
-// nothing that a bf16 result keeps (the rough heads at K = 1536 against f64
-// on the bf16 operands: 1.982e-05 without it, 1.990e-05 with it) and cost
-// 0.224 ms of 0.952 (PERF.md, Findings).
+// bf16 operands run on conv_tma.cuh's TMA-fed loop; this file keeps their
+// conversions and stores (round_bf16, load_pair, store_pair), which that
+// loop's epilogues share.
 //
 // A wait on a copy that never lands traps instead of hanging the card. x
-// needs C % 4 == 0 (f32) or C % 8 == 0 (bf16) and 16-byte alignment (the
-// wrappers check it).
+// needs C % 4 == 0 and 16-byte alignment (the wrappers check it).
 
 #pragma once
 
@@ -562,7 +549,7 @@ __device__ __forceinline__ float ln_stats(const float* zr, int F, int t4, float&
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands.
+// bf16 values in the epilogues.
 
 using bf16 = __nv_bfloat16;
 
@@ -582,8 +569,6 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-__device__ __forceinline__ float load_one(const float* p) { return *p; }
-__device__ __forceinline__ float load_one(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -593,249 +578,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int BM, int NB, int STAGES>
-struct RingBf16 {
-  static constexpr int B_BYTES = NB * kKC * 2;
-  static constexpr int A_BYTES = BM * kKC * 2;
-  static constexpr int STAGE_BYTES = B_BYTES + A_BYTES;
-  static constexpr int BYTES = STAGES * STAGE_BYTES + BM * 4;  // the stages, then a row table
-  static constexpr int A_ITERS = BM * (kKC / 8) / kThreads;  // 16-byte A copies a thread
-  static_assert(BM % 64 == 0 && NB % 8 == 0 && STAGES >= 2, "ring");
-};
-
-// The ring a main loop over operands of type T uses.
-template <typename T, int BM, int NB, int STAGES>
-struct RingFor {
-  using type = Ring<BM, NB, STAGES>;
-};
-template <int BM, int NB, int STAGES>
-struct RingFor<bf16, BM, NB, STAGES> {
-  using type = RingBf16<BM, NB, STAGES>;
-};
-// Packed B parts a chunk: hi and lo for f32, one for bf16.
-template <typename T>
-constexpr int kParts = std::is_same<T, float>::value ? 2 : 1;
-
-// Descriptor of a bf16 K-major operand without swizzle: core matrices of 8
-// rows x 8 bf16, the next along K 128 bytes on; the wrappers' high word is
-// the 512 bytes to the next 8 rows (4 core matrices of K a 32-deep chunk).
-__device__ __forceinline__ uint32_t smem_desc_bf16(uint32_t saddr) {
-  return ((saddr & 0x3ffffu) >> 4) | ((128u >> 4) << 16);
-}
-constexpr uint32_t kRowGroupBf16 = 512 >> 4;  // descriptor step of 8 rows
-constexpr uint32_t kK16Bf16 = 256 >> 4;       // descriptor step of 16 K
-
-// wgmma.m64nNk16.f32.bf16.bf16, A and B from shared memory: d (64 x N, f32)
-// += A (64 x 16) . B (N x 16), or d = A . B when scale_d is 0; d's register
-// order is the one of wgmma_n96.
-template <int K>
-__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[K], uint32_t desc_a, uint32_t desc_b,
-                                               int scale_d) {
-  static_assert(K >= 48, "accumulator");
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 da, db;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "mov.b32 h, 32;\n"
-      "mov.b64 da, {%48, h};\n"
-      "mov.b64 db, {%49, h};\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
-      "}, da, db, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(desc_a), "r"(desc_b), "r"(scale_d));
-}
-
-template <int K>
-__device__ __forceinline__ void wgmma_bf16_n104(float (&d)[K], uint32_t desc_a, uint32_t desc_b,
-                                                int scale_d) {
-  static_assert(K >= 52, "accumulator");
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 da, db;\n"
-      "setp.ne.b32 p, %54, 0;\n"
-      "mov.b32 h, 32;\n"
-      "mov.b64 da, {%52, h};\n"
-      "mov.b64 db, {%53, h};\n"
-      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51"
-      "}, da, db, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-      : "r"(desc_a), "r"(desc_b), "r"(scale_d));
-}
-
-template <int NW, int K>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[K], uint32_t desc_a, uint32_t desc_b,
-                                           int scale_d) {
-  if constexpr (NW == 96) {
-    wgmma_bf16_n96(d, desc_a, desc_b, scale_d);
-  } else {
-    static_assert(NW == 104, "wgmma width");
-    wgmma_bf16_n104(d, desc_a, desc_b, scale_d);
-  }
-}
-
-// mainloop's contract with bf16 x and w: w holds, per tap and chunk, one
-// NB x 32 bf16 tile in core-matrix order (row group of 8, K group of 8,
-// row, K), zero past C; x needs C % 8 == 0.
-template <int BM, int NB, int STAGES, int N0, int N1, int K0, int K1>
-__device__ __forceinline__ void mainloop_bf16(const bf16* __restrict__ x,
-                                              const bf16* __restrict__ w, int npix, int H,
-                                              int W, int C, Taps taps, int m0,
-                                              unsigned char* smem, uint32_t bars, int arow,
-                                              int nb0, float (&acc0)[K0], float (&acc1)[K1]) {
-  using R = RingBf16<BM, NB, STAGES>;
-  static_assert(K0 == N0 / 2 && (N1 == 0 || K1 == N1 / 2) && N1 <= N0, "accumulators");
-  const int tid = threadIdx.x;
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int* a_ij = reinterpret_cast<int*>(smem + STAGES * R::STAGE_BYTES);
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  for (int r = tid; r < BM; r += kThreads) {
-    const int rem = (m0 + r) % (H * W);
-    a_ij[r] = ((rem / W) << 16) | (rem % W);
-  }
-  __syncthreads();
-
-  // The A pieces this thread copies: rows tid / 4 + 64 r, channels
-  // 8 (tid % 4) .. + 7 of every chunk, each one core-matrix row.
-  const int chunks = (C + kKC - 1) / kKC;
-  const int nk = taps.count * chunks;
-  const int q = tid % 4;
-  auto load = [&](int kt) {
-    if (kt >= nk) return;
-    const int t = kt / chunks, c = (kt - t * chunks) * kKC + 8 * q;
-    const int oy = taps.oy0 + t / taps.kw, ox = taps.ox0 + t % taps.kw;
-    const int s = kt % STAGES;
-    const uint32_t stage = sbase + s * R::STAGE_BYTES;
-    if (tid == 0) bulk_load(stage, w + (long long)kt * NB * kKC, R::B_BYTES, bars + 8 * s);
-    unsigned char* As = smem + s * R::STAGE_BYTES + R::B_BYTES;
-#pragma unroll
-    for (int r = 0; r < R::A_ITERS; ++r) {
-      const int row = tid / 4 + 64 * r;
-      const int m = m0 + row, ij = a_ij[row];
-      const int iy = (ij >> 16) + oy, ix = (ij & 0xffff) + ox;
-      const bool ok = m < npix && iy >= 0 && iy < H && ix >= 0 && ix < W && c < C;
-      const bf16* src = ok ? x + ((long long)(m + oy * W + ox) * C + c) : x;
-      cp_async16(As + ((row >> 3) * 4 + q) * 128 + (row & 7) * 16, src, ok);
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < K0; ++i) acc0[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < K1; ++i) acc1[i] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    mbar_wait(bars + 8 * s, (kt / STAGES) & 1);
-    __syncthreads();  // chunk kt landed for all; chunk kt-1's stage is free
-
-    const uint32_t stage = sbase + s * R::STAGE_BYTES;
-    const uint32_t a = smem_desc_bf16(stage + R::B_BYTES) + (arow / 8) * kRowGroupBf16;
-    const uint32_t b = smem_desc_bf16(stage) + (nb0 / 8) * kRowGroupBf16;
-    const uint32_t second = (N0 / 8) * kRowGroupBf16;  // the second width's first row group
-    wgmma_fence();
-#pragma unroll
-    for (int k16 = 0; k16 < kKC / 16; ++k16) {
-      wgmma_bf16<N0>(acc0, a + k16 * kK16Bf16, b + k16 * kK16Bf16, 1);
-      if constexpr (N1 > 0)
-        wgmma_bf16<N1>(acc1, a + k16 * kK16Bf16, b + second + k16 * kK16Bf16, 1);
-    }
-    wgmma_commit();
-    // The next load goes into chunk kt-1's stage, behind the products.
-    load(kt + STAGES - 1);
-    cp_async_commit();
-    wgmma_wait<0>();
-    fence_regs(acc0);
-    fence_regs(acc1);
-  }
-  cp_async_wait<0>();
-}
-
-// The main loop for operands of type T (float: PASSES TF32 products a
-// product, 3 or 1, BOTH as mainloop's; bf16: one product).
-template <typename T, int BM, int NB, int STAGES, int N0, int N1, int PASSES = 3, bool BOTH = false, int K0,
-          int K1>
-__device__ __forceinline__ void conv_mainloop(const T* __restrict__ x, const T* __restrict__ w,
-                                              int npix, int H, int W, int C, Taps taps, int m0,
-                                              unsigned char* smem, uint32_t bars, int arow,
-                                              int nb0, float (&acc0)[K0], float (&acc1)[K1]) {
-  if constexpr (std::is_same<T, float>::value)
-    mainloop<BM, NB, STAGES, N0, N1, PASSES, BOTH>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
-                                                   acc0, acc1);
-  else
-    mainloop_bf16<BM, NB, STAGES, N0, N1>(x, w, npix, H, W, C, taps, m0, smem, bars, arow, nb0,
-                                          acc0, acc1);
-}
-
-// Stores a warpgroup accumulator plus the bias to a row-major f32 (npix x
-// ld) map of pre-LayerNorm sums, for features from n0 (columns n0 + ... of
-// the map; the bias from bias[n0 + ...]): the thread's rows are m and m + 8.
-template <int K>
-__device__ __forceinline__ void store_sums(const float (&a)[K], float* __restrict__ ws, int m,
-                                           int npix, long long ld, int n0, int t4,
-                                           const float* __restrict__ bias) {
-#pragma unroll
-  for (int i = 0; i < K; i += 2) {
-    const int n = n0 + 8 * (i / 4) + 2 * t4;
-    const int r = m + ((i >> 1) & 1) * 8;
-    if (r < npix)
-      *reinterpret_cast<float2*>(ws + r * ld + n) =
-          make_float2(a[i] + __ldg(bias + n), a[i + 1] + __ldg(bias + n + 1));
-  }
-}
+// Packed B parts a chunk: a TF32 hi and a lo part.
+constexpr int kParts = 2;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// LayerNorm statistics of one row of F pre-LN sums, held by a warp (lane l
-// reads z[l], z[l + 32], ...): mean, then biased variance; sets rstd.
-__device__ __forceinline__ float warp_ln_stats(const float* __restrict__ z, int F, float& rstd) {
-  const int lane = threadIdx.x % 32;
-  float sum = 0.0f;
-  for (int n = lane; n < F; n += 32) sum += z[n];
-  const float mean = warp_sum(sum) / F;
-  float sq = 0.0f;
-  for (int n = lane; n < F; n += 32) {
-    const float d = z[n] - mean;
-    sq = fmaf(d, d, sq);
-  }
-  rstd = rsqrtf(warp_sum(sq) / F + kEps);
-  return mean;
 }
 
 // Opts a kernel in to more than 48 KB of dynamic shared memory.

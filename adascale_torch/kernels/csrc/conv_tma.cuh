@@ -11,11 +11,11 @@
 // (to nearest, ties away, conv_gemm::round_tf32) in registers after its
 // ldmatrix, w rounded when it was packed (packing.pack_sw128_tf32), so that
 // the tensor core, which drops the low 13 bits of an f32 operand, reads the
-// rounded values. conv_gemm.cuh keeps the 3xTF32 loop and the loop of the
-// wide neck's bf16 and TF32 paths, which split the features into slices
-// and run a chunk of flattened pixels at a time. The wide heads run this
-// loop on a thread-block cluster, one CTA a slice of the features
-// (fpn_head.cuh; the cluster helpers below).
+// rounded values. conv_gemm.cuh keeps the 3xTF32 loop. The wide heads and
+// the wide neck steps run this loop on a thread-block cluster, one CTA a
+// slice of the features, which share each row's LayerNorm statistics
+// through distributed shared memory (fpn_head.cuh, fpn_neck_l0.cu; the
+// cluster helpers below).
 //
 // Design:
 //   * A block is persistent: one a multiprocessor, it walks units, each one
@@ -524,16 +524,22 @@ __device__ __forceinline__ int claim(uint32_t empty0, uint32_t it) {
   return s;
 }
 
+// What the producer does at the start of each unit, beside its copies: by
+// default nothing.
+struct NoUnitHook {
+  __device__ void operator()(const Unit&) const {}
+};
+
 // The producer (one thread): for each unit of this block (units first,
-// first + step, ...), in order, each chunk's halo box by TMA at the
-// window's origin (oy0, ox0 of the set's Taps) into the A ring, and after
-// it each tap's B of the chunk by a bulk copy into the B ring (or, once,
-// all of B into the resident area). w holds each set's B, set-major, then
-// tap-major, then chunk, B_BYTES each.
-template <class L, class TapsOf>
+// first + step, ...), in order, on_unit(unit), then each chunk's halo box
+// by TMA at the window's origin (oy0, ox0 of the set's Taps) into the A
+// ring, and after it each tap's B of the chunk by a bulk copy into the B
+// ring (or, once, all of B into the resident area). w holds each set's B,
+// set-major, then tap-major, then chunk, B_BYTES each.
+template <class L, class TapsOf, class OnUnit = NoUnitHook>
 __device__ __forceinline__ void produce(const CUtensorMap* map, const typename L::T* w, const Geo& g,
                                         TapsOf taps_of, uint32_t ring, uint32_t bars, int first,
-                                        int step) {
+                                        int step, OnUnit on_unit = OnUnit{}) {
   constexpr int kElems = L::B_BYTES / (int)sizeof(typename L::T);
   const int nk = L::TAPS * g.chunks;
   if constexpr (L::B_RESIDENT) {
@@ -546,6 +552,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const typename L
   const int units = g.tiles * g.sets;
   for (int un = first; un < units; un += step) {
     const Unit u = unit_of<L::BH>(g, un);
+    on_unit(u);
     const conv_gemm::Taps t = taps_of(u.set);
     const typename L::T* wb = w + (long long)u.set * nk * kElems;
     for (int c = 0; c < g.chunks; ++c) {
@@ -747,6 +754,9 @@ __device__ __forceinline__ void st_peer(uint32_t caddr, float4 v, uint32_t cbar)
                "r"(__float_as_uint(v.w)), "r"(cbar)
                : "memory");
 }
+// The largest cluster the kernels launch (the portable limit).
+constexpr int kMaxCluster = 8;
+
 // mbar_wait for a phase that peers' st_peer completes: acquires at cluster
 // scope, so that their stores are seen; traps instead of hanging.
 __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
@@ -764,17 +774,107 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   }
 }
 
+// A row's LayerNorm statistics from each slice's (sum, sum of squared
+// deviations from the slice's own mean) over its real features, slice k
+// holding n_k = clamp(F - k N, 0, N) of them (stat(k)): the mean over F and
+// 1 / sqrt(var + eps), the slices combined in rank order (the pairwise
+// update of Chan, Golub and LeVeque), so that every CTA computes the same
+// bits from the same partials.
+template <class Stat>
+__device__ __forceinline__ float2 combine_stats(Stat stat, int slices, int F, int N) {
+  float s = 0.0f;
+  for (int k = 0; k < slices; ++k) s += stat(k).x;
+  const float mean = s / F;
+  float m2 = 0.0f;
+  for (int k = 0; k < slices; ++k) {
+    const float2 v = stat(k);
+    const int n = min(max(F - k * N, 0), N);
+    const float d = n > 0 ? v.x / n - mean : 0.0f;
+    m2 += v.y + n * d * d;
+  }
+  return make_float2(mean, rsqrtf(m2 / F + conv_gemm::kEps));
+}
+
+// The LayerNorm statistics' exchange of a persistent cluster kernel whose
+// CTAs each hold one slice of a unit's features, ROWS pixel rows a unit and
+// at most MAXS slices (fpn_neck_l0.cu's wide steps; the protocol of
+// fpn_head.cuh::heads_cluster_tma_kernel). The producer runs a unit ahead,
+// so no cluster barrier: a thread stores its rows' (sum, squared
+// deviations) into every peer's shared memory by st.async, which completes
+// the bytes on the peer's mbarrier of the unit's buffer, and waits on its
+// own. The buffers alternate by unit parity, a peer's value in slot (peer -
+// rank - 1) mod slices. A peer stores unit i + 2's into the buffer of unit
+// i only after it has received this CTA's statistics of unit i + 1 from
+// every row, which a CTA sends only after each of its threads is done with
+// unit i's (a warp's shuffles, or a named barrier, lie between). The
+// layout at `at`: two buffers of (MAXS - 1) x ROWS float2, then their two
+// mbarriers; BYTES in all.
+template <int ROWS, int MAXS>
+struct StatExchange {
+  static constexpr int SLOTS = (MAXS - 1) * ROWS;  // float2 a buffer
+  static constexpr int BYTES = 2 * SLOTS * 8 + 16;
+  const float2* xs;
+  uint32_t xaddr;
+  int rank, slices;
+  __device__ explicit StatExchange(void* at)
+      : xs(static_cast<const float2*>(at)),
+        xaddr(static_cast<uint32_t>(__cvta_generic_to_shared(at))),
+        rank(cluster_rank()),
+        slices(cluster_size()) {}
+  __device__ uint32_t bar(uint32_t it) const { return xaddr + 2 * SLOTS * 8 + 8 * (it & 1); }
+  __device__ int slot(int from, int to) const { return (from - to - 1 + slices) % slices; }
+  // Thread 0, before init_bars (whose fence covers them).
+  __device__ void init() const {
+    conv_gemm::mbar_init(bar(0), 1);
+    conv_gemm::mbar_init(bar(1), 1);
+  }
+  // One thread a unit: the peers' bytes of unit `it`.
+  __device__ void expect(uint32_t it) const { mbar_expect(bar(it), (uint32_t)(slices - 1) * ROWS * 8); }
+  // Row `row`'s statistics of unit `it` to the j-th peer after this CTA.
+  __device__ void send(uint32_t it, int j, int row, float2 st) const {
+    const int peer = (rank + 1 + j) % slices;
+    const uint32_t dst = xaddr + 8 * (((it & 1) * (MAXS - 1) + slot(rank, peer)) * ROWS + row);
+    st_peer(peer_addr(dst, peer), st, peer_addr(bar(it), peer));
+  }
+  __device__ void wait(uint32_t it) const { mbar_wait_cluster(bar(it), it >> 1 & 1); }
+  // The row's (mean, rstd) over F features in slices of N: this CTA's
+  // statistics and the peers' of unit `it` (after wait), in rank order.
+  __device__ float2 combine(uint32_t it, int row, float2 mine, int F, int N) const {
+    const float2* peers = xs + (it & 1) * SLOTS + row;
+    return combine_stats([&](int k) { return k == rank ? mine : peers[slot(k, rank) * ROWS]; }, slices, F, N);
+  }
+};
+
+// The launch of a kernel on clusters of `slices` CTAs along x.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int slices, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = slices;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
 // Clusters of `size` CTAs to launch for `units` units of a persistent
 // kernel: as many as fit on the card at once (found once a device and
 // size), no more than the units. cfg holds the launch's block, shared
 // memory and cluster dimension.
 template <auto kernel>
 cudaError_t persistent_clusters(cudaLaunchConfig_t cfg, int size, long long units, int* clusters) {
-  static int fit[32][8];  // clusters at once, a device and size
+  static int fit[32][kMaxCluster + 1];  // clusters at once, a device and size
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (size <= 0 || size >= 8) return cudaErrorInvalidValue;
+  if (size <= 0 || size > kMaxCluster) return cudaErrorInvalidValue;
   int n = dev < 32 ? __atomic_load_n(&fit[dev][size], __ATOMIC_ACQUIRE) : 0;
   if (n == 0) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.dynamicSmemBytes);

@@ -100,7 +100,7 @@ template <typename T, int N>
 struct Layout {
   static constexpr int N0 = (N / 2 + 7) / 8 * 8;  // the two wgmma widths
   static constexpr int N1 = N - N0;
-  using R = typename RingFor<T, kBM, N, kStages>::type;
+  using R = Ring<kBM, N, kStages>;
   static constexpr int VEC_BYTES = (3 + kMaxOut) * N * 4;  // the head's epilogue vectors
   static constexpr int LDZ = ldz(N);
   static constexpr int TILE_BYTES = kBM * LDZ * 4;
@@ -162,7 +162,7 @@ heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int pa = phase / 2, pb = phase % 2;
   const int m0 = blockIdx.y * kBM;
   const int nk = 4 * ((C + kKC - 1) / kKC);
-  const T* wb = w + (long long)(head * 4 + phase) * nk * kParts<T> * N * kKC;
+  const T* wb = w + (long long)(head * 4 + phase) * nk * kParts * N * kKC;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   // The head's bias, LN scale, LN bias (N each) and projection (kMaxOut x N)
   // for the epilogue, after the ring; then the ring's mbarriers.
@@ -174,9 +174,9 @@ heads_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // Tap t of phase (pa, pb) reads source pixel (i + pa - 1 + t / 2, j + pb - 1 + t % 2).
   const int arow = 64 * (tid / 128);
   float acc0[N0 / 2], acc1[N1 / 2];
-  conv_mainloop<T, kBM, N, kStages, N0, N1, PASSES>(x, wb, npix, H, W, C,
-                                                    Taps{4, 2, pa - 1, pb - 1}, m0, smem, bars,
-                                                    arow, 0, acc0, acc1);
+  static_assert(std::is_same<T, float>::value, "the 3xTF32 loop's operands are f32");
+  mainloop<kBM, N, kStages, N0, N1, PASSES>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0, smem, bars,
+                                            arow, 0, acc0, acc1);
 
   int F, M, moff;
   head_sizes(sizes, head, F, M, moff);
@@ -275,26 +275,8 @@ int launch_heads(const T* x, const T* w, const float* vec, const float* w2, cons
 // the projection go to rank 0, which adds them in rank order, adds b2 and
 // writes the interleaved output.
 
-// A row's LayerNorm statistics from each slice's (sum, sum of squared
-// deviations from the slice's own mean) over its real features, slice k
-// holding n_k = clamp(F - k N, 0, N) of them (stat(k)): the mean over F and
-// 1 / sqrt(var + eps), the slices combined in rank order (the pairwise
-// update of Chan, Golub and LeVeque), so that every CTA computes the same
-// bits from the same partials.
-template <class Stat>
-__device__ __forceinline__ float2 combine_stats(Stat stat, int slices, int F, int N) {
-  float s = 0.0f;
-  for (int k = 0; k < slices; ++k) s += stat(k).x;
-  const float mean = s / F;
-  float m2 = 0.0f;
-  for (int k = 0; k < slices; ++k) {
-    const float2 v = stat(k);
-    const int n = min(max(F - k * N, 0), N);
-    const float d = n > 0 ? v.x / n - mean : 0.0f;
-    m2 += v.y + n * d * d;
-  }
-  return make_float2(mean, rsqrtf(m2 / F + kEps));
-}
+using conv_tma::ClusterLaunch;
+using conv_tma::combine_stats;
 
 // The 3xTF32 (f32) form, on conv_gemm.cuh's main loop: a CTA is one slice
 // of one (head, phase, 128-pixel tile), the grid (4 heads slices, tiles)
@@ -327,7 +309,7 @@ heads_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int m0 = blockIdx.y * kBM;
   const int nk = 4 * ((C + kKC - 1) / kKC);
   const int fp = slices * N, n0 = rank * N;  // the features of the head, of this slice's first
-  const float* wb = w + (long long)(rank * heads * 4 + set) * nk * kParts<float> * N * kKC;
+  const float* wb = w + (long long)(rank * heads * 4 + set) * nk * kParts * N * kKC;
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   // This slice's bias, LN scale, LN bias (N each) and projection (kMaxOut x
   // N), after the ring; then the ring's mbarriers; then the exchange.
@@ -342,8 +324,8 @@ heads_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int arow = 64 * (tid / 128);
   float acc0[N0 / 2], acc1[N1 / 2];
   // Both widths' products of a chunk at once (the registers allow it here).
-  conv_mainloop<float, kBM, N, kStages, N0, N1, 3, true>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1},
-                                                         m0, smem, bars, arow, 0, acc0, acc1);
+  mainloop<kBM, N, kStages, N0, N1, 3, true>(x, wb, npix, H, W, C, Taps{4, 2, pa - 1, pb - 1}, m0, smem, bars,
+                                             arow, 0, acc0, acc1);
 
   int F, M, moff;
   head_sizes(sizes, head, F, M, moff);
@@ -429,25 +411,6 @@ heads_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   conv_tma::cluster_sync();  // no CTA leaves while rank 0 reads its dots
 }
-
-// The cluster launch of a wide kernel: `slices` CTAs a cluster along x.
-struct ClusterLaunch {
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg;
-  ClusterLaunch(dim3 grid, int threads, size_t smem, int slices, cudaStream_t stream) : attr{}, cfg{} {
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = slices;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-  }
-  ClusterLaunch(const ClusterLaunch&) = delete;
-};
 
 // The 3xTF32 wide heads: checks and one cluster launch. sizes and mtot as
 // fill_sizes gives them for F <= slices N.

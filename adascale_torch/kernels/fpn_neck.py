@@ -22,22 +22,24 @@ launch the bf16 entry: bf16 operands, f32 sums, LN, GELU and ``+ u``, ``t``
 rounded to bf16 before the 3x3 and a bf16 output, as the Pallas kernel
 computes it (0.034 ms at 240x192, 0.040 ms at 256x208, at 989 TFLOP/s
 dense bf16), each step on the persistent TMA-fed loop of
-``csrc/conv_tma.cuh`` (step1's W1, C0 <= 192, held in shared memory). Widths past
-the kernel's tiles (Cm 384, Co 96: the base and large backbones' 512 / 128
-and 768 / 192) run each step split into slices of its tile, with a second
-pass for the LayerNorm (``csrc/fpn_neck_l0.cu``).
+``csrc/conv_tma.cuh`` (step1's W1, C0 <= 192, held in shared memory).
+Widths past the one-pass tiles (Cm 384, Co 96: the base and large
+backbones' 512 / 128 and 768 / 192) run each step in one launch: step1 on a
+thread-block cluster, one CTA a slice of Cm, the slices sharing each row's
+LayerNorm statistics through distributed shared memory; step2 one CTA a
+pixel tile with all of Co (N = 128 or 192; two 192-wide slices on a
+cluster past 192). ``plan`` gives each step's route and slices.
 
 Inside a ``utils.precision.matmul_precision("default")`` or ``("high")``
 scope an f32 call on the card launches the single-pass entry
 ``fpn_neck_l0_tf32`` (one TF32 ``wgmma`` a product; 0.069 ms at 240x192 at
 495 TFLOP/s; counted in ``LAUNCHES_TF32``), whose plain twin is
-``fused_neck_l0_plain(..., tf32=True)``: where a step's features fit its
-tile (step1: and C0 <= ``TF32_MAX_C0``, W1 held in shared memory), the bf16
-entry's persistent TMA-fed kernels on f32 operands (``f0`` and ``t`` rounded
-to TF32 in registers, W1 and W2 rounded and packed by
-``packing.pack_sw128_tf32``, ``pack_neck(..., tf32_sw128=True)``); any
-other step as the 3xTF32 entry's kernels at one pass, reading only the
-packed weights' hi part.
+``fused_neck_l0_plain(..., tf32=True)``: the bf16 entry's TMA-fed kernels
+on f32 operands (``f0`` and ``t`` rounded to TF32 in registers, W1 and W2
+rounded and packed by ``packing.pack_sw128_tf32``, ``pack_neck(...,
+tf32_sw128=True)``) where W1 fits in shared memory, else step1 as the
+3xTF32 entry's kernels at one pass, reading only the packed weights' hi
+part.
 
 ``fpn_neck_forward_fused(neck, features)`` is the counterpart of
 ``adascale/ops/pallas/fpn_neck.py::fpn_neck_forward_fused``: the port's
@@ -74,41 +76,106 @@ LAUNCHES_BF16 = 0
 LAUNCHES_TF32 = 0
 
 EPS = 1e-6
-# The packed layout's slice widths, as csrc/fpn_neck_l0.cu reads them
-# (``build`` checks the library's): Cm and Co are padded to multiples of
-# these, one slice a tile.
+# The one-pass kernels' tiles, the flagship's widths (csrc/fpn_neck_l0.cu
+# kMid, kNB), and the widest Cm and Co (kMaxMid, kMaxOut); ``build`` checks
+# the library's.
 MID_WIDTH, OUT_WIDTH = 384, 96
-# The most slices a step takes (csrc/fpn_neck_l0.cu kMaxSlices).
-MAX_SLICES = 4
-# The widest C0 whose W1 the TF32 entry's one-pass step1 holds in shared
-# memory (csrc/fpn_neck_l0.cu kMaxC0<float>; ``build`` checks the library's).
-TF32_MAX_C0 = 96
+MAX_MID, MAX_OUT = 1536, 384
+# The widest C0 whose W1 the one-pass step1 holds in shared memory
+# (csrc/fpn_neck_l0.cu kMaxC0<bf16>, kMaxC0<float>; ``build`` checks them).
+BF16_MAX_C0, TF32_MAX_C0 = 192, 96
+# The chunks of a wide step1's W1 slice that stay in shared memory, by kind
+# and slice width (csrc/fpn_neck_l0.cu kWide1Chunks): 64 bf16 or 32 f32
+# input channels a chunk.
+RESIDENT_CHUNKS = {("bf16", 256): 5, ("bf16", 384): 3, ("tf32", 192): 7, ("tf32", 256): 5}
+# A step's route (csrc/fpn_neck_l0.cu Route): conv_gemm.cuh's loop (its
+# weights in ``packing.pack_kmajor``'s layout), conv_tma.cuh's (the
+# 128-byte swizzle) with a step1's W1 resident, or streamed.
+GEMM, TMA, TMA_STREAMED = 0, 1, 2
+KINDS = ("f32", "tf32", "bf16")  # the library's kinds 0, 1, 2
 PARAM_NAMES = (
     "step1_0.conv.weight", "step1_0.conv.bias", "step1_0.ln.weight", "step1_0.ln.bias",
     "step2_0.conv.weight", "step2_0.conv.bias", "step2_0.ln.weight", "step2_0.ln.bias",
 )
+# Shapes whose plan the library confirmed, by (kind, C0, Cm, Co).
+_PLANS_CHECKED: set = set()
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _nvcc.build("fpn_neck_l0", "fpn_neck_l0.cu")
     for fn in (lib.fpn_neck_l0_f32, lib.fpn_neck_l0_tf32, lib.fpn_neck_l0_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     widths = []
-    for name in ("tile_mid", "tile_out", "max_mid", "max_out"):
+    for name in ("tile_mid", "tile_out", "max_mid", "max_out", "bf16_max_c0", "tf32_max_c0"):
         getattr(lib, f"fpn_neck_l0_{name}").argtypes = []
         getattr(lib, f"fpn_neck_l0_{name}").restype = ctypes.c_int
         widths.append(getattr(lib, f"fpn_neck_l0_{name}")())
-    if tuple(widths[:2]) != (MID_WIDTH, OUT_WIDTH):
-        raise RuntimeError(f"fpn_neck_l0: library tiles {widths[:2]} != {(MID_WIDTH, OUT_WIDTH)}")
-    for name in ("bf16_max_c0", "tf32_max_c0"):
-        getattr(lib, f"fpn_neck_l0_{name}").argtypes = []
-        getattr(lib, f"fpn_neck_l0_{name}").restype = ctypes.c_int
-    if lib.fpn_neck_l0_tf32_max_c0() != TF32_MAX_C0:
-        raise RuntimeError(f"fpn_neck_l0: library TF32 C0 limit {lib.fpn_neck_l0_tf32_max_c0()} != {TF32_MAX_C0}")
+    want = (MID_WIDTH, OUT_WIDTH, MAX_MID, MAX_OUT, BF16_MAX_C0, TF32_MAX_C0)
+    if tuple(widths) != want:
+        raise RuntimeError(f"fpn_neck_l0: library widths {widths} != {want}")
+    lib.fpn_neck_l0_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.fpn_neck_l0_plan.restype = ctypes.c_int
     return lib
 
+
+def _pick_width(n: int, widths: Sequence[int]) -> int:
+    """The slice width for n features from ``widths`` (ascending): the least
+    padding, then the wider (csrc/fpn_neck_l0.cu ``pick_width``)."""
+    return min(widths, key=lambda w: (-(-n // w) * w, -w))
+
+
+def plan(kind: str, c0: int, cm: int, co: int) -> tuple:
+    """Each step's (route, slice width, slices) for ``kind`` ("f32": the
+    3xTF32 entry, "tf32", "bf16") and widths, as ``csrc/fpn_neck_l0.cu``'s
+    ``plan_neck`` chooses them (``fused_neck_l0`` checks the library's once
+    a shape). step1: one slice of MID_WIDTH where Cm fits it (the TMA-fed
+    kernel where W1 fits in shared memory, else conv_gemm.cuh's; bf16
+    refuses C0 > BF16_MAX_C0); wider, one CTA of a cluster a slice: bf16
+    slices of 256 or 384 with W1's slice resident (RESIDENT_CHUNKS), else
+    of 256 streamed; TF32 of 192 or 256 resident, else conv_gemm.cuh's
+    slices of 256 or 384 at one pass; 3xTF32 of 256 or 384. step2: one
+    slice of OUT_WIDTH where Co fits it, else N = 128 (Co <= 128) or 192 a
+    slice; conv_gemm.cuh's loop for 3xTF32, the TMA-fed for the others.
+    Raises for widths no route takes."""
+    if not 0 < cm <= MAX_MID or not 0 < co <= MAX_OUT or c0 <= 0:
+        raise ValueError(f"fused_neck_l0: widths {cm}/{co}; the kernel takes {MAX_MID}/{MAX_OUT}")
+    chunks = -(-c0 // (packing.KC_TMA if kind == "bf16" else packing.KC))
+    if cm <= MID_WIDTH:
+        cap = BF16_MAX_C0 if kind == "bf16" else TF32_MAX_C0
+        if kind == "bf16" and c0 > cap:
+            raise ValueError(f"fused_neck_l0: bf16 C0={c0}; the one-pass kernel takes C0 <= {cap}")
+        step1 = (GEMM if kind == "f32" or c0 > cap else TMA, MID_WIDTH, 1)
+    else:
+        if kind == "f32":
+            route, width = GEMM, _pick_width(cm, (256, 384))
+        else:
+            fits = [w for w in ((256, 384) if kind == "bf16" else (192, 256))
+                    if chunks <= RESIDENT_CHUNKS[(kind, w)]]
+            if fits:
+                route, width = TMA, _pick_width(cm, fits)
+            elif kind == "bf16":
+                route, width = TMA_STREAMED, 256
+            else:
+                route, width = GEMM, _pick_width(cm, (256, 384))
+        step1 = (route, width, -(-cm // width))
+    route2 = GEMM if kind == "f32" else TMA
+    width2 = OUT_WIDTH if co <= OUT_WIDTH else 128 if co <= 128 else 192
+    return step1, (route2, width2, -(-co // width2))
+
+
+def _check_plan(lib: ctypes.CDLL, kind: str, c0: int, cm: int, co: int, want: tuple) -> None:
+    """Raise unless the library plans (kind, C0, Cm, Co) as ``plan`` does,
+    once a shape."""
+    key = (kind, c0, cm, co)
+    if key in _PLANS_CHECKED:
+        return
+    out = (ctypes.c_int * 6)()
+    ok = lib.fpn_neck_l0_plan(KINDS.index(kind), c0, cm, co, out)
+    if not ok or tuple(out) != (*want[0], *want[1]):
+        raise RuntimeError(f"fpn_neck_l0: the library plans {key} as {tuple(out) if ok else None}, not {want}")
+    _PLANS_CHECKED.add(key)
 
 
 def _ln_gelu(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -141,63 +208,49 @@ def fused_neck_l0_plain(
     return out.to(torch.bfloat16) if bf16 else out
 
 
-def slices(cm: int, co: int) -> tuple:
-    """The kernel's slices of Cm and of Co (one at the flagship's widths)."""
-    return -(-cm // MID_WIDTH), -(-co // OUT_WIDTH)
-
-
 def pack_neck(
     p: Dict[str, torch.Tensor], dtype: torch.dtype = torch.float32, tf32_sw128: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """The level-0 parameters in the kernel's layouts (``csrc/fpn_neck_l0.cu``)
-    for ``dtype`` operands, zero past the real widths and past the input
-    channels, with s1, s2 = ``slices(Cm, Co)``:
+    """The level-0 parameters in the kernels' layouts (``csrc/fpn_neck_l0.cu``)
+    for ``dtype`` operands (``tf32_sw128``, f32: the single-pass TF32
+    entry's), for each step's route, slice width n and slices s of
+    ``plan``, zero past the real widths and past the input channels:
 
-    - ``w1`` (s1 slices, 1 tap, ceil(C0/32) chunks, ...; no slice axis
-      where s1 = 1): W1 as (C0, s1 MID_WIDTH) cut into slices of MID_WIDTH, each chunk for f32
-      ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` (2, MID_WIDTH/8, 8,
-      8, 4), for bf16 ``packing.pack_kmajor_bf16``'s tile (MID_WIDTH/8, 4,
-      8, 8), in wgmma's K-major core-matrix order; in bf16 with one slice
-      (the one-pass kernel) ``packing.pack_sw128``'s 64-channel chunks
-      (MID_WIDTH/8, 8, 8, 8) instead; with ``tf32_sw128`` (f32: the
-      single-pass TF32 entry), one slice and C0 <= ``TF32_MAX_C0`` (its
-      one-pass step1) ``packing.pack_sw128_tf32``'s 32-channel chunks
-      (MID_WIDTH/8, 8, 8, 4), rounded to TF32;
-    - ``w2`` (s2 slices, 9 taps, ceil(Cm/32) chunks, ...; likewise): the 3x3, tap
-      3 ky + kx as (Cm, s2 OUT_WIDTH), the same way (``tf32_sw128`` with one
-      slice: ``pack_sw128_tf32``'s (OUT_WIDTH/8, 8, 8, 4));
-    - ``vec1`` (3, s1 MID_WIDTH) and ``vec2`` (3, s2 OUT_WIDTH): conv bias,
-      LN scale, LN bias of step1 and step2."""
+    - ``w1`` (s, 1 tap, chunks, ...; no slice axis where s = 1): W1 as (C0,
+      s n) cut into slices of n features, each chunk of K for a TMA-fed
+      route ``packing.pack_sw128``'s 64-channel chunk (n/8, 8, 8, 8) in
+      bf16, ``packing.pack_sw128_tf32``'s 32-channel chunk (n/8, 8, 8, 4)
+      rounded to TF32 in f32; for a conv_gemm.cuh route
+      ``packing.pack_kmajor``'s TF32 ``hi`` and ``lo`` (2, n/8, 8, 8, 4);
+    - ``w2`` (s, 9 taps, chunks, ...; likewise): the 3x3, tap 3 ky + kx as
+      (Cm, s n), the same way;
+    - ``vec1`` (3, s n) and ``vec2`` (3, s n): conv bias, LN scale, LN bias
+      of step1 and step2."""
     w1, w2 = p["step1_0.conv.weight"], p["step2_0.conv.weight"]
     (cm, c0), co = w1.shape, w2.shape[0]
-    s1, s2 = slices(cm, co)
-    if max(s1, s2) > MAX_SLICES:
-        raise ValueError(
-            f"pack_neck: widths {cm}/{co}; the layout takes {MAX_SLICES * MID_WIDTH}/{MAX_SLICES * OUT_WIDTH}"
-        )
     bf16 = dtype == torch.bfloat16
-    # A step that fits one tile runs its bf16 one-pass kernel, whose chunks
-    # are 64 channels deep.
-    kc1 = packing.KC_TMA if bf16 and s1 == 1 else packing.KC
-    kc2 = packing.KC_TMA if bf16 and s2 == 1 else packing.KC
+    if not bf16 and dtype != torch.float32:
+        raise ValueError(f"no packed layout for {dtype}")
+    kind = "bf16" if bf16 else "tf32" if tf32_sw128 else "f32"
+    (route1, n1, s1), (route2, n2, s2) = plan(kind, c0, cm, co)
+    kc = packing.KC_TMA if bf16 else packing.KC
+
+    def pack(taps, route, s):
+        t = packing.split_slices(taps, s, 0)
+        t = packing.pack_for(t, dtype, route != GEMM, tf32_sw128)
+        return t.squeeze(0) if s == 1 else t
+
     with torch.no_grad():
-        taps1 = w1.new_zeros(1, -(-c0 // kc1) * kc1, s1 * MID_WIDTH)
+        taps1 = w1.new_zeros(1, -(-c0 // kc) * kc, s1 * n1)
         taps1[0, :c0, :cm] = w1.t()
-        taps2 = w2.new_zeros(9, -(-cm // kc2) * kc2, s2 * OUT_WIDTH)
+        taps2 = w2.new_zeros(9, -(-cm // kc) * kc, s2 * n2)
         taps2[:, :cm, :co] = w2.permute(2, 3, 1, 0).reshape(9, cm, co)
-        vec1 = w1.new_zeros(3, s1 * MID_WIDTH)
-        vec2 = w2.new_zeros(3, s2 * OUT_WIDTH)
+        vec1 = w1.new_zeros(3, s1 * n1)
+        vec2 = w2.new_zeros(3, s2 * n2)
         for k, part in enumerate(("conv.bias", "ln.weight", "ln.bias")):
             vec1[k, :cm] = p[f"step1_0.{part}"]
             vec2[k, :co] = p[f"step2_0.{part}"]
-        # One slice (its axis dropped) is the one-pass kernels' layout.
-        w1p = packing.pack_for(packing.split_slices(taps1, s1, 0), dtype, s1 == 1,
-                               tf32_sw128 and c0 <= TF32_MAX_C0)
-        w2p = packing.pack_for(packing.split_slices(taps2, s2, 0), dtype, s2 == 1, tf32_sw128)
-        return {
-            "w1": w1p.squeeze(0) if s1 == 1 else w1p, "vec1": vec1,
-            "w2": w2p.squeeze(0) if s2 == 1 else w2p, "vec2": vec2,
-        }
+        return {"w1": pack(taps1, route1, s1), "vec1": vec1, "w2": pack(taps2, route2, s2), "vec2": vec2}
 
 
 def packed_neck(
@@ -238,35 +291,32 @@ def fused_neck_l0(
     for name, shape in zip(PARAM_NAMES, shapes):
         _nvcc.check_param(name, p[name], shape, f0.device)
     _nvcc.refuse_grad("fused_neck_l0", f0, u, *(p[name] for name in PARAM_NAMES))
+    bf16 = f0.dtype == torch.bfloat16
+    tf32 = not bf16 and tf32_products()
+    kind = "bf16" if bf16 else "tf32" if tf32 else "f32"
+    if co % 4:
+        raise ValueError(f"fused_neck_l0: Co={co}; the kernel takes Co % 4 == 0")
+    steps = plan(kind, c0, cm, co)
     lib = build()
-    max_mid, max_out = lib.fpn_neck_l0_max_mid(), lib.fpn_neck_l0_max_out()
-    if cm > max_mid or co > max_out or co % 4:
-        raise ValueError(f"fused_neck_l0: widths {cm}/{co}; the kernel takes {max_mid}/{max_out}, Co % 4 == 0")
-    if f0.dtype == torch.bfloat16 and cm <= MID_WIDTH and c0 > lib.fpn_neck_l0_bf16_max_c0():
-        raise ValueError(f"fused_neck_l0: bf16 C0={c0}; the one-pass kernel takes C0 <= {lib.fpn_neck_l0_bf16_max_c0()}")
-    tf32 = f0.dtype == torch.float32 and tf32_products()
+    _check_plan(lib, kind, c0, cm, co, steps)
     packed = packed_neck(p, f0.dtype, tf32_sw128=tf32)
-    s1, s2 = slices(cm, co)
     if t is None:
         t = torch.empty_like(u)
     elif t.shape != u.shape or t.dtype != u.dtype or t.device != u.device or not t.is_contiguous():
         raise ValueError(f"fused_neck_l0: t must be contiguous, {tuple(u.shape)} {u.dtype} on {u.device}")
     out = torch.empty(b, h, w, co, dtype=f0.dtype, device=f0.device)
-    ws_cols = max(s1 * MID_WIDTH if s1 > 1 else 0, s2 * OUT_WIDTH if s2 > 1 else 0)
-    ws = torch.empty(b * h * w * ws_cols, dtype=torch.float32, device=f0.device) if ws_cols else None
-    entry = "fpn_neck_l0_" + ("bf16" if f0.dtype == torch.bfloat16 else "tf32" if tf32 else "f32")
+    entry = "fpn_neck_l0_" + kind
     with torch.cuda.device(f0.device):
         rc = getattr(lib, entry)(
             f0.data_ptr(), u.data_ptr(), packed["w1"].data_ptr(), packed["vec1"].data_ptr(),
-            packed["w2"].data_ptr(), packed["vec2"].data_ptr(), t.data_ptr(), out.data_ptr(),
-            0 if ws is None else ws.data_ptr(), b, h, w, c0, cm, co,
+            packed["w2"].data_ptr(), packed["vec2"].data_ptr(), t.data_ptr(), out.data_ptr(), b, h, w, c0, cm, co,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         # 1 (invalid value): a shape the kernel does not take, such as a side
         # over 32767 or more than 2^30 pixels.
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    if f0.dtype == torch.bfloat16:
+    if bf16:
         LAUNCHES_BF16 += 1
     elif tf32:
         LAUNCHES_TF32 += 1

@@ -3,16 +3,14 @@ and the cache that packs them once per parameter set.
 
 ``pack_kmajor(taps)`` lays a (..., K, n) weight operand out as the kernels'
 f32 B: per 32-deep K chunk a TF32 ``hi`` and ``lo = tf32(w - hi)``, each in
-wgmma's no-swizzle K-major core-matrix order; ``pack_kmajor_bf16(taps)`` as
-the bf16 B of the wide (sliced) neck, one bf16 tile a chunk in the
-same order (8 bf16 a core-matrix row, K in its natural order);
-``pack_sw128(taps)`` as the bf16 B of the kernels on the TMA-fed loop
-(``csrc/conv_tma.cuh``: the one-pass neck and all heads), per 64-deep chunk
+wgmma's no-swizzle K-major core-matrix order; ``pack_sw128(taps)`` as the
+bf16 B of the kernels on the TMA-fed loop (``csrc/conv_tma.cuh``: every
+bf16 neck and heads kernel), per 64-deep chunk
 n rows of 128 bytes in the 128-byte swizzle, and ``pack_sw128_tf32(taps)``
 as the f32 B of their single-pass TF32 entries on that loop, per 32-deep
 chunk, rounded to TF32. ``split_slices(taps, slices)`` cuts the output
-features into the slices a wide kernel gives one block each (the wide
-heads: one CTA of a cluster each), before packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
+features into the slices a wide kernel gives one CTA of a cluster each (the
+wide heads, the wide neck's step1), before packing. ``pack_core_kmajor(w, rows, depth)`` tiles an (N, K) operand
 for the bf16 ConvNeXt block's ``wgmma`` (``csrc/block_bf16.cuh``), and
 ``pack_block_bf16(w1, w2)`` packs that block's two projections in the form
 its kernel takes for their width; ``pack_block_tf32(w1, w2)`` does the same,
@@ -64,20 +62,6 @@ def pack_kmajor(taps: torch.Tensor) -> torch.Tensor:
     t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
     hi = tf32_round(t)
     return torch.stack([hi, tf32_round(t - hi)], dim=nl + 1)
-
-
-def pack_kmajor_bf16(taps: torch.Tensor) -> torch.Tensor:
-    """``taps`` (..., K, n), K a multiple of 32 (zero past the real
-    channels) and n of 8, as bf16 (..., K/32 chunks, n/8, 4, 8, 8): each
-    chunk in wgmma's K-major core-matrix order (row group, K group of 8,
-    row, K in group), the layout ``conv_gemm.cuh::mainloop_bf16`` reads."""
-    *lead, k, n = taps.shape
-    if k % KC or n % 8:
-        raise ValueError(f"pack_kmajor_bf16: K={k}, n={n}; want K % {KC} == 0 and n % 8 == 0")
-    nl = len(lead)
-    t = taps.reshape(*lead, k // KC, KC // 8, 8, n // 8, 8)
-    t = t.permute(*range(nl + 1), nl + 3, nl + 1, nl + 4, nl + 2)
-    return t.to(torch.bfloat16).contiguous()
 
 
 def pack_sw128_tf32(taps: torch.Tensor) -> torch.Tensor:
@@ -250,17 +234,16 @@ def pack_block_tf32(w1: torch.Tensor, w2: torch.Tensor) -> Dict[str, torch.Tenso
 def pack_for(
     taps: torch.Tensor, dtype: torch.dtype, tma: bool = False, tf32_sw128: bool = False
 ) -> torch.Tensor:
-    """``pack_kmajor`` (f32; ``pack_sw128_tf32`` for a single-pass TF32
-    entry on the TMA-fed loop, ``tma`` and ``tf32_sw128``), or for bf16
-    ``pack_sw128`` (the kernels on the TMA-fed loop, ``tma``: the one-pass
-    neck steps and every heads kernel; K padded to 64) or
-    ``pack_kmajor_bf16`` (the wide neck's, on ``conv_gemm.cuh``), by the
-    kernel's operand type and loop."""
-    if dtype == torch.bfloat16:
-        return pack_sw128(taps) if tma else pack_kmajor_bf16(taps)
+    """The B operand of a kernel by its operand type and loop: f32
+    ``pack_kmajor`` (conv_gemm.cuh's loop) or ``pack_sw128_tf32`` (a
+    single-pass TF32 entry on the TMA-fed loop, ``tma`` and
+    ``tf32_sw128``); bf16 ``pack_sw128`` (every bf16 kernel runs on the
+    TMA-fed loop, ``tma``; K padded to 64)."""
+    if dtype == torch.bfloat16 and tma:
+        return pack_sw128(taps)
     if dtype == torch.float32:
         return pack_sw128_tf32(taps) if tma and tf32_sw128 else pack_kmajor(taps)
-    raise ValueError(f"no packed layout for {dtype}")
+    raise ValueError(f"no packed layout for {dtype} (tma={tma})")
 
 
 def split_slices(taps: torch.Tensor, slices: int, axis: int) -> torch.Tensor:

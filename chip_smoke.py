@@ -220,23 +220,26 @@ that reads it. Phases, each announced with its elapsed seconds:
      the flagship on page_0 in the fused configuration;
  widths. the neck and both heads kernels at the base and large backbones'
      widths (neck 512 / 768 -> 128 / 192, heads 256-258 / 384-386, wider
-     than the kernels' tiles: the neck split into slices, the heads in
-     slices on one thread-block cluster a pixel tile) on random weights
-     against their plain twins in all three precisions (f32 at REL_TOL;
-     the single-pass TF32 entries inside matmul_precision("default")
-     against their TF32 twins at TF32_TWIN_TOL, the neck stage by stage;
-     bf16 at BF16_TOL), and both heads at the base widths at a tiled
-     group's batch (WIDTH_GROUP); both heads at the base and large widths
-     at the page shapes (WIDTH_PAGE_HW), timed with their bounds and the
-     trace's kernel names (one cluster kernel launch a call, no two-pass
-     kernel); each heads kernel at the base widths at B = 4 bit for bit
-     against each image alone (TF32 and bf16); fused detect()s of a
+     than the kernels' tiles: the neck's step1 and the heads in slices on
+     one thread-block cluster a pixel tile, the neck's step2 one CTA a tile
+     with every feature) on random weights against their plain twins in
+     all three precisions (f32 at REL_TOL; the single-pass TF32 entries
+     inside matmul_precision("default") against their TF32 twins at
+     TF32_TWIN_TOL, the neck stage by stage; bf16 at BF16_TOL), the neck
+     also at the widths of its other routes (WIDTH_NECK_ROUTES), and both
+     heads at the base widths at a tiled group's batch (WIDTH_GROUP); the
+     neck and both heads at the base and large widths at the page shapes
+     (WIDTH_PAGE_HW, the neck at both passes' level-0 shapes), timed with
+     their bounds and the trace's kernel names (the heads one cluster
+     kernel launch a call, the neck one launch a step, none of the
+     two-pass designs'); each kernel at the base widths at B = 4 bit for
+     bit against each image alone (TF32 and bf16); fused detect()s of a
      random-init base model on page_0 (f32, "default" and bf16) and of a
      random-init large model (bf16) run to the end with the neck and
-     heads kernels launched; the kernels line carries the wide heads'
-     rows (<name>_wide[_tf32|_bf16], the base widths at the page shape);
-     the page shapes run in a fresh interpreter (WIDTH_PAGE_SCRIPT), whose
-     torch.profiler keeps its traces;
+     heads kernels launched; the kernels line carries the wide rows
+     (<name>_wide[_tf32|_bf16], the base widths at the page shape, the
+     neck at 240x192); the page shapes run in a fresh interpreter
+     (WIDTH_PAGE_SCRIPT), whose torch.profiler keeps its traces;
  tf32. matmul_precision "default" / "high" (one TF32 pass a product): each
      f32 kernel's single-pass TF32 entry (inside
      ``utils.precision.matmul_precision("default")``) at the flagship's
@@ -482,6 +485,21 @@ WIDTH_INVARIANCE = (4, (60, 44))
 # replaced and which must not run.
 WIDE_HEADS_KERNELS = ("heads_cluster_tma_kernel", "heads_cluster_kernel")
 STALE_WIDE_KERNELS = ("heads_sums_kernel", "heads_ln_kernel")
+# The wide neck at both passes' level-0 shapes (page_0's rough pass, its
+# 1024x832 precise stack), B = 1; its kernels, one launch a step (step1 on
+# a cluster, step2 one CTA a tile), and the split design's (its pre-LN sums
+# kernels and second pass), which must not run.
+WIDTH_NECK_PAGE_HW = ((240, 192), (256, 208))
+WIDE_NECK_STEP1 = ("neck_step1_cluster_tma_kernel", "neck_step1_cluster_kernel")
+WIDE_NECK_STEP2 = ("neck_step2_wide_tma_kernel", "neck_step2_wide_kernel")
+STALE_WIDE_NECK_KERNELS = ("ln_gelu_rows", "neck_step1_kernel<float, true", "neck_step1_kernel<__nv_bfloat16, true",
+                           "neck_step2_kernel<float, true", "neck_step2_kernel<__nv_bfloat16, true")
+# The neck at widths whose routes the base and large widths do not take
+# (C0, Cm, Co; B = 2 at WIDTH_HW): W1 past every resident slice (bf16
+# streamed, TF32 on conv_gemm.cuh's loop at one pass), a last slice of 8
+# features, Co = 264 on a cluster of two; TF32 past the 256-wide resident
+# W1 with step2 at N = 192 for Co = 136.
+WIDTH_NECK_ROUTES = ((384, 520, 264), (256, 512, 136))
 
 
 # Empty torch.profiler traces taken again (kernel_device_ms), by the phase
@@ -2738,17 +2756,57 @@ def wide_heads_cases(x, rough, precise):
     ]
 
 
+def wide_neck_trace(call) -> dict:
+    """The device ms a call of a wide neck call's kernels by name, from a
+    torch.profiler trace of 3 calls (``kernel_device_ms``), taken again
+    (counted in TRACE_RETRIES) while it kept no launch of step1 or of
+    step2, up to 6 times."""
+    for _ in range(6):
+        traced = kernel_device_ms(call, reps=3, once_a_call=True, match="neck_")
+        found = {short_kernel_name(k): v for k, v in traced.items() if "neck_" in k or "ln_gelu_rows" in k}
+        if any(k.startswith(("neck_step1_", "ln_gelu")) for k in found) and any(k.startswith("neck_step2_")
+                                                                                for k in found):
+            return found
+        TRACE_RETRIES[PHASE[0]] = TRACE_RETRIES.get(PHASE[0], 0) + 1
+        print(f"torch.profiler kept a wide neck call's launches only in part ({list(found)}); tracing again",
+              flush=True)
+    return found
+
+
 def widths_page(gen, device) -> tuple:
     """Both heads at the base and large widths at the page shapes
-    (WIDTH_PAGE_HW, B = 1) in each precision: ``check_width_case`` and the
+    (WIDTH_PAGE_HW, B = 1), and the neck at both passes' level-0 shapes
+    (WIDTH_NECK_PAGE_HW), in each precision: ``check_width_case`` and the
     device ms a call by kernel name from a torch.profiler trace. Returns
-    (the kernels line's rows, the base widths', by "<name>_wide[_tf32|_bf16]";
-    the kernel names, by "preset|name|precision")."""
+    (the kernels line's rows, the base widths', by "<name>_wide[_tf32|_bf16]",
+    the neck's at 240x192; the kernel names, by "preset|name|precision",
+    the neck's name with its shape)."""
     import torch
 
+    from adascale_torch.kernels import fpn_neck
+
     dtype_of = {"f32": torch.float32, "tf32": torch.float32, "bf16": torch.bfloat16}
+    suffix_of = {"f32": "", "tf32": "_tf32", "bf16": "_bf16"}
     rows, names = {}, {}
-    for preset, (_, cm) in WIDTH_PRESETS.items():
+    for preset, (c0, cm) in WIDTH_PRESETS.items():
+        co = cm // 4
+        p = random_neck_params(c0, cm, co, gen, device)
+        for h, w in WIDTH_NECK_PAGE_HW:
+            f0 = torch.randn(1, h, w, c0, generator=gen).to(device)
+            u = torch.randn(1, h, w, cm, generator=gen).to(device)
+            for precision in dtype_of:
+                a = (f0.to(dtype_of[precision]), u.to(dtype_of[precision]), p)
+                row = check_width_case(f"widths page {preset} fpn_neck_l0", "fpn_neck_l0", fpn_neck.fused_neck_l0,
+                                       fpn_neck.fused_neck_l0_plain, a, precision,
+                                       widths_bound_ms("fpn_neck_l0", 1, h, w, c0, cm, co, (), precision))
+                found = wide_neck_trace(lambda: widths_call(fpn_neck.fused_neck_l0, precision)(*a))
+                print(f"widths page {preset} fpn_neck_l0 {h}x{w} {precision}: device ms a call by kernel "
+                      f"(torch.profiler, 3 calls): " + ", ".join(f"{k}={v:.4f}" for k, v in found.items()), flush=True)
+                names[f"{preset}|fpn_neck_l0 {h}x{w}|{precision}"] = found
+                if preset == "base" and (h, w) == WIDTH_NECK_PAGE_HW[0]:
+                    rows[f"fpn_neck_l0_wide{suffix_of[precision]}"] = {
+                        **row, "device_ms": sum(found.values()), "shape": [1, h, w, c0, cm, co]}
+            del f0, u
         rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
         precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
         for name in ("fpn_heads", "precise_heads"):
@@ -2766,9 +2824,8 @@ def widths_page(gen, device) -> tuple:
                       f"3 calls): " + ", ".join(f"{k}={v:.4f}" for k, v in found.items()), flush=True)
                 names[f"{preset}|{name}|{precision}"] = found
                 if preset == "base":
-                    suffix = {"f32": "", "tf32": "_tf32", "bf16": "_bf16"}[precision]
-                    rows[f"{name}_wide{suffix}"] = {**row, "device_ms": sum(found.values()),
-                                                    "shape": [1, h, w, cm]}
+                    rows[f"{name}_wide{suffix_of[precision]}"] = {**row, "device_ms": sum(found.values()),
+                                                                  "shape": [1, h, w, cm]}
             del x
     return rows, names
 
@@ -2813,17 +2870,19 @@ def widths_page_fresh(seed: int) -> tuple:
 
 def check_widths(gen, device) -> dict:
     """Phase widths: the neck and both heads kernels at the base and large
-    backbones' widths on random weights (B = 2, a 64x48 level 0), and the
-    heads at the base widths at a tiled group's batch (WIDTH_GROUP), against
-    their plain twins in all three precisions (``check_width_case``); both
-    heads at the base and large widths at the page shapes (WIDTH_PAGE_HW,
+    backbones' widths on random weights (B = 2, a 64x48 level 0), the neck
+    at WIDTH_NECK_ROUTES, and the heads at the base widths at a tiled
+    group's batch (WIDTH_GROUP), against their plain twins in all three
+    precisions (``check_width_case``); the neck and both heads at the base
+    and large widths at the page shapes (WIDTH_NECK_PAGE_HW, WIDTH_PAGE_HW,
     B = 1), timed, with the trace's kernel names (the wide heads' cluster
-    kernels, one launch a call; not the two-pass kernels); each heads
-    kernel at the base widths at B = 4 bit for bit against each image alone
-    (bf16 and TF32); then fused detect()s of random-init models on page_0
+    kernels, one launch a call; the wide neck's, one launch a step; none of
+    the split designs'); each kernel at the base widths at B = 4 bit for
+    bit against each image alone (bf16 and TF32); then fused detect()s of
+    random-init models on page_0
     (base at f32, "default" and bf16; large at bf16), each of which must run
     to the end (their polygons are not checked: the weights are random).
-    Returns (the kernels line's wide heads rows, the detects' launches)."""
+    Returns (the kernels line's wide rows, the detects' launches)."""
     import numpy as np
     import torch
 
@@ -2853,31 +2912,55 @@ def check_widths(gen, device) -> dict:
             for precision in precisions:
                 check_width_case(f"widths {preset} {name} {widths}", name, kernel, plain, args(dtype_of[precision]),
                                  precision, widths_bound_ms(name, b, h, w, c0, cm, co, heads, precision))
+    b, (h, w) = WIDTH_BATCH, WIDTH_HW
+    for c0, cm, co in WIDTH_NECK_ROUTES:
+        p = random_neck_params(c0, cm, co, gen, device)
+        f0 = torch.randn(b, h, w, c0, generator=gen).to(device)
+        u = torch.randn(b, h, w, cm, generator=gen).to(device)
+        for precision in precisions:
+            d = dtype_of[precision]
+            routes = fpn_neck.plan(precision, c0, cm, co)
+            check_width_case(f"widths routes fpn_neck_l0 {(c0, cm, co)} {routes}", "fpn_neck_l0",
+                             fpn_neck.fused_neck_l0, fpn_neck.fused_neck_l0_plain, (f0.to(d), u.to(d), p), precision,
+                             widths_bound_ms("fpn_neck_l0", b, h, w, c0, cm, co, (), precision))
 
-    stamp("widths: the wide heads at the page shapes, B = 1, in each precision (a fresh interpreter)")
+    stamp("widths: the wide neck and heads at the page shapes, B = 1, in each precision (a fresh interpreter)")
     rows, names = widths_page_fresh(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
-    # Every wide call ran one launch of a cluster kernel and none of the
-    # two-pass design's.
-    wrong = {key: list(found) for key, found in names.items()
-             if len(found) != 1 or not any(k.startswith(WIDE_HEADS_KERNELS) for k in found)
-             or any(k.startswith(STALE_WIDE_KERNELS) for k in found)}
-    if wrong:
-        raise AssertionError(f"widths page: wide heads calls not one cluster kernel launch: {wrong}")
+    # Every wide heads call ran one launch of a cluster kernel, every wide
+    # neck call one launch of each step's wide kernel; none of the split
+    # designs'.
+    def wrong_names(name, found):
+        if any(k.startswith(STALE_WIDE_KERNELS) or any(s_ in k for s_ in STALE_WIDE_NECK_KERNELS) for k in found):
+            return True
+        if name.startswith("fpn_neck_l0"):
+            return len(found) != 2 or not all(any(k.startswith(step) for k in found)
+                                              for step in (WIDE_NECK_STEP1, WIDE_NECK_STEP2))
+        return len(found) != 1 or not any(k.startswith(WIDE_HEADS_KERNELS) for k in found)
 
-    stamp("widths: the wide heads at B = 4 against each image alone (base, bf16 and TF32)")
+    wrong = {key: list(found) for key, found in names.items() if wrong_names(key[1], found)}
+    if wrong:
+        raise AssertionError(f"widths page: wide calls not the cluster designs' launches: {wrong}")
+
+    stamp("widths: the wide neck and heads at B = 4 against each image alone (base, bf16 and TF32)")
     b, (h, w) = WIDTH_INVARIANCE
-    cm = WIDTH_PRESETS["base"][1]
+    c0, cm = WIDTH_PRESETS["base"]
     rough = [random_head_params(cm, 1, gen, device) for _ in range(2)]
     precise = [random_head_params(cm, m, gen, device) for m in PRECISE_OUT]
+    p = random_neck_params(c0, cm, cm // 4, gen, device)
     x = torch.randn(b, h, w, cm, generator=gen).to(device)
-    for name, kernel, _, args, _ in wide_heads_cases(x, rough, precise):
+    f0 = torch.randn(b, h, w, c0, generator=gen).to(device)
+    neck_case = ("fpn_neck_l0", lambda *a: [fpn_neck.fused_neck_l0(*a)], None,
+                 lambda d: (f0.to(d), x.to(d), p), ())
+    for name, kernel, _, args, _ in [neck_case] + wide_heads_cases(x, rough, precise):
         for precision in ("tf32", "bf16"):
             call = widths_call(kernel, precision)
             xb, *rest = args(dtype_of[precision])
             batch = [batch_out for batch_out in call(xb, *rest)]
-            alone = [list(call(xb[i : i + 1].contiguous(), *rest)) for i in range(b)]
+            # Each image alone: every activation (the neck's f0 and u) cut to it.
+            alone = [list(call(*(v[i : i + 1].contiguous() if torch.is_tensor(v) and v.dim() == 4 else v
+                                 for v in (xb, *rest)))) for i in range(b)]
             same = all(torch.equal(y[i : i + 1], a_[k]) for i, a_ in enumerate(alone) for k, y in enumerate(batch))
-            print(f"widths base {name} {precision} B={b} {h}x{w}x{cm}: each image of the batch bit for bit as "
+            print(f"widths base {name} {precision} B={b} {h}x{w}: each image of the batch bit for bit as "
                   f"alone: {same}", flush=True)
             if not same:
                 raise AssertionError(f"widths base {name} {precision} at B={b}: a batch's image differs")
@@ -4903,13 +4986,16 @@ def main() -> None:
         "fpn_neck_l0_tf32": ("fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185", "detect_tf32_fpn_fused"),
         "fpn_heads_tf32": ("fpn_heads.cu", "adascale/ops/pallas/fpn_heads.py:200", "detect_tf32_fpn_fused"),
         "precise_heads_tf32": ("precise_heads.cu", "adascale/ops/pallas/precise_heads.py:144", "detect_tf32_fpn_fused"),
-        # The heads wider than one tile (the base and large backbones': each
-        # pixel tile's feature slices on one thread-block cluster), on the
-        # fused detect() of a random-init base model in each precision; the
-        # numbers at the base widths at the page shapes (phase widths).
-        **{f"{k}_wide{s}": ("fpn_head.cuh", replaces, f"detect_base_random_{path}")
-           for k, replaces in (("fpn_heads", "adascale/ops/pallas/fpn_heads.py:200"),
-                               ("precise_heads", "adascale/ops/pallas/precise_heads.py:144"))
+        # The neck and heads wider than one tile (the base and large
+        # backbones': the heads' and the neck step1's feature slices on one
+        # thread-block cluster a pixel tile, the neck's step2 one CTA a tile
+        # at N = Co), on the fused detect() of a random-init base model in
+        # each precision; the numbers at the base widths at the page shapes
+        # (phase widths; the neck at 240x192).
+        **{f"{k}_wide{s}": (source, replaces, f"detect_base_random_{path}")
+           for k, source, replaces in (("fpn_neck_l0", "fpn_neck_l0.cu", "adascale/ops/pallas/fpn_neck.py:185"),
+                                       ("fpn_heads", "fpn_head.cuh", "adascale/ops/pallas/fpn_heads.py:200"),
+                                       ("precise_heads", "fpn_head.cuh", "adascale/ops/pallas/precise_heads.py:144"))
            for s, path in (("", "float32"), ("_tf32", "default"), ("_bf16", "bfloat16"))},
     }
     kernels = []

@@ -6,8 +6,12 @@ emulation of the kernel's 3xTF32 products, read from the packed operands in
 the kernel's order with its split of A (the dropped lo.lo product, each
 32-deep chunk summed in a fresh tile), matches ``fused_neck_l0_plain``
 within 1e-5 relative (the kernel's bar on the card), at the micro widths on
-a ragged 13x19 map and at the flagship's (K = 96 and 9 x 384). The pack
-cache is tested with the heads' (``test_torch_heads_packing.py``)."""
+a ragged 13x19 map and at the flagship's (K = 96 and 9 x 384). The wide
+necks (the base and large widths): the routes ``plan`` gives, each slice
+of the packs index by index, and an emulation of the cluster kernels' walk
+(each slice's LayerNorm statistics combined in rank order) against the
+plain twin in f32, TF32 and bf16. The pack cache is tested with the heads'
+(``test_torch_heads_packing.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -77,12 +81,14 @@ def test_packed_weights_unpack_to_w1_and_taps_and_hi_is_tf32(shape):
 
 
 def test_pack_refuses_widths_above_the_layout():
-    """Past one tile the layout takes slices of it (the base and large
-    widths), up to MAX_SLICES; wider raises."""
-    with pytest.raises(ValueError, match="widths"):
-        K.pack_neck(_params(8, K.MAX_SLICES * K.MID_WIDTH + 8, 8))
-    with pytest.raises(ValueError, match="widths"):
-        K.pack_neck(_params(8, 32, K.MAX_SLICES * K.OUT_WIDTH + 8))
+    """Past one tile the layout takes slices (the base and large widths), up
+    to MAX_MID and MAX_OUT features; wider raises, in every kind."""
+    for dtype, tf32 in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, False)):
+        with pytest.raises(ValueError, match="widths"):
+            K.pack_neck(_params(8, K.MAX_MID + 8, 8), dtype, tf32)
+        with pytest.raises(ValueError, match="widths"):
+            K.pack_neck(_params(8, 32, K.MAX_OUT + 8), dtype, tf32)
+        K.pack_neck(_params(8, K.MAX_MID, K.MAX_OUT), dtype, tf32)
 
 
 def _split_a(a):
@@ -272,3 +278,185 @@ def test_emulated_bf16_tile_walk_matches_plain(shape):
     rel = float((got - want).abs().max()) / float(want.abs().max())
     assert rel <= 8e-3, rel
     assert float((got == want).float().mean()) >= 0.99
+
+
+# The wide necks: (C0, Cm, Co) of the base and large backbones, on a small
+# ragged map (B, H, W).
+WIDE = {"base": (128, 512, 128), "large": (192, 768, 192)}
+WIDE_MAP = (2, 5, 7)
+KINDS = {"f32": (torch.float32, False), "tf32": (torch.float32, True), "bf16": (torch.bfloat16, False)}
+
+
+def test_plan_routes_of_the_wide_and_ragged_widths():
+    """``plan``: the base widths in two slices of 256 for step1 and one CTA
+    of 128 for step2 in every kind; large in two slices of 384 (bf16,
+    3xTF32) or four of 192 (TF32: a 384-wide W1 slice does not fit); past
+    the resident W1 (C0 = 384) bf16 streams slices of 256 and TF32 takes
+    conv_gemm.cuh's slices at one pass; Co > 192 two slices of 192; the
+    flagship's widths one slice a step."""
+    gemm, tma, streamed = K.GEMM, K.TMA, K.TMA_STREAMED
+    assert K.plan("f32", 128, 512, 128) == ((gemm, 256, 2), (gemm, 128, 1))
+    assert K.plan("tf32", 128, 512, 128) == ((tma, 256, 2), (tma, 128, 1))
+    assert K.plan("bf16", 128, 512, 128) == ((tma, 256, 2), (tma, 128, 1))
+    assert K.plan("f32", 192, 768, 192) == ((gemm, 384, 2), (gemm, 192, 1))
+    assert K.plan("tf32", 192, 768, 192) == ((tma, 192, 4), (tma, 192, 1))
+    assert K.plan("bf16", 192, 768, 192) == ((tma, 384, 2), (tma, 192, 1))
+    assert K.plan("bf16", 384, 520, 264) == ((streamed, 256, 3), (tma, 192, 2))
+    assert K.plan("tf32", 384, 520, 264) == ((gemm, 384, 2), (tma, 192, 2))
+    assert K.plan("f32", 96, 384, 96) == ((gemm, 384, 1), (gemm, 96, 1))
+    assert K.plan("bf16", 96, 384, 96) == ((tma, 384, 1), (tma, 96, 1))
+    assert K.plan("tf32", 104, 64, 8) == ((gemm, 384, 1), (tma, 96, 1))
+    with pytest.raises(ValueError, match="C0"):
+        K.plan("bf16", 200, 384, 96)
+
+
+def _dense_slices(w, route, taps):
+    """A packed operand of ``slices`` slices -> (slices, taps, K, n) f32,
+    undoing the layout index by index: the 128-byte swizzle's chunks (piece
+    j of row r holds K group j ^ r, 64 bf16 or 32 f32 channels a chunk) or
+    conv_gemm.cuh's TF32 hi + lo core matrices (K slot s of 8 holds channel
+    KSLOT[s])."""
+    if w.dim() == (7 if route == K.GEMM else 6):  # one slice: its axis dropped
+        w = w.unsqueeze(0)
+    w = w.float()
+    if route == K.GEMM:
+        parts = [torch.stack(_unpack(w[s])) for s in range(w.shape[0])]
+        return torch.stack([hi + lo for hi, lo in parts])
+    slices, _, chunks, nb, _, _, e = w.shape
+    rows = torch.arange(8)
+    t = w[..., rows[:, None], rows[:, None] ^ rows[None, :], :]  # (.., row group, row, K group, K)
+    t = t.permute(0, 1, 2, 5, 6, 3, 4)  # (slice, tap, chunk, K group, K, row group, row)
+    return t.reshape(slices, taps, chunks * 8 * e, nb * 8)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("size", list(WIDE))
+def test_wide_slice_packs_unpack_index_by_index_to_w1_and_the_taps(size, kind):
+    """Each slice of the wide packs is W1's (C0 x its features) and the nine
+    taps' (Cm x its features) in the route's layout, element by element:
+    bf16 rounded, TF32 rounded to TF32 where the route is TMA-fed (the
+    3xTF32 layout's hi + lo within 2^-21), zero past C0, Cm and Co and past
+    the last slice's real features; the vectors (3, slices x width)."""
+    c0, cm, co = WIDE[size]
+    dtype, tf32 = KINDS[kind]
+    p = _params(c0, cm, co, seed=21)
+    packed = K.pack_neck(p, dtype, tf32)
+    steps = K.plan(kind, c0, cm, co)
+    taps1 = p["step1_0.conv.weight"].t()[None]
+    taps2 = p["step2_0.conv.weight"].permute(2, 3, 1, 0).reshape(9, cm, co)
+    for key, vec, (route, n, slices), taps, step in (
+        ("w1", "vec1", steps[0], taps1, "step1_0"), ("w2", "vec2", steps[1], taps2, "step2_0"),
+    ):
+        got = _dense_slices(packed[key], route, taps.shape[0])
+        assert got.shape[0] == slices and got.shape[-1] == n
+        k, f = taps.shape[1:]
+        want = torch.zeros(slices, taps.shape[0], got.shape[2], n)
+        for s in range(slices):
+            part = taps[:, :, s * n : min(f, (s + 1) * n)]
+            want[s, :, :k, : part.shape[-1]] = part
+        if kind == "bf16":
+            want = want.to(torch.bfloat16).float()
+            assert torch.equal(got, want)
+        elif route == K.TMA:
+            assert torch.equal(got, tf32_round(want))
+        else:
+            torch.testing.assert_close(got.double(), want.double(), rtol=2.0 ** -21, atol=0)
+        rows = torch.stack([p[f"{step}.conv.bias"], p[f"{step}.ln.weight"], p[f"{step}.ln.bias"]])
+        assert packed[vec].shape == (3, slices * n)
+        assert torch.equal(packed[vec][:, :f], rows) and not packed[vec][:, f:].any()
+
+
+def _slice_ln_gelu(zs, f, n, vec):
+    """The cluster kernels' epilogue over one step's slices z_s = acc + bias
+    (rows by n features, zero past f): each slice's row sum and squared
+    deviations from its own mean over its real features, combined in rank
+    order (Chan, Golub and LeVeque's update) into the mean and rstd over f,
+    then each slice's GELU(LN(z)), concatenated and cut to f."""
+    stats = []
+    for s, z in enumerate(zs):
+        nr = min(max(f - s * n, 0), n)
+        real = (torch.arange(s * n, (s + 1) * n) < f).float()
+        total = z.sum(-1)
+        mine = total / nr if nr else torch.zeros_like(total)
+        stats.append((total, (((z - mine[..., None]) * real) ** 2).sum(-1), nr, mine))
+    total = torch.zeros_like(stats[0][0])
+    for t_s, _, _, _ in stats:
+        total = total + t_s
+    mean = total / f
+    m2 = torch.zeros_like(total)
+    for _, q, nr, mine in stats:
+        m2 = m2 + q + nr * (mine - mean) ** 2
+    rstd = torch.rsqrt(m2 / f + K.EPS)
+    ys = [F.gelu((z - mean[..., None]) * rstd[..., None] * vec[1, s * n : (s + 1) * n] + vec[2, s * n : (s + 1) * n])
+          for s, z in enumerate(zs)]
+    return torch.cat(ys, -1)[..., :f]
+
+
+def _emulate_neck_cluster(f0, u, p, kind, t_in=None):
+    """(t, out) of the wide neck as its cluster kernels compute it, from the
+    packs of ``kind``: step1 per slice of Cm its products (f0 rounded to
+    TF32 where the route is TMA-fed TF32) plus the slice's bias, the
+    slices' statistics combined in rank order, GELU, + u -> t (bf16:
+    rounded); step2 per slice of Co the 3x3 over ``t_in`` (the twin's t, so
+    that a flipped rounding of t does not spread; else the emulated t; TF32
+    rounded) plus its bias, the same epilogue -> out."""
+    dtype, tf32 = KINDS[kind]
+    c0, cm, co = f0.shape[-1], u.shape[-1], p["step2_0.conv.weight"].shape[0]
+    packed = K.pack_neck(p, dtype, tf32)
+    (r1, n1, s1), (r2, n2, s2) = K.plan(kind, c0, cm, co)
+    rnd = (lambda v: tf32_round(v)) if kind == "tf32" else (lambda v: v)
+    w1 = _dense_slices(packed["w1"], r1, 1)[:, 0, :c0]  # (slices, C0, n1)
+    zs = [rnd(f0.float()) @ w1[s] + packed["vec1"][0, s * n1 : (s + 1) * n1] for s in range(s1)]
+    t = _slice_ln_gelu(zs, cm, n1, packed["vec1"]) + u.float()
+    if kind == "bf16":
+        t = t.to(torch.bfloat16).float()
+    src = (t if t_in is None else t_in.float()).permute(0, 3, 1, 2)
+    w2 = _dense_slices(packed["w2"], r2, 9)[:, :, :cm]  # (slices, 9, Cm, n2)
+    zs = []
+    for s in range(s2):
+        weight = w2[s].reshape(3, 3, cm, n2).permute(3, 2, 0, 1)
+        z = F.conv2d(rnd(src), weight, padding=1).permute(0, 2, 3, 1)
+        zs.append(z + packed["vec2"][0, s * n2 : (s + 1) * n2])
+    out = _slice_ln_gelu(zs, co, n2, packed["vec2"])
+    return t, (out.to(torch.bfloat16).float() if kind == "bf16" else out)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("size", list(WIDE))
+def test_emulated_neck_cluster_matches_plain(size, kind):
+    """The wide neck's cluster walk (``_emulate_neck_cluster``) against
+    ``fused_neck_l0_plain`` on a ragged batch: f32 within REL_TOL of the
+    twin end to end; TF32 against the TF32 twin, step1 against its t and
+    step2 run on that t against its output, each within REL_TOL (the f32
+    sums run in another order, which can flip a TF32 rounding of t); bf16
+    the same stage by stage within one bf16 rounding (8e-3 of the largest
+    value) and equal on at least 99 % of the values."""
+    c0, cm, co = WIDE[size]
+    dtype, tf32 = KINDS[kind]
+    p = _params(c0, cm, co, seed=22)
+    rng = np.random.default_rng(23)
+    f0 = torch.from_numpy(rng.standard_normal((*WIDE_MAP, c0)).astype(np.float32)).to(dtype)
+    u = torch.from_numpy(rng.standard_normal((*WIDE_MAP, cm)).astype(np.float32)).to(dtype)
+    with torch.no_grad():
+        want = K.fused_neck_l0_plain(f0, u, p, tf32=tf32).float()
+        if kind == "f32":
+            _, got = _emulate_neck_cluster(f0, u, p, kind)
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            assert rel <= REL_TOL, rel
+            return
+        rnd = tf32_round if tf32 else (lambda v: v)
+        w1 = p["step1_0.conv.weight"] if tf32 else p["step1_0.conv.weight"].to(torch.bfloat16).float()
+        a = F.layer_norm(F.linear(rnd(f0.float()), rnd(w1), p["step1_0.conv.bias"]), (cm,),
+                         p["step1_0.ln.weight"], p["step1_0.ln.bias"], eps=K.EPS)
+        t_twin = F.gelu(a) + u.float()
+        if kind == "bf16":
+            t_twin = t_twin.to(torch.bfloat16).float()
+        t, got = _emulate_neck_cluster(f0, u, p, kind, t_in=t_twin)
+    for g, w in ((t, t_twin), (got, want)):
+        assert g.shape == w.shape
+        rel = float((g - w).abs().max()) / float(w.abs().max())
+        if kind == "tf32":
+            assert rel <= REL_TOL, rel
+        else:
+            assert rel <= 8e-3, rel
+            assert float((g == w).float().mean()) >= 0.99

@@ -483,26 +483,31 @@ def test_neck_tf32_pack_index_by_index_and_round_trip(widths):
         assert torch.equal(packed[key], f32[key])
 
 
-@pytest.mark.parametrize("widths", [(104, 64, 8), (8, 512, 8), (8, 64, 128)],
-                         ids=["wide_c0", "wide_mid", "wide_out"])
+@pytest.mark.parametrize("widths", [(104, 64, 8), (8, 512, 8), (8, 64, 128), (232, 512, 8)],
+                         ids=["wide_c0", "wide_mid", "wide_out", "wide_mid_and_c0"])
 def test_neck_tf32_pack_keeps_the_split_layouts_by_shape(widths):
-    """A step the one-pass kernels do not take keeps the 3xTF32 entry's
-    layout in the TF32 pack (its kernels read only the hi part): step1 where
-    C0 > TF32_MAX_C0 or Cm > MID_WIDTH, step2 where Co > OUT_WIDTH; the
-    other step takes the swizzled TF32 layout where it fits its tile."""
+    """A step on conv_gemm.cuh's loop keeps the 3xTF32 entry's layout in the
+    TF32 pack (its kernels read only the hi part): step1 where C0 >
+    TF32_MAX_C0 and Cm <= MID_WIDTH, or where Cm is wider and C0 past every
+    resident W1 slice (232 > 224); every other step takes the swizzled TF32
+    layout, a wide step1 in slices (``plan``), each slice the rounded
+    weights of its features."""
     c0, cm, co = widths
     p = _neck_params(c0, cm, co, 12)
     packed, f32 = fpn_neck.pack_neck(p, tf32_sw128=True), fpn_neck.pack_neck(p)
-    s1, s2 = fpn_neck.slices(cm, co)
-    one_pass1 = s1 == 1 and c0 <= fpn_neck.TF32_MAX_C0
+    (route1, n1, s1), (route2, n2, s2) = fpn_neck.plan("tf32", c0, cm, co)
     assert fpn_neck.TF32_MAX_C0 == 96
-    assert torch.equal(packed["w1"], f32["w1"]) != one_pass1
-    assert torch.equal(packed["w2"], f32["w2"]) != (s2 == 1)
+    assert route2 == fpn_neck.TMA and (route1 == fpn_neck.GEMM) == (c0 > {64: 96, 512: 224}[cm])
+    if route1 == fpn_neck.GEMM:
+        assert torch.equal(packed["w1"], f32["w1"]) == (fpn_neck.plan("f32", c0, cm, co)[0] == (route1, n1, s1))
     taps1, taps2 = _neck_taps(p)
-    if one_pass1:
-        assert torch.equal(_bits(_unswizzle_tf32(packed["w1"])[0, :c0, :cm]), _bits(round_tf32(taps1[0])))
-    if s2 == 1:
-        assert torch.equal(_bits(_unswizzle_tf32(packed["w2"])[:, :cm, :co]), _bits(round_tf32(taps2)))
+    if route1 == fpn_neck.TMA:
+        w1 = packed["w1"] if s1 > 1 else packed["w1"][None]
+        for s in range(s1):
+            got = _unswizzle_tf32(w1[s])[0, :c0]
+            part = round_tf32(taps1[0, :, s * n1 : (s + 1) * n1])
+            assert torch.equal(_bits(got[:, : part.shape[1]]), _bits(part)) and not got[:, part.shape[1]:].any()
+    assert torch.equal(_bits(_unswizzle_tf32(packed["w2"])[:, :cm, :co]), _bits(round_tf32(taps2)))
 
 
 @pytest.mark.parametrize("shape", [(2, 11, 21, 40, 72, 12), (1, 4, 16, 8, 32, 8)], ids=["ragged", "one_tile"])

@@ -6,9 +6,12 @@ fused functions (their plain twins on the CPU) against the Flax ``FpnNeck``,
 ``forward_precise_from_features`` on random-init weights from a seed, at
 small spatial shapes, f32 at 1e-3 (the full-model bar), and the heads'
 single-pass TF32 twins (``matmul_precision("default")``'s form) against the
-same Flax heads at TF32_TOL. Also the packed layouts of a sliced neck and
-heads: each slice is the one-pass layout of its features. The kernels
+same Flax heads at TF32_TOL, and the neck's likewise. Also the packed
+layouts of a sliced neck and heads: each slice is the one-pass layout of
+its features. The kernels
 themselves run only on the card (``chip_smoke.py`` phase widths)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -80,7 +83,9 @@ def test_fused_neck_matches_flax(size):
     params = _perturbed(flax_neck.init(jax.random.PRNGKey(1), [jnp.asarray(f) for f in feats])["params"], 2)
     neck = FpnNeck(group, cm)
     neck.load_state_dict(state_dict_from_jax(params), strict=True)
-    assert KN.slices(cm, cm // len(group)) == {"base": (2, 2), "large": (2, 2)}[size]
+    co = cm // len(group)
+    assert [(step[1], step[2]) for step in KN.plan("f32", group[0], cm, co)] == {
+        "base": [(256, 2), (128, 1)], "large": [(384, 2), (192, 1)]}[size]
     with torch.no_grad():
         got = KN.fpn_neck_forward_fused(neck.eval(), [torch.from_numpy(f) for f in feats])
     with jax.default_matmul_precision("highest"):
@@ -145,6 +150,32 @@ def test_fused_heads_tf32_twin_matches_flax(outs):
 
 
 @pytest.mark.parametrize("size", PRESETS)
+def test_fused_neck_tf32_twin_matches_flax(size, monkeypatch):
+    """The wide neck level 0's single-pass TF32 twin
+    (``fused_neck_l0_plain(..., tf32=True)``, what the TF32 entry computes)
+    inside the port's neck against the Flax neck at "highest" within
+    TF32_TOL, and farther from it than the f32 twin (it rounds)."""
+    group = _group(size)
+    cm = group[-2]
+    feats = _features(size, 10)
+    flax_neck = FlaxFpnNeck(in_channels_group=group, out_channels=cm)
+    params = _perturbed(flax_neck.init(jax.random.PRNGKey(11), [jnp.asarray(f) for f in feats])["params"], 12)
+    neck = FpnNeck(group, cm)
+    neck.load_state_dict(state_dict_from_jax(params), strict=True)
+    with torch.no_grad():
+        f32 = KN.fpn_neck_forward_fused(neck.eval(), [torch.from_numpy(f) for f in feats]).numpy()
+        # The CPU wrapper's twin, at TF32.
+        monkeypatch.setattr(KN, "fused_neck_l0_plain", functools.partial(KN.fused_neck_l0_plain, tf32=True))
+        got = KN.fpn_neck_forward_fused(neck.eval(), [torch.from_numpy(f) for f in feats]).numpy()
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(flax_neck.apply({"params": params}, [jnp.asarray(f) for f in feats]))
+    scale = np.abs(want).max()
+    err = np.abs(got.astype(np.float64) - want).max() / scale
+    assert err <= TF32_TOL, err
+    assert err > np.abs(f32.astype(np.float64) - want).max() / scale
+
+
+@pytest.mark.parametrize("size", PRESETS)
 @pytest.mark.parametrize("which", ["rough", "precise"])
 def test_forward_from_features_fused_matches_flax(size, which):
     """The fused rough / precise composition (neck level 0 and the heads
@@ -202,8 +233,11 @@ def test_sliced_heads_pack_is_the_one_pass_pack_of_each_slice(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sliced_neck_pack_is_the_one_pass_pack_of_each_slice(dtype):
-    """A neck of Cm = 512, Co = 128 (base): two slices of 384 for step1 and
-    two of 96 for step2, each the one-pass layout of its features."""
+    """A neck of Cm = 512, Co = 128 (base): two slices of 256 for step1, one
+    CTA of all 128 features for step2, each the layout of one tile of its
+    features (f32 ``packing.pack_kmajor`` for conv_gemm.cuh's loop, bf16
+    ``packing.pack_sw128``'s 64-channel chunks for the TMA-fed one), with no
+    padding past the real widths."""
     rng = np.random.default_rng(9)
     c0, cm, co = 32, 512, 128
     p = {
@@ -214,23 +248,13 @@ def test_sliced_neck_pack_is_the_one_pass_pack_of_each_slice(dtype):
         for part in ("conv.bias", "ln.weight", "ln.bias"):
             p[f"{step}.{part}"] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     packed = KN.pack_neck(p, dtype)
-    kc = packing.KC
-    taps1 = torch.zeros(1, c0, 2 * KN.MID_WIDTH)
-    taps1[0, :, :cm] = p["step1_0.conv.weight"].t()
-    taps2 = torch.zeros(9, cm, 2 * KN.OUT_WIDTH)
-    taps2[:, :, :co] = p["step2_0.conv.weight"].permute(2, 3, 1, 0).reshape(9, cm, co)
+    bf16 = dtype == torch.bfloat16
+    kc = packing.KC_TMA if bf16 else packing.KC
+    taps1 = torch.zeros(1, -(-c0 // kc) * kc, cm)
+    taps1[0, :c0] = p["step1_0.conv.weight"].t()
+    taps2 = p["step2_0.conv.weight"].permute(2, 3, 1, 0).reshape(9, cm, co)
     for s in range(2):
-        one1 = packing.pack_for(taps1[..., s * KN.MID_WIDTH:(s + 1) * KN.MID_WIDTH], dtype)
-        one2 = packing.pack_for(taps2[..., s * KN.OUT_WIDTH:(s + 1) * KN.OUT_WIDTH], dtype)
-        assert torch.equal(packed["w1"][s], one1) and torch.equal(packed["w2"][s], one2)
-    assert c0 % kc == 0 and packed["vec1"].shape == (3, 768) and packed["vec2"].shape == (3, 192)
-
-
-def test_bf16_pack_is_kmajor_core_matrices():
-    """``pack_kmajor_bf16``: element (k, n) of a chunk sits at row group
-    n // 8, K group (k % 32) // 8, row n % 8, K k % 8, in bf16."""
-    taps = torch.arange(64 * 16, dtype=torch.float32).reshape(64, 16)
-    packed = packing.pack_kmajor_bf16(taps)
-    assert packed.dtype == torch.bfloat16 and packed.shape == (2, 2, 4, 8, 8)
-    for k, n in [(0, 0), (9, 3), (31, 15), (40, 8), (63, 7)]:
-        assert packed[k // 32, n // 8, (k % 32) // 8, n % 8, k % 8] == taps[k, n].to(torch.bfloat16)
+        one1 = packing.pack_for(taps1[..., s * 256:(s + 1) * 256], dtype, bf16)
+        assert torch.equal(packed["w1"][s], one1)
+    assert torch.equal(packed["w2"], packing.pack_for(taps2, dtype, bf16))
+    assert packed["vec1"].shape == (3, 512) and packed["vec2"].shape == (3, 128)

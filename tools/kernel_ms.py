@@ -67,6 +67,16 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   precision's dense rate: 989 TFLOP/s bf16, 495 TF32, three TF32 products
   a product for f32; against the bytes at 3.35 TB/s) with the kernel's
   share of it;
+- ``--only neck_wide``: the neck level 0 at the widths of the ``base`` and
+  ``large`` backbones (C0 / Cm / Co = 128 / 512 / 128 and 192 / 768 /
+  192), wider than the one-pass tiles, B = 1 at both passes' level-0 shapes
+  (240x192, 256x208), in all three precisions: the device ms a call as
+  ``heads_wide`` sums it, by step (``step1_ms``, ``step2_ms``; the split
+  design's second passes apart, ``second_pass_ms``), the bound (operations
+  at the precision's rate against the bytes: f0, u, t written and read,
+  out) with the share of it, and ``estimate`` (``neck_wide_estimate``:
+  each step's bytes into the multiprocessors and from device memory,
+  counted from the tiles of the cluster design, at stated rates);
 - ``--only neck_tf32``: the neck level 0's single-pass TF32 entry at the
   rough pass's 240x192 and the precise pass's 256x208 (96 -> 384 -> 96)
   inside ``matmul_precision("default")``, its two launches by name and as
@@ -84,8 +94,9 @@ CUDA card, at the flagship's shapes, random weights from ``--seed``:
   over back-to-back warm calls).
 
     python3 tools/kernel_ms.py [--root CHECKOUT] [--label NAME]
-        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|heads_wide|neck_tf32|
-                heads_bf16|neck_bf16|forwards_bf16|forwards_tf32|forwards|l2]
+        [--only neck|heads|block|block_bf16|block_bf16_host|block_tf32|heads_tf32|heads_wide|neck_wide|
+                neck_tf32|heads_bf16|neck_bf16|forwards_bf16|forwards_tf32|forwards|l2, or several joined by
+                commas, run in that order]
         [--weights NPZ]
 
 For each case it prints one JSON line with:
@@ -154,10 +165,24 @@ STAGE_BLOCKS = (3, 3, 9, 3)
 # // 2, wider than one tile) at the page shapes, B = 1.
 WIDE_PRESETS = {"base": 512, "large": 768}
 WIDE_PAGE_HW = {"fpn_heads": (240, 192), "precise_heads": (256, 208)}
+# The neck level 0 at the base and large backbones' widths (C0, Cm, Co),
+# at both passes' level-0 shapes, B = 1.
+WIDE_NECK_PRESETS = {"base": (128, 512, 128), "large": (192, 768, 192)}
 # Dense peaks of one H100 SXM (700 W), FLOP/s and bytes/s.
 PEAK_BF16, PEAK_TF32, PEAK_BYTES = 989e12, 495e12, 3.35e12
 # Kernel-name patterns of each wrapper's launches (each design's names).
 NECK_KERNELS = ("neck_step1_", "neck_step2_")
+# The wide neck's launches in either design (the split design's second
+# LayerNorm pass, ln_gelu_rows, too).
+WIDE_NECK_KERNELS = NECK_KERNELS + ("ln_gelu_rows",)
+# The rates the wide neck's estimate assumes: what the TMA-fed TF32 and bf16
+# wide heads took into the multiprocessors (~6.5 and ~5.0 TB/s, PERF.md row
+# 2w), what a step1 reads and writes in device memory (2.0 TB/s, between the
+# narrow step1s' 0.9-1.6 and the 3.35 peak), and the share of the 3xTF32
+# bound the f32 conv_gemm.cuh kernels reach (0.55; rows 2-4: 40-60 %).
+INGRESS_RATE = {"tf32": 6.5e12, "bf16": 5.0e12}
+STEP1_DRAM_RATE = 2.0e12
+F32_SHARE = 0.55
 HEADS_KERNELS = ("heads_",)
 BLOCK_KERNELS = ("dw_ln_kernel", "gemm_3xtf32_kernel", "reduce_kernel")
 # The bf16 block's launches, whatever its design names them.
@@ -280,10 +305,7 @@ def main() -> None:
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--only", choices=("neck", "heads", "block", "block_bf16", "block_bf16_host",
-                                           "block_tf32", "heads_tf32", "heads_wide", "neck_tf32", "heads_bf16",
-                                           "neck_bf16",
-                                           "forwards_bf16", "forwards_tf32", "forwards", "l2"))
+    parser.add_argument("--only", type=lambda v: v.split(","))
     parser.add_argument("--weights", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "examples/flagship_training/flagship_fpn_params.f16.npz"))
@@ -301,7 +323,27 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card, flush=True)
+    onlys = args.only or [None]
+    unknown = set(onlys) - {None, *ONLY_CHOICES}
+    if unknown:
+        sys.exit(f"kernel_ms: unknown --only {sorted(unknown)}; choose from {ONLY_CHOICES}")
+    for only in onlys:
+        args.only = only
+        run_one(args, card, convnext_block, fpn_heads, fpn_neck, precise_heads)
+
+
+ONLY_CHOICES = ("neck", "heads", "block", "block_bf16", "block_bf16_host", "block_tf32", "heads_tf32",
+                "heads_wide", "neck_wide", "neck_tf32", "heads_bf16", "neck_bf16", "forwards_bf16",
+                "forwards_tf32", "forwards", "l2")
+
+
+def run_one(args, card: str, convnext_block, fpn_heads, fpn_neck, precise_heads) -> None:
+    """One ``--only`` case (or, for None, the default set), its generator
+    seeded from ``--seed``."""
     gen = torch.Generator().manual_seed(args.seed)
+    if args.only == "neck_wide":
+        neck_wide(fpn_neck, gen, args, card)
+        return
     if args.only == "block_bf16_host":
         block_bf16_host(convnext_block, gen, args, card)
         return
@@ -548,6 +590,93 @@ def heads_wide(fpn_heads, precise_heads, gen: torch.Generator, args, card: str) 
                 }), flush=True)
             del x32, heads
             torch.cuda.empty_cache()
+
+
+def neck_wide_flops_bytes(h: int, w: int, widths, precision: str):
+    """(flops, bytes) of one wide neck call at B = 1: the two products; f0
+    and u read, t written and read back by the 3x3, out written, in the
+    operand type (the weights' few MB left out)."""
+    c0, cm, co = widths
+    npix = h * w
+    e = 2 if precision == "bf16" else 4
+    return npix * (2 * c0 * cm + 18 * cm * co), e * npix * (c0 + 3 * cm + co)
+
+
+def neck_wide_bound_ms(h: int, w: int, widths, precision: str) -> float:
+    """The least time of a wide neck call: the operations at the
+    precision's dense rate (three TF32 products a product for f32) against
+    the bytes at 3.35 TB/s."""
+    flops, nbytes = neck_wide_flops_bytes(h, w, widths, precision)
+    rate = {"f32": PEAK_TF32 / 3, "tf32": PEAK_TF32, "bf16": PEAK_BF16}[precision]
+    return max(flops / rate, nbytes / PEAK_BYTES) * 1e3
+
+
+def neck_wide_estimate(h: int, w: int, widths, precision: str) -> dict:
+    """What the cluster design should take, step by step (ms), from its
+    tiles at B = 1: step1's 64-pixel units read f0 once a CTA of a cluster
+    (one per slice of Cm, W1 resident) and u, and write t; step2's
+    128-pixel units take W2 (9 x Cm x N) and, per chunk of 128 bytes of
+    channels, one 10 x 18 halo box of t. bf16 and TF32: step1 the larger of
+    its device-memory bytes at STEP1_DRAM_RATE and its ingress at
+    INGRESS_RATE, step2 the larger of its ingress at INGRESS_RATE and its
+    products at the dense rate; f32: each step's 3xTF32 products at
+    F32_SHARE of 495 TFLOP/s, or step1's bytes where more."""
+    from math import ceil
+
+    c0, cm, co = widths
+    npix = h * w
+    e = 2 if precision == "bf16" else 4
+    kc = 128 // e
+    slices1 = ceil(cm / (256 if cm <= 512 else 384 if precision != "tf32" else 192))
+    n2 = 128 if co <= 128 else 192
+    tiles1, tiles2 = ceil(h / 4) * ceil(w / 16), ceil(h / 8) * ceil(w / 16)
+    dram1 = e * npix * (c0 + 2 * cm)
+    in1 = tiles1 * 64 * e * (slices1 * c0 + cm)
+    in2 = tiles2 * (9 * cm * n2 * e + ceil(cm / kc) * 10 * 18 * 128)
+    ops1, ops2 = 2 * npix * c0 * cm, 18 * npix * cm * co
+    if precision == "f32":
+        step1 = max(3 * ops1 / (F32_SHARE * PEAK_TF32), dram1 / STEP1_DRAM_RATE)
+        step2 = 3 * ops2 / (F32_SHARE * PEAK_TF32)
+    else:
+        peak = PEAK_TF32 if precision == "tf32" else PEAK_BF16
+        step1 = max(dram1 / STEP1_DRAM_RATE, in1 / INGRESS_RATE[precision], ops1 / peak)
+        step2 = max(in2 / INGRESS_RATE[precision], ops2 / peak)
+    return {"step1_ingress_bytes": in1, "step1_dram_bytes": dram1, "step2_ingress_bytes": in2,
+            "step1_ms": step1 * 1e3, "step2_ms": step2 * 1e3, "ms": (step1 + step2) * 1e3}
+
+
+def neck_wide(fpn_neck, gen: torch.Generator, args, card: str) -> None:
+    """Row 3w: the neck level 0 at the base and large widths at both
+    passes' level-0 shapes, B = 1, f32, TF32 ("default") and bf16, every
+    launch of a call summed (``device_ms_a_call``), by step; the bound, the
+    share of it and the design's estimate."""
+    for preset, widths in WIDE_NECK_PRESETS.items():
+        c0, cm, co = widths
+        p = neck_params(c0, cm, co, gen)
+        for shape in NECK_SHAPES:
+            _, h, w = shape
+            f0_32, u32 = randn(gen, *shape, c0), randn(gen, *shape, cm)
+            for precision in ("f32", "tf32", "bf16"):
+                d = torch.bfloat16 if precision == "bf16" else torch.float32
+                f0, u = f0_32.to(d), u32.to(d)
+                fn = lambda f0=f0, u=u: fpn_neck.fused_neck_l0(f0, u, p)  # noqa: E731
+                if precision == "tf32":
+                    fn = at_default(fn)
+                kernel, launches, per_call = device_ms_a_call(fn, args.reps, WIDE_NECK_KERNELS)
+                bound = neck_wide_bound_ms(h, w, widths, precision)
+                print(json.dumps({
+                    "label": args.label, "kernel": "fpn_neck_l0_wide", "preset": preset, "precision": precision,
+                    "shape": [*shape, c0, cm, co], "call_ms": call_ms(fn, args.reps), "kernel_ms": kernel,
+                    **{f"{step}_ms": sum(ms for name, ms in launches.items() if f"neck_{step}_" in name)
+                       for step in ("step1", "step2")},
+                    "second_pass_ms": sum(ms for name, ms in launches.items() if "ln_gelu_rows" in name),
+                    "launches_ms": launches, "launches_per_call": per_call, "bound_ms": bound,
+                    "share_of_bound": bound / kernel, "estimate": neck_wide_estimate(h, w, widths, precision),
+                    "card": card,
+                }), flush=True)
+            del f0_32, u32, f0, u
+        del p
+        torch.cuda.empty_cache()
 
 
 def neck_tf32(fpn_neck, gen: torch.Generator, args, card: str) -> None:
